@@ -1,0 +1,531 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+1. Prints the card (``nvidia-smi`` name and power limit) and the torch and
+   CUDA versions, then builds the hand-written kernels from
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` and prints the build time.
+2. Holds each kernel against its plain PyTorch version on the card, at the
+   main path's shapes (D = 199,210 f32, K = 8) and at ragged sizes, with
+   the kernel tests' tolerances (f32 rtol = atol = 2e-5, bf16 2e-2), and
+   times it over CUDA-event-timed launches beside its plain version, one
+   PyTorch library call computing the same function where there is one,
+   and its bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s f32):
+   once eagerly (what a caller pays, host launch cost included) and once
+   replayed from a CUDA graph (the device's time per call).
+3. Times the first client step of the process (set-up cost), then
+   drives the main path: ``run_federated("proxyfl", ...)`` on the paper's
+   MNIST protocol (synthetic data), mlp 784-200-200-10, 8 clients of 1,000
+   examples, batch 250, DP sigma = 1, C = 1, ``use_pallas=True``, two
+   rounds on ``cuda``, with the kernel launch counters reset just before
+   and read just after; checks the exact launch counts, finite losses,
+   accuracy above chance, the pinned epsilon, and that the plain path on
+   the same seed reaches the same params at the conformance ``close``
+   grade.
+4. Breaks one warm client step, one engine round, the exchange and the
+   evaluation down on the host clock, and profiles one step with
+   torch.profiler for the device's busy share.
+5. Prints one JSON line ``{"kernels": [...]}`` and, last, the result line
+   ``{"ok": true, "device": {...}}``.
+
+Any failure raises and exits nonzero. The script needs a CUDA device and
+the repository's ``src/`` beside it; it never runs on the CPU.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+# repro.core.accountant.epsilon_for(noise_multiplier=1.0, sample_rate=0.25,
+# steps=8, delta=1e-5) — 2 rounds x 4 steps of B = 250 on 1,000 examples —
+# evaluated once with the JAX package's accountant and pinned here.
+EPSILON_2_ROUNDS = 6.528418259356986
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+MAIN_D, MAIN_K = 199_210, 8
+RAGGED_D = (1, 1_000, 65_537)
+RAGGED_K = (1, 3, 8, 33)
+TIMED_LAUNCHES = 200
+CLOSE = dict(atol=1e-5, rtol=1e-4)   # tests/test_conformance.py "close"
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def cuda_us(fn) -> float:
+    """Mean µs per call of ``fn`` over TIMED_LAUNCHES back-to-back calls,
+    timed with CUDA events after a warm-up."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMED_LAUNCHES):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / TIMED_LAUNCHES
+
+
+def graph_us(fn) -> float:
+    """Mean µs per call of ``fn`` replayed from a CUDA graph of
+    TIMED_LAUNCHES captured calls: the device's time per call without the
+    host's launch cost (``cuda_us`` includes it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(TIMED_LAUNCHES):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / (5 * TIMED_LAUNCHES)
+
+
+def max_err(got, want) -> float:
+    got, want = (torch.atleast_1d(t).float() for t in (got, want))
+    return float((got - want).abs().max())
+
+
+def check(name, got, want, dtype) -> float:
+    """assert_close at the kernel tolerance; the largest abs error."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype],
+                                   msg=lambda m: f"{name}: {m}")
+    return max(max_err(g, w) for g, w in zip(got, want))
+
+
+def bound_us(n_bytes: float, n_ops: float):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e6, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+# ---------------------------------------------------------------------------
+# the kernels against their plain versions
+
+
+def kernel_cases(gen):
+    """Yield (name, dtype, shape, kernel_fn, plain_fn, library_fn, bytes,
+    ops) per checked case; the main-path shape comes first per kernel."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    for D in (MAIN_D,) + RAGGED_D:
+        for dt in (torch.float32, torch.bfloat16):
+            es = torch.tensor([], dtype=dt).element_size()
+            x = randn(D, dtype=dt)
+            yield ("sumsq", dt, (D,), lambda x=x: kernels.sumsq(x),
+                   lambda x=x: ref.sumsq_ref(x),
+                   (lambda x=x: torch.dot(x, x)) if dt == torch.float32
+                   else None, D * es + 4, 2 * D)
+            acc, g = randn(D), randn(D, dtype=dt)
+            scale = torch.rand((), generator=gen, device=dev)
+            yield ("scale_accumulate", dt, (D,),
+                   lambda a=acc, g=g, s=scale: kernels.scale_accumulate(a, g, s),
+                   lambda a=acc, g=g, s=scale: ref.scale_accumulate_ref(a, g, s),
+                   (lambda a=acc, g=g, s=scale: torch.addcmul(a, g, s))
+                   if dt == torch.float32 else None, 8 * D + D * es + 4, 2 * D)
+        acc, noise, p, m = (randn(D) for _ in range(4))
+        v = torch.rand((D,), generator=gen, device=dev)
+        t = torch.full((), 3.0, device=dev)
+        hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4,
+                  b1=0.9, b2=0.999, eps=1e-8, c1=1 - 0.9 ** t,
+                  c2=1 - 0.999 ** t)
+        args = (acc, noise, p, m, v)
+        yield ("noise_adam_step", torch.float32, (D,),
+               lambda a=args, hp=hp: kernels.noise_adam_step(*a, **hp),
+               lambda a=args, hp=hp: ref.noise_adam_step_ref(*a, **hp),
+               None, 32 * D + 24, 19 * D)
+    mix_shapes = [(MAIN_K, MAIN_D)] + [(K, D) for K in RAGGED_K
+                                       for D in RAGGED_D]
+    for K, D in mix_shapes:
+        P = torch.rand((K, K), generator=gen, device=dev)
+        P = P / P.sum(0, keepdim=True)   # column-stochastic, dense
+        w = torch.rand((K,), generator=gen, device=dev) + 0.5
+        for dt in (torch.float32, torch.bfloat16):
+            es = torch.tensor([], dtype=dt).element_size()
+            flat = randn(K, D, dtype=dt)
+            for debias in (True, False):
+                yield ("fused_pushsum_mix", dt, (K, D, debias),
+                       lambda f=flat, P=P, w=w, d=debias:
+                       kernels.fused_pushsum_mix(f, w, P, debias=d),
+                       lambda f=flat, P=P, w=w, d=debias:
+                       ref.fused_pushsum_mix_ref(f, w, P, debias=d),
+                       # the library yardstick is the product alone
+                       (lambda f=flat, P=P: torch.matmul(P, f))
+                       if dt == torch.float32 else None,
+                       2 * K * D * es + 4 * K * K + 4 * K, 2 * K * K * D)
+
+
+SOURCES = {
+    "sumsq": ("src/repro_torch/kernels/csrc/dp_clip.cu",
+              "src/repro/kernels/dp_clip.py:40",
+              "src/repro/kernels/dp_clip.py::sumsq"),
+    "scale_accumulate": ("src/repro_torch/kernels/csrc/dp_clip.cu",
+                         "src/repro/kernels/dp_clip.py:68",
+                         "src/repro/kernels/dp_clip.py::scale_accumulate"),
+    "noise_adam_step": ("src/repro_torch/kernels/csrc/dp_step.cu",
+                        "src/repro/kernels/dp_step.py:115",
+                        "src/repro/kernels/dp_step.py::noise_adam_step"),
+    "fused_pushsum_mix": ("src/repro_torch/kernels/csrc/pushsum_mix.cu",
+                          "src/repro/kernels/pushsum_mix.py:63",
+                          "src/repro/kernels/pushsum_mix.py::"
+                          "fused_pushsum_mix"),
+}
+
+
+def check_kernels():
+    """Every case checked; the main-path f32 case of each kernel timed."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    for name, dt, shape, kern, plain, lib, n_bytes, n_ops in kernel_cases(gen):
+        err = check(f"{name} {dt} {shape}", kern(), plain(), dt)
+        torch.cuda.synchronize()
+        print(f"check {name:18s} {str(dt):15s} {str(shape):22s} "
+              f"max_abs_err {err:.3e}")
+        main = dt == torch.float32 and shape in ((MAIN_D,),
+                                                 (MAIN_K, MAIN_D, True))
+        if not main:
+            continue
+        b_us, b_by = bound_us(n_bytes, n_ops)
+        rows[name] = dict(err=err, kernel_us=cuda_us(kern),
+                          plain_us=cuda_us(plain), bound_us=b_us,
+                          bound_by=b_by,
+                          library_us=cuda_us(lib) if lib else None,
+                          kernel_graph_us=graph_us(kern),
+                          plain_graph_us=graph_us(plain),
+                          library_graph_us=graph_us(lib) if lib else None)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the main path
+
+
+def mnist_setup():
+    """The main path's model, data and configuration on the card."""
+    from repro_torch.configs import DPConfig, ProxyFLConfig
+    from repro_torch.core.protocol import ModelSpec
+    from repro_torch.data.partition import partition_major
+    from repro_torch.data.synthetic import make_classification_data
+    from repro_torch.nn.vision import get_vision_model
+
+    dev = torch.device("cuda")
+    shape, n_classes, K, per_client = (28, 28, 1), 10, MAIN_K, 1_000
+    vm = get_vision_model("mlp")
+    spec = ModelSpec("mlp", lambda g: vm.init(g, shape, n_classes), vm.apply)
+    # the MNIST stand-in of benchmarks/common.py: sep 2.5, p_major 0.8,
+    # a 2x pool for the partitioner, a 1,000-example shared test set
+    x, y = make_classification_data(
+        torch.Generator(device=dev).manual_seed(0), 2 * K * per_client, shape,
+        n_classes, sep=2.5, task_seed=7)
+    xt, yt = make_classification_data(
+        torch.Generator(device=dev).manual_seed(1), 1_000, shape, n_classes,
+        sep=2.5, task_seed=7)
+    idxs = partition_major(np.random.default_rng(0), y.cpu().numpy(), K,
+                           per_client, 0.8, n_classes)
+    data = [(x[torch.as_tensor(i, device=dev)],
+             y[torch.as_tensor(i, device=dev)]) for i in idxs]
+    cfg = ProxyFLConfig(alpha=0.5, beta=0.5, n_clients=K, rounds=2,
+                        batch_size=250, lr=1e-3, weight_decay=1e-4,
+                        use_pallas=True,
+                        dp=DPConfig(enabled=True, noise_multiplier=1.0,
+                                    clip_norm=1.0, delta=1e-5))
+    return spec, data, (xt, yt), cfg
+
+
+def cold_step(spec, data, test, cfg):
+    """Set-up cost a fresh process pays once: the first client step of
+    the main path's configuration (CUDA and library first use), timed
+    beside the second. Runs before the main path, outside its counts."""
+    from repro_torch.core.engine import dml_engine
+
+    eng = dml_engine((spec,) * len(data), spec, cfg, device="cuda")
+    state = eng.init_states(0)[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step_fn(state, eng.sample_fn(data[0], gen), gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"set-up: first client step of the process {times[0]:.3f} s, "
+          f"second {times[1] * 1e3:.3f} ms")
+
+
+def main_path(spec, data, test, cfg):
+    from repro_torch import kernels
+    from repro_torch.core.baselines import run_federated
+    from repro_torch.nn.losses import cross_entropy
+
+    K, (xt, yt), per_client = len(data), test, data[0][0].shape[0]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_federated("proxyfl", [spec] * K, spec, data, test, cfg,
+                        seed=0, eval_every=cfg.rounds, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+
+    row = res["history"][-1]
+    priv, prox = np.asarray(row["private_acc"]), np.asarray(row["proxy_acc"])
+    losses = [float(cross_entropy(spec.apply(getattr(c, role), xt), yt))
+              for c in res["clients"]
+              for role in ("private_params", "proxy_params")]
+    print(f"main path: {cfg.rounds} rounds in {seconds:.3f} s = "
+          f"{cfg.rounds / seconds:.3f} rounds/s (evaluation included)")
+    print(f"main path: private acc {np.round(priv, 4).tolist()} mean "
+          f"{priv.mean():.4f}; proxy acc {np.round(prox, 4).tolist()} mean "
+          f"{prox.mean():.4f}; epsilon {res['epsilon'][0]!r}")
+    print(f"main path: test losses {np.round(losses, 4).tolist()}")
+    print(f"main path: launches {counts}")
+
+    steps = cfg.rounds * K * (per_client // cfg.batch_size)
+    want = {"sumsq": steps * cfg.batch_size,
+            "scale_accumulate": steps * cfg.batch_size,
+            "noise_adam_step": steps, "fused_pushsum_mix": cfg.rounds}
+    assert counts == want, (counts, want)
+    assert all(math.isfinite(v) for v in losses), losses
+    assert priv.mean() > 0.2, priv
+    assert all(e == EPSILON_2_ROUNDS for e in res["epsilon"]), res["epsilon"]
+
+    # the plain path on the same seed draws the same batches and noise, so
+    # it must reach the same params up to summation order
+    t0 = time.perf_counter()
+    plain = run_federated("proxyfl", [spec] * K, spec, data, test, cfg,
+                          seed=0, eval_every=cfg.rounds, device="cuda",
+                          use_pallas=False)
+    torch.cuda.synchronize()
+    plain_seconds = time.perf_counter() - t0
+    assert kernels.launch_counts() == counts, "plain path launched a kernel"
+    worst = 0.0
+    for a, b in zip(res["clients"], plain["clients"]):
+        for role in ("private_params", "proxy_params"):
+            for key in ("fc1", "fc2", "fc3"):
+                for leaf in ("w", "b"):
+                    got = getattr(a, role)[key][leaf]
+                    ref = getattr(b, role)[key][leaf]
+                    torch.testing.assert_close(got, ref, **CLOSE)
+                    worst = max(worst, max_err(got, ref))
+    print(f"main path: kernels vs plain path after {cfg.rounds} rounds, "
+          f"max abs param diff {worst:.3e} (close grade atol 1e-5 rtol 1e-4)")
+    print(f"plain path (use_pallas=False, run second): {cfg.rounds} rounds "
+          f"in {plain_seconds:.3f} s = {cfg.rounds / plain_seconds:.3f} "
+          "rounds/s")
+    return counts, cfg.rounds / seconds
+
+
+def step_breakdown(spec, data, test, cfg):
+    """Where the main path's time goes: host-clock times of synchronised
+    phases of one client's local step (each warmed up, then the mean of
+    3), of the exchange and of the evaluation, and a torch.profiler trace
+    of one step for the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import dp
+    from repro_torch.core.engine import dml_engine
+    from repro_torch.core.protocol import evaluate_batched
+    from repro_torch.nn.losses import dml_loss
+    from repro_torch.nn.modules import tree_size
+    from repro_torch.optim import Adam
+
+    eng = dml_engine((spec,) * len(data), spec, cfg, device="cuda")
+    t0 = time.perf_counter()
+    states = eng.init_states(0)
+    torch.cuda.synchronize()
+    print(f"breakdown: init_states of {len(data)} clients "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    state = states[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = eng.sample_fn(data[0], gen)
+    theta, phi = state["proxy"]["params"], state["private"]["params"]
+    opt = Adam(lr=cfg.lr, weight_decay=cfg.weight_decay)
+
+    def proxy_loss(t, b):
+        return dml_loss(spec.apply(t, b[0]), spec.apply(phi, b[0]), b[1],
+                        cfg.beta)
+
+    def private_loss(p, b):
+        return dml_loss(spec.apply(p, b[0]), spec.apply(theta, b[0]), b[1],
+                        cfg.alpha)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 3 * 1e3, out
+
+    step_ms, _ = timed(lambda: eng.step_fn(state, batch, gen))
+    grads_ms, (losses, grads) = timed(
+        lambda: dp._per_example(proxy_loss, theta, batch))
+    clip_ms, _ = timed(lambda: dp._flat_clip_accumulate(
+        losses, grads, cfg.dp.clip_norm, tree_size(theta), "cuda"))
+    proxy_ms, _ = timed(lambda: dp.dp_adam_update(
+        proxy_loss, theta, state["proxy"]["opt"], batch, opt=opt,
+        clip_norm=cfg.dp.clip_norm, noise_multiplier=cfg.dp.noise_multiplier,
+        generator=gen))
+    private_ms, _ = timed(lambda: opt.update(
+        dp.non_dp_gradient(private_loss, phi, batch)[0],
+        state["private"]["opt"], phi))
+    exchange_ms, _ = timed(lambda: eng._exchange(states, 0))
+    eval_ms, _ = timed(lambda: evaluate_batched(
+        spec, eng.stacked_params(states, "private"), *test))
+    print(f"breakdown: one client step {step_ms:.3f} ms; its parts, each "
+          f"timed alone: proxy DP update {proxy_ms:.3f} ms (of it "
+          f"per-example grads {grads_ms:.3f} ms and the "
+          f"{cfg.batch_size}-example clip loop {clip_ms:.3f} ms), private "
+          f"update {private_ms:.3f} ms")
+    print(f"breakdown: exchange of {len(data)} proxies {exchange_ms:.3f} ms; "
+          f"evaluation of {len(data)} models on {test[0].shape[0]} examples "
+          f"{eval_ms:.3f} ms")
+
+    # one whole round inside the engine, each local step timed in place
+    step_s = []
+    raw_step = eng.step_fn
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = raw_step(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    eng.step_fn = timed_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_round(states, data, 0, seed=0)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    print(f"breakdown: one engine round {round_s * 1e3:.3f} ms, of it "
+          f"{len(step_s)} local steps {sum(step_s) * 1e3:.3f} ms (min "
+          f"{min(step_s) * 1e3:.3f}, median {np.median(step_s) * 1e3:.3f}, "
+          f"max {max(step_s) * 1e3:.3f} ms per step)")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    if on_device:
+        print(f"profile: one client step under the profiler: wall "
+              f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+              f"({100 * busy_ms / wall_ms:.2f}%), {len(on_device)} device "
+              "kernels and copies")
+        for kname in ("sumsq_partials", "sum_partials", "scale_acc",
+                      "noise_adam"):
+            ts = [e.self_device_time_total for e in on_device
+                  if kname + "<" in e.name or kname + "(" in e.name]
+            if ts:
+                print(f"profile: {kname} device time {np.mean(ts):.3f} us "
+                      f"per launch over {len(ts)} launches")
+    else:
+        print("profile: the profiler recorded no device activity; the "
+              "device busy share is not measured")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+
+    card = card_line()
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s "
+          f"(nvcc, sm_90a, {_build.BUILD_ROOT})")
+
+    rows = check_kernels()
+    setup = mnist_setup()
+    cold_step(*setup)
+    counts, rounds_per_s = main_path(*setup)
+    step_breakdown(*setup)
+
+    out = []
+    for name, (source, replaces, tpu_kernel) in SOURCES.items():
+        r = rows[name]
+        lib_us = r["library_us"]
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "tpu_kernel": tpu_kernel,
+            "launches": counts[name], "max_abs_err": r["err"],
+            "max_err": r["err"], "ms": r["kernel_us"] / 1e3,
+            "plain_ms": r["plain_us"] / 1e3, "bound_ms": r["bound_us"] / 1e3,
+            "bound_by": r["bound_by"],
+            "library_ms": None if lib_us is None else lib_us / 1e3,
+            "kernel_us": r["kernel_us"], "plain_us": r["plain_us"],
+            "bound_us": r["bound_us"], "library_us": lib_us,
+            "graph_ms": r["kernel_graph_us"] / 1e3,
+            "plain_graph_ms": r["plain_graph_us"] / 1e3,
+            "library_graph_ms": None if r["library_graph_us"] is None
+            else r["library_graph_us"] / 1e3})
+        lib_graph = r["library_graph_us"]
+        print(f"{name:18s} per call, eager: kernel {r['kernel_us']:8.3f} us, "
+              f"plain {r['plain_us']:8.3f} us, library "
+              f"{'-' if lib_us is None else f'{lib_us:8.3f} us'}; from a CUDA "
+              f"graph: kernel {r['kernel_graph_us']:8.3f} us, plain "
+              f"{r['plain_graph_us']:8.3f} us, library "
+              f"{'-' if lib_graph is None else f'{lib_graph:8.3f} us'}; "
+              f"bound {r['bound_us']:7.3f} us ({r['bound_by']}); launches "
+              f"{counts[name]}")
+    print(f"main path rounds/s {rounds_per_s:.4f} on {card}")
+    print(json.dumps({"kernels": out}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,35 @@
+"""ProxyFL on PyTorch and CUDA: the port of the JAX package ``repro``.
+
+The layout mirrors ``repro`` module for module (``configs``, ``convert``,
+``nn``, ``optim``, ``core``, ``data``, ``kernels``) so each function has an
+obvious counterpart, and the state layout is the reference's: parameter
+trees are nested dicts with the same key paths and leaf shapes, flattened
+in sorted-key order. The package imports torch, numpy and the standard
+library only — never jax and never ``repro``.
+
+Entry points (``core.baselines.run_federated``, ``core.engine.dml_engine``,
+``core.engine.FederationEngine``) take a ``device``: ``"cuda"`` by default,
+where ``use_pallas`` runs the hand-written kernels of :mod:`.kernels`; the
+CPU only when the caller asks for it, where the kernels' plain versions
+run. A missing GPU is an error, never a silent switch to the CPU.
+"""
+import torch
+
+# The reference computes in full f32. TF32 would keep ~3 decimal digits in
+# matrix products and convolutions on the card, so it is off for the whole
+# process from the moment the port is imported.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises when CUDA is asked for and
+    absent (the caller must pass ``device="cpu"`` to run on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: repro_torch runs on the GPU by default; "
+            "pass device='cpu' to run the plain versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,135 @@
+"""Build and load the hand-written CUDA kernels of ``kernels/csrc``.
+
+The sources are compiled at first use on a CUDA tensor, never at import:
+one ``nvcc -c`` per ``.cu`` file, all started together, then one link into
+a shared library with a plain C interface that :mod:`ctypes` loads. The
+library lands in ``build/repro_torch/<hash>/`` at the root of the checkout
+(listed in ``.gitignore``), keyed by a hash of the sources and the flags,
+so an edited kernel is rebuilt and an unchanged one is reused. The build
+reads only this package's sources and needs ``nvcc`` (CUDA 12, ``sm_90a``).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+# dtype codes of the C entry points (csrc/common.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # name: argtypes (every entry point returns cudaError_t as an int)
+    "repro_sumsq": (_P, ctypes.c_int, ctypes.c_int64, _P, ctypes.c_int, _P,
+                    _P),
+    "repro_scale_accumulate": (_P, _P, ctypes.c_int, _P, _P, ctypes.c_int64,
+                               _P),
+    "repro_noise_adam_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              ctypes.c_int64, ctypes.c_float, ctypes.c_float,
+                              ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                              _P),
+    "repro_pushsum_mix": (_P, ctypes.c_int, _P, _P, _P, ctypes.c_int,
+                          ctypes.c_int64, ctypes.c_int, _P),
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
+                       "built with the CUDA toolkit at first use on a GPU")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cus, cuhs = _sources()
+    for path in cus + cuhs:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(out_dir: Path) -> Path:
+    """Compile every source in parallel, link them, return the library."""
+    nvcc = _nvcc()
+    cus, _ = _sources()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / (cu.stem + ".o") for cu in cus]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(cu), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for cu, obj in zip(cus, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(cu.name, log) for cu, p, log in zip(cus, procs, logs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"--- {name}\n{log}" for name, log in failed))
+        tmp_lib = Path(tmp) / "librepro_kernels.so"
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o",
+             str(tmp_lib)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        lib = out_dir / tmp_lib.name
+        os.replace(tmp_lib, lib)  # atomic: concurrent builds agree
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        out_dir = BUILD_ROOT / _digest()
+        lib_path = out_dir / "librepro_kernels.so"
+        if not lib_path.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            _compile(out_dir)
+        lib = ctypes.CDLL(str(lib_path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point ``name`` on the current stream; raise on error."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed to launch: cudaError {err}")
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Every tensor contiguous and on the current CUDA device."""
+    dev = torch.cuda.current_device()
+    for t in tensors:
+        if t.device.type != "cuda" or t.device.index != dev:
+            raise ValueError(f"{name}: tensor on {t.device}, expected the "
+                             f"current CUDA device cuda:{dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")

@@ -1,0 +1,57 @@
+"""Fused DP noise-add + clipped mean + Adam step (tail of the Eq. 7 chain).
+
+:func:`noise_adam_step` applies ``g = (acc + σ·noise)/n + wd·p`` and Adam's
+moment updates and bias-corrected step in one pass over flat f32 vectors,
+returning ``(p', m', v')``. On a CUDA tensor it launches the kernel of
+``csrc/dp_step.cu`` (replacing ``src/repro/kernels/dp_step.py``'s
+``noise_adam_step``); on a CPU tensor it runs the plain version in
+:mod:`.ref`. The caller draws the noise and owns the gate to f32 params and
+moments (``repro_torch.core.dp.dp_adam_update``).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .ref import noise_adam_step_ref
+
+
+def noise_adam_step(acc: torch.Tensor, noise: torch.Tensor, p: torch.Tensor,
+                    m: torch.Tensor, v: torch.Tensor, *, stddev: float,
+                    n_units: int, lr: float, weight_decay: float = 0.0,
+                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                    c1: torch.Tensor, c2: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``c1``/``c2`` are the bias corrections ``1 − b1**t`` / ``1 − b2**t``
+    of the post-update step count t, as 0-d f32 tensors on the device (they
+    come from the device-side step counter; the host never reads them)."""
+    vecs = (acc, noise, p, m, v)
+    if any(x.dim() != 1 or x.shape != acc.shape or x.dtype != torch.float32
+           for x in vecs) or acc.numel() == 0:
+        raise ValueError("noise_adam_step: acc, noise, p, m, v must be "
+                         "non-empty 1-D f32 vectors of one length")
+    if any(c.numel() != 1 or c.dtype != torch.float32 for c in (c1, c2)):
+        raise TypeError("noise_adam_step: c1/c2 must be one-element f32 "
+                        "tensors")
+    if acc.device.type == "cpu":
+        return noise_adam_step_ref(
+            acc, noise, p, m, v, stddev=stddev, n_units=n_units, lr=lr,
+            weight_decay=weight_decay, b1=b1, b2=b2, eps=eps,
+            c1=c1.reshape(()), c2=c2.reshape(()))
+    _build.check_cuda("noise_adam_step", *vecs, c1, c2)
+    # the kernel's scalar vector, assembled on the device (no host sync)
+    sc = torch.stack([c1.new_full((), stddev), c1.new_full((), n_units),
+                      c1.new_full((), lr), c1.new_full((), weight_decay),
+                      c1.reshape(()), c2.reshape(())])
+    p2, m2, v2 = (torch.empty_like(acc) for _ in range(3))
+    _build.launch("repro_noise_adam_step", sc.data_ptr(), acc.data_ptr(),
+                  noise.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(),
+                  p2.data_ptr(), m2.data_ptr(), v2.data_ptr(), acc.numel(),
+                  b1, b2, 1.0 - b1, 1.0 - b2, eps)
+    noise_adam_step.launches += 1
+    return p2, m2, v2
+
+
+noise_adam_step.launches = 0

@@ -1,0 +1,101 @@
+"""The port's CUDA kernels on the card: each against its plain version, the
+wrappers' refusals, and a small federation through every kernel against
+the plain path on the same seed.
+
+Every test here needs a CUDA device and skips without one. The file
+imports torch and ``repro_torch`` only (no jax), so on a GPU machine
+without JAX it runs with the suite's conftest left out:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import kernels  # noqa: E402
+from repro_torch.configs import DPConfig, ProxyFLConfig  # noqa: E402
+from repro_torch.core.baselines import run_federated  # noqa: E402
+from repro_torch.core.protocol import ModelSpec  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.nn.modules import tree_leaves  # noqa: E402
+from repro_torch.nn.vision import get_vision_model  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+F32 = dict(rtol=2e-5, atol=2e-5)
+D = 199_210   # the main path's proxy width (mlp 784-200-200-10)
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _pairs(got, want):
+    return zip(got if isinstance(got, tuple) else (got,),
+               want if isinstance(want, tuple) else (want,))
+
+
+@pytest.mark.parametrize("name", sorted(kernels.KERNELS))
+def test_kernel_matches_plain_at_main_shape(gen, name):
+    x = torch.randn(D, generator=gen, device="cuda")
+    t = torch.full((), 3.0, device="cuda")
+    if name == "sumsq":
+        got, want = kernels.sumsq(x), ref.sumsq_ref(x)
+    elif name == "scale_accumulate":
+        s = torch.rand((), generator=gen, device="cuda")
+        got = kernels.scale_accumulate(x, x.flip(0), s)
+        want = ref.scale_accumulate_ref(x, x.flip(0), s)
+    elif name == "noise_adam_step":
+        hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4,
+                  c1=1 - 0.9 ** t, c2=1 - 0.999 ** t)
+        args = (x, x.flip(0), x.roll(1), x.roll(2), x.abs())
+        got = kernels.noise_adam_step(*args, **hp)
+        want = ref.noise_adam_step_ref(*args, **hp)
+    else:
+        P = torch.rand((8, 8), generator=gen, device="cuda")
+        P = P / P.sum(0, keepdim=True)
+        flat = torch.randn((8, D), generator=gen, device="cuda")
+        w = torch.rand(8, generator=gen, device="cuda") + 0.5
+        got = kernels.fused_pushsum_mix(flat, w, P)
+        want = ref.fused_pushsum_mix_ref(flat, w, P)
+    torch.cuda.synchronize()
+    for g, w_ in _pairs(got, want):
+        torch.testing.assert_close(g, w_, **F32)
+
+
+def test_wrappers_raise_instead_of_falling_back(gen):
+    x = torch.randn(64, generator=gen, device="cuda")
+    with pytest.raises(TypeError):
+        kernels.sumsq(x.double())
+    with pytest.raises(ValueError):
+        kernels.scale_accumulate(x[::2], x[::2].contiguous(),
+                                 torch.ones((), device="cuda"))
+    with pytest.raises(ValueError):
+        kernels.sumsq(x[:1].expand(4))   # stride 0: not contiguous
+
+
+def test_small_federation_through_every_kernel(gen):
+    vm = get_vision_model("mlp")
+    shape = (6, 6, 1)
+    spec = ModelSpec("mlp", lambda g: vm.init(g, shape, 4), vm.apply)
+    data = [(torch.randn((40,) + shape, generator=gen, device="cuda"),
+             torch.randint(0, 4, (40,), generator=gen, device="cuda"))
+            for _ in range(3)]
+    cfg = ProxyFLConfig(n_clients=3, rounds=2, batch_size=10,
+                        use_pallas=True, dp=DPConfig(enabled=True))
+    kernels.reset_launch_counts()
+    fused = run_federated("proxyfl", [spec] * 3, spec, data, data[0], cfg)
+    steps = cfg.rounds * 3 * (40 // cfg.batch_size)
+    assert kernels.launch_counts() == {
+        "sumsq": steps * 10, "scale_accumulate": steps * 10,
+        "noise_adam_step": steps, "fused_pushsum_mix": cfg.rounds}
+    plain = run_federated("proxyfl", [spec] * 3, spec, data, data[0], cfg,
+                          use_pallas=False)
+    for a, b in zip(fused["clients"], plain["clients"]):
+        for role in ("private_params", "proxy_params"):
+            for x, y in zip(tree_leaves(getattr(a, role)),
+                            tree_leaves(getattr(b, role))):
+                torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-4)
+    assert fused["epsilon"] == plain["epsilon"]

@@ -1,0 +1,68 @@
+"""The port stands alone: importing all of ``repro_torch`` loads neither jax
+nor the JAX package, and its entry points run on the GPU unless the caller
+asks for the CPU."""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import ProxyFLConfig  # noqa: E402
+from repro_torch.core.baselines import run_federated  # noqa: E402
+from repro_torch.core.engine import dml_engine  # noqa: E402
+from repro_torch.core.protocol import ModelSpec  # noqa: E402
+from repro_torch.nn.vision import get_vision_model  # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_import_loads_no_jax_and_no_reference_package():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        print(len(names))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20   # every module was imported
+
+
+def _tiny():
+    vm = get_vision_model("mlp")
+    spec = ModelSpec("mlp", lambda g: vm.init(g, (4, 4, 1), 3), vm.apply)
+    data = [(torch.zeros(8, 4, 4, 1), torch.zeros(8, dtype=torch.int64))] * 2
+    cfg = ProxyFLConfig(n_clients=2, rounds=1, local_steps=1, batch_size=4)
+    return spec, data, cfg
+
+
+def test_entry_points_need_cuda_unless_the_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    spec, data, cfg = _tiny()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dml_engine((spec,) * 2, spec, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_federated("proxyfl", [spec] * 2, spec, data, data[0], cfg)
+    res = run_federated("proxyfl", [spec] * 2, spec, data, data[0], cfg,
+                        device="cpu")
+    assert len(res["history"]) == 1 and len(res["clients"]) == 2
+
+
+@pytest.mark.parametrize("backend", ["shard_map", "async", "hier"])
+def test_unported_backends_name_the_roadmap_item(backend):
+    spec, _, cfg = _tiny()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        dml_engine((spec,) * 2, spec, cfg, backend=backend, device="cpu")
