@@ -6,27 +6,38 @@
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch and
    CUDA versions, then builds the hand-written kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` and prints the build time.
-2. Holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (D = 199,210 f32, K = 8) and at ragged sizes, with
-   the kernel tests' tolerances (f32 rtol = atol = 2e-5, bf16 2e-2), and
-   times it over CUDA-event-timed launches beside its plain version, one
-   PyTorch library call computing the same function where there is one,
-   and its bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s f32):
-   once eagerly (what a caller pays, host launch cost included) and once
-   replayed from a CUDA graph (the device's time per call).
+2. Holds each of the five kernels against its plain PyTorch version on the
+   card, at the main paths' shapes (D = 199,210 f32, K = 8) and at ragged
+   sizes, with the kernel tests' tolerances (f32 rtol = atol = 2e-5, bf16
+   2e-2), and times it over CUDA-event-timed launches beside its plain
+   version, one PyTorch library call computing the same function where
+   there is one, and its bound (bytes over 3.35 TB/s, operations over 67
+   TFLOP/s f32): once eagerly (what a caller pays, host launch cost
+   included) and once replayed from a CUDA graph (the device's time per
+   call).
 3. Times the first client step of the process (set-up cost), then
-   drives the main path: ``run_federated("proxyfl", ...)`` on the paper's
-   MNIST protocol (synthetic data), mlp 784-200-200-10, 8 clients of 1,000
-   examples, batch 250, DP sigma = 1, C = 1, ``use_pallas=True``, two
-   rounds on ``cuda``, with the kernel launch counters reset just before
-   and read just after; checks the exact launch counts, finite losses,
-   accuracy above chance, the pinned epsilon, and that the plain path on
-   the same seed reaches the same params at the conformance ``close``
-   grade.
-4. Breaks one warm client step, one engine round, the exchange and the
-   evaluation down on the host clock, and profiles one step with
-   torch.profiler for the device's busy share.
-5. Prints one JSON line ``{"kernels": [...]}`` and, last, the result line
+   drives the sync DP path: ``run_federated("proxyfl", ...)`` on the
+   paper's MNIST protocol (synthetic data), mlp 784-200-200-10, 8 clients
+   of 1,000 examples, batch 250, DP sigma = 1, C = 1, ``use_pallas=True``,
+   two rounds on ``cuda``, with the kernel launch counters reset just
+   before and read just after; checks the exact launch counts, finite
+   losses, accuracy above chance, the pinned epsilon, and that the plain
+   path on the same seed reaches the same params at the conformance
+   ``close`` grade.
+4. Drives the async path: ``run_federated(..., backend="async")`` on
+   fig_async's protocol (staleness 2, 2 local steps of batch 64, DP off)
+   on the same data for 6 rounds, counters reset just before and read just
+   after (exactly one stale-mix launch a round, nothing else); checks
+   finite losses and accuracy above chance, and that the same rounds with
+   ``use_pallas=False`` reach the same params, de-bias weights and
+   in-flight buffers at the ``close`` grade; times the stale exchange.
+   Then checks that async at staleness 0 equals the sync backend bit for
+   bit, and that PushSum mass (clients plus in-flight buffer) is conserved
+   round by round at staleness 2 under §3.4 dropout.
+5. Breaks one warm client step, one engine round, the exchange and the
+   evaluation of the sync path down on the host clock, and profiles one
+   step with torch.profiler for the device's busy share.
+6. Prints one JSON line ``{"kernels": [...]}`` and, last, the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits nonzero. The script needs a CUDA device and
@@ -34,6 +45,7 @@ the repository's ``src/`` beside it; it never runs on the CPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -59,6 +71,7 @@ RAGGED_D = (1, 1_000, 65_537)
 RAGGED_K = (1, 3, 8, 33)
 TIMED_LAUNCHES = 200
 CLOSE = dict(atol=1e-5, rtol=1e-4)   # tests/test_conformance.py "close"
+ASYNC_ROUNDS, ASYNC_TAU = 6, 2   # fig_async runs 30 rounds; cut to 6
 
 
 def card_line() -> str:
@@ -191,6 +204,26 @@ def kernel_cases(gen):
                        (lambda f=flat, P=P: torch.matmul(P, f))
                        if dt == torch.float32 else None,
                        2 * K * D * es + 4 * K * K + 4 * K, 2 * K * K * D)
+    # the stale exchange, inputs as tests/test_kernels.py:_stale_inputs
+    for K, D in mix_shapes:
+        P = torch.rand((K, K), generator=gen, device=dev) * 0.9 + 0.1
+        P = P / P.sum(0, keepdim=True)
+        kept = torch.diagonal(P).contiguous()
+        sent = P - torch.diag(kept)
+        for dt in (torch.float32, torch.bfloat16):
+            es = torch.tensor([], dtype=dt).element_size()
+            w = torch.rand((K,), generator=gen, device=dev) * 1.7 + 0.3
+            buf_w0 = torch.rand((K,), generator=gen, device=dev) * 0.5
+            args = (randn(K, D, dtype=dt), w.to(dt), kept, sent,
+                    (0.1 * randn(K, D)).to(dt), buf_w0.to(dt))
+            yield ("fused_stale_mix", dt, (K, D),
+                   lambda a=args: kernels.fused_stale_mix(*a),
+                   lambda a=args: ref.fused_stale_mix_ref(*a),
+                   # the library yardstick is the send product alone
+                   (lambda a=args: torch.matmul(a[3], a[0]))
+                   if dt == torch.float32 else None,
+                   4 * K * D * es + 4 * K * K + 5 * K * es + 8 * K,
+                   2 * K * K * D + 4 * K * D)
 
 
 SOURCES = {
@@ -207,11 +240,15 @@ SOURCES = {
                           "src/repro/kernels/pushsum_mix.py:63",
                           "src/repro/kernels/pushsum_mix.py::"
                           "fused_pushsum_mix"),
+    "fused_stale_mix": ("src/repro_torch/kernels/csrc/stale_mix.cu",
+                        "src/repro/kernels/pushsum_mix.py:117",
+                        "src/repro/kernels/pushsum_mix.py::fused_stale_mix"),
 }
 
 
 def check_kernels():
-    """Every case checked; the main-path f32 case of each kernel timed."""
+    """Every case checked; the main-path f32 case of each kernel (its
+    first case) timed."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     for name, dt, shape, kern, plain, lib, n_bytes, n_ops in kernel_cases(gen):
@@ -219,9 +256,7 @@ def check_kernels():
         torch.cuda.synchronize()
         print(f"check {name:18s} {str(dt):15s} {str(shape):22s} "
               f"max_abs_err {err:.3e}")
-        main = dt == torch.float32 and shape in ((MAIN_D,),
-                                                 (MAIN_K, MAIN_D, True))
-        if not main:
+        if name in rows:
             continue
         b_us, b_by = bound_us(n_bytes, n_ops)
         rows[name] = dict(err=err, kernel_us=cuda_us(kern),
@@ -321,7 +356,8 @@ def main_path(spec, data, test, cfg):
     steps = cfg.rounds * K * (per_client // cfg.batch_size)
     want = {"sumsq": steps * cfg.batch_size,
             "scale_accumulate": steps * cfg.batch_size,
-            "noise_adam_step": steps, "fused_pushsum_mix": cfg.rounds}
+            "noise_adam_step": steps, "fused_pushsum_mix": cfg.rounds,
+            "fused_stale_mix": 0}
     assert counts == want, (counts, want)
     assert all(math.isfinite(v) for v in losses), losses
     assert priv.mean() > 0.2, priv
@@ -353,14 +389,237 @@ def main_path(spec, data, test, cfg):
     return counts, cfg.rounds / seconds
 
 
+def timed_round(eng, state, data, t):
+    """Host-clock seconds of one engine round and of each local step in
+    it (each step synchronised and timed in place)."""
+    step_s = []
+    raw_step = eng.step_fn
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = raw_step(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    eng.step_fn = timed_step
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_round(state, data, t, seed=0)
+        torch.cuda.synchronize()
+    finally:
+        eng.step_fn = raw_step
+    return time.perf_counter() - t0, step_s
+
+
+def device_profile(fn):
+    """Wall ms of one synchronised call of ``fn`` under torch.profiler,
+    and the device events (kernels and copies) it recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, [e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+
+
+def async_config(cfg):
+    """fig_async's protocol (benchmarks/fig_async.py:60-84) on the main
+    path's cohort: 2 local steps of batch 64, lr 1e-3, wd 1e-4, DP off,
+    staleness 2, the kernels on; 6 rounds instead of 30."""
+    from repro_torch.configs import DPConfig
+    return dataclasses.replace(cfg, rounds=ASYNC_ROUNDS, local_steps=2,
+                               batch_size=64, staleness=ASYNC_TAU,
+                               dp=DPConfig(enabled=False), use_pallas=True)
+
+
+def host_ms(fn, n=20) -> float:
+    """Mean host-clock ms of ``fn`` over n synchronised calls, after one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def async_path(spec, data, test, cfg):
+    """The async backend at staleness 2 through the stale-mix kernel,
+    against the same rounds on the plain path."""
+    from repro_torch import kernels
+    from repro_torch.core.baselines import run_federated
+    from repro_torch.core.engine import dml_engine
+    from repro_torch.nn.losses import cross_entropy
+    from repro_torch.nn.modules import tree_leaves
+
+    acfg = async_config(cfg)
+    K, (xt, yt) = len(data), test
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_federated("proxyfl", [spec] * K, spec, data, test, acfg,
+                        seed=0, eval_every=acfg.rounds, backend="async",
+                        device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+
+    row = res["history"][-1]
+    priv, prox = np.asarray(row["private_acc"]), np.asarray(row["proxy_acc"])
+    losses = [float(cross_entropy(spec.apply(getattr(c, role), xt), yt))
+              for c in res["clients"]
+              for role in ("private_params", "proxy_params")]
+    print(f"async path: staleness {acfg.staleness}, {acfg.rounds} rounds in "
+          f"{seconds:.3f} s = {acfg.rounds / seconds:.3f} rounds/s "
+          "(evaluation included)")
+    print(f"async path: private acc {np.round(priv, 4).tolist()} mean "
+          f"{priv.mean():.4f}; proxy acc {np.round(prox, 4).tolist()} mean "
+          f"{prox.mean():.4f}")
+    print(f"async path: test losses {np.round(losses, 4).tolist()}")
+    print(f"async path: launches {counts}")
+    want = dict.fromkeys(counts, 0)
+    want["fused_stale_mix"] = acfg.rounds
+    assert counts == want, (counts, want)
+    assert all(math.isfinite(v) for v in losses), losses
+    assert priv.mean() > 0.2, priv
+
+    # the same rounds through the engine on the same seed, in turns
+    # kernels, plain, plain, kernels: the same draws, so the same state up
+    # to summation order
+    engines, finals, rates = {}, {}, {True: [], False: []}
+    for use_pallas in (True, False, False, True):
+        eng = dml_engine((spec,) * K, spec,
+                         dataclasses.replace(acfg, use_pallas=use_pallas),
+                         backend="async", device="cuda")
+        state = eng.init_states(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = eng.run_rounds(state, data, 0, acfg.rounds, seed=0)
+        torch.cuda.synchronize()
+        rates[use_pallas].append(acfg.rounds / (time.perf_counter() - t0))
+        engines[use_pallas], finals[use_pallas] = eng, state
+    fused, plain = finals[True], finals[False]
+    for c, s in zip(res["clients"], fused["clients"]):
+        for a, b in zip(tree_leaves(c.proxy_params),
+                        tree_leaves(s["proxy"]["params"])):
+            assert torch.equal(a, b), "engine run differs from run_federated"
+    pairs = [(a, b) for ca, cb in zip(fused["clients"], plain["clients"])
+             for role in ("private", "proxy")
+             for a, b in zip(tree_leaves(ca[role]["params"]),
+                             tree_leaves(cb[role]["params"]))]
+    pairs += [(ca["w"], cb["w"])
+              for ca, cb in zip(fused["clients"], plain["clients"])]
+    pairs += [(fused[k], plain[k]) for k in ("stale_theta", "stale_w")]
+    worst = 0.0
+    for a, b in pairs:
+        torch.testing.assert_close(a, b, **CLOSE)
+        worst = max(worst, max_err(a, b))
+    assert float(fused["stale_w"].abs().sum()) > 0, "no mail in flight"
+    print(f"async path: kernels vs plain path after {acfg.rounds} rounds, "
+          f"max abs diff of params, w and both buffers {worst:.3e} (close "
+          "grade atol 1e-5 rtol 1e-4)")
+    print(f"async path: engine rounds (no evaluation), run in turns "
+          f"kernels, plain, plain, kernels: kernels "
+          f"{' '.join(f'{r:.3f}' for r in rates[True])} rounds/s, plain "
+          f"path {' '.join(f'{r:.3f}' for r in rates[False])} rounds/s")
+    exchange = {p: host_ms(lambda p=p: engines[p]._exchange_stale(
+        finals[p]["clients"], finals[p], 0)) for p in (True, False)}
+    print(f"async path: stale exchange of {K} proxies (flatten, mix, "
+          f"unflatten, buffer rotation) kernels {exchange[True]:.3f} ms, "
+          f"plain {exchange[False]:.3f} ms")
+
+    # where a warm async round's time goes
+    eng, state = engines[True], finals[True]
+    round_s, step_s = timed_round(eng, state, data, acfg.rounds)
+    print(f"async breakdown: one engine round {round_s * 1e3:.3f} ms, of it "
+          f"{len(step_s)} local steps {sum(step_s) * 1e3:.3f} ms (min "
+          f"{min(step_s) * 1e3:.3f}, median {np.median(step_s) * 1e3:.3f}, "
+          f"max {max(step_s) * 1e3:.3f} ms per step)")
+    wall_ms, on_device = device_profile(
+        lambda: eng.run_round(state, data, acfg.rounds, seed=0))
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    stale_us = [e.self_device_time_total for e in on_device
+                if "stale_reg" in e.name]
+    print(f"async profile: one engine round under the profiler: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.2f}%), {len(on_device)} device "
+          f"kernels and copies; stale_reg device time "
+          f"{' '.join(f'{u:.3f}' for u in stale_us)} us")
+    return counts, {p: float(np.mean(r)) for p, r in rates.items()}, \
+        exchange
+
+
+def tau0_equals_sync(spec, data, cfg):
+    """Async at staleness 0 runs the synchronous exchange verbatim."""
+    from repro_torch.core.engine import dml_engine
+    from repro_torch.nn.modules import tree_leaves
+
+    zcfg = dataclasses.replace(async_config(cfg), staleness=0)
+    leaves = []
+    for backend in ("async", "vmap"):
+        eng = dml_engine((spec,) * len(data), spec, zcfg, backend=backend,
+                         device="cuda")
+        state, _ = eng.run_rounds(eng.init_states(0), data, 0, 2, seed=0)
+        assert isinstance(state, list), "staleness 0 must not wrap the state"
+        leaves.append(tree_leaves(state))
+    assert len(leaves[0]) == len(leaves[1])
+    assert all(torch.equal(a, b) for a, b in zip(*leaves))
+    print(f"async staleness 0 vs sync backend after 2 rounds: all "
+          f"{len(leaves[0])} state tensors equal")
+
+
+def mass_conservation(spec, data, cfg):
+    """Staleness 2, lr 0, §3.4 dropout 0.25, 4 rounds: Σ z·w plus the
+    in-flight θ and Σ w plus the in-flight w stay at their start (the card
+    twin of tests/test_conformance.py:528-559)."""
+    from repro_torch.core.engine import active_mask, dml_engine
+    from repro_torch.nn.modules import tree_flatten_vector
+
+    K = len(data)
+    mcfg = dataclasses.replace(async_config(cfg), lr=0.0, dropout_rate=0.25,
+                               rounds=4)
+    eng = dml_engine((spec,) * K, spec, mcfg, backend="async", device="cuda")
+    state = eng.init_states(0)
+
+    def masses(st):
+        z = torch.stack([tree_flatten_vector(s["proxy"]["params"])
+                         for s in st["clients"]]).double()
+        w = torch.stack([s["w"] for s in st["clients"]]).double()
+        return (float((z * w[:, None]).sum() + st["stale_theta"].sum()),
+                float(w.sum() + st["stale_w"].sum()))
+
+    theta0, w0 = masses(state)
+    assert w0 == K, w0
+    dropped, worst = 0, (0.0, 0.0)
+    for t in range(mcfg.rounds):
+        act = active_mask(t, K, mcfg)
+        dropped += 0 if act is None else int((~act).sum())
+        state, _ = eng.run_round(state, data, t, seed=0)
+        theta_m, w_m = masses(state)
+        rel = (abs(theta_m - theta0) / abs(theta0), abs(w_m - K) / K)
+        assert rel[0] <= 1e-5 and rel[1] <= 1e-6, (t, theta_m, theta0, w_m)
+        worst = (max(worst[0], rel[0]), max(worst[1], rel[1]))
+    assert dropped > 0, "the dropout masks dropped no client"
+    print(f"mass conservation: staleness 2, dropout 0.25 ({dropped} client-"
+          f"rounds dropped of {K * mcfg.rounds}), {mcfg.rounds} rounds: "
+          f"largest relative drift of theta-mass {worst[0]:.3e} (start "
+          f"{theta0:.6f}), of w-mass {worst[1]:.3e}")
+
+
 def step_breakdown(spec, data, test, cfg):
     """Where the main path's time goes: host-clock times of synchronised
     phases of one client's local step (each warmed up, then the mean of
     3), of the exchange and of the evaluation, and a torch.profiler trace
     of one step for the device's busy share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core import dp
     from repro_torch.core.engine import dml_engine
     from repro_torch.core.protocol import evaluate_batched
@@ -422,36 +681,14 @@ def step_breakdown(spec, data, test, cfg):
           f"{eval_ms:.3f} ms")
 
     # one whole round inside the engine, each local step timed in place
-    step_s = []
-    raw_step = eng.step_fn
-
-    def timed_step(*args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = raw_step(*args)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        return out
-
-    eng.step_fn = timed_step
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.run_round(states, data, 0, seed=0)
-    torch.cuda.synchronize()
-    round_s = time.perf_counter() - t0
+    round_s, step_s = timed_round(eng, states, data, 0)
     print(f"breakdown: one engine round {round_s * 1e3:.3f} ms, of it "
           f"{len(step_s)} local steps {sum(step_s) * 1e3:.3f} ms (min "
           f"{min(step_s) * 1e3:.3f}, median {np.median(step_s) * 1e3:.3f}, "
           f"max {max(step_s) * 1e3:.3f} ms per step)")
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.step_fn(state, batch, gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    wall_ms, on_device = device_profile(
+        lambda: eng.step_fn(state, batch, gen))
     busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
     if on_device:
         print(f"profile: one client step under the profiler: wall "
@@ -488,10 +725,16 @@ def main() -> int:
 
     rows = check_kernels()
     setup = mnist_setup()
+    spec, data, test, cfg = setup
     cold_step(*setup)
     counts, rounds_per_s = main_path(*setup)
+    async_counts, async_rates, _ = async_path(*setup)
+    tau0_equals_sync(spec, data, cfg)
+    mass_conservation(spec, data, cfg)
     step_breakdown(*setup)
 
+    # each kernel's launches on the path that runs it
+    counts = dict(counts, fused_stale_mix=async_counts["fused_stale_mix"])
     out = []
     for name, (source, replaces, tpu_kernel) in SOURCES.items():
         r = rows[name]
@@ -520,6 +763,8 @@ def main() -> int:
               f"bound {r['bound_us']:7.3f} us ({r['bound_by']}); launches "
               f"{counts[name]}")
     print(f"main path rounds/s {rounds_per_s:.4f} on {card}")
+    print(f"async path engine rounds/s {async_rates[True]:.4f} (plain path "
+          f"{async_rates[False]:.4f}, means of two runs each) on {card}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

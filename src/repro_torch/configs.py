@@ -35,10 +35,10 @@ class ProxyFLConfig:
     dp: DPConfig = field(default_factory=DPConfig)
     topology: str = "exponential"  # exponential | ring | full
     seed: int = 0
-    dropout_rate: float = 0.0  # §3.4 dropout (not ported yet)
+    dropout_rate: float = 0.0  # §3.4 dropout
     min_active: int = 1
-    backend: str = "auto"  # "auto" | "loop" | "vmap" in this port
-    staleness: int = 0  # async gossip delay (not ported yet)
+    backend: str = "auto"  # "auto" | "loop" | "vmap" | "async" in this port
+    staleness: int = 0  # async gossip delay τ (backend="async")
     n_shards: int = 1  # hier layout (not ported yet)
     use_pallas: bool = False  # hand-written kernels on CUDA
     compress: str = "none"  # compressed exchange (not ported yet)

@@ -9,7 +9,10 @@ frameworks can start a run from the same numbers:
 * :func:`state_from_numpy` — one client's engine state ``{"private":
   {"params", "opt": AdamState(m, v, t, p32)}, "proxy": …, "w"}``, the
   optimizer state given as any 4-field ``(m, v, t, p32)`` tuple, as the
-  reference's ``AdamState`` NamedTuple is.
+  reference's ``AdamState`` NamedTuple is;
+* :func:`async_state_from_numpy` — the async backend's engine state at
+  staleness τ>0, ``{"clients": [per-client state, …], "stale_theta":
+  [τ, K, D], "stale_w": [τ, K]}``, so a run can start with mail in flight.
 """
 from __future__ import annotations
 
@@ -46,3 +49,13 @@ def state_from_numpy(state: Dict, device="cpu") -> Dict:
     out["w"] = torch.as_tensor(np.array(state["w"], np.float32),
                                device=device)
     return out
+
+
+def async_state_from_numpy(state: Dict, device="cpu") -> Dict:
+    """The async wrapper state: each client through :func:`state_from_numpy`
+    and both in-flight buffers in their own dtypes."""
+    return {"clients": [state_from_numpy(s, device) for s in state["clients"]],
+            "stale_theta": torch.as_tensor(np.array(state["stale_theta"]),
+                                           device=device),
+            "stale_w": torch.as_tensor(np.array(state["stale_w"]),
+                                       device=device)}

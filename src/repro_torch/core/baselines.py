@@ -1,8 +1,9 @@
 """The federated run (port of ``run_federated`` in
-``src/repro/core/baselines.py``). This slice ports ``method="proxyfl"``:
+``src/repro/core/baselines.py``). This port runs ``method="proxyfl"``:
 private + proxy DML per client, DP-SGD on the proxies, PushSum on the
-exponential graph. The other six methods are later work (ROADMAP.md
-Queue 1 item 11).
+exponential graph, with §3.4 dropout (``cfg.dropout_rate``) and the
+``"async"`` stale-gossip backend (``cfg.staleness``). The other six
+methods are later work (ROADMAP.md Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ def run_federated(
     seed: int = 0,
     eval_every: int = 1,
     use_pallas: Optional[bool] = None,
+    backend: Optional[str] = None,
     device="cuda",
 ) -> Dict:
     """Run ``cfg.rounds`` rounds of ``method`` on ``device``; return
@@ -50,7 +52,9 @@ def run_federated(
     ``history`` holds one row per evaluation (every ``eval_every`` rounds
     and after the last): ``{"round", "private_acc", "proxy_acc"}`` with one
     test accuracy per client. ``use_pallas`` overrides ``cfg.use_pallas``
-    (None keeps the config); the engine backend is ``cfg.backend``."""
+    (None keeps the config). The engine backend is ``backend``, else
+    ``cfg.backend``, else ``"auto"``; ``"async"`` delays delivery by
+    ``cfg.staleness`` rounds and is never chosen by ``"auto"``."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     if method != "proxyfl":
@@ -64,7 +68,7 @@ def run_federated(
     data = [(x.to(dev), y.to(dev)) for x, y in client_data]
     xt, yt = (t.to(dev) for t in test_data)
     engine = dml_engine(tuple(private_specs[:K]), proxy_spec, cfg,
-                        backend=cfg.backend, device=dev)
+                        backend=backend or cfg.backend or "auto", device=dev)
     accs = _accountants(cfg, [d[0].shape[0] for d in data])
     engine.attach_accountants(accs)
     state = engine.init_states(seed)

@@ -1,15 +1,29 @@
 """FederationEngine — the executor of one federated round; port of the
-synchronous PushSum round of ``src/repro/core/engine.py``.
+synchronous PushSum round and the async (stale-gossip) backend of
+``src/repro/core/engine.py``, with §3.4 dropout.
 
-One round has two parts (Algorithm 1). First every client runs its local
-steps: this slice loops over clients and steps in Python, one client at a
-time, on the engine's device. Then the proxies are flattened, stacked into
-``[K, D]`` and mixed by one de-biased PushSum exchange
-(:func:`repro_torch.core.gossip.pushsum_mix_debiased`, the mix kernel under
-``cfg.use_pallas``). ``backend`` accepts ``"auto"``, ``"vmap"`` and
-``"loop"``, which all run this per-client loop: the reference's ``loop``
-and ``vmap`` backends agree at the conformance ``close`` grade, and a
-batched executor over clients is later work (ROADMAP.md Queue 1 item 10).
+One round has two parts (Algorithm 1). First every ACTIVE client runs its
+local steps: this port loops over clients and steps in Python, one client
+at a time, on the engine's device; a client dropped by the round's §3.4
+mask (:func:`active_mask`) skips them, keeps its state and reports NaN
+metrics. Then the proxies are flattened, stacked into ``[K, D]`` and
+exchanged over ``mix_matrix(mix, t, K, topology, active)``, in which a
+dropped client holds its own mass (identity column):
+
+* ``backend`` ``"auto"``, ``"vmap"`` or ``"loop"``: one de-biased PushSum
+  exchange (:func:`repro_torch.core.gossip.pushsum_mix_debiased`, the mix
+  kernel under ``cfg.use_pallas``). All three run the per-client loop: the
+  reference's ``loop`` and ``vmap`` backends agree at the conformance
+  ``close`` grade, and a batched executor over clients is later work
+  (ROADMAP.md Queue 1 item 10).
+* ``backend="async"`` with staleness τ = ``cfg.staleness`` > 0: the stale
+  exchange (:func:`repro_torch.core.gossip.stale_mix_apply`, the stale-mix
+  kernel under ``cfg.use_pallas``). Each client keeps ``kept(t)·θ`` of its
+  raw numerator θ = z·w and puts ``sent(t) @ θ`` into a τ-deep in-flight
+  buffer that rides next to the clients in the state; the delivery sent τ
+  rounds earlier merges in. A dropped client keeps ``kept = 1``, sends
+  nothing, and still merges the mail that arrives for it. At τ = 0 the
+  async backend runs the synchronous exchange verbatim.
 
 Randomness
 ----------
@@ -18,9 +32,11 @@ its own: client k's local step s of round t draws its batch indices and
 then its DP noise from a fresh ``torch.Generator`` on the engine's device,
 seeded from ``(seed, ROUND_KEY_OFFSET + t, k, s)``; client k's initial
 params come from a CPU generator seeded from ``(seed, k)``, so they are the
-same numbers on every device. The replay hook ``draws(k, t, s) ->
-(batch_idx, flat_noise)`` replaces the generator: parity tests feed the
-reference's draws through it.
+same numbers on every device. A dropped client therefore shifts no one
+else's draws. The replay hook ``draws(k, t, s) -> (batch_idx,
+flat_noise)`` replaces the generator: parity tests feed the reference's
+draws through it. The dropout masks are the reference's own numpy draws,
+seeded from ``(cfg.seed, t)``.
 """
 from __future__ import annotations
 
@@ -31,14 +47,18 @@ import torch
 
 from .. import resolve_device
 from ..configs import ProxyFLConfig
-from ..nn.modules import tree_flatten_vector, tree_map, tree_unflatten_vector
+from ..nn.modules import (tree_flatten_vector, tree_map, tree_size,
+                          tree_unflatten_vector)
 from ..optim import Adam
-from .gossip import mix_matrix, pushsum_mix_debiased
+from .gossip import (mix_matrix, pushsum_mix_debiased, stale_mix_apply,
+                     stale_mix_split)
 
 # round t's streams are seeded from (seed, ROUND_KEY_OFFSET + t, ...), apart
 # from the per-client init streams (seed, k), as in the reference
 ROUND_KEY_OFFSET = 10_000
-_UNPORTED_BACKENDS = {"shard_map": 18, "async": 14, "hier": 15}
+BACKENDS = ("auto", "vmap", "loop", "async")
+MIXES = ("pushsum", "mean", "ring", "none")
+_UNPORTED_BACKENDS = {"shard_map": 18, "hier": 15}
 
 StepFn = Callable[..., Tuple[Dict, Dict]]
 InitFn = Callable[[torch.Generator], Dict]
@@ -53,15 +73,46 @@ def stream_seed(*words: int) -> int:
     return int(state[0]) & ((1 << 63) - 1)
 
 
+def active_mask(t: int, n_clients: int, cfg: ProxyFLConfig
+                ) -> Optional[np.ndarray]:
+    """Deterministic per-round §3.4 dropout schedule from the config.
+
+    Returns None (everyone participates) when ``cfg.dropout_rate == 0``;
+    otherwise a bool[K] mask drawn from a seed derived from (cfg.seed, t),
+    re-sampled identically by every backend and across reruns."""
+    if not cfg.dropout_rate:
+        return None
+    rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, 7919, t]))
+    act = rng.random(n_clients) >= cfg.dropout_rate
+    floor = max(1, min(cfg.min_active, n_clients))
+    if act.sum() < floor:
+        act[rng.choice(n_clients, size=floor, replace=False)] = True
+    return act
+
+
+def active_schedule(t0: int, n_rounds: int, n_clients: int,
+                    cfg: ProxyFLConfig) -> Optional[np.ndarray]:
+    """Block-level §3.4 membership: ``active_mask`` for each round of a
+    block, stacked to bool[T, K]. None when no dropout is configured (the
+    per-t masks are all None). The per-round draws are preserved exactly
+    (seeded per (cfg.seed, t)), so a blocked run replays the identical
+    dropout trajectory as the per-round path."""
+    masks = [active_mask(t, n_clients, cfg)
+             for t in range(t0, t0 + n_rounds)]
+    if all(m is None for m in masks):
+        return None
+    return np.stack([np.ones(n_clients, bool) if m is None else m
+                     for m in masks])
+
+
 def _refuse_unported(cfg: ProxyFLConfig, backend: str) -> None:
     if backend in _UNPORTED_BACKENDS:
         raise NotImplementedError(
             f"backend {backend!r} is not ported yet (ROADMAP.md Queue 1 item "
             f"{_UNPORTED_BACKENDS[backend]})")
-    if backend not in ("auto", "vmap", "loop"):
+    if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
-    for on, what, item in ((cfg.dropout_rate, "dropout_rate (§3.4)", 10),
-                           (cfg.compress != "none", "compress", 16),
+    for on, what, item in ((cfg.compress != "none", "compress", 16),
                            (cfg.verify_commitments, "verify_commitments", 13)):
         if on:
             raise NotImplementedError(
@@ -70,45 +121,86 @@ def _refuse_unported(cfg: ProxyFLConfig, backend: str) -> None:
 
 
 class FederationEngine:
-    """Executor of the synchronous federated round (see module docstring).
+    """Executor of the federated round (see module docstring).
 
     ``step_fn(state, batch, generator, noise) -> (state, metrics)`` is one
     client's local update; ``init_fn(generator) -> state`` one client's
     initial state (drawn on the CPU, moved to ``device``);
     ``sample_fn(data_k, generator, idx=None) -> batch`` draws a local batch,
-    or gathers ``idx`` when the replay hook supplies it.
+    or gathers ``idx`` when the replay hook supplies it. ``mix`` is the
+    exchange rule of :func:`repro_torch.core.gossip.mix_matrix`;
+    ``staleness`` the async backend's delivery delay τ (None reads
+    ``cfg.staleness``; the synchronous backends ignore it).
+
+    The state is a list of per-client dicts, or, on the async backend at
+    τ>0, the wrapper ``{"clients": [...], "stale_theta": [τ, K, D],
+    "stale_w": [τ, K]}`` whose buffer row 0 is the next delivery.
     """
 
     def __init__(self, cfg: ProxyFLConfig, *, n_clients: int,
                  step_fn: StepFn, init_fn: InitFn, sample_fn: SampleFn,
-                 backend: str = "auto", device="cuda",
-                 draws: Optional[DrawsFn] = None):
+                 backend: str = "auto", mix: str = "pushsum", device="cuda",
+                 draws: Optional[DrawsFn] = None, staleness=None):
         _refuse_unported(cfg, backend)
+        if mix not in MIXES:
+            raise ValueError(f"unknown mix {mix!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.K = n_clients
         self.step_fn, self.init_fn, self.sample_fn = step_fn, init_fn, sample_fn
+        self.mix = mix
+        self.mixing = mix != "none" and n_clients > 1
+        self.staleness = 0
+        if backend == "async":
+            self.staleness = int(cfg.staleness if staleness is None
+                                 else staleness)
+            if self.staleness < 0:
+                raise ValueError(f"staleness must be >= 0, got "
+                                 f"{self.staleness}")
+            if self.staleness and mix == "ring":
+                raise ValueError(
+                    "async staleness>0 is incompatible with the pure-"
+                    "permutation ring mix (CWT): clients keep no self mass, "
+                    "so a delayed delivery would leave them model-less for "
+                    "the first τ rounds; use staleness=0 or a mix with a "
+                    "positive diagonal (pushsum/mean)")
+        # τ=0 runs the synchronous exchange verbatim on the unwrapped state
+        self._stale = self.staleness > 0
         self.use_pallas = cfg.use_pallas
         self.draws = draws
         self.accountants: List = [None] * n_clients
 
     # -- state construction / access ---------------------------------------
 
-    def init_states(self, seed: int) -> List[Dict]:
-        """Per-client init from a CPU generator seeded from (seed, k)."""
+    def _clients_of(self, state) -> List[Dict]:
+        return state["clients"] if self._stale else state
+
+    def init_states(self, seed: int):
+        """Per-client init from a CPU generator seeded from (seed, k); at
+        τ>0 also the empty in-flight buffer (nothing arrives for τ rounds)."""
         states = []
         for k in range(self.K):
             gen = torch.Generator().manual_seed(stream_seed(seed, k))
             states.append(tree_map(lambda x: x.to(self.device),
                                    self.init_fn(gen)))
-        return states
+        if not self._stale:
+            return states
+        proxy = states[0]["proxy"]["params"]
+        dtype = tree_flatten_vector(proxy).dtype
+        w_dtype = states[0]["w"].dtype
+        return {"clients": states,
+                "stale_theta": torch.zeros(
+                    (self.staleness, self.K, tree_size(proxy)), dtype=dtype,
+                    device=self.device),
+                "stale_w": torch.zeros((self.staleness, self.K),
+                                       dtype=w_dtype, device=self.device)}
 
     def export_states(self, state) -> List[Dict]:
-        return list(state)
+        return list(self._clients_of(state))
 
     def stacked_params(self, state, role: str = "proxy"):
         """The cohort's ``role`` params with a leading K dim."""
-        trees = [s[role]["params"] for s in state]
+        trees = [s[role]["params"] for s in self._clients_of(state)]
         return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
     def attach_accountants(self, accountants: Sequence) -> None:
@@ -137,15 +229,24 @@ class FederationEngine:
                                     device=self.device)
         return None, idx, noise
 
-    def run_round(self, state: List[Dict], data: Sequence, t: int, seed: int
-                  ) -> Tuple[List[Dict], Dict[str, np.ndarray]]:
-        """One full round: local steps on every client, then one exchange.
-        ``seed`` is the run's base seed (round t's streams derive from it).
-        Returns the new state and each metric of every client's last step
-        as a [K] array."""
-        states = list(state)
-        last: List[Dict] = []
+    def run_round(self, state, data: Sequence, t: int, seed: int,
+                  active=None) -> Tuple[Any, Dict[str, np.ndarray]]:
+        """One full round: local steps on every ACTIVE client, then one
+        exchange. ``seed`` is the run's base seed (round t's streams derive
+        from it); ``active`` (bool[K]) overrides the round's §3.4 mask
+        :func:`active_mask`. Returns the new state and each metric of every
+        client's last step as a [K] array, NaN for dropped clients."""
+        if active is None:
+            active = active_mask(t, self.K, self.cfg)
+        act = None if active is None else np.asarray(active, bool)
+        if act is not None and act.shape != (self.K,):
+            raise ValueError(f"active must be bool[{self.K}], got "
+                             f"{act.shape}")
+        states = list(self._clients_of(state))
+        last: List[Optional[Dict]] = [None] * self.K
         for k in range(self.K):
+            if act is not None and not act[k]:
+                continue   # dropped: no steps, state kept
             s = states[k]
             m: Dict = {}
             for i in range(self.n_steps(data[k])):
@@ -153,32 +254,73 @@ class FederationEngine:
                 batch = self.sample_fn(data[k], gen, idx)
                 s, m = self.step_fn(s, batch, gen, noise)
             states[k] = s
-            last.append(m)
-        if self.K > 1:
-            states = self._exchange(states, t)
+            last[k] = m
+        if self._stale:
+            state = (self._exchange_stale(states, state, t, act)
+                     if self.mixing else dict(state, clients=states))
+        else:
+            state = self._exchange(states, t, act) if self.mixing else states
         for k, acc in enumerate(self.accountants):
-            if acc is not None:
+            if acc is not None and (act is None or act[k]):
                 acc.step(self.n_steps(data[k]))
-        metrics = {key: torch.stack([m[key] for m in last]).cpu().numpy()
-                   for key in sorted(last[0])}
-        return states, metrics
+        return state, self._collate(last)
 
-    def _exchange(self, states: List[Dict], t: int) -> List[Dict]:
-        """The de-biased PushSum mix of the stacked [K, D] proxies."""
-        P = mix_matrix("pushsum", t, self.K, self.cfg.topology)
+    @staticmethod
+    def _collate(last: List[Optional[Dict]]) -> Dict[str, np.ndarray]:
+        """Per-client metric dicts to [K] arrays; NaN where a client did
+        not step."""
+        done = [k for k, m in enumerate(last) if m is not None]
+        if not done:
+            return {}
+        out = {}
+        for key in sorted(last[done[0]]):
+            vals = torch.stack([last[k][key] for k in done]).cpu().numpy()
+            out[key] = np.full(len(last), np.nan, vals.dtype)
+            out[key][done] = vals
+        return out
+
+    def _flat_proxies(self, states: List[Dict]):
         flat = torch.stack([tree_flatten_vector(s["proxy"]["params"])
                             for s in states])
         w = torch.stack([s["w"] for s in states]).to(flat.dtype)
-        unb, w2 = pushsum_mix_debiased(flat, w, P, use_pallas=self.use_pallas)
+        return flat, w
+
+    @staticmethod
+    def _with_proxies(states: List[Dict], unb: torch.Tensor,
+                      w2: torch.Tensor) -> List[Dict]:
         like = states[0]["proxy"]["params"]
         return [dict(s, proxy=dict(s["proxy"],
                                    params=tree_unflatten_vector(unb[k], like)),
                      w=w2[k].to(s["w"].dtype))
                 for k, s in enumerate(states)]
 
-    def run_rounds(self, state: List[Dict], data: Sequence, t0: int,
-                   n_rounds: int, seed: int
-                   ) -> Tuple[List[Dict], Dict[str, np.ndarray]]:
+    def _exchange(self, states: List[Dict], t: int, act=None) -> List[Dict]:
+        """The de-biased PushSum mix of the stacked [K, D] proxies."""
+        P = mix_matrix(self.mix, t, self.K, self.cfg.topology, act)
+        flat, w = self._flat_proxies(states)
+        unb, w2 = pushsum_mix_debiased(flat, w, P, use_pallas=self.use_pallas)
+        return self._with_proxies(states, unb, w2)
+
+    def _exchange_stale(self, states: List[Dict], state: Dict, t: int,
+                        act=None) -> Dict:
+        """The stale exchange: keep, send into the buffer, merge the
+        delivery rotating out of row 0, de-bias; returns the new wrapper."""
+        kept, sent = stale_mix_split(
+            mix_matrix(self.mix, t, self.K, self.cfg.topology, act))
+        kept = torch.as_tensor(kept, dtype=torch.float32, device=self.device)
+        sent = torch.as_tensor(sent, dtype=torch.float32, device=self.device)
+        flat, w = self._flat_proxies(states)
+        buf_t, buf_w = state["stale_theta"], state["stale_w"]
+        unb, send_t, w2, send_w = stale_mix_apply(
+            flat, w, kept, sent, buf_t[0], buf_w[0],
+            use_pallas=self.use_pallas)
+        return {"clients": self._with_proxies(states, unb, w2),
+                "stale_theta": torch.cat([buf_t[1:], send_t[None]]),
+                "stale_w": torch.cat([buf_w[1:],
+                                      send_w[None].to(buf_w.dtype)])}
+
+    def run_rounds(self, state, data: Sequence, t0: int, n_rounds: int,
+                   seed: int) -> Tuple[Any, Dict[str, np.ndarray]]:
         """Rounds ``t0 .. t0+n_rounds-1``, one at a time (round-blocks are
         later work); each metric comes back stacked to [n_rounds, K]."""
         rows = []
@@ -236,10 +378,11 @@ def _dml_state_init(private_spec, proxy_spec, cfg: ProxyFLConfig) -> InitFn:
 
 
 def dml_engine(private_specs: Tuple, proxy_spec, cfg: ProxyFLConfig,
-               backend: str = "auto", device="cuda",
+               backend: str = "auto", mix: str = "pushsum", device="cuda",
                draws: Optional[DrawsFn] = None) -> FederationEngine:
-    """Engine for ProxyFL: private + proxy DML per client, PushSum on the
-    proxies. Homogeneous cohorts only in this slice."""
+    """Engine for the two-model (private + proxy DML) family: ProxyFL
+    (mix="pushsum") and FML (mix="mean"). Homogeneous cohorts only in this
+    port."""
     if any(s != private_specs[0] for s in private_specs):
         raise NotImplementedError(
             "heterogeneous private architectures are not ported yet "
@@ -249,4 +392,4 @@ def dml_engine(private_specs: Tuple, proxy_spec, cfg: ProxyFLConfig,
         step_fn=_dml_state_step(private_specs[0], proxy_spec, cfg),
         init_fn=_dml_state_init(private_specs[0], proxy_spec, cfg),
         sample_fn=classifier_sampler(cfg.batch_size), backend=backend,
-        device=device, draws=draws)
+        mix=mix, device=device, draws=draws)

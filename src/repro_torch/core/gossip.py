@@ -1,11 +1,16 @@
-"""PushSum gossip on time-varying directed graphs (paper §3.4), synchronous
-part; port of ``src/repro/core/gossip.py``.
+"""PushSum gossip on time-varying directed graphs (paper §3.4): the
+synchronous exchange and the async backend's stale (τ>0) exchange; port of
+``src/repro/core/gossip.py``.
 
 The schedule functions (:func:`exponential_offsets`, :func:`gossip_shift`,
-:func:`adjacency_matrix`, :func:`mix_matrix`) are numpy, copied verbatim, so
-they are array-equal to the reference. The exchange itself runs on the
-stacked ``[K, D]`` proxies: plain torch products, or the hand-written mix
-kernel under ``use_pallas``.
+:func:`adjacency_matrix`, :func:`mix_matrix`, the round-block schedules
+:func:`shift_schedule`, :func:`adjacency_schedule`, :func:`mix_schedule`,
+the stale split :func:`stale_mix_split`, :func:`stale_mix_schedule` and the
+numpy oracle :func:`stale_gossip_reference`) are numpy, copied verbatim, so
+they are array-equal to the reference. The exchanges run on the stacked
+``[K, D]`` proxies: plain torch products, or the hand-written kernels under
+``use_pallas`` (:func:`pushsum_mix_debiased` through the mix kernel,
+:func:`stale_mix_apply` through the stale-mix kernel).
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..kernels import fused_pushsum_mix
+from ..kernels import fused_pushsum_mix, fused_stale_mix
 
 
 def exponential_offsets(n_clients: int) -> List[int]:
@@ -142,6 +147,211 @@ def pushsum_mix_debiased(thetas: torch.Tensor, weights: torch.Tensor, P, *,
     return mixed / w2[:, None], w2
 
 
+def stale_mix_apply(flat: torch.Tensor, w: torch.Tensor, kept, sent,
+                    buf_t0: torch.Tensor, buf_w0: torch.Tensor, *,
+                    use_pallas: bool = False, compress=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    """One stale (async τ>0) exchange on the stacked proxies — the
+    delayed-delivery counterpart of :func:`pushsum_mix_debiased` and the
+    on-device application of :func:`stale_gossip_reference`'s round body:
+    re-bias θ = z·w, emit ``send = sent @ θ``, merge ``kept·θ`` with the
+    delivery ``buf_t0``/``buf_w0`` rotating out of the in-flight buffer,
+    de-bias by the identically-delayed weights. Returns ``(z', send_t,
+    w', send_w)``; the caller owns the buffer rotation. ``use_pallas``
+    fuses the whole chain into one pass of the stale-mix kernel
+    (:func:`repro_torch.kernels.fused_stale_mix`). The compressed exchange
+    is not ported yet (ROADMAP.md Queue 1 item 16)."""
+    if compress is not None:
+        raise NotImplementedError(
+            "compressed stale gossip is not ported yet (ROADMAP.md Queue 1 "
+            "item 16)")
+    if use_pallas:
+        return fused_stale_mix(flat, w, kept, sent, buf_t0, buf_w0)
+    theta = flat * w[:, None]                  # raw PushSum numerator
+    send_t = _as_matrix(sent, flat) @ theta
+    send_w = _as_matrix(sent, w) @ w
+    mixed = _as_matrix(kept, flat)[:, None] * theta + buf_t0
+    w2 = _as_matrix(kept, w) * w + buf_w0
+    return mixed / w2[:, None], send_t, w2, send_w
+
+
 def debias(thetas: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """θ_k / w_k (Algorithm 1 line 11)."""
     return thetas / weights[:, None]
+
+
+# ---------------------------------------------------------------------------
+# block schedules: P^(t0), ..., P^(t0+T-1) precomputed for a round-block
+
+
+def shift_schedule(t0: int, T: int, n_active: int,
+                   topology: str = "exponential") -> np.ndarray:
+    """int[T] gossip shifts for rounds t0..t0+T-1 over ``n_active`` peers
+    (-1 is the dense sentinel, matching :func:`gossip_shift`)."""
+    ts = np.arange(t0, t0 + T)
+    if n_active <= 1:
+        return np.zeros(T, np.int64)
+    if topology == "exponential":
+        offs = np.asarray(exponential_offsets(n_active))
+        return offs[ts % len(offs)]
+    if topology == "ring":
+        return np.ones(T, np.int64)
+    if topology == "full":
+        return -np.ones(T, np.int64)
+    raise ValueError(topology)
+
+
+def adjacency_schedule(t0: int, T: int, n_clients: int,
+                       topology: str = "exponential",
+                       self_weight: float = 0.5, active=None) -> np.ndarray:
+    """Stacked column-stochastic P^(t0..t0+T-1): float64[T, K, K], with
+    ``P[i] == adjacency_matrix(t0 + i, ...)`` exactly.
+
+    ``active`` is None (everyone, every round) or bool[T, K] — one §3.4
+    membership row per round. Construction is vectorized: rounds sharing a
+    membership pattern are built together with batched scatters (no
+    per-client Python loops), so a round-block's whole schedule costs a
+    handful of numpy ops instead of T × K loop iterations.
+    """
+    K = n_clients
+    P = np.broadcast_to(np.eye(K), (T, K, K)).copy()
+    if K == 1 or T == 0:
+        return P
+    ts = np.arange(t0, t0 + T)
+    if active is None:
+        groups = [(np.arange(K), np.arange(T))]
+    else:
+        active = np.asarray(active, bool)
+        assert active.shape == (T, K), (active.shape, (T, K))
+        patterns, inverse = np.unique(active, axis=0, return_inverse=True)
+        groups = [(np.where(patterns[g])[0], np.where(inverse == g)[0])
+                  for g in range(len(patterns))]
+    for idx, rows in groups:
+        A = len(idx)
+        if A <= 1:
+            continue  # inactive-heavy round: identity (already in place)
+        if topology == "exponential":
+            offs = np.asarray(exponential_offsets(A))
+            shifts = offs[ts[rows] % len(offs)]
+        elif topology == "ring":
+            shifts = np.ones(len(rows), np.int64)
+        elif topology == "full":
+            shifts = -np.ones(len(rows), np.int64)
+        else:
+            raise ValueError(topology)
+        dense = shifts == -1
+        if dense.any():
+            P[np.ix_(rows[dense], idx, idx)] = 1.0 / A
+        sparse = np.where(~dense)[0]
+        if len(sparse):
+            r = np.repeat(rows[sparse], A)
+            col = np.tile(idx, len(sparse))
+            P[r, col, col] = self_weight
+            pos = np.arange(A)
+            peers = idx[(pos[None, :] + shifts[sparse, None]) % A]
+            np.add.at(P, (r, peers.reshape(-1), col), 1.0 - self_weight)
+    assert np.allclose(P.sum(axis=1), 1.0)  # column-stochastic, every round
+    return P
+
+
+def mix_schedule(mix: str, t0: int, T: int, n_clients: int,
+                 topology: str = "exponential", active=None,
+                 self_weight: float = 0.5) -> np.ndarray:
+    """Stacked mixing matrices for one round-block: float64[T, K, K] with
+    ``out[i] == mix_matrix(mix, t0 + i, ...)`` exactly (same mix -> graph
+    mapping as :func:`mix_matrix`; ``active`` is None or bool[T, K])."""
+    if mix == "none":
+        return np.broadcast_to(np.eye(n_clients), (T, n_clients, n_clients)).copy()
+    if mix == "pushsum":
+        return adjacency_schedule(t0, T, n_clients, topology, self_weight,
+                                  active)
+    if mix == "mean":
+        return adjacency_schedule(t0, T, n_clients, "full", self_weight,
+                                  active)
+    if mix == "ring":
+        return adjacency_schedule(t0, T, n_clients, "ring", 0.0, active)
+    raise ValueError(mix)
+
+
+# ---------------------------------------------------------------------------
+# stale gossip: the async backend's diag/off-diag split of P^(t)
+#
+# The staleness-τ variant (Assran et al. 2019's overlap trick) splits every
+# column of P^(t) into the mass a client KEEPS (the diagonal) and the mass
+# it SENDS (the off-diagonal rest): sends computed at round t stay in flight
+# and are delivered at round t+τ. The split operates on the RAW PushSum
+# numerators θ = z·w, so the de-bias weights account for the in-flight mass
+# exactly, and total θ- and w-mass (clients + buffer) is conserved round by
+# round (kept_k + Σ_j sent_{jk} = Σ_j P_{jk} = 1).
+
+
+def stale_mix_split(P):
+    """Diag/off-diag split of column-stochastic matrices (batched over any
+    leading dims): returns ``(kept[..., K], sent[..., K, K])`` with
+    ``P == sent + diag_embed(kept)`` exactly — ``kept[k]`` is the mass
+    client k retains this round, column ``sent[:, k]`` the mass it puts in
+    flight."""
+    P = np.asarray(P)
+    K = P.shape[-1]
+    idx = np.arange(K)
+    kept = P[..., idx, idx].copy()
+    sent = P.copy()
+    sent[..., idx, idx] = 0.0
+    return kept, sent
+
+
+def stale_mix_schedule(mix: str, t0: int, T: int, n_clients: int,
+                       topology: str = "exponential", active=None,
+                       self_weight: float = 0.5):
+    """Stacked stale-mix split for one round-block: ``(kept[T, K],
+    sent[T, K, K])`` with ``sent[i] + diag(kept[i]) == mix_matrix(mix,
+    t0 + i, ...)`` exactly (same mix -> graph mapping, ``active`` is None
+    or bool[T, K])."""
+    return stale_mix_split(mix_schedule(mix, t0, T, n_clients, topology,
+                                        active=active,
+                                        self_weight=self_weight))
+
+
+def stale_gossip_reference(z0, w0, Ps, staleness: int):
+    """Numpy reference of the staleness-τ PushSum exchange — the executable
+    spec the async engine backend is held to.
+
+    ``z0``: [K, D] de-biased client vectors; ``w0``: [K] de-bias weights;
+    ``Ps``: iterable of [K, K] column-stochastic matrices (one per round,
+    §3.4 active masking already applied). Per round t:
+
+    1. re-bias:  θ(t) = z(t) · w(t)  (raw PushSum numerators);
+    2. send:     ``sent(t) @ θ(t)`` and ``sent(t) @ w(t)`` enter a τ-deep
+       in-flight buffer (delivered at round t+τ; the buffer starts empty —
+       for the first τ rounds nothing arrives and the de-bias weights
+       shrink to account for the mass in flight);
+    3. deliver:  the round-(t−τ) sends leave the buffer and merge into
+       ``mixed = kept(t)·θ(t) + recv`` and ``w' = kept(t)·w(t) + recv_w``;
+    4. de-bias:  z(t+1) = mixed / w'.
+
+    τ=0 degenerates to the synchronous exchange ``P @ θ`` / ``P @ w``.
+    Returns ``(z, w, buf_theta[τ, K, D], buf_w[τ, K])`` after ``len(Ps)``
+    rounds; buffer row 0 is the next delivery. Σ w + Σ buf_w == Σ w0 and
+    Σ z·w + Σ buf_theta == Σ z0·w0 after every round, for any τ and any
+    §3.4 dropout trajectory."""
+    z = np.asarray(z0, np.float64)
+    w = np.asarray(w0, np.float64)
+    K, D = z.shape
+    tau = int(staleness)
+    buf_t = np.zeros((tau, K, D))
+    buf_w = np.zeros((tau, K))
+    for P in Ps:
+        kept, sent = stale_mix_split(np.asarray(P, np.float64))
+        theta = z * w[:, None]
+        if tau == 0:
+            mixed = (sent + np.diag(kept)) @ theta
+            w = (sent + np.diag(kept)) @ w
+        else:
+            send_t, send_w = sent @ theta, sent @ w
+            mixed = kept[:, None] * theta + buf_t[0]
+            w = kept * w + buf_w[0]
+            buf_t = np.concatenate([buf_t[1:], send_t[None]])
+            buf_w = np.concatenate([buf_w[1:], send_w[None]])
+        z = mixed / w[:, None]
+    return z, w, buf_t, buf_w

@@ -16,6 +16,9 @@ Kernel → path map (the ``ProxyFLConfig.use_pallas`` path)
   in one pass (``repro_torch.core.dp.dp_adam_update``).
 - :func:`fused_pushsum_mix` — the de-biased PushSum exchange
   (``repro_torch.core.gossip.pushsum_mix_debiased``).
+- :func:`fused_stale_mix` — the async backend's stale exchange at
+  staleness τ>0: re-bias, send, merge the delayed delivery, de-bias
+  (``repro_torch.core.gossip.stale_mix_apply``).
 
 Each wrapper counts its kernel launches in a plain integer attribute
 ``launches``; :func:`launch_counts` and :func:`reset_launch_counts` read and
@@ -26,13 +29,14 @@ from typing import Dict
 from . import ref
 from .dp_clip import scale_accumulate, sumsq
 from .dp_step import noise_adam_step
-from .pushsum_mix import fused_pushsum_mix
+from .pushsum_mix import fused_pushsum_mix, fused_stale_mix
 
 KERNELS = {
     "sumsq": sumsq,
     "scale_accumulate": scale_accumulate,
     "noise_adam_step": noise_adam_step,
     "fused_pushsum_mix": fused_pushsum_mix,
+    "fused_stale_mix": fused_stale_mix,
 }
 
 
@@ -45,5 +49,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "fused_pushsum_mix", "launch_counts", "noise_adam_step",
-           "ref", "reset_launch_counts", "scale_accumulate", "sumsq"]
+__all__ = ["KERNELS", "fused_pushsum_mix", "fused_stale_mix", "launch_counts",
+           "noise_adam_step", "ref", "reset_launch_counts",
+           "scale_accumulate", "sumsq"]

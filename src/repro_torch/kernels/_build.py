@@ -42,6 +42,8 @@ _SIGNATURES = {
                               _P),
     "repro_pushsum_mix": (_P, ctypes.c_int, _P, _P, _P, ctypes.c_int,
                           ctypes.c_int64, ctypes.c_int, _P),
+    "repro_stale_mix": (_P, _P, ctypes.c_int, _P, _P, _P, _P, _P, _P,
+                        ctypes.c_int, ctypes.c_int64, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,13 +1,18 @@
-"""Fused PushSum exchange over the stacked [K, D] proxies (Algorithm 1
+"""Fused PushSum exchanges over the stacked [K, D] proxies (Algorithm 1
 lines 7-11).
 
 :func:`fused_pushsum_mix` returns ``(P·z / (P·w)[:, None], P·w)`` with
 ``debias=True`` or ``(P·z, P·w)`` without. On a CUDA tensor the [K, D]
 product runs in the kernel of ``csrc/pushsum_mix.cu`` (replacing
-``src/repro/kernels/pushsum_mix.py``'s ``fused_pushsum_mix``); the O(K)
-weight product ``w' = P·w`` stays a torch product, as the reference forms
-it outside its kernel. On a CPU tensor the plain version in :mod:`.ref`
-runs.
+``src/repro/kernels/pushsum_mix.py``'s ``fused_pushsum_mix``).
+
+:func:`fused_stale_mix` is the async (staleness τ>0) exchange: re-bias
+θ = z·w, ``send_t = sent@θ``, ``z' = (kept·θ + buf_t0)/w'``, in the kernel
+of ``csrc/stale_mix.cu`` (replacing the reference's ``fused_stale_mix``).
+
+In both, the O(K) weight products (``w' = P·w``; ``w' = kept·w + buf_w0``
+and ``send_w = sent@w``) stay torch products, as the reference forms them
+outside its kernels. On a CPU tensor the plain versions in :mod:`.ref` run.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .ref import fused_pushsum_mix_ref
+from .ref import fused_pushsum_mix_ref, fused_stale_mix_ref
 
 
 def fused_pushsum_mix(flat: torch.Tensor, w: torch.Tensor, P, *,
@@ -49,3 +54,51 @@ def fused_pushsum_mix(flat: torch.Tensor, w: torch.Tensor, P, *,
 
 
 fused_pushsum_mix.launches = 0
+
+
+def fused_stale_mix(flat: torch.Tensor, w: torch.Tensor, kept, sent,
+                    buf_t0: torch.Tensor, buf_w0: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    """One stale exchange: returns ``(z', send_t, w', send_w)``.
+
+    flat, buf_t0 [K, D] f32/bf16 (one dtype); w, buf_w0 [K]; kept [K] and
+    sent [K, K] the diag/off-diag split of P (array or tensor, used in
+    f32). Accumulates in f32 and returns flat's dtype for z' and send_t,
+    w's for w' and send_w. The caller owns the buffer rotation."""
+    if flat.dim() != 2 or flat.shape[0] < 1 or flat.shape[1] < 1:
+        raise ValueError("fused_stale_mix: flat must be a non-empty [K, D] "
+                         f"matrix, got {tuple(flat.shape)}")
+    if flat.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"fused_stale_mix: flat dtype {flat.dtype} not "
+                        "supported (float32 or bfloat16)")
+    K, D = flat.shape
+    if buf_t0.shape != flat.shape or buf_t0.dtype != flat.dtype:
+        raise ValueError("fused_stale_mix: buf_t0 must match flat's shape "
+                         f"{tuple(flat.shape)} and dtype {flat.dtype}, got "
+                         f"{tuple(buf_t0.shape)} {buf_t0.dtype}")
+    shapes = [tuple(a.shape) for a in (w, kept, buf_w0, sent)]
+    if shapes != [(K,), (K,), (K,), (K, K)]:
+        raise ValueError(f"fused_stale_mix: need w, kept, buf_w0 [{K}] and "
+                         f"sent [{K}, {K}], got {shapes}")
+    if flat.device.type == "cpu":
+        return fused_stale_mix_ref(flat, w, kept, sent, buf_t0, buf_w0)
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32,
+                               device=flat.device).contiguous()
+
+    wf, keptf, sentf = f32(w), f32(kept), f32(sent)
+    w2 = keptf * wf + buf_w0.to(torch.float32)
+    send_w = sentf @ wf
+    _build.check_cuda("fused_stale_mix", flat, buf_t0, wf, keptf, sentf, w2)
+    z2, send_t = torch.empty_like(flat), torch.empty_like(flat)
+    _build.launch("repro_stale_mix", flat.data_ptr(), buf_t0.data_ptr(),
+                  _build.DTYPE_CODES[flat.dtype], wf.data_ptr(),
+                  keptf.data_ptr(), sentf.data_ptr(), w2.data_ptr(),
+                  z2.data_ptr(), send_t.data_ptr(), K, D)
+    fused_stale_mix.launches += 1
+    return z2, send_t, w2.to(w.dtype), send_w.to(w.dtype)
+
+
+fused_stale_mix.launches = 0

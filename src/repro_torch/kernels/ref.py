@@ -30,6 +30,22 @@ def fused_pushsum_mix_ref(flat: torch.Tensor, w: torch.Tensor, P, *,
     return mixed.to(flat.dtype), w2.to(w.dtype)
 
 
+def fused_stale_mix_ref(flat, w, kept, sent, buf_t0, buf_w0):
+    """Stale (async τ>0) exchange: re-bias θ = z·w, split kept/sent, merge
+    the delayed delivery, de-bias — returns (z', send_t, w', send_w)."""
+    keptf = torch.as_tensor(kept, dtype=torch.float32, device=flat.device)
+    sentf = torch.as_tensor(sent, dtype=torch.float32, device=flat.device)
+    wf = w.to(torch.float32)
+    theta = flat.to(torch.float32) * wf[:, None]
+    send_t = sentf @ theta
+    send_w = sentf @ wf
+    mixed = keptf[:, None] * theta + buf_t0.to(torch.float32)
+    w2 = keptf * wf + buf_w0.to(torch.float32)
+    z2 = mixed / w2[:, None]
+    return (z2.to(flat.dtype), send_t.to(flat.dtype), w2.to(w.dtype),
+            send_w.to(w.dtype))
+
+
 def noise_adam_step_ref(acc, noise, p, m, v, *, stddev, n_units, lr,
                         weight_decay=0.0, b1=0.9, b2=0.999, eps=1e-8,
                         c1=None, c2=None):

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain version, the
-wrappers' refusals, and a small federation through every kernel against
-the plain path on the same seed.
+wrappers' refusals, and small federations (sync, and async at staleness 2
+with dropout) through the kernels against the plain path on the same seed.
 
 Every test here needs a CUDA device and skips without one. The file
 imports torch and ``repro_torch`` only (no jax), so on a GPU machine
@@ -58,8 +58,16 @@ def test_kernel_matches_plain_at_main_shape(gen, name):
         P = P / P.sum(0, keepdim=True)
         flat = torch.randn((8, D), generator=gen, device="cuda")
         w = torch.rand(8, generator=gen, device="cuda") + 0.5
-        got = kernels.fused_pushsum_mix(flat, w, P)
-        want = ref.fused_pushsum_mix_ref(flat, w, P)
+        if name == "fused_pushsum_mix":
+            got = kernels.fused_pushsum_mix(flat, w, P)
+            want = ref.fused_pushsum_mix_ref(flat, w, P)
+        else:
+            assert name == "fused_stale_mix", name
+            kept = torch.diagonal(P).contiguous()
+            args = (flat, w, kept, P - torch.diag(kept), 0.1 * flat.flip(0),
+                    0.5 * torch.rand(8, generator=gen, device="cuda"))
+            got = kernels.fused_stale_mix(*args)
+            want = ref.fused_stale_mix_ref(*args)
     torch.cuda.synchronize()
     for g, w_ in _pairs(got, want):
         torch.testing.assert_close(g, w_, **F32)
@@ -90,7 +98,8 @@ def test_small_federation_through_every_kernel(gen):
     steps = cfg.rounds * 3 * (40 // cfg.batch_size)
     assert kernels.launch_counts() == {
         "sumsq": steps * 10, "scale_accumulate": steps * 10,
-        "noise_adam_step": steps, "fused_pushsum_mix": cfg.rounds}
+        "noise_adam_step": steps, "fused_pushsum_mix": cfg.rounds,
+        "fused_stale_mix": 0}
     plain = run_federated("proxyfl", [spec] * 3, spec, data, data[0], cfg,
                           use_pallas=False)
     for a, b in zip(fused["clients"], plain["clients"]):
@@ -99,3 +108,28 @@ def test_small_federation_through_every_kernel(gen):
                             tree_leaves(getattr(b, role))):
                 torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-4)
     assert fused["epsilon"] == plain["epsilon"]
+
+
+def test_small_async_federation_through_the_stale_kernel(gen):
+    vm = get_vision_model("mlp")
+    shape = (6, 6, 1)
+    spec = ModelSpec("mlp", lambda g: vm.init(g, shape, 4), vm.apply)
+    data = [(torch.randn((40,) + shape, generator=gen, device="cuda"),
+             torch.randint(0, 4, (40,), generator=gen, device="cuda"))
+            for _ in range(3)]
+    cfg = ProxyFLConfig(n_clients=3, rounds=4, batch_size=10, local_steps=1,
+                        staleness=2, dropout_rate=0.25, use_pallas=True,
+                        dp=DPConfig(enabled=False))
+    kernels.reset_launch_counts()
+    fused = run_federated("proxyfl", [spec] * 3, spec, data, data[0], cfg,
+                          backend="async")
+    assert kernels.launch_counts() == {
+        "sumsq": 0, "scale_accumulate": 0, "noise_adam_step": 0,
+        "fused_pushsum_mix": 0, "fused_stale_mix": cfg.rounds}
+    plain = run_federated("proxyfl", [spec] * 3, spec, data, data[0], cfg,
+                          backend="async", use_pallas=False)
+    for a, b in zip(fused["clients"], plain["clients"]):
+        assert abs(a.w - b.w) <= 1e-5 + 1e-4 * abs(b.w)
+        for x, y in zip(tree_leaves(a.proxy_params),
+                        tree_leaves(b.proxy_params)):
+            torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-4)

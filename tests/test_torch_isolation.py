@@ -61,7 +61,7 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for():
     assert len(res["history"]) == 1 and len(res["clients"]) == 2
 
 
-@pytest.mark.parametrize("backend", ["shard_map", "async", "hier"])
+@pytest.mark.parametrize("backend", ["shard_map", "hier"])
 def test_unported_backends_name_the_roadmap_item(backend):
     spec, _, cfg = _tiny()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

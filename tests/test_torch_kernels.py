@@ -1,4 +1,4 @@
-"""The port's four kernels against the JAX package's Pallas kernels.
+"""The port's five kernels against the JAX package's Pallas kernels.
 
 On CPU tensors each ``repro_torch.kernels`` wrapper runs its plain torch
 version; the Pallas kernels run in interpret mode, as tests/test_kernels.py
@@ -18,6 +18,7 @@ from repro.kernels.dp_clip import scale_accumulate as jax_scale_accumulate  # no
 from repro.kernels.dp_clip import sumsq as jax_sumsq  # noqa: E402
 from repro.kernels.dp_step import noise_adam_step as jax_noise_adam_step  # noqa: E402
 from repro.kernels.pushsum_mix import fused_pushsum_mix as jax_mix  # noqa: E402
+from repro.kernels.pushsum_mix import fused_stale_mix as jax_stale_mix  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -111,6 +112,43 @@ def test_fused_pushsum_mix_main_shape():
     test_fused_pushsum_mix(8, 199_210, "float32")
 
 
+def _stale_args(K, D, dtype):
+    """flat, w, kept, sent, buf_t0, buf_w0 as tests/test_kernels.py builds
+    them (kept/sent split from a column-stochastic P, w in [0.3, 2.0],
+    buf_t0 = 0.1·N(0, 1), buf_w0 in [0, 0.5]), as jax and torch pairs."""
+    rng = np.random.default_rng(K * 11 + D)
+    P = rng.uniform(0.1, 1.0, (K, K))
+    P = P / P.sum(0, keepdims=True)
+    kept = np.diag(P).astype(np.float32)
+    sent = (P - np.diag(np.diag(P))).astype(np.float32)
+    flat = _pair(rng.standard_normal((K, D), dtype=np.float32), dtype)
+    w = _pair(rng.uniform(0.3, 2.0, K).astype(np.float32), dtype)
+    buf_t0 = _pair(0.1 * rng.standard_normal((K, D), dtype=np.float32), dtype)
+    buf_w0 = _pair(rng.uniform(0.0, 0.5, K).astype(np.float32), dtype)
+    kept, sent = (jnp.asarray(kept), torch.as_tensor(kept)), \
+        (jnp.asarray(sent), torch.as_tensor(sent))
+    args = (flat, w, kept, sent, buf_t0, buf_w0)
+    return [a[0] for a in args], [a[1] for a in args]
+
+
+@pytest.mark.parametrize("K", SIZES_K)
+@pytest.mark.parametrize("D", [1, 1_000, 65_537])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_stale_mix(K, D, dtype):
+    jargs, targs = _stale_args(K, D, dtype)
+    want = jax_stale_mix(*jargs, interpret=True)
+    got = kernels.fused_stale_mix(*targs)
+    assert [tuple(g.shape) for g in got] == [(K, D), (K, D), (K,), (K,)]
+    assert got[0].dtype == got[1].dtype == targs[0].dtype
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), **TOL[dtype])
+
+
+def test_fused_stale_mix_main_shape():
+    """The async path's exchange: K = 8 clients of the 199,210-wide mlp."""
+    test_fused_stale_mix(8, 199_210, "float32")
+
+
 def test_cpu_calls_launch_nothing():
     kernels.reset_launch_counts()
     x = torch.randn(1_000)
@@ -121,6 +159,9 @@ def test_cpu_calls_launch_nothing():
                             lr=1e-3, c1=1 - 0.9 ** t, c2=1 - 0.999 ** t)
     kernels.fused_pushsum_mix(x.reshape(4, 250), torch.ones(4),
                               torch.eye(4))
+    kernels.fused_stale_mix(x.reshape(4, 250), torch.ones(4), torch.ones(4),
+                            torch.zeros(4, 4), x.reshape(4, 250),
+                            torch.zeros(4))
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
 
 
@@ -135,6 +176,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         kernels.fused_pushsum_mix(x.reshape(4, 4), torch.ones(3),
                                   torch.eye(4))
+    z, w = x.reshape(4, 4), torch.ones(4)
+    with pytest.raises(ValueError):   # buf_t0 of another dtype
+        kernels.fused_stale_mix(z, w, w, torch.zeros(4, 4), z.bfloat16(), w)
+    with pytest.raises(ValueError):   # sent not [K, K]
+        kernels.fused_stale_mix(z, w, w, torch.zeros(4), z, w)
+    with pytest.raises(TypeError):
+        kernels.fused_stale_mix(z.double(), w, w, torch.zeros(4, 4),
+                                z.double(), w)
     t = torch.tensor(1.0)
     with pytest.raises(ValueError):
         kernels.noise_adam_step(x, x, x, x, x.bfloat16(), stddev=1.0,
