@@ -6,21 +6,34 @@
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch and
    CUDA versions, then builds the hand-written kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` and prints the build time.
-2. Holds each of the five kernels against its plain PyTorch version on the
-   card, at the main paths' shapes (D = 199,210 f32, K = 8) and at ragged
-   sizes, with the kernel tests' tolerances (f32 rtol = atol = 2e-5, bf16
-   2e-2), and times it over CUDA-event-timed launches beside its plain
-   version, one PyTorch library call computing the same function where
-   there is one, and its bound (bytes over 3.35 TB/s, operations over 67
-   TFLOP/s f32): once eagerly (what a caller pays, host launch cost
-   included) and once replayed from a CUDA graph (the device's time per
-   call).
+2. Holds each of the nine kernels against its plain PyTorch version on the
+   card, at the main paths' shapes (D = 199,210 f32, K = 8; the LLM
+   kernels at the full widths of qwen2-7b, gemma3-4b and falcon-mamba-7b)
+   and at ragged sizes, with the kernel tests' tolerances (f32 rtol = atol
+   = 2e-5, bf16 2e-2, the mamba scan 2e-4), and times it over
+   CUDA-event-timed launches (200, or 10 at the LLM widths) beside its
+   plain version, one PyTorch library call computing the same function
+   where there is one, and its bound (bytes over 3.35 TB/s, operations
+   over 67 TFLOP/s f32, or 989 TFLOP/s for bf16 attention): once eagerly
+   (what a caller pays, host launch cost included) and once replayed from a
+   CUDA graph (the device's time per call).
+   Then drives the ops API (``repro_torch.kernels``) once at full width:
+   ``gqa_flash_attention`` (qwen2-7b: S = 4,096, 28 query and 4 KV heads,
+   D = 128, bf16, causal), ``rmsnorm`` (d = 3,584 over 4,096 bf16 rows),
+   ``mamba_scan`` (di = 8,192, ds = 16, S = 4,096, f32), ``noise_sgd_step``
+   and ``tree_clip_accumulate`` (the mlp proxy, D = 199,210), with the
+   launch counters reset just before and read just after (exactly one
+   launch of each kernel, one ``sumsq`` and one ``scale_accumulate``), each
+   result finite and within tolerance of its plain version; then gemma3-4b's
+   local attention (D = 256, window 1,024), rmsnorm in f32 and the flat
+   ``clip_accumulate``, one launch window each.
 3. Times the first client step of the process (set-up cost), then
    drives the sync DP path: ``run_federated("proxyfl", ...)`` on the
    paper's MNIST protocol (synthetic data), mlp 784-200-200-10, 8 clients
    of 1,000 examples, batch 250, DP sigma = 1, C = 1, ``use_pallas=True``,
    two rounds on ``cuda``, with the kernel launch counters reset just
-   before and read just after; checks the exact launch counts, finite
+   before and read just after; checks the exact launch counts (none of the
+   ops API's four kernels), finite
    losses, accuracy above chance, the pinned epsilon, and that the plain
    path on the same seed reaches the same params at the conformance
    ``close`` grade.
@@ -52,6 +65,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -65,13 +79,21 @@ EPSILON_2_ROUNDS = 6.528418259356986
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SCAN_TOL = 2e-4             # tests/test_kernels.py's mamba scan tolerance
 MAIN_D, MAIN_K = 199_210, 8
 RAGGED_D = (1, 1_000, 65_537)
 RAGGED_K = (1, 3, 8, 33)
 TIMED_LAUNCHES = 200
+FULL_WIDTH_CALLS = 10        # calls timed for the LLM-width kernels
 CLOSE = dict(atol=1e-5, rtol=1e-4)   # tests/test_conformance.py "close"
 ASYNC_ROUNDS, ASYNC_TAU = 6, 2   # fig_async runs 30 rounds; cut to 6
+# the ops API at the full widths of models the repo has (one layer's call)
+QWEN_ATTN = dict(B=1, S=4_096, Hq=28, Hkv=4, D=128)       # configs/qwen2_7b.py
+GEMMA_LOCAL = dict(B=1, S=4_096, Hq=8, Hkv=4, D=256, window=1_024)  # gemma3_4b
+RMS_ROWS, RMS_D = 4_096, 3_584                            # qwen2-7b d_model
+MAMBA = dict(B=1, S=4_096, di=8_192, ds=16)   # configs/falcon_mamba_7b.py
 
 
 def card_line() -> str:
@@ -82,26 +104,26 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def cuda_us(fn) -> float:
-    """Mean µs per call of ``fn`` over TIMED_LAUNCHES back-to-back calls,
-    timed with CUDA events after a warm-up."""
-    for _ in range(10):
+def cuda_us(fn, n: int = TIMED_LAUNCHES) -> float:
+    """Mean µs per call of ``fn`` over n back-to-back calls, timed with
+    CUDA events after a warm-up of min(n, 10) calls."""
+    for _ in range(min(n, 10)):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(TIMED_LAUNCHES):
+    for _ in range(n):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) * 1e3 / TIMED_LAUNCHES
+    return start.elapsed_time(end) * 1e3 / n
 
 
-def graph_us(fn) -> float:
-    """Mean µs per call of ``fn`` replayed from a CUDA graph of
-    TIMED_LAUNCHES captured calls: the device's time per call without the
-    host's launch cost (``cuda_us`` includes it)."""
+def graph_us(fn, n: int = TIMED_LAUNCHES) -> float:
+    """Mean µs per call of ``fn`` replayed from a CUDA graph of n captured
+    calls: the device's time per call without the host's launch cost
+    (``cuda_us`` includes it)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -110,7 +132,7 @@ def graph_us(fn) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(TIMED_LAUNCHES):
+        for _ in range(n):
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -121,7 +143,7 @@ def graph_us(fn) -> float:
         graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) * 1e3 / (5 * TIMED_LAUNCHES)
+    return start.elapsed_time(end) * 1e3 / (5 * n)
 
 
 def max_err(got, want) -> float:
@@ -129,29 +151,106 @@ def max_err(got, want) -> float:
     return float((got - want).abs().max())
 
 
-def check(name, got, want, dtype) -> float:
-    """assert_close at the kernel tolerance; the largest abs error."""
+def check(name, got, want, dtype, tol: Optional[float] = None) -> float:
+    """assert_close at the kernel tolerance (``tol`` where the kernel's
+    tests state their own); the largest abs error."""
+    tol = TOL[dtype] if tol is None else tol
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype],
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol,
                                    msg=lambda m: f"{name}: {m}")
     return max(max_err(g, w) for g, w in zip(got, want))
 
 
-def bound_us(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+def bound_us(n_bytes: float, n_ops: float, peak: float = F32_OPS_PER_S):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak
     return max(t_bytes, t_ops) * 1e6, "bytes" if t_bytes >= t_ops else \
         "operations"
+
+
+class Case(NamedTuple):
+    """One check of a kernel against its plain version; the first case of
+    each ``row`` (the main shape) is also timed."""
+    name: str
+    dtype: torch.dtype
+    shape: tuple
+    kern: Callable
+    plain: Callable
+    lib: Optional[Callable]
+    n_bytes: float
+    n_ops: float
+    peak: float = F32_OPS_PER_S     # the ops rate of the bound
+    tol: Optional[float] = None     # None: TOL[dtype]
+    calls: int = TIMED_LAUNCHES     # calls timed per column
+    plain_calls: Optional[int] = None   # None: calls
+    plain_graph: bool = True        # False: the plain version's graph
+    row: Optional[str] = None       # the timed row it opens (None: name)
+
+
+def attention_pairs(S: int, causal: bool, window: Optional[int]) -> int:
+    """(query, key) pairs the attention mask keeps at length S."""
+    qp = np.arange(S)
+    hi = qp if causal else np.full(S, S - 1)
+    lo = np.zeros(S, np.int64) if window is None else \
+        np.maximum(qp - window + 1, 0)
+    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 # ---------------------------------------------------------------------------
 # the kernels against their plain versions
 
 
+def attention_inputs(gen, B, S, Hq, Hkv, D, dtype, window=None,
+                     causal=True):
+    """q [B, S, Hq, D], k, v [B, S, Hkv, D] on the card, and the library
+    yardstick: scaled_dot_product_attention on [B, H, S, D] views with the
+    KV heads repeated beforehand (an explicit mask for a window)."""
+    dev = torch.device("cuda")
+    q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    kr, vr = (t.repeat_interleave(Hq // Hkv, dim=2).transpose(1, 2)
+              for t in (k, v))
+    qt = q.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window is None:
+        def lib():
+            return sdpa(qt, kr, vr, is_causal=causal)
+    else:
+        pos = torch.arange(S, device=dev)
+        mask = (pos[:, None] - pos[None, :]) < window
+        if causal:
+            mask &= pos[None, :] <= pos[:, None]
+
+        def lib():
+            return sdpa(qt, kr, vr, attn_mask=mask)
+    return q, k, v, lib
+
+
+def attention_cost(B, S, Hq, Hkv, D, dtype, window=None, causal=True):
+    """(bytes, operations) of one attention call: q, k, v, out each once;
+    4·D flops per kept (query, key) pair."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    return (2 * B * S * Hq * D * es + 2 * B * S * Hkv * D * es,
+            4 * D * B * Hq * attention_pairs(S, causal, window))
+
+
+def mamba_inputs(gen, B, S, di, ds, dtype=torch.float32):
+    """dt = softplus(N(0, 1)), x, B, C ~ N(0, 1), A = −exp(N(0, 1)), as
+    tests/test_kernels.py draws them."""
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(randn(B, S, di))
+    return (dt, randn(B, S, di).to(dtype), randn(B, S, ds), randn(B, S, ds),
+            -torch.exp(randn(di, ds)))
+
+
 def kernel_cases(gen):
-    """Yield (name, dtype, shape, kernel_fn, plain_fn, library_fn, bytes,
-    ops) per checked case; the main-path shape comes first per kernel."""
+    """Yield a :class:`Case` per checked shape; the main-path shape comes
+    first per kernel."""
     from repro_torch import kernels
     from repro_torch.kernels import ref
     dev = torch.device("cuda")
@@ -163,13 +262,13 @@ def kernel_cases(gen):
         for dt in (torch.float32, torch.bfloat16):
             es = torch.tensor([], dtype=dt).element_size()
             x = randn(D, dtype=dt)
-            yield ("sumsq", dt, (D,), lambda x=x: kernels.sumsq(x),
+            yield Case("sumsq", dt, (D,), lambda x=x: kernels.sumsq(x),
                    lambda x=x: ref.sumsq_ref(x),
                    (lambda x=x: torch.dot(x, x)) if dt == torch.float32
                    else None, D * es + 4, 2 * D)
             acc, g = randn(D), randn(D, dtype=dt)
             scale = torch.rand((), generator=gen, device=dev)
-            yield ("scale_accumulate", dt, (D,),
+            yield Case("scale_accumulate", dt, (D,),
                    lambda a=acc, g=g, s=scale: kernels.scale_accumulate(a, g, s),
                    lambda a=acc, g=g, s=scale: ref.scale_accumulate_ref(a, g, s),
                    (lambda a=acc, g=g, s=scale: torch.addcmul(a, g, s))
@@ -181,7 +280,7 @@ def kernel_cases(gen):
                   b1=0.9, b2=0.999, eps=1e-8, c1=1 - 0.9 ** t,
                   c2=1 - 0.999 ** t)
         args = (acc, noise, p, m, v)
-        yield ("noise_adam_step", torch.float32, (D,),
+        yield Case("noise_adam_step", torch.float32, (D,),
                lambda a=args, hp=hp: kernels.noise_adam_step(*a, **hp),
                lambda a=args, hp=hp: ref.noise_adam_step_ref(*a, **hp),
                None, 32 * D + 24, 19 * D)
@@ -195,7 +294,7 @@ def kernel_cases(gen):
             es = torch.tensor([], dtype=dt).element_size()
             flat = randn(K, D, dtype=dt)
             for debias in (True, False):
-                yield ("fused_pushsum_mix", dt, (K, D, debias),
+                yield Case("fused_pushsum_mix", dt, (K, D, debias),
                        lambda f=flat, P=P, w=w, d=debias:
                        kernels.fused_pushsum_mix(f, w, P, debias=d),
                        lambda f=flat, P=P, w=w, d=debias:
@@ -216,7 +315,7 @@ def kernel_cases(gen):
             buf_w0 = torch.rand((K,), generator=gen, device=dev) * 0.5
             args = (randn(K, D, dtype=dt), w.to(dt), kept, sent,
                     (0.1 * randn(K, D)).to(dt), buf_w0.to(dt))
-            yield ("fused_stale_mix", dt, (K, D),
+            yield Case("fused_stale_mix", dt, (K, D),
                    lambda a=args: kernels.fused_stale_mix(*a),
                    lambda a=args: ref.fused_stale_mix_ref(*a),
                    # the library yardstick is the send product alone
@@ -224,6 +323,92 @@ def kernel_cases(gen):
                    if dt == torch.float32 else None,
                    4 * K * D * es + 4 * K * K + 5 * K * es + 8 * K,
                    2 * K * K * D + 4 * K * D)
+    yield from llm_kernel_cases(gen)
+
+
+def llm_kernel_cases(gen):
+    """The ops API's kernels: noise_sgd_step at the mlp proxy's width, the
+    three LLM kernels at the full widths of qwen2-7b, gemma3-4b and
+    falcon-mamba-7b, then ragged sizes."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4)
+    for D in (MAIN_D,) + RAGGED_D:
+        for dt in (torch.float32, torch.bfloat16):
+            es = torch.tensor([], dtype=dt).element_size()
+            args = (randn(D), randn(D), randn(D, dtype=dt))
+            yield Case("noise_sgd_step", dt, (D,),
+                       lambda a=args: kernels.noise_sgd_step(*a, **hp),
+                       lambda a=args: ref.noise_sgd_step_ref(*a, **hp),
+                       None, 8 * D + 2 * D * es + 16, 7 * D)
+
+    for rows, d, dt in [(RMS_ROWS, RMS_D, torch.bfloat16),
+                        (RMS_ROWS, RMS_D, torch.float32), (1, 64, torch.float32),
+                        (77, 1_000, torch.float32), (77, 1_000, torch.bfloat16),
+                        (300, 33, torch.bfloat16), (2, 8_192, torch.float32)]:
+        es = torch.tensor([], dtype=dt).element_size()
+        x, g = randn(rows, d, dtype=dt), randn(d, dtype=dt)
+        yield Case("rmsnorm", dt, (rows, d),
+                   lambda x=x, g=g: kernels.rmsnorm(x, g),
+                   lambda x=x, g=g: ref.rmsnorm_ref(x, g),
+                   lambda x=x, g=g, d=d: torch.nn.functional.rms_norm(
+                       x, (d,), weight=g, eps=1e-6),
+                   2 * rows * d * es + d * es, 4 * rows * d,
+                   row="rmsnorm" if dt == torch.bfloat16 else "rmsnorm f32")
+
+    bf16 = torch.bfloat16
+    for label, shape in (("flash_attention", QWEN_ATTN),
+                         ("flash_attention window", GEMMA_LOCAL)):
+        q, k, v, lib = attention_inputs(gen, dtype=bf16, **shape)
+        win = shape.get("window")
+        yield Case("flash_attention", bf16, tuple(shape.values()),
+                   lambda q=q, k=k, v=v, w=win:
+                   kernels.gqa_flash_attention(q, k, v, window=w),
+                   lambda q=q, k=k, v=v, w=win:
+                   ref.gqa_flash_attention_ref(q, k, v, window=w),
+                   lib, *attention_cost(dtype=bf16, **shape),
+                   peak=BF16_OPS_PER_S, calls=FULL_WIDTH_CALLS, row=label)
+    for D in (32, 64, 128, 256):
+        for S, G, causal, win in [(1, 1, True, None), (100, 2, False, None),
+                                  (257, 7, True, 64), (130, 1, False, 30)]:
+            for dt in (torch.float32, bf16):
+                q, k, v, _ = attention_inputs(gen, 2, S, G, 1, D, dt,
+                                              window=win, causal=causal)
+                kw = dict(causal=causal, window=win)
+                if G == 1:   # the [B, H, S, D] entry point
+                    args = tuple(t.transpose(1, 2).contiguous()
+                                 for t in (q, k, v))
+                    kern = lambda a=args, kw=kw: kernels.flash_attention(*a, **kw)
+                    plain = lambda a=args, kw=kw: ref.flash_attention_ref(*a, **kw)
+                else:
+                    kern = lambda a=(q, k, v), kw=kw: \
+                        kernels.gqa_flash_attention(*a, **kw)
+                    plain = lambda a=(q, k, v), kw=kw: \
+                        ref.gqa_flash_attention_ref(*a, **kw)
+                yield Case("flash_attention", dt, (2, S, G, 1, D, causal, win),
+                           kern, plain, None, 0, 0)
+
+    B, S, di, ds = MAMBA.values()
+    args = mamba_inputs(gen, B, S, di, ds)
+    yield Case("mamba_scan", torch.float32, (B, S, di, ds),
+               lambda a=args: kernels.mamba_scan(*a),
+               lambda a=args: ref.mamba_scan_ref(*a), None,
+               4 * (3 * B * S * di + 2 * B * S * ds + di * ds),
+               6 * B * S * di * ds, tol=SCAN_TOL, calls=FULL_WIDTH_CALLS,
+               plain_calls=2, plain_graph=False)
+    for B, S, di, ds in [(2, 100, 100, 16), (1, 257, 1_024, 4),
+                         (2, 33, 64, 64), (1, 1, 8, 8)]:
+        for dt in (torch.float32, bf16):
+            args = mamba_inputs(gen, B, S, di, ds, dt)
+            yield Case("mamba_scan", dt, (B, S, di, ds),
+                       lambda a=args: kernels.mamba_scan(*a),
+                       lambda a=args: ref.mamba_scan_ref(*a), None, 0, 0,
+                       tol=SCAN_TOL if dt == torch.float32 else None)
 
 
 SOURCES = {
@@ -243,30 +428,182 @@ SOURCES = {
     "fused_stale_mix": ("src/repro_torch/kernels/csrc/stale_mix.cu",
                         "src/repro/kernels/pushsum_mix.py:117",
                         "src/repro/kernels/pushsum_mix.py::fused_stale_mix"),
+    "noise_sgd_step": ("src/repro_torch/kernels/csrc/dp_step.cu",
+                       "src/repro/kernels/dp_step.py:62",
+                       "src/repro/kernels/dp_step.py::noise_sgd_step"),
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:48",
+                "src/repro/kernels/rmsnorm.py::rmsnorm"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:106",
+                        "src/repro/kernels/flash_attention.py::"
+                        "flash_attention"),
+    "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:74",
+                   "src/repro/kernels/mamba_scan.py::mamba_scan"),
 }
 
 
 def check_kernels():
-    """Every case checked; the main-path f32 case of each kernel (its
-    first case) timed."""
+    """Every case checked; the first case of each row (the main-path shape
+    of each kernel) timed."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for name, dt, shape, kern, plain, lib, n_bytes, n_ops in kernel_cases(gen):
-        err = check(f"{name} {dt} {shape}", kern(), plain(), dt)
+    for c in kernel_cases(gen):
+        err = check(f"{c.name} {c.dtype} {c.shape}", c.kern(), c.plain(),
+                    c.dtype, c.tol)
         torch.cuda.synchronize()
-        print(f"check {name:18s} {str(dt):15s} {str(shape):22s} "
+        print(f"check {c.name:18s} {str(c.dtype):15s} {str(c.shape):22s} "
               f"max_abs_err {err:.3e}")
-        if name in rows:
+        row = c.row or c.name
+        if row in rows:
             continue
-        b_us, b_by = bound_us(n_bytes, n_ops)
-        rows[name] = dict(err=err, kernel_us=cuda_us(kern),
-                          plain_us=cuda_us(plain), bound_us=b_us,
-                          bound_by=b_by,
-                          library_us=cuda_us(lib) if lib else None,
-                          kernel_graph_us=graph_us(kern),
-                          plain_graph_us=graph_us(plain),
-                          library_graph_us=graph_us(lib) if lib else None)
+        b_us, b_by = bound_us(c.n_bytes, c.n_ops, c.peak)
+        pn = c.plain_calls or c.calls
+        rows[row] = dict(
+            shape=c.shape, dtype=str(c.dtype), err=err,
+            kernel_us=cuda_us(c.kern, c.calls), plain_us=cuda_us(c.plain, pn),
+            bound_us=b_us, bound_by=b_by,
+            library_us=cuda_us(c.lib, c.calls) if c.lib else None,
+            kernel_graph_us=graph_us(c.kern, c.calls),
+            plain_graph_us=graph_us(c.plain, pn) if c.plain_graph else None,
+            library_graph_us=graph_us(c.lib, c.calls) if c.lib else None)
+        if not c.plain_graph:
+            print(f"{row}: the plain version's CUDA-graph time is not "
+                  f"measured: it is a Python loop of {c.shape[1]:,} steps of "
+                  "about ten torch ops each, too many nodes for a graph of "
+                  "repeated calls")
+        torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the ops API
+
+
+def counted(fn):
+    """Launch counts of one call of ``fn``: counters reset just before,
+    read just after; returns (result, counts)."""
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts()
+
+
+def expect(counts, **want):
+    full = dict.fromkeys(counts, 0)
+    full.update(want)
+    assert counts == full, (counts, full)
+
+
+def ops_api():
+    """Each public op of the ops API once at full width, through the entry
+    points a caller uses, with the launch counts pinned: gqa_flash_attention
+    (qwen2-7b causal), rmsnorm (qwen2-7b bf16), mamba_scan
+    (falcon-mamba-7b), noise_sgd_step and tree_clip_accumulate (the mlp
+    proxy's tree) in one window; then gemma3-4b's windowed attention,
+    rmsnorm in f32 and the flat clip_accumulate, one window each. Every
+    result is finite, of the expected shape, and agrees with its plain
+    version."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    from repro_torch.nn.modules import (tree_flatten_vector, tree_leaves,
+                                        tree_unflatten_vector)
+    from repro_torch.nn.vision import get_vision_model
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dev = torch.device("cuda")
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    bf16 = torch.bfloat16
+    q, k, v, _ = attention_inputs(gen, dtype=bf16, **QWEN_ATTN)
+    x, g = randn(RMS_ROWS, RMS_D, dtype=bf16), randn(RMS_D, dtype=bf16)
+    scan = mamba_inputs(gen, *MAMBA.values())
+    acc, noise, p = randn(MAIN_D), randn(MAIN_D), randn(MAIN_D)
+    hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4)
+    like = get_vision_model("mlp").init(
+        torch.Generator(device=dev).manual_seed(0), (28, 28, 1), 10)
+    grads = tree_unflatten_vector(randn(MAIN_D), like)
+    zeros = tree_unflatten_vector(torch.zeros(MAIN_D, device=dev), like)
+
+    t0 = time.perf_counter()
+    out, counts = counted(lambda: dict(
+        attn=kernels.gqa_flash_attention(q, k, v),
+        norm=kernels.rmsnorm(x, g),
+        scan=kernels.mamba_scan(*scan),
+        sgd=kernels.noise_sgd_step(acc, noise, p, **hp),
+        clip=kernels.tree_clip_accumulate(zeros, grads, 1.0)))
+    seconds = time.perf_counter() - t0
+    print(f"ops API: one call of each op in {seconds:.3f} s; launches "
+          f"{counts}")
+    expect(counts, flash_attention=1, rmsnorm=1, mamba_scan=1,
+           noise_sgd_step=1, sumsq=1, scale_accumulate=1)
+
+    want = dict(attn=ref.gqa_flash_attention_ref(q, k, v),
+                norm=ref.rmsnorm_ref(x, g),
+                scan=ref.mamba_scan_ref(*scan),
+                sgd=ref.noise_sgd_step_ref(acc, noise, p, **hp))
+    for key, tol in (("attn", None), ("norm", None), ("scan", SCAN_TOL),
+                     ("sgd", None)):
+        got = out[key]
+        assert got.shape == want[key].shape and got.dtype == want[key].dtype
+        assert bool(torch.isfinite(got).all()), key
+        err = check(f"ops API {key}", got, want[key], got.dtype, tol)
+        print(f"ops API: {key} {tuple(got.shape)} {got.dtype} agrees with "
+              f"its plain version, max abs err {err:.3e}")
+    flat = ref.clip_accumulate_ref(torch.zeros(MAIN_D, device=dev),
+                                   tree_flatten_vector(grads), 1.0)
+    for a, b in zip(tree_leaves(out["clip"]),
+                    tree_leaves(tree_unflatten_vector(flat, like))):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    norm = float(torch.linalg.vector_norm(tree_flatten_vector(out["clip"])))
+    assert abs(norm - 1.0) < 1e-5, norm   # clipped to C = 1
+    print(f"ops API: tree_clip_accumulate over {len(tree_leaves(like))} "
+          f"leaves agrees with the plain composite; clipped norm {norm:.6f}")
+    del out, want
+
+    # where the window's time goes on the device
+    wall_ms, on_device = device_profile(lambda: (
+        kernels.gqa_flash_attention(q, k, v), kernels.rmsnorm(x, g),
+        kernels.mamba_scan(*scan), kernels.noise_sgd_step(acc, noise, p, **hp),
+        kernels.tree_clip_accumulate(zeros, grads, 1.0)))
+    busy = {}
+    for e in on_device:
+        name = e.name.replace("(anonymous namespace)::", "")
+        key = name.split("<")[0].split("(")[0].split("::")[-1]
+        busy[key] = busy.get(key, 0.0) + e.self_device_time_total
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+    print(f"ops API profile: one call of each op: wall {wall_ms:.3f} ms, "
+          f"device busy {sum(busy.values()) / 1e3:.3f} ms "
+          f"({sum(busy.values()) / 10 / wall_ms:.2f}%), {len(on_device)} "
+          "device kernels and copies; device us by kernel "
+          + ", ".join(f"{n} {t:.3f}" for n, t in top))
+    del q, k, v, x, g, scan
+
+    q, k, v, _ = attention_inputs(gen, dtype=bf16, **GEMMA_LOCAL)
+    w = GEMMA_LOCAL["window"]
+    got, c = counted(lambda: kernels.gqa_flash_attention(q, k, v, window=w))
+    expect(c, flash_attention=1)
+    err = check("ops API gemma window", got,
+                ref.gqa_flash_attention_ref(q, k, v, window=w), bf16)
+    x, g = randn(RMS_ROWS, RMS_D), randn(RMS_D)
+    got, c = counted(lambda: kernels.rmsnorm(x, g))
+    expect(c, rmsnorm=1)
+    err_f32 = check("ops API rmsnorm f32", got, ref.rmsnorm_ref(x, g),
+                    torch.float32)
+    got, c = counted(lambda: kernels.clip_accumulate(acc, noise, 1.0))
+    expect(c, sumsq=1, scale_accumulate=1)
+    torch.testing.assert_close(got, ref.clip_accumulate_ref(acc, noise, 1.0),
+                               rtol=1e-5, atol=1e-6)
+    print(f"ops API: gemma3-4b local attention (window {w}) max abs err "
+          f"{err:.3e}, rmsnorm f32 {err_f32:.3e}, clip_accumulate agrees; "
+          "one launch window each")
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -354,11 +691,9 @@ def main_path(spec, data, test, cfg):
     print(f"main path: launches {counts}")
 
     steps = cfg.rounds * K * (per_client // cfg.batch_size)
-    want = {"sumsq": steps * cfg.batch_size,
-            "scale_accumulate": steps * cfg.batch_size,
-            "noise_adam_step": steps, "fused_pushsum_mix": cfg.rounds,
-            "fused_stale_mix": 0}
-    assert counts == want, (counts, want)
+    expect(counts, sumsq=steps * cfg.batch_size,
+           scale_accumulate=steps * cfg.batch_size, noise_adam_step=steps,
+           fused_pushsum_mix=cfg.rounds)
     assert all(math.isfinite(v) for v in losses), losses
     assert priv.mean() > 0.2, priv
     assert all(e == EPSILON_2_ROUNDS for e in res["epsilon"]), res["epsilon"]
@@ -724,6 +1059,7 @@ def main() -> int:
           f"(nvcc, sm_90a, {_build.BUILD_ROOT})")
 
     rows = check_kernels()
+    ops_counts = ops_api()
     setup = mnist_setup()
     spec, data, test, cfg = setup
     cold_step(*setup)
@@ -735,6 +1071,9 @@ def main() -> int:
 
     # each kernel's launches on the path that runs it
     counts = dict(counts, fused_stale_mix=async_counts["fused_stale_mix"])
+    for name in ("noise_sgd_step", "rmsnorm", "flash_attention",
+                 "mamba_scan"):
+        counts[name] = ops_counts[name]
     out = []
     for name, (source, replaces, tpu_kernel) in SOURCES.items():
         r = rows[name]
@@ -750,18 +1089,28 @@ def main() -> int:
             "kernel_us": r["kernel_us"], "plain_us": r["plain_us"],
             "bound_us": r["bound_us"], "library_us": lib_us,
             "graph_ms": r["kernel_graph_us"] / 1e3,
-            "plain_graph_ms": r["plain_graph_us"] / 1e3,
+            "plain_graph_ms": None if r["plain_graph_us"] is None
+            else r["plain_graph_us"] / 1e3,
             "library_graph_ms": None if r["library_graph_us"] is None
-            else r["library_graph_us"] / 1e3})
-        lib_graph = r["library_graph_us"]
-        print(f"{name:18s} per call, eager: kernel {r['kernel_us']:8.3f} us, "
-              f"plain {r['plain_us']:8.3f} us, library "
-              f"{'-' if lib_us is None else f'{lib_us:8.3f} us'}; from a CUDA "
-              f"graph: kernel {r['kernel_graph_us']:8.3f} us, plain "
-              f"{r['plain_graph_us']:8.3f} us, library "
-              f"{'-' if lib_graph is None else f'{lib_graph:8.3f} us'}; "
-              f"bound {r['bound_us']:7.3f} us ({r['bound_by']}); launches "
-              f"{counts[name]}")
+            else r["library_graph_us"] / 1e3,
+            "shape": r["shape"], "dtype": r["dtype"]})
+        if name == "flash_attention":
+            out[-1]["window_row"] = rows["flash_attention window"]
+        if name == "rmsnorm":
+            out[-1]["f32_row"] = rows["rmsnorm f32"]
+    for row, r in rows.items():
+        lib_us, lib_graph = r["library_us"], r["library_graph_us"]
+        plain_graph = r["plain_graph_us"]
+        print(f"{row:22s} {r['dtype']:14s} {str(r['shape']):28s} per call, "
+              f"eager: kernel {r['kernel_us']:10.3f} us, plain "
+              f"{r['plain_us']:12.3f} us, library "
+              f"{'-' if lib_us is None else f'{lib_us:10.3f} us'}; from a "
+              f"CUDA graph: kernel {r['kernel_graph_us']:10.3f} us, plain "
+              f"{'not measured' if plain_graph is None else f'{plain_graph:10.3f} us'}"
+              f", library "
+              f"{'-' if lib_graph is None else f'{lib_graph:10.3f} us'}; "
+              f"bound {r['bound_us']:9.3f} us ({r['bound_by']}); launches "
+              f"{counts.get(row, '-')}")
     print(f"main path rounds/s {rounds_per_s:.4f} on {card}")
     print(f"async path engine rounds/s {async_rates[True]:.4f} (plain path "
           f"{async_rates[False]:.4f}, means of two runs each) on {card}")

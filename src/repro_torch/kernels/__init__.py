@@ -1,5 +1,6 @@
-"""Hand-written Hopper kernels of the round hot path, each beside its plain
-PyTorch version in :mod:`.ref`.
+"""Hand-written Hopper kernels, each beside its plain PyTorch version in
+:mod:`.ref`: the counterpart of the JAX package's ``repro.kernels`` public
+API (every name of its ``__all__``).
 
 Dispatch policy
 ---------------
@@ -7,9 +8,13 @@ A wrapper launches its CUDA kernel (``csrc/*.cu``, built by ``nvcc`` for
 ``sm_90a`` at first use, see :mod:`._build`) when its tensors lie on a CUDA
 device, and runs the plain version only when they lie on the CPU. There is
 no fallback: a CUDA tensor the kernel does not take raises.
+:func:`default_interpret` and :func:`resolve_interpret` state that policy
+where the JAX package chose interpret mode by platform.
 
-Kernel → path map (the ``ProxyFLConfig.use_pallas`` path)
----------------------------------------------------------
+Kernel → path map
+-----------------
+The round hot path (``ProxyFLConfig.use_pallas``):
+
 - :func:`sumsq` / :func:`scale_accumulate` — per-example clip and
   accumulate of DP-SGD (``repro_torch.core.dp``).
 - :func:`noise_adam_step` — noise add, clipped mean, weight decay and Adam
@@ -20,24 +25,68 @@ Kernel → path map (the ``ProxyFLConfig.use_pallas`` path)
   staleness τ>0: re-bias, send, merge the delayed delivery, de-bias
   (``repro_torch.core.gossip.stale_mix_apply``).
 
+The ops API (:mod:`.ops`; no training or serving path calls these, in the
+port as in the reference):
+
+- :func:`noise_sgd_step` — noise add, clipped mean, weight decay and SGD
+  in one pass.
+- :func:`clip_accumulate` / :func:`tree_clip_accumulate` — Eq. (7) clip
+  and accumulate on a flat vector or a parameter tree (``sumsq`` then
+  ``scale_accumulate``; no kernel of their own).
+- :func:`rmsnorm`, :func:`flash_attention` / :func:`gqa_flash_attention`
+  and :func:`mamba_scan` — the LLM forward hot spots (norm, prefill
+  attention, selective scan) as standalone kernels.
+
 Each wrapper counts its kernel launches in a plain integer attribute
 ``launches``; :func:`launch_counts` and :func:`reset_launch_counts` read and
 clear them all.
 """
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
 
 from . import ref
-from .dp_clip import scale_accumulate, sumsq
-from .dp_step import noise_adam_step
+from .dp_clip import clip_accumulate, scale_accumulate, sumsq
+from .dp_step import noise_adam_step, noise_sgd_step
+from .flash_attention import flash_attention
+from .mamba_scan import mamba_scan
+from .ops import gqa_flash_attention, tree_clip_accumulate
 from .pushsum_mix import fused_pushsum_mix, fused_stale_mix
+from .rmsnorm import rmsnorm
 
 KERNELS = {
     "sumsq": sumsq,
     "scale_accumulate": scale_accumulate,
+    "noise_sgd_step": noise_sgd_step,
     "noise_adam_step": noise_adam_step,
     "fused_pushsum_mix": fused_pushsum_mix,
     "fused_stale_mix": fused_stale_mix,
+    "rmsnorm": rmsnorm,
+    "flash_attention": flash_attention,
+    "mamba_scan": mamba_scan,
 }
+
+
+def default_interpret(device="cuda") -> bool:
+    """Whether a wrapper runs the plain version (True: tensors on the CPU)
+    or launches its kernel (False: tensors on a CUDA device) — the port's
+    counterpart of the reference's platform default for interpret mode."""
+    dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cpu"
+
+
+def resolve_interpret(interpret: Optional[bool], device="cuda") -> bool:
+    """``None`` -> :func:`default_interpret`; an explicit bool must agree
+    with the device, since the device alone decides (no fallback)."""
+    default = default_interpret(device)
+    if interpret is not None and bool(interpret) != default:
+        raise ValueError(
+            f"interpret={interpret} on {torch.device(device)}: the plain "
+            "versions run only on CPU tensors and the kernels only on CUDA "
+            "tensors")
+    return default
 
 
 def launch_counts() -> Dict[str, int]:
@@ -49,6 +98,23 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "fused_pushsum_mix", "fused_stale_mix", "launch_counts",
-           "noise_adam_step", "ref", "reset_launch_counts",
-           "scale_accumulate", "sumsq"]
+__all__ = [
+    "ref",
+    "default_interpret",
+    "resolve_interpret",
+    "clip_accumulate",
+    "flash_attention",
+    "fused_pushsum_mix",
+    "fused_stale_mix",
+    "gqa_flash_attention",
+    "mamba_scan",
+    "noise_adam_step",
+    "noise_sgd_step",
+    "scale_accumulate",
+    "sumsq",
+    "tree_clip_accumulate",
+    "rmsnorm",
+    "KERNELS",
+    "launch_counts",
+    "reset_launch_counts",
+]

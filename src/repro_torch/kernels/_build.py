@@ -44,6 +44,19 @@ _SIGNATURES = {
                           ctypes.c_int64, ctypes.c_int, _P),
     "repro_stale_mix": (_P, _P, ctypes.c_int, _P, _P, _P, _P, _P, _P,
                         ctypes.c_int, ctypes.c_int64, _P),
+    "repro_noise_sgd_step": (_P, _P, _P, _P, ctypes.c_int, _P,
+                             ctypes.c_int64, _P),
+    "repro_rmsnorm": (_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int64,
+                      ctypes.c_int, ctypes.c_float, _P),
+    "repro_flash_attention": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                              ctypes.c_int64, ctypes.c_float, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, _P),
+    "repro_mamba_scan": (_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
+                         _P, ctypes.c_int, _P, _P, ctypes.c_int,
+                         ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -31,6 +31,21 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);  // round to nearest even, as torch's cast
 }
 
+// Element i of a buffer whose dtype is given by a runtime code, as f32; and
+// the store back. For staging loops, where the branch is uniform.
+__device__ __forceinline__ float load_f32(const void* p, int code,
+                                          int64_t i) {
+  return code == kBF16 ? __bfloat162float(((const __nv_bfloat16*)p)[i])
+                       : ((const float*)p)[i];
+}
+__device__ __forceinline__ void store_f32(void* p, int code, int64_t i,
+                                          float v) {
+  if (code == kBF16)
+    ((__nv_bfloat16*)p)[i] = __float2bfloat16_rn(v);
+  else
+    ((float*)p)[i] = v;
+}
+
 // Blocks for a grid-stride loop over n elements: one thread per element up
 // to a cap, so the launch shape depends on n alone (never on the device).
 inline int grid_for(int64_t n, int cap = 4096) {

@@ -1,5 +1,15 @@
-// Fused DP noise-add + clipped mean + weight decay + Adam step (the tail of
-// the paper's Eq. 7 chain).
+// Fused DP noise-add + clipped mean + weight decay + optimizer step (the
+// tail of the paper's Eq. 7 chain): SGD and Adam.
+//
+// repro_noise_sgd_step replaces src/repro/kernels/dp_step.py::
+// noise_sgd_step (_sgd_kernel):
+//   p' = p - lr*((acc + stddev*noise)/n_units + wd*p)
+// over f32 acc and noise [D] and p [D] f32 or bf16; p' in p's dtype.
+//   Bound: 8*D + 2*D*sizeof(p) bytes; 3.19 MB at the mlp proxy's
+//   D = 199,210 f32, so a call is near the launch cost.
+//   Design: one grid-stride elementwise pass; stddev, n_units, lr and wd
+//   from a four-float device vector (as the TPU kernel read them from
+//   SMEM), each operation rounded on its own in the reference's order.
 //
 // repro_noise_adam_step replaces src/repro/kernels/dp_step.py::
 // noise_adam_step (_adam_kernel):
@@ -54,6 +64,24 @@ __global__ void noise_adam(const float* __restrict__ sc,
   }
 }
 
+template <typename T>
+__global__ void noise_sgd(const float* __restrict__ sc,
+                          const float* __restrict__ acc,
+                          const float* __restrict__ noise,
+                          const T* __restrict__ p, T* __restrict__ p2,
+                          int64_t n) {
+  const float stddev = sc[0], n_units = sc[1], lr = sc[2], wd = sc[3];
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += stride) {
+    float g = __fdiv_rn(__fadd_rn(acc[i], __fmul_rn(stddev, noise[i])),
+                        n_units);
+    const float pf = to_f32(p[i]);
+    g = __fadd_rn(g, __fmul_rn(wd, pf));
+    p2[i] = from_f32<T>(__fsub_rn(pf, __fmul_rn(lr, g)));
+  }
+}
+
 }  // namespace
 }  // namespace repro
 
@@ -69,5 +97,22 @@ extern "C" int repro_noise_adam_step(const float* sc, const float* acc,
   if (n < 1) return (int)cudaErrorInvalidValue;
   noise_adam<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       sc, acc, noise, p, m, v, p2, m2, v2, n, b1, b2, omb1, omb2, eps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_noise_sgd_step(const float* sc, const float* acc,
+                                    const float* noise, const void* p,
+                                    int p_code, void* p2, int64_t n,
+                                    void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (p_code == kF32)
+    noise_sgd<float><<<grid_for(n), kThreads, 0, st>>>(
+        sc, acc, noise, (const float*)p, (float*)p2, n);
+  else if (p_code == kBF16)
+    noise_sgd<__nv_bfloat16><<<grid_for(n), kThreads, 0, st>>>(
+        sc, acc, noise, (const __nv_bfloat16*)p, (__nv_bfloat16*)p2, n);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
 """DP-SGD clip-and-accumulate kernels (paper Eq. 7 inner loop).
 
 * :func:`sumsq` — f32 sum of squares of a 1-D vector (the per-example norm);
-* :func:`scale_accumulate` — ``acc + g·scale`` with a device scalar scale.
+* :func:`scale_accumulate` — ``acc + g·scale`` with a device scalar scale;
+* :func:`clip_accumulate` — ``acc + g / max(1, ‖g‖/C)``, the two composed
+  (it launches nothing of its own).
 
 On a CUDA tensor each wrapper launches its kernel from ``csrc/dp_clip.cu``
 (replacing ``src/repro/kernels/dp_clip.py``'s Pallas kernels); on a CPU
@@ -71,3 +73,13 @@ def scale_accumulate(acc: torch.Tensor, g: torch.Tensor,
 
 sumsq.launches = 0
 scale_accumulate.launches = 0
+
+
+def clip_accumulate(acc: torch.Tensor, g: torch.Tensor,
+                    clip_norm: float) -> torch.Tensor:
+    """One per-example DP-SGD update of the accumulator, as the reference's
+    composite computes it: ``scale = 1/max(1, sqrt(sumsq(g))/C)``, then
+    ``scale_accumulate(acc, g, scale)``. The scale stays on the device."""
+    norm = torch.sqrt(sumsq(g))
+    scale = 1.0 / torch.clamp(norm / clip_norm, min=1.0)
+    return scale_accumulate(acc, g, scale)

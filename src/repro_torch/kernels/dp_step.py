@@ -1,12 +1,16 @@
-"""Fused DP noise-add + clipped mean + Adam step (tail of the Eq. 7 chain).
+"""Fused DP noise-add + clipped mean + optimizer steps (tail of the Eq. 7
+chain).
 
+:func:`noise_sgd_step` applies ``p − lr·((acc + σ·noise)/n + wd·p)`` over
+flat vectors in one pass, returning p' in p's dtype (f32 or bf16).
 :func:`noise_adam_step` applies ``g = (acc + σ·noise)/n + wd·p`` and Adam's
 moment updates and bias-corrected step in one pass over flat f32 vectors,
-returning ``(p', m', v')``. On a CUDA tensor it launches the kernel of
+returning ``(p', m', v')``. On a CUDA tensor each launches its kernel of
 ``csrc/dp_step.cu`` (replacing ``src/repro/kernels/dp_step.py``'s
-``noise_adam_step``); on a CPU tensor it runs the plain version in
-:mod:`.ref`. The caller draws the noise and owns the gate to f32 params and
-moments (``repro_torch.core.dp.dp_adam_update``).
+``noise_sgd_step`` and ``noise_adam_step``); on a CPU tensor it runs the
+plain version in :mod:`.ref`. The caller draws the noise and, for Adam,
+owns the gate to f32 params and moments
+(``repro_torch.core.dp.dp_adam_update``).
 """
 from __future__ import annotations
 
@@ -15,7 +19,37 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .ref import noise_adam_step_ref
+from .ref import noise_adam_step_ref, noise_sgd_step_ref
+
+
+def noise_sgd_step(acc: torch.Tensor, noise: torch.Tensor, p: torch.Tensor,
+                   *, stddev: float, n_units: int, lr: float,
+                   weight_decay: float = 0.0) -> torch.Tensor:
+    """``p − lr·((acc + stddev·noise)/n_units + weight_decay·p)``: acc and
+    noise f32 [D], p [D] f32 or bf16; returns p's dtype."""
+    if any(x.dim() != 1 or x.shape != acc.shape for x in (acc, noise, p)) \
+            or acc.numel() == 0:
+        raise ValueError("noise_sgd_step: acc, noise, p must be non-empty "
+                         "1-D vectors of one length")
+    if acc.dtype != torch.float32 or noise.dtype != torch.float32:
+        raise TypeError("noise_sgd_step: acc and noise must be f32")
+    if p.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"noise_sgd_step: p dtype {p.dtype} not supported "
+                        "(float32 or bfloat16)")
+    if acc.device.type == "cpu":
+        return noise_sgd_step_ref(acc, noise, p, stddev=stddev,
+                                  n_units=n_units, lr=lr,
+                                  weight_decay=weight_decay)
+    _build.check_cuda("noise_sgd_step", acc, noise, p)
+    # the kernel's scalar vector, assembled on the device (no host sync)
+    sc = torch.stack([acc.new_full((), x)
+                      for x in (stddev, n_units, lr, weight_decay)])
+    out = torch.empty_like(p)
+    _build.launch("repro_noise_sgd_step", sc.data_ptr(), acc.data_ptr(),
+                  noise.data_ptr(), p.data_ptr(), _build.DTYPE_CODES[p.dtype],
+                  out.data_ptr(), acc.numel())
+    noise_sgd_step.launches += 1
+    return out
 
 
 def noise_adam_step(acc: torch.Tensor, noise: torch.Tensor, p: torch.Tensor,
@@ -54,4 +88,5 @@ def noise_adam_step(acc: torch.Tensor, noise: torch.Tensor, p: torch.Tensor,
     return p2, m2, v2
 
 
+noise_sgd_step.launches = 0
 noise_adam_step.launches = 0

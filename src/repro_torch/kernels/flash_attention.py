@@ -1,0 +1,96 @@
+"""Causal / sliding-window attention with an online softmax (flash
+attention, forward).
+
+:func:`flash_attention` takes q, k, v [B, H, S, D] (f32 or bf16, one dtype,
+D ≤ 256) and returns softmax(scale·qkᵀ | mask)·v in q's dtype, with the
+mask ``key ≤ query`` when causal and ``query − key < window`` when a window
+is given (one-sided when not causal); a row with no key left is 0. On a
+CUDA tensor it launches the kernel of ``csrc/flash_attention.cu``
+(replacing ``src/repro/kernels/flash_attention.py``'s ``flash_attention``);
+on a CPU tensor it runs the plain version in :mod:`.ref`.
+:func:`launch_flash` is the launch both this and
+``ops.gqa_flash_attention`` use: the kernel reads q, k, v through
+(batch, head, position) strides, so the model layout [B, S, H, D] and
+grouped KV heads need no copy.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build
+from .ref import flash_attention_ref
+
+MAX_HEAD_DIM = 256
+
+
+def check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, head_axis: int) -> int:
+    """Validate 4-D q, k, v of one dtype, position axis ``3 − head_axis``,
+    k and v of one shape whose head count divides q's; return the group
+    size (query heads per KV head)."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: need 4-D q, k, v with k and v of one "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{name}: q, k, v must share one dtype, float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    pos_axis = 3 - head_axis
+    hq, hkv = q.shape[head_axis], k.shape[head_axis]
+    if q.numel() == 0 or k.shape[0] != q.shape[0] \
+            or k.shape[pos_axis] != q.shape[pos_axis] \
+            or k.shape[3] != q.shape[3] or hq % hkv:
+        raise ValueError(f"{name}: k/v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)} (same batch, length and head "
+                         "dim; KV heads dividing query heads)")
+    if q.shape[3] > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {q.shape[3]} > {MAX_HEAD_DIM}")
+    return hq // hkv
+
+
+def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 head_axis: int, group: int, causal: bool,
+                 window: Optional[int], scale: float) -> torch.Tensor:
+    """Launch the kernel on contiguous CUDA q [.., Hq, .., D] and k, v
+    [.., Hkv, .., D] with the heads on ``head_axis`` (1 or 2) and the
+    positions on the other; the output has q's layout."""
+    _build.check_cuda("flash_attention", q, k, v)
+    pos_axis = 3 - head_axis
+    B, H, S, D = q.shape[0], q.shape[head_axis], q.shape[pos_axis], q.shape[3]
+    out = torch.empty_like(q)
+    # a window of S or more masks nothing more, one of −S or less masks all
+    win = 0 if window is None else max(-S, min(int(window), S))
+    _build.launch("repro_flash_attention", q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), _build.DTYPE_CODES[q.dtype],
+                  B, H, group, S, D, q.stride(0), q.stride(head_axis),
+                  q.stride(pos_axis), k.stride(0), k.stride(head_axis),
+                  k.stride(pos_axis), float(scale), int(bool(causal)), win,
+                  int(window is not None))
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
+    """q, k, v [B, H, S, D] (KV heads already broadcast). ``block_q`` and
+    ``block_k`` are the reference's tiling, accepted for its signature (the
+    CUDA kernel tiles on its own); ``scale`` defaults to D**-0.5."""
+    check_attention("flash_attention", q, k, v, head_axis=1)
+    if k.shape != q.shape:
+        raise ValueError("flash_attention: k, v must match q's shape "
+                         f"{tuple(q.shape)}, got {tuple(k.shape)}")
+    if block_q < 1 or block_k < 1:
+        raise ValueError("flash_attention: block sizes must be >= 1")
+    scale = float(scale if scale is not None else q.shape[3] ** -0.5)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    return launch_flash(q, k, v, head_axis=1, group=1, causal=causal,
+                        window=window, scale=scale)
+
+
+flash_attention.launches = 0

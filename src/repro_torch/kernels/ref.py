@@ -7,6 +7,8 @@ scalars enter each operation as f32, as JAX's weakly typed scalars do.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -56,3 +58,73 @@ def noise_adam_step_ref(acc, noise, p, m, v, *, stddev, n_units, lr,
     v2 = b2 * v.to(torch.float32) + (1.0 - b2) * g * g
     step = lr * (m2 / c1) / (torch.sqrt(v2 / c2) + eps)
     return (pf - step).to(p.dtype), m2.to(m.dtype), v2.to(v.dtype)
+
+
+def noise_sgd_step_ref(acc, noise, p, *, stddev, n_units, lr,
+                       weight_decay=0.0):
+    g = (acc.to(torch.float32) + stddev * noise.to(torch.float32)) / n_units
+    pf = p.to(torch.float32)
+    g = g + weight_decay * pf
+    return (pf - lr * g).to(p.dtype)
+
+
+def clip_accumulate_ref(acc, g, clip_norm: float) -> torch.Tensor:
+    norm = torch.sqrt(sumsq_ref(g))
+    return acc + g.to(torch.float32) / torch.clamp(norm / clip_norm, min=1.0)
+
+
+def rmsnorm_ref(x, g, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * g.to(torch.float32)).to(x.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Naive materialized-scores attention. q/k/v: [B, H, S, D]."""
+    B, H, S, D = q.shape
+    scale = scale if scale is not None else D ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= (qp - kp) < window
+    s = torch.where(ok, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.to(torch.float32)).to(q.dtype)
+
+
+def gqa_flash_attention_ref(q, k, v, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Grouped-query attention on the model layout: q [B, S, Hq, D], k/v
+    [B, S, Hkv, D]; the KV heads repeated, then :func:`flash_attention_ref`
+    on [B, H, S, D]."""
+    rep = q.shape[2] // k.shape[2]
+    if rep != 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    out = flash_attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                              causal=causal, window=window, scale=scale)
+    return out.transpose(1, 2)
+
+
+def mamba_scan_ref(dt, x, B_in, C_in, A) -> torch.Tensor:
+    """Sequential selective scan. dt/x: [B,S,di]; B/C: [B,S,ds]; A: [di,ds]."""
+    Bsz, S, di = x.shape
+    h = torch.zeros((Bsz, di, A.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    dtf, xf, bf, cf = (t.to(torch.float32) for t in (dt, x, B_in, C_in))
+    ys = []
+    for t in range(S):
+        a = torch.exp(dtf[:, t, :, None] * A)  # [B, di, ds]
+        h = a * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype)

@@ -1,6 +1,8 @@
-"""The port's CUDA kernels on the card: each against its plain version, the
-wrappers' refusals, and small federations (sync, and async at staleness 2
-with dropout) through the kernels against the plain path on the same seed.
+"""The port's CUDA kernels on the card: each against its plain version (the
+ops API's at the full widths of qwen2-7b, falcon-mamba-7b and the mlp
+proxy), the wrappers' refusals, and small federations (sync, and async at
+staleness 2 with dropout) through the kernels against the plain path on
+the same seed.
 
 Every test here needs a CUDA device and skips without one. The file
 imports torch and ``repro_torch`` only (no jax), so on a GPU machine
@@ -22,6 +24,7 @@ from repro_torch.nn.vision import get_vision_model  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 F32 = dict(rtol=2e-5, atol=2e-5)
+BF16 = dict(rtol=2e-2, atol=2e-2)
 D = 199_210   # the main path's proxy width (mlp 784-200-200-10)
 
 
@@ -41,7 +44,37 @@ def _pairs(got, want):
 def test_kernel_matches_plain_at_main_shape(gen, name):
     x = torch.randn(D, generator=gen, device="cuda")
     t = torch.full((), 3.0, device="cuda")
-    if name == "sumsq":
+    tol = F32
+    if name == "noise_sgd_step":
+        hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4)
+        got = kernels.noise_sgd_step(x, x.flip(0), x.roll(1), **hp)
+        want = ref.noise_sgd_step_ref(x, x.flip(0), x.roll(1), **hp)
+    elif name == "rmsnorm":   # qwen2-7b: d_model 3,584 over 4,096 rows
+        xs = torch.randn((4_096, 3_584), generator=gen,
+                         device="cuda").bfloat16()
+        g = torch.randn(3_584, generator=gen, device="cuda").bfloat16()
+        got, want, tol = kernels.rmsnorm(xs, g), ref.rmsnorm_ref(xs, g), BF16
+    elif name == "flash_attention":   # qwen2-7b: 28 query, 4 KV heads
+        q = torch.randn((1, 4_096, 28, 128), generator=gen,
+                        device="cuda").bfloat16()
+        k, v = (torch.randn((1, 4_096, 4, 128), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        got = kernels.gqa_flash_attention(q, k, v)
+        want = ref.gqa_flash_attention_ref(q, k, v)
+        tol = BF16
+    elif name == "mamba_scan":   # falcon-mamba-7b: di 8,192, ds 16
+        shape = (1, 4_096, 8_192)
+        dt = torch.nn.functional.softplus(
+            torch.randn(shape, generator=gen, device="cuda"))
+        xs = torch.randn(shape, generator=gen, device="cuda")
+        Bm, C = (torch.randn((1, 4_096, 16), generator=gen, device="cuda")
+                 for _ in range(2))
+        A = -torch.exp(torch.randn((8_192, 16), generator=gen,
+                                   device="cuda"))
+        got = kernels.mamba_scan(dt, xs, Bm, C, A)
+        want = ref.mamba_scan_ref(dt, xs, Bm, C, A)
+        tol = dict(rtol=2e-4, atol=2e-4)   # tests/test_kernels.py's
+    elif name == "sumsq":
         got, want = kernels.sumsq(x), ref.sumsq_ref(x)
     elif name == "scale_accumulate":
         s = torch.rand((), generator=gen, device="cuda")
@@ -70,7 +103,34 @@ def test_kernel_matches_plain_at_main_shape(gen, name):
             want = ref.fused_stale_mix_ref(*args)
     torch.cuda.synchronize()
     for g, w_ in _pairs(got, want):
-        torch.testing.assert_close(g, w_, **F32)
+        torch.testing.assert_close(g, w_, **tol)
+
+
+@pytest.mark.parametrize("name", ["noise_sgd_step", "rmsnorm",
+                                  "flash_attention", "gqa_flash_attention",
+                                  "mamba_scan"])
+def test_ops_api_raises_instead_of_falling_back(gen, name):
+    """Each op given CUDA tensors its kernel does not take raises (no plain
+    version, no emulator)."""
+    x = torch.randn(64, generator=gen, device="cuda")
+    kernels.reset_launch_counts()
+    with pytest.raises((TypeError, ValueError)):
+        if name == "noise_sgd_step":
+            kernels.noise_sgd_step(x, x, x.double(), stddev=1.0, n_units=2,
+                                   lr=0.1)
+        elif name == "rmsnorm":
+            kernels.rmsnorm(x.reshape(8, 8).t(), x[:8])   # not contiguous
+        elif name == "flash_attention":
+            q = torch.randn((1, 1, 4, 512), generator=gen, device="cuda")
+            kernels.flash_attention(q, q, q)   # D = 512 > 256
+        elif name == "gqa_flash_attention":
+            q = x.reshape(1, 4, 4, 4)
+            kernels.gqa_flash_attention(q, q[:, :, :3].contiguous(),
+                                        q[:, :, :3].contiguous())
+        else:
+            y = x.reshape(1, 8, 8)
+            kernels.mamba_scan(y, y, y, y, x.reshape(8, 8).double())
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
 
 
 def test_wrappers_raise_instead_of_falling_back(gen):
@@ -96,10 +156,10 @@ def test_small_federation_through_every_kernel(gen):
     kernels.reset_launch_counts()
     fused = run_federated("proxyfl", [spec] * 3, spec, data, data[0], cfg)
     steps = cfg.rounds * 3 * (40 // cfg.batch_size)
-    assert kernels.launch_counts() == {
-        "sumsq": steps * 10, "scale_accumulate": steps * 10,
-        "noise_adam_step": steps, "fused_pushsum_mix": cfg.rounds,
-        "fused_stale_mix": 0}
+    assert kernels.launch_counts() == dict(
+        dict.fromkeys(kernels.KERNELS, 0), sumsq=steps * 10,
+        scale_accumulate=steps * 10, noise_adam_step=steps,
+        fused_pushsum_mix=cfg.rounds)
     plain = run_federated("proxyfl", [spec] * 3, spec, data, data[0], cfg,
                           use_pallas=False)
     for a, b in zip(fused["clients"], plain["clients"]):
@@ -123,9 +183,8 @@ def test_small_async_federation_through_the_stale_kernel(gen):
     kernels.reset_launch_counts()
     fused = run_federated("proxyfl", [spec] * 3, spec, data, data[0], cfg,
                           backend="async")
-    assert kernels.launch_counts() == {
-        "sumsq": 0, "scale_accumulate": 0, "noise_adam_step": 0,
-        "fused_pushsum_mix": 0, "fused_stale_mix": cfg.rounds}
+    assert kernels.launch_counts() == dict(
+        dict.fromkeys(kernels.KERNELS, 0), fused_stale_mix=cfg.rounds)
     plain = run_federated("proxyfl", [spec] * 3, spec, data, data[0], cfg,
                           backend="async", use_pallas=False)
     for a, b in zip(fused["clients"], plain["clients"]):

@@ -1,0 +1,315 @@
+"""The port's ops API (``repro_torch.kernels``) against the JAX package's
+``repro.kernels``: flash attention and its GQA wrapper, the mamba scan,
+rmsnorm, the fused noise + SGD step and the clip-and-accumulate composites.
+
+On CPU tensors each port wrapper runs its plain torch version; the Pallas
+kernels run in interpret mode, as tests/test_kernels.py runs them. The same
+inputs (numpy, seeded) go to both sides, over the sweeps of
+tests/test_kernels.py and tests/test_poisson_kernels.py, with their
+tolerances: f32 2e-5, bf16 2e-2, the scan 2e-4, clip_accumulate rtol 1e-5 /
+atol 1e-6. The CUDA kernels are held against the same plain versions on the
+card by chip_smoke.py and tests/test_torch_cuda.py.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import repro.kernels as jk  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
+from repro_torch import kernels  # noqa: E402
+from repro_torch.nn.modules import tree_leaves  # noqa: E402
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SCAN = dict(rtol=2e-4, atol=2e-4)
+CLIP = dict(rtol=1e-5, atol=1e-6)
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(a: np.ndarray, dtype: str = "float32"):
+    """The same values as a jax array and a CPU torch tensor of ``dtype``
+    (bf16 rounded once, on the torch side, and shared)."""
+    t = torch.as_tensor(np.ascontiguousarray(a)).to(DTYPES[dtype][1])
+    return jnp.asarray(t.float().numpy()).astype(DTYPES[dtype][0]), t
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _qkv(seed, shape, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    return [_pair(rng.standard_normal(shape, dtype=np.float32), dtype)
+            for _ in range(3)]
+
+
+def _flash_case(seed, shape, dtype="float32", **kw):
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(seed, shape, dtype)
+    want = jk.flash_attention(qj, kj, vj, interpret=True, **kw)
+    got = kernels.flash_attention(qt, kt, vt, **kw)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# flash attention (tests/test_kernels.py:25-74)
+
+
+@pytest.mark.parametrize("S", [64, 128, 256, 384])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_attention_shapes(S, D):
+    _flash_case(S + D, (2, 2, S, D), causal=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_dtypes_masks(dtype, causal):
+    _flash_case(1, (1, 4, 128, 64), dtype, causal=causal)
+
+
+@pytest.mark.parametrize("window", [32, 64, 128])
+def test_flash_attention_sliding_window(window):
+    _flash_case(2, (1, 2, 256, 32), causal=True, window=window)
+
+
+@pytest.mark.parametrize("blocks", [(64, 64), (128, 128), (64, 128)])
+def test_flash_attention_block_shapes(blocks):
+    bq, bk = blocks
+    _flash_case(3, (1, 2, 256, 64), causal=True, block_q=bq, block_k=bk)
+
+
+@pytest.mark.parametrize("S,window,causal", [(100, 16, False), (90, None,
+                                                                 True)])
+def test_flash_attention_ragged_length_and_one_sided_window(S, window,
+                                                            causal):
+    """S not a multiple of the tile (padded keys masked) and a window with
+    causal=False (one-sided: every later key stays visible)."""
+    _flash_case(4, (1, 2, S, 32), causal=causal, window=window, block_q=32,
+                block_k=32)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_gqa_flash_attention(G):
+    B, S, Hkv, D = 2, 128, 2, 64
+    rng = np.random.default_rng(10 + G)
+    qj, qt = _pair(rng.standard_normal((B, S, Hkv * G, D), dtype=np.float32))
+    kj, kt = _pair(rng.standard_normal((B, S, Hkv, D), dtype=np.float32))
+    vj, vt = _pair(rng.standard_normal((B, S, Hkv, D), dtype=np.float32))
+    want = jops.gqa_flash_attention(qj, kj, vj, causal=True, interpret=True)
+    got = kernels.gqa_flash_attention(qt, kt, vt, causal=True)
+    assert got.shape == qt.shape
+    np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# mamba selective scan (tests/test_kernels.py:81-108)
+
+
+def _scan_case(seed, B, S, di, ds, **kw):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, di), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, di), dtype=np.float32)))
+    A = -np.exp(rng.standard_normal((di, ds), dtype=np.float32))
+    Bm = rng.standard_normal((B, S, ds), dtype=np.float32)
+    C = rng.standard_normal((B, S, ds), dtype=np.float32)
+    pairs = [_pair(a) for a in (dt, x, Bm, C, A)]
+    want = jk.mamba_scan(*(p[0] for p in pairs), interpret=True, **kw)
+    got = kernels.mamba_scan(*(p[1] for p in pairs), **kw)
+    assert got.shape == (B, S, di) and got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), _np(want), **SCAN)
+
+
+@pytest.mark.parametrize("S,chunk", [(64, 16), (128, 32), (96, 32),
+                                     (256, 128)])
+def test_mamba_scan_chunks(S, chunk):
+    _scan_case(S, 2, S, 16, 8, chunk=chunk)
+
+
+@pytest.mark.parametrize("di,ds", [(8, 4), (32, 16), (64, 8)])
+def test_mamba_scan_dims(di, ds):
+    _scan_case(di + ds, 1, 64, di, ds, chunk=16)
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm (tests/test_poisson_kernels.py:89-120)
+
+
+@pytest.mark.parametrize("shape", [(4, 128), (2, 16, 256), (1, 512),
+                                   (3, 1024)])
+def test_rmsnorm_shapes(shape):
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    xj, xt = _pair(rng.standard_normal(shape, dtype=np.float32))
+    gj, gt = _pair(rng.standard_normal(shape[-1], dtype=np.float32))
+    got = kernels.rmsnorm(xt, gt)
+    assert got.shape == xt.shape
+    np.testing.assert_allclose(_np(got), _np(jax_rmsnorm(xj, gj,
+                                                         interpret=True)),
+                               **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_dtypes(dtype):
+    rng = np.random.default_rng(2)
+    xj, xt = _pair(rng.standard_normal((64, 256), dtype=np.float32), dtype)
+    gj, gt = _pair(rng.standard_normal(256, dtype=np.float32), dtype)
+    got = kernels.rmsnorm(xt, gt)
+    assert got.dtype == xt.dtype
+    np.testing.assert_allclose(
+        _np(got), _np(jax_rmsnorm(xj, gj, interpret=True)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("rows,block_rows", [(77, 32), (300, 256), (1, 8)])
+def test_rmsnorm_block_boundaries(rows, block_rows):
+    rng = np.random.default_rng(rows)
+    xj, xt = _pair(rng.standard_normal((rows, 64), dtype=np.float32))
+    gj, gt = _pair(rng.standard_normal(64, dtype=np.float32))
+    np.testing.assert_allclose(
+        _np(kernels.rmsnorm(xt, gt, block_rows=block_rows)),
+        _np(jax_rmsnorm(xj, gj, block_rows=block_rows, interpret=True)),
+        **TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# the DP ops: noise + SGD step, clip-and-accumulate (tests/test_kernels.py
+# :115-154)
+
+
+@pytest.mark.parametrize("D", [1, 1_000, 65_537, 199_210])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_noise_sgd_step(D, dtype):
+    rng = np.random.default_rng(D + 3)
+    acc, noise = (rng.standard_normal(D, dtype=np.float32) for _ in range(2))
+    pj, pt = _pair(rng.standard_normal(D, dtype=np.float32), dtype)
+    hp = dict(stddev=1.3, n_units=250, lr=1e-3, weight_decay=1e-4)
+    want = jk.noise_sgd_step(jnp.asarray(acc), jnp.asarray(noise), pj, **hp,
+                             interpret=True)
+    got = kernels.noise_sgd_step(torch.as_tensor(acc),
+                                 torch.as_tensor(noise), pt, **hp)
+    assert got.dtype == pt.dtype and got.shape == (D,)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("n,clip", [(1024, 0.5), (4096, 1.0), (65536, 3.0)])
+def test_clip_accumulate(n, clip):
+    rng = np.random.default_rng(n)
+    gj, gt = _pair(rng.standard_normal(n, dtype=np.float32))
+    aj, at = _pair(rng.standard_normal(n, dtype=np.float32))
+    want = jk.clip_accumulate(aj, gj, clip, interpret=True)
+    got = kernels.clip_accumulate(at, gt, clip)
+    np.testing.assert_allclose(_np(got), _np(want), **CLIP)
+    np.testing.assert_allclose(_np(got),
+                               _np(kernels.ref.clip_accumulate_ref(at, gt,
+                                                                   clip)),
+                               **CLIP)
+
+
+def test_tree_clip_accumulate_matches_jax():
+    rng = np.random.default_rng(3)
+    leaves = {"a": rng.standard_normal((128, 8), dtype=np.float32),
+              "b": {"c": rng.standard_normal(64, dtype=np.float32)}}
+    acc = {"a": rng.standard_normal((128, 8), dtype=np.float32),
+           "b": {"c": rng.standard_normal(64, dtype=np.float32)}}
+    to_j = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
+    to_t = lambda t: {"a": torch.as_tensor(t["a"]),  # noqa: E731
+                      "b": {"c": torch.as_tensor(t["b"]["c"])}}
+    want = jops.tree_clip_accumulate(to_j(acc), to_j(leaves), 0.5,
+                                     interpret=True)
+    got = kernels.tree_clip_accumulate(to_t(acc), to_t(leaves), 0.5)
+    for a, b in zip(tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(_np(a), _np(b), **CLIP)
+
+
+# ---------------------------------------------------------------------------
+# the API itself
+
+
+def test_every_public_name_has_a_counterpart():
+    missing = [n for n in jk.__all__ if not hasattr(kernels, n)]
+    assert not missing, missing
+    assert set(jk.__all__) <= set(kernels.__all__)
+    assert {"noise_sgd_step", "rmsnorm", "flash_attention",
+            "mamba_scan"} <= set(kernels.KERNELS)
+
+
+def test_interpret_is_decided_by_the_device():
+    assert kernels.default_interpret("cpu") is True
+    assert kernels.default_interpret("cuda") is False
+    assert kernels.resolve_interpret(None, "cpu") is True
+    assert kernels.resolve_interpret(True, "cpu") is True
+    with pytest.raises(ValueError):   # no plain version on CUDA tensors
+        kernels.resolve_interpret(True, "cuda")
+    with pytest.raises(ValueError):   # no kernel on CPU tensors
+        kernels.resolve_interpret(False, "cpu")
+
+
+def test_cpu_calls_launch_nothing():
+    kernels.reset_launch_counts()
+    x = torch.randn(2, 64, 2, 32)
+    kernels.flash_attention(x, x, x)
+    kernels.gqa_flash_attention(x, x[:, :, :1].contiguous(),
+                                x[:, :, :1].contiguous())
+    kernels.rmsnorm(x, torch.ones(32))
+    kernels.mamba_scan(x[0].abs(), x[0], x[0, :, :, :4], x[0, :, :, :4],
+                       -torch.ones(32, 4))
+    v = torch.randn(100)
+    kernels.noise_sgd_step(v, v, v, stddev=1.0, n_units=2, lr=0.1)
+    kernels.clip_accumulate(v, v, 1.0)
+    kernels.tree_clip_accumulate({"w": v}, {"w": v}, 1.0)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+def _refusal(case):
+    x = torch.randn(16)
+    q = torch.randn(1, 2, 8, 4)
+    if case == "sgd p dtype":
+        kernels.noise_sgd_step(x, x, x.double(), stddev=1.0, n_units=2,
+                               lr=0.1)
+    elif case == "sgd acc dtype":
+        kernels.noise_sgd_step(x.bfloat16(), x, x, stddev=1.0, n_units=2,
+                               lr=0.1)
+    elif case == "sgd shapes":
+        kernels.noise_sgd_step(x, x[:8], x, stddev=1.0, n_units=2, lr=0.1)
+    elif case == "rmsnorm gain":
+        kernels.rmsnorm(x.reshape(4, 4), torch.ones(5))
+    elif case == "rmsnorm dtype":
+        kernels.rmsnorm(x.reshape(4, 4).double(), torch.ones(4))
+    elif case == "flash dtypes":
+        kernels.flash_attention(q, q.bfloat16(), q)
+    elif case == "flash head dim":
+        big = torch.randn(1, 1, 4, 512)
+        kernels.flash_attention(big, big, big)
+    elif case == "flash kv shape":
+        kernels.flash_attention(q, q[:, :1], q[:, :1])
+    elif case == "gqa groups":
+        kernels.gqa_flash_attention(q, q[:, :, :3].contiguous(),
+                                    q[:, :, :3].contiguous())
+    elif case == "mamba block_d":
+        y = torch.randn(1, 4, 24)
+        b = torch.randn(1, 4, 4)
+        kernels.mamba_scan(y, y, b, b, torch.randn(24, 4), block_d=16)
+    elif case == "mamba state":
+        y = torch.randn(1, 4, 8)
+        b = torch.randn(1, 4, 65)
+        kernels.mamba_scan(y, y, b, b, torch.randn(8, 65))
+    elif case == "mamba shapes":
+        y = torch.randn(1, 4, 8)
+        kernels.mamba_scan(y, y, y, y, torch.randn(8, 4))
+    else:
+        raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "sgd p dtype", "sgd acc dtype", "sgd shapes", "rmsnorm gain",
+    "rmsnorm dtype", "flash dtypes", "flash head dim", "flash kv shape",
+    "gqa groups", "mamba block_d", "mamba state", "mamba shapes"])
+def test_wrappers_refuse_what_the_kernels_do_not_take(case):
+    with pytest.raises((TypeError, ValueError)):
+        _refusal(case)
