@@ -5,18 +5,26 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch and
    CUDA versions, then builds the hand-written kernels from
-   ``src/repro_torch/kernels/csrc`` with ``nvcc`` and prints the build time.
-2. Holds each of the nine kernels against its plain PyTorch version on the
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` and prints the build time
+   and, from ptxas's ``-v`` report, the registers and spills of the wgmma
+   attention and the stale-mix register kernels (0 spill bytes each).
+2. Holds each of the ten kernels (nine TPU kernels; attention has a
+   tensor-core kernel for bf16 at D ∈ {64, 128, 256} and a CUDA-core one
+   for the rest) against its plain PyTorch version on the
    card, at the main paths' shapes (D = 199,210 f32, K = 8; the LLM
-   kernels at the full widths of qwen2-7b, gemma3-4b and falcon-mamba-7b)
-   and at ragged sizes, with the kernel tests' tolerances (f32 rtol = atol
-   = 2e-5, bf16 2e-2, the mamba scan 2e-4), and times it over
+   kernels at the full widths of qwen2-7b, gemma3-4b and falcon-mamba-7b,
+   attention in bf16 and, on the CUDA cores, in f32)
+   and at ragged sizes (the mixes at K across every register bucket edge;
+   z' of the f32 stale mix bit-equal), with the kernel tests' tolerances
+   (f32 rtol = atol = 2e-5, bf16 2e-2, the mamba scan 2e-4), then sweeps
+   the wgmma attention over head dims, lengths, groups, masks and windows
+   and checks that a misaligned bf16 view raises; times each kernel over
    CUDA-event-timed launches (200, or 10 at the LLM widths) beside its
    plain version, one PyTorch library call computing the same function
    where there is one, and its bound (bytes over 3.35 TB/s, operations
    over 67 TFLOP/s f32, or 989 TFLOP/s for bf16 attention): once eagerly
    (what a caller pays, host launch cost included) and once replayed from a
-   CUDA graph (the device's time per call).
+   CUDA graph (the device's time per call), with the rate it reaches.
    Then drives the ops API (``repro_torch.kernels``) once at full width:
    ``gqa_flash_attention`` (qwen2-7b: S = 4,096, 28 query and 4 KV heads,
    D = 128, bf16, causal), ``rmsnorm`` (d = 3,584 over 4,096 bf16 rows),
@@ -25,7 +33,8 @@
    launch counters reset just before and read just after (exactly one
    launch of each kernel, one ``sumsq`` and one ``scale_accumulate``), each
    result finite and within tolerance of its plain version; then gemma3-4b's
-   local attention (D = 256, window 1,024), rmsnorm in f32 and the flat
+   local attention (D = 256, window 1,024), rmsnorm in f32, qwen2-7b's
+   attention in f32 (the CUDA-core kernel) and the flat
    ``clip_accumulate``, one launch window each.
 3. Times the first client step of the process (set-up cost), then
    drives the sync DP path: ``run_federated("proxyfl", ...)`` on the
@@ -84,7 +93,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SCAN_TOL = 2e-4             # tests/test_kernels.py's mamba scan tolerance
 MAIN_D, MAIN_K = 199_210, 8
 RAGGED_D = (1, 1_000, 65_537)
-RAGGED_K = (1, 3, 8, 33)
+RAGGED_K = (1, 3, 8, 16, 17, 32, 33)   # every K bucket edge of the mixes
 TIMED_LAUNCHES = 200
 FULL_WIDTH_CALLS = 10        # calls timed for the LLM-width kernels
 CLOSE = dict(atol=1e-5, rtol=1e-4)   # tests/test_conformance.py "close"
@@ -94,6 +103,13 @@ QWEN_ATTN = dict(B=1, S=4_096, Hq=28, Hkv=4, D=128)       # configs/qwen2_7b.py
 GEMMA_LOCAL = dict(B=1, S=4_096, Hq=8, Hkv=4, D=256, window=1_024)  # gemma3_4b
 RMS_ROWS, RMS_D = 4_096, 3_584                            # qwen2-7b d_model
 MAMBA = dict(B=1, S=4_096, di=8_192, ds=16)   # configs/falcon_mamba_7b.py
+# the attention routes' sweep: head dims of the wgmma kernel, lengths around
+# its 128-row and 64/128-key tiles, query heads per KV head, windows (0
+# masks every key of a causal row)
+ROUTE_D = (64, 128, 256)
+ROUTE_S = (1, 63, 64, 65, 127, 129, 257)
+ROUTE_GROUPS = (1, 2, 7)
+ROUTE_WINDOWS = (None, 1, 17, 64, 0)
 
 
 def card_line() -> str:
@@ -373,6 +389,13 @@ def llm_kernel_cases(gen):
                    ref.gqa_flash_attention_ref(q, k, v, window=w),
                    lib, *attention_cost(dtype=bf16, **shape),
                    peak=BF16_OPS_PER_S, calls=FULL_WIDTH_CALLS, row=label)
+    # f32 stays on the CUDA cores (wgmma would mean TF32): its own row
+    q, k, v, lib = attention_inputs(gen, dtype=torch.float32, **QWEN_ATTN)
+    yield Case("flash_attention", torch.float32, tuple(QWEN_ATTN.values()),
+               lambda q=q, k=k, v=v: kernels.gqa_flash_attention(q, k, v),
+               lambda q=q, k=k, v=v: ref.gqa_flash_attention_ref(q, k, v),
+               lib, *attention_cost(dtype=torch.float32, **QWEN_ATTN),
+               calls=FULL_WIDTH_CALLS, row="flash_attention f32")
     for D in (32, 64, 128, 256):
         for S, G, causal, win in [(1, 1, True, None), (100, 2, False, None),
                                   (257, 7, True, 64), (130, 1, False, 30)]:
@@ -434,10 +457,16 @@ SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:48",
                 "src/repro/kernels/rmsnorm.py::rmsnorm"),
-    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+    # bf16 at D in {64, 128, 256}: the tensor cores (the ops API's calls)
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention.py:106",
                         "src/repro/kernels/flash_attention.py::"
                         "flash_attention"),
+    # f32 and other head dims: the CUDA cores
+    "flash_attention_cuda_cores": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:106",
+        "src/repro/kernels/flash_attention.py::flash_attention"),
     "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:74",
                    "src/repro/kernels/mamba_scan.py::mamba_scan"),
@@ -450,8 +479,12 @@ def check_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     for c in kernel_cases(gen):
-        err = check(f"{c.name} {c.dtype} {c.shape}", c.kern(), c.plain(),
-                    c.dtype, c.tol)
+        got, want = c.kern(), c.plain()
+        err = check(f"{c.name} {c.dtype} {c.shape}", got, want, c.dtype,
+                    c.tol)
+        if c.name == "fused_stale_mix" and c.dtype == torch.float32:
+            # explicitly rounded re-bias, merge and de-bias: z' bit-equal
+            assert torch.equal(got[0], want[0]), f"z' differs at {c.shape}"
         torch.cuda.synchronize()
         print(f"check {c.name:18s} {str(c.dtype):15s} {str(c.shape):22s} "
               f"max_abs_err {err:.3e}")
@@ -461,7 +494,8 @@ def check_kernels():
         b_us, b_by = bound_us(c.n_bytes, c.n_ops, c.peak)
         pn = c.plain_calls or c.calls
         rows[row] = dict(
-            shape=c.shape, dtype=str(c.dtype), err=err,
+            shape=c.shape, dtype=str(c.dtype), err=err, n_bytes=c.n_bytes,
+            n_ops=c.n_ops,
             kernel_us=cuda_us(c.kern, c.calls), plain_us=cuda_us(c.plain, pn),
             bound_us=b_us, bound_by=b_by,
             library_us=cuda_us(c.lib, c.calls) if c.lib else None,
@@ -475,6 +509,72 @@ def check_kernels():
                   "repeated calls")
         torch.cuda.empty_cache()
     return rows
+
+
+def attention_routes():
+    """bf16 at every wgmma head dim over lengths, groups, both masks and
+    windows (B = 2, two KV heads; group 1 through the [B, H, S, D] entry
+    point), each against its plain version at the bf16 tolerance; a causal
+    window of 0 gives exactly 0. Then the route's refusals: a misaligned
+    bf16 view raises and launches nothing."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_route
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bf16, n, worst = torch.bfloat16, 0, {}
+    for D in ROUTE_D:
+        assert flash_route(bf16, D) == "wgmma"
+        assert flash_route(torch.float32, D) == "cuda_cores"
+        for S in ROUTE_S:
+            for G in ROUTE_GROUPS:
+                q, k, v, _ = attention_inputs(gen, 2, S, 2 * G, 2, D, bf16)
+                if G == 1:
+                    q, k, v = (t.transpose(1, 2).contiguous()
+                               for t in (q, k, v))
+                    kern, plain = kernels.flash_attention, \
+                        ref.flash_attention_ref
+                else:
+                    kern, plain = kernels.gqa_flash_attention, \
+                        ref.gqa_flash_attention_ref
+                for causal in (True, False):
+                    for win in ROUTE_WINDOWS:
+                        kw = dict(causal=causal, window=win)
+                        got = kern(q, k, v, **kw)
+                        err = check(f"attention route D={D} S={S} G={G} "
+                                    f"{kw}", got, plain(q, k, v, **kw), bf16)
+                        if causal and win == 0:
+                            assert bool((got == 0).all()), (D, S, G)
+                        worst[D] = max(worst.get(D, 0.0), err)
+                        n += 1
+    torch.cuda.synchronize()
+    print(f"attention routes: {n} bf16 cases on the wgmma kernel (D "
+          f"{ROUTE_D}, S {ROUTE_S}, groups {ROUTE_GROUPS}, causal and not, "
+          f"windows {ROUTE_WINDOWS}) agree with the plain version; max abs "
+          "err by D " + ", ".join(f"{d}: {e:.3e}" for d, e in worst.items()))
+    flat = torch.zeros(2 * 64 * 4 + 8, dtype=bf16, device="cuda")
+    off = flat[1:1 + 2 * 64 * 4].view(1, 2, 4, 64)   # 2 bytes off
+    kernels.reset_launch_counts()
+    try:
+        kernels.flash_attention(off, off, off)
+    except ValueError as e:
+        print(f"attention routes: a misaligned bf16 view raises: {e}")
+    else:
+        raise AssertionError("a misaligned bf16 view did not raise")
+    expect(kernels.launch_counts())
+
+
+def ptxas_lines():
+    """Registers and spills of the wgmma attention and the stale-mix
+    register kernels, from ptxas's -v report of this build; every one
+    spills 0 bytes."""
+    from repro_torch.kernels import _build
+    for name, regs, stores, loads, stack in _build.ptxas_report():
+        if "flash_fwd_sm90" not in name and "stale_reg" not in name:
+            continue
+        print(f"ptxas: {name}: {regs} registers, {stores} bytes spill "
+              f"stores, {loads} bytes spill loads, {stack} bytes stack")
+        assert stores == 0 and loads == 0, name
 
 
 # ---------------------------------------------------------------------------
@@ -595,15 +695,22 @@ def ops_api():
     expect(c, rmsnorm=1)
     err_f32 = check("ops API rmsnorm f32", got, ref.rmsnorm_ref(x, g),
                     torch.float32)
+    q, k, v, _ = attention_inputs(gen, dtype=torch.float32, **QWEN_ATTN)
+    got, f32_counts = counted(lambda: kernels.gqa_flash_attention(q, k, v))
+    expect(f32_counts, flash_attention=1)
+    err_attn32 = check("ops API qwen2-7b attention f32", got,
+                       ref.gqa_flash_attention_ref(q, k, v), torch.float32)
+    del q, k, v, got
     got, c = counted(lambda: kernels.clip_accumulate(acc, noise, 1.0))
     expect(c, sumsq=1, scale_accumulate=1)
     torch.testing.assert_close(got, ref.clip_accumulate_ref(acc, noise, 1.0),
                                rtol=1e-5, atol=1e-6)
     print(f"ops API: gemma3-4b local attention (window {w}) max abs err "
-          f"{err:.3e}, rmsnorm f32 {err_f32:.3e}, clip_accumulate agrees; "
+          f"{err:.3e}, rmsnorm f32 {err_f32:.3e}, qwen2-7b attention in f32 "
+          f"(the CUDA-core kernel) {err_attn32:.3e}, clip_accumulate agrees; "
           "one launch window each")
     torch.cuda.empty_cache()
-    return counts
+    return counts, f32_counts["flash_attention"]
 
 
 # ---------------------------------------------------------------------------
@@ -1058,8 +1165,10 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc, sm_90a, {_build.BUILD_ROOT})")
 
+    ptxas_lines()
     rows = check_kernels()
-    ops_counts = ops_api()
+    attention_routes()
+    ops_counts, f32_attention_launches = ops_api()
     setup = mnist_setup()
     spec, data, test, cfg = setup
     cold_step(*setup)
@@ -1074,9 +1183,11 @@ def main() -> int:
     for name in ("noise_sgd_step", "rmsnorm", "flash_attention",
                  "mamba_scan"):
         counts[name] = ops_counts[name]
+    counts["flash_attention_cuda_cores"] = f32_attention_launches
+    row_of = {"flash_attention_cuda_cores": "flash_attention f32"}
     out = []
     for name, (source, replaces, tpu_kernel) in SOURCES.items():
-        r = rows[name]
+        r = rows[row_of.get(name, name)]
         lib_us = r["library_us"]
         out.append({
             "name": name, "route": "cuda", "source": source,
@@ -1111,6 +1222,12 @@ def main() -> int:
               f"{'-' if lib_graph is None else f'{lib_graph:10.3f} us'}; "
               f"bound {r['bound_us']:9.3f} us ({r['bound_by']}); launches "
               f"{counts.get(row, '-')}")
+    for row, r in rows.items():
+        g = r["kernel_graph_us"]
+        print(f"{row:22s} from a CUDA graph: {r['n_ops'] / g / 1e6:.3f} "
+              f"TFLOP/s, {r['n_bytes'] / g / 1e3:.3f} GB/s, "
+              f"{100 * r['bound_us'] / g:.2f}% of its bound "
+              f"({r['bound_by']})")
     print(f"main path rounds/s {rounds_per_s:.4f} on {card}")
     print(f"async path engine rounds/s {async_rates[True]:.4f} (plain path "
           f"{async_rates[False]:.4f}, means of two runs each) on {card}")

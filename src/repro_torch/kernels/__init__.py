@@ -35,7 +35,10 @@ port as in the reference):
   ``scale_accumulate``; no kernel of their own).
 - :func:`rmsnorm`, :func:`flash_attention` / :func:`gqa_flash_attention`
   and :func:`mamba_scan` — the LLM forward hot spots (norm, prefill
-  attention, selective scan) as standalone kernels.
+  attention, selective scan) as standalone kernels. Attention has two:
+  bf16 at D ∈ {64, 128, 256} on the tensor cores (wgmma fed by TMA), the
+  rest on the CUDA cores; ``flash_attention.flash_route`` picks by dtype
+  and head dim, and both count as ``flash_attention`` launches.
 
 Each wrapper counts its kernel launches in a plain integer attribute
 ``launches``; :func:`launch_counts` and :func:`reset_launch_counts` read and

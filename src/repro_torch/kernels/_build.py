@@ -7,6 +7,11 @@ library lands in ``build/repro_torch/<hash>/`` at the root of the checkout
 (listed in ``.gitignore``), keyed by a hash of the sources and the flags,
 so an edited kernel is rebuilt and an unchanged one is reused. The build
 reads only this package's sources and needs ``nvcc`` (CUDA 12, ``sm_90a``).
+``NVCC_FLAGS`` (part of the hash) hold ``-Xptxas -v``: ptxas reports each
+kernel's registers, stack and spills, and :func:`library` keeps that report
+beside the library as ``ptxas.log`` (read it with :func:`ptxas_report`).
+The tensor-map encoder that the Hopper attention kernel needs is looked up
+in the driver at run time, so nothing links against ``libcuda``.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of the C entry points (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -54,6 +59,13 @@ _SIGNATURES = {
                               ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                               ctypes.c_int64, ctypes.c_float, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, _P),
+    "repro_flash_attention_sm90": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int64, ctypes.c_int64,
+                                   ctypes.c_int64, ctypes.c_int64,
+                                   ctypes.c_int64, ctypes.c_int64,
+                                   ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, _P),
     "repro_mamba_scan": (_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
                          _P, ctypes.c_int, _P, _P, ctypes.c_int,
                          ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P),
@@ -101,6 +113,8 @@ def _compile(out_dir: Path) -> Path:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"--- {name}\n{log}" for name, log in failed))
+        (out_dir / "ptxas.log").write_text("".join(
+            f"--- {cu.name}\n{log}" for cu, log in zip(cus, logs)))
         tmp_lib = Path(tmp) / "librepro_kernels.so"
         link = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o",
@@ -129,6 +143,26 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def ptxas_report():
+    """(kernel, registers, spill store bytes, spill load bytes, stack bytes)
+    for every kernel of the built library, from ptxas's ``-v`` report; the
+    kernel is its mangled name."""
+    library()
+    rows, name, spill = [], None, None
+    log = (BUILD_ROOT / _digest() / "ptxas.log").read_text()
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes spill stores" in line and name:
+            n = [int(t) for t in line.replace(",", " ").split() if t.isdigit()]
+            spill = n[:3]   # stack frame, spill stores, spill loads
+        elif "Used" in line and "registers" in line and name and spill:
+            regs = int(line.split("Used")[1].split()[0])
+            rows.append((name, regs, spill[1], spill[2], spill[0]))
+            name, spill = None, None
+    return rows
 
 
 def launch(name: str, *args) -> None:

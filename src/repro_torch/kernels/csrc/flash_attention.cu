@@ -1,8 +1,12 @@
 // Causal / sliding-window attention with an online softmax (flash
-// attention, forward).
+// attention, forward) on the CUDA cores: the route for f32 and for head
+// dims the tensor-core kernel does not take.
 //
 // repro_flash_attention replaces src/repro/kernels/flash_attention.py::
-// flash_attention (_flash_kernel), and serves ops.gqa_flash_attention too:
+// flash_attention (_flash_kernel), and serves ops.gqa_flash_attention too,
+// for f32 at any D <= 256 and bf16 at D outside {64, 128, 256}
+// (kernels/flash_attention.py::flash_route; bf16 at those head dims runs
+// flash_attention_sm90.cu's wgmma kernel):
 //   out[q] = sum_k softmax_k(scale * q.k | mask) v[k]
 // with the mask "key < S, key <= query if causal, query - key < window if a
 // window is given", over q, k, v, out of one dtype (f32 or bf16). The
@@ -12,9 +16,11 @@
 // [B, H, S, D] layout and the model's [B, S, H, D] layout; query head h
 // reads kv head h / group (grouped-query attention without a repeat).
 //   Bound: 4*D flops per (query, key) pair the mask keeps (QK^T and PV) over
-//   the bf16 tensor-core peak, or the bytes of q, k, v and out over 3.35
-//   TB/s, whichever is larger; for qwen2-7b's causal S = 4,096, 28 heads,
-//   D = 128 that is 120 GFLOP, about 122 us, bound by operations.
+//   the card's 67 TFLOP/s of f32 outside the tensor cores (wgmma in f32
+//   would mean TF32, about three decimal digits, outside the f32
+//   tolerance), or the bytes of q, k, v and out over 3.35 TB/s, whichever
+//   is larger; for qwen2-7b's causal S = 4,096, 28 heads, D = 128 in f32
+//   that is 120 GFLOP, about 1.8 ms, bound by operations.
 //   Design: the TPU kernel's grid ran (B*H, q-blocks, kv-blocks) with the
 //   kv axis in order, carrying m, l and acc in VMEM. Here one 256-thread
 //   block owns one 64-query tile of one (batch, head) and loops over the
@@ -23,10 +29,8 @@
 //   the input dtype (a bf16 value widens to f32 exactly); P goes through
 //   shared memory in f32. The 16 x 16 threads each own a 4 x 4 block of
 //   scores and the matching 4 rows of the output (columns tx*4 + 64*j), so
-//   QK^T and PV are register-tiled products on the CUDA cores, f32 FMAs:
-//   no tensor cores yet, so the bf16 rows run far from their bound (the
-//   first candidate for a Hopper redesign with wgmma). Row max and row sum
-//   reduce over the 16 threads of a row with warp shuffles. Key tiles
+//   QK^T and PV are register-tiled products of f32 FMAs. Row max and row
+//   sum reduce over the 16 threads of a row with warp shuffles. Key tiles
 //   wholly above the causal diagonal or left of the window are skipped
 //   (their keys would add exactly nothing), and tiles are scheduled heavy
 //   first. Shared memory is up to 217 KB at D = 256 f32, above the 48 KB

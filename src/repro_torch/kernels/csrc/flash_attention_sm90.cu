@@ -1,0 +1,607 @@
+// Causal / sliding-window attention with an online softmax (flash
+// attention, forward) for bf16 at head dims 64, 128 and 256, on Hopper's
+// tensor cores.
+//
+// repro_flash_attention_sm90 replaces src/repro/kernels/flash_attention.py::
+// flash_attention (_flash_kernel) for bf16 q, k, v with D in {64, 128, 256},
+// and serves ops.gqa_flash_attention too:
+//   out[q] = sum_k softmax_k(scale * q.k | mask) v[k]
+// with the mask "key < S, key <= query if causal, query - key < window if a
+// window is given"; f32 and other head dims stay on flash_attention.cu's
+// CUDA-core kernel (kernels/flash_attention.py::flash_route picks). A row
+// with no key left gives 0. Tensors are addressed by (batch, head,
+// position) strides with unit stride along D, so the kernel reads the
+// [B, H, S, D] layout and the model's [B, S, H, D] layout alike; query head
+// h reads kv head h / group (grouped-query attention without a repeat).
+//   Bound: 4*D flops per (query, key) pair the mask keeps (QK^T and PV)
+//   over the 989 TFLOP/s dense bf16 tensor-core peak, or the bytes of q, k,
+//   v and out over 3.35 TB/s, whichever is larger; for qwen2-7b's causal
+//   S = 4,096, 28 heads, D = 128 that is 120 GFLOP, about 122 us, bound by
+//   operations.
+//   Design: one CTA of two warpgroups (256 threads) owns a 128-row query
+//   tile of one (batch, head), 64 rows a warpgroup, and loops over key
+//   tiles of 128 keys (64 at D = 256) itself, carrying the softmax state
+//   and the output in registers. TMA copies Q once and K and V through a
+//   two-stage ring in shared memory, each tile as 64-column boxes with the
+//   128-byte swizzle; tensor maps are 4-D over (D, heads, positions,
+//   batch) with the caller's strides, encoded on the host per call
+//   (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, no -lcuda).
+//   Thread 0 issues the loads one tile ahead: full barriers carry the
+//   bytes, empty barriers one arrival per warp once its products are done.
+//   S = Q K^T is wgmma m64nBKk16 with Q and K both K-major in shared
+//   memory (the descriptor steps 32 bytes per k16 inside a swizzle atom,
+//   then atom to atom). The online softmax runs on the f32 accumulator
+//   fragments (thread t holds rows 16*warp + t%32/4 and +8): row max over
+//   the quad of threads that share a row, exp2 with scale*log2(e) folded
+//   in, m_safe and corr = 0 for an empty row as in the reference, l kept
+//   per thread and summed over the quad at the end. P is rounded to bf16
+//   in registers and repacked from the accumulator layout into wgmma's A
+//   fragments (the one rounding the reference does not do, which keeps P
+//   in f32); O += P V is wgmma m64nDk16 with A from registers and V
+//   MN-major in shared memory (the transpose bit, LBO = the stride
+//   between 64-column blocks, SBO = 8 key rows). Key tiles wholly above
+//   the diagonal or left of the window are never loaded, tiles a
+//   warpgroup cannot see are skipped by it, and only tiles that straddle
+//   an edge (or hold keys >= S, which TMA zero-fills and a zero key would
+//   score 0, not -inf) take element masks; query tiles run heavy first.
+//   The epilogue divides by max(l, 1e-30), rounds to bf16 (nearest even)
+//   and stores rows < S from the fragments. Shared memory is 161 KB at
+//   D = 128 and 193 KB at D = 256, above the 48 KB default, so the entry
+//   point raises the kernel's dynamic limit.
+#include <cuda.h>
+
+#include "common.cuh"
+
+namespace repro {
+namespace {
+
+constexpr int kBQ = 128;           // query rows of a CTA, 64 a warpgroup
+constexpr int kSm90Threads = 256;  // two warpgroups
+constexpr int kWarps = kSm90Threads / 32;
+constexpr int kRowBytes = 128;     // one swizzled row of a 64-column box
+
+template <int D>
+struct Tile {
+  static constexpr int BK = D <= 128 ? 128 : 64;  // keys of a tile
+  static constexpr int NCB = D / 64;              // 64-column blocks
+  static constexpr int Q_CB = kBQ * kRowBytes;    // bytes of a Q block
+  static constexpr int KV_CB = BK * kRowBytes;    // bytes of a K / V block
+  static constexpr int Q_BYTES = NCB * Q_CB;
+  static constexpr int KV_BYTES = NCB * KV_CB;    // one of K or V
+  // 1,024 B of slack to align the swizzle atoms, Q, two stages of K and V,
+  // then five mbarriers (full[2], empty[2], q)
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 4 * KV_BYTES + 5 * 8;
+};
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers ------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+// Wait until the phase of the given parity has completed. A wait that
+// outlasts about ten seconds of SM clocks is a fault (a load that never
+// lands): trap, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > 20000000000LL) __trap();
+  }
+}
+
+// ---- TMA --------------------------------------------------------------------
+
+// One box of the 4-D map at (d, head, position, batch) into shared memory,
+// its bytes counted on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int d, int h, int p,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(d), "r"(h), "r"(p), "r"(b)
+      : "memory");
+}
+
+// ---- wgmma ------------------------------------------------------------------
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3fff) |
+         (uint64_t)((lbo >> 4) & 0x3fff) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3fff) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin an accumulator register in program order around the asynchronous
+// products, so the compiler neither reads it before the wait nor moves a
+// write past an issue.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// m64nNk16, f32 += bf16 * bf16. WgmmaSS: A and B from shared memory, both
+// K-major; WgmmaRS: A from registers, B from shared memory MN-major
+// (transposed). scale_d = 0 overwrites d.
+template <int N>
+struct WgmmaSS;
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaSS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRS<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRS<256> {
+  static __device__ __forceinline__ void run(float (&d)[128], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+  }
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Thread 0: key tile kt_lo + n into stage n & 1 (K, then V at +KV_BYTES),
+// its bytes counted on full[n & 1].
+template <int D>
+__device__ __forceinline__ void load_kv(uint8_t* sKV, const CUtensorMap* k_map,
+                                        const CUtensorMap* v_map,
+                                        uint64_t* full, int n, int kt_lo,
+                                        int hk, int b) {
+  using T = Tile<D>;
+  uint8_t* const dst = sKV + (n & 1) * 2 * T::KV_BYTES;
+  const int k0 = (kt_lo + n) * T::BK;
+  mbar_expect_tx(&full[n & 1], 2 * T::KV_BYTES);
+#pragma unroll
+  for (int cb = 0; cb < T::NCB; ++cb) {
+    tma_load(dst + cb * T::KV_CB, k_map, &full[n & 1], cb * 64, hk, k0, b);
+    tma_load(dst + T::KV_BYTES + cb * T::KV_CB, v_map, &full[n & 1], cb * 64,
+             hk, k0, b);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               __nv_bfloat16* __restrict__ o, int BH, int H, int group, int S,
+               int64_t o_sb, int64_t o_sh, int64_t o_ss, float scale_log2,
+               int causal, int window, int has_window) {
+  using T = Tile<D>;
+  constexpr int BK = T::BK, NCB = T::NCB;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle pattern follows address bits 4-9: align the tiles to 1 KB
+  uint8_t* const sQ =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* const sKV = sQ + T::Q_BYTES;  // stage s: K at 2s, V at 2s + 1
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(sKV + 4 * T::KV_BYTES);
+  uint64_t* const full = bars;       // [2] a stage's K and V arrived
+  uint64_t* const empty = bars + 2;  // [2] every warp is done with a stage
+  uint64_t* const q_full = bars + 4;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3,
+            lane = tid & 31;
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x % BH;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / BH);  // heavy tiles first
+  const int b = bh / H, h = bh - b * H, hk = h / group;
+  const int q0 = qt * kBQ;
+
+  // the key tiles some query of this tile may see
+  const int q_last = min(q0 + kBQ, S) - 1;
+  const int lo = has_window ? q0 - window + 1 : 0;
+  const int kt_lo = lo > 0 ? lo / BK : 0;
+  const int kt_hi = causal ? q_last / BK + 1 : (S + BK - 1) / BK;
+  const int n_tiles = kt_hi - kt_lo;
+
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_init(&empty[0], kWarps);
+    mbar_init(&empty[1], kWarps);
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect_tx(q_full, T::Q_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+      tma_load(sQ + cb * T::Q_CB, &q_map, q_full, cb * 64, h, q0, b);
+    load_kv<D>(sKV, &k_map, &v_map, full, 0, kt_lo, hk, b);
+  }
+
+  // this thread's rows: r0 and r0 + 8; its columns of an 8-wide group:
+  // 2 * (lane % 4) and + 1
+  const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
+  const int r0 = wg_first + 16 * warp + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+  const uint32_t q_addr = smem_u32(sQ) + wg * 64 * kRowBytes;
+
+  if (n_tiles > 0) mbar_wait(q_full, 0);
+  for (int n = 0; n < n_tiles; ++n) {
+    const int st = n & 1, k0 = (kt_lo + n) * BK;
+    if (tid == 0 && n + 1 < n_tiles) {
+      // stage (n + 1) & 1 last held tile n - 1: wait until it is released
+      if (n >= 1) mbar_wait(&empty[(n + 1) & 1], ((n - 1) >> 1) & 1);
+      load_kv<D>(sKV, &k_map, &v_map, full, n + 1, kt_lo, hk, b);
+    }
+    __syncwarp();
+    mbar_wait(&full[st], (n >> 1) & 1);
+
+    const bool unseen = (causal && k0 > wg_last) ||
+                        (has_window && wg_first - (k0 + BK - 1) >= window);
+    if (!unseen) {  // uniform over the warpgroup
+      const uint32_t k_addr = smem_u32(sKV + st * 2 * T::KV_BYTES);
+      const uint32_t v_addr = k_addr + T::KV_BYTES;
+
+      // S = Q K^T: D / 16 steps of k16, 4 inside each 64-column block
+      float s[BK / 2];
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t off = (ks & 3) * 32;
+        WgmmaSS<BK>::run(
+            s, make_desc(q_addr + (ks >> 2) * T::Q_CB + off, 16, 1024),
+            make_desc(k_addr + (ks >> 2) * T::KV_CB + off, 16, 1024),
+            ks > 0);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+
+      // scale into log2 units and mask; s[i] is row r0 + 8 * ((i >> 1) & 1),
+      // key k0 + 8 * (i >> 2) + c0 + (i & 1)
+      const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > wg_first) ||
+                        (has_window && wg_last - k0 >= window);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        float x = s[i] * scale_log2;
+        if (edge) {
+          const int kp = k0 + 8 * (i >> 2) + c0 + (i & 1);
+          const int qp = r0 + 8 * ((i >> 1) & 1);
+          const bool ok = kp < S && (!causal || kp <= qp) &&
+                          (!has_window || qp - kp < window);
+          x = ok ? x : neg_inf();
+        }
+        s[i] = x;
+      }
+      float corr[2], m_safe[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = neg_inf();
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          if (((i >> 1) & 1) == r) mx = fmaxf(mx, s[i]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        m_safe[r] = m_new == neg_inf() ? 0.f : m_new;
+        corr[r] = m[r] == neg_inf() ? 0.f : exp2f(m[r] - m_safe[r]);
+        m[r] = m_new;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        s[i] = exp2f(s[i] - m_safe[(i >> 1) & 1]);
+        rs[(i >> 1) & 1] += s[i];
+      }
+      l[0] = l[0] * corr[0] + rs[0];
+      l[1] = l[1] * corr[1] + rs[1];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+      // P as bf16 A fragments: k16 step j takes accumulator columns
+      // 16j .. 16j + 15, registers 8j .. 8j + 7 in the order wgmma's A wants
+      uint32_t p[BK / 4];
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+        p[4 * j + 0] = pack_bf16(s[8 * j + 0], s[8 * j + 1]);
+        p[4 * j + 1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+        p[4 * j + 2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+        p[4 * j + 3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+      }
+
+      // O += P V: BK / 16 steps of 16 keys (2 KB of V rows each)
+      fence_regs(acc);
+      wg_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+        WgmmaRS<D>::run(acc, p[4 * j], p[4 * j + 1], p[4 * j + 2],
+                        p[4 * j + 3],
+                        make_desc(v_addr + j * 16 * kRowBytes, T::KV_CB, 1024));
+      wg_commit();
+      wg_wait_all();
+      fence_regs(acc);
+    }
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // epilogue: O / l in bf16, rows < S
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  __nv_bfloat16* const ob = o + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = (i >> 1) & 1, qp = r0 + 8 * r;
+    if (qp < S) {
+      const __nv_bfloat162 v = __floats2bfloat162_rn(
+          __fdiv_rn(acc[i], l[r]), __fdiv_rn(acc[i + 1], l[r]));
+      *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)qp * o_ss + 8 * (i >> 2) +
+                                         c0) = v;
+    }
+  }
+}
+
+// ---- host -------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 [B, *, S, D] tensor as a 4-D map (D, heads, positions, batch) with
+// boxes of 64 columns x rows positions, swizzled 128 B; positions past S
+// read as zeros.
+bool encode_map(CUtensorMap* map, const void* ptr, int B, int heads, int S,
+                int D, int64_t sb, int64_t sh, int64_t ss, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_sm90(const void* q, const void* k, const void* v, void* o, int B,
+                int H, int group, int S, int64_t q_sb, int64_t q_sh,
+                int64_t q_ss, int64_t kv_sb, int64_t kv_sh, int64_t kv_ss,
+                float scale, int causal, int window, int has_window,
+                unsigned n_blocks, cudaStream_t st) {
+  using T = Tile<D>;
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_map(&q_map, q, B, H, S, D, q_sb, q_sh, q_ss, kBQ) ||
+      !encode_map(&k_map, k, B, H / group, S, D, kv_sb, kv_sh, kv_ss, T::BK) ||
+      !encode_map(&v_map, v, B, H / group, S, D, kv_sb, kv_sh, kv_ss, T::BK))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      (const void*)flash_fwd_sm90<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  flash_fwd_sm90<D><<<n_blocks, kSm90Threads, T::SMEM, st>>>(
+      q_map, k_map, v_map, (__nv_bfloat16*)o, B * H, H, group, S, q_sb, q_sh,
+      q_ss, scale * 1.4426950408889634f, causal, window, has_window);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace repro
+
+using namespace repro;
+
+// bf16 q, k, v and out; q and out share the strides (q_sb, q_sh, q_ss), k
+// and v share (kv_sb, kv_sh, kv_ss); the head dimension is contiguous in
+// all four. TMA needs 16-byte aligned bases and strides that are multiples
+// of 16 bytes: anything else is refused, as is a D outside {64, 128, 256}.
+extern "C" int repro_flash_attention_sm90(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int group, int S, int D, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+    int64_t kv_sb, int64_t kv_sh, int64_t kv_ss, float scale, int causal,
+    int window, int has_window, void* stream) {
+  if (B < 1 || H < 1 || S < 1 || group < 1 || H % group != 0)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t bases[4] = {(uintptr_t)q, (uintptr_t)k, (uintptr_t)v,
+                              (uintptr_t)o};
+  const int64_t strides[6] = {q_sb, q_sh, q_ss, kv_sb, kv_sh, kv_ss};
+  for (int i = 0; i < 4; ++i)
+    if (bases[i] % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  for (int i = 0; i < 6; ++i)
+    if (strides[i] <= 0 || strides[i] * 2 % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
+  const int64_t n_blocks = (int64_t)B * H * ((S + kBQ - 1) / kBQ);
+  if ((int64_t)B * H > 0x7fffffff || n_blocks > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned nb = (unsigned)n_blocks;
+  if (D == 64)
+    return launch_sm90<64>(q, k, v, o, B, H, group, S, q_sb, q_sh, q_ss,
+                           kv_sb, kv_sh, kv_ss, scale, causal, window,
+                           has_window, nb, st);
+  if (D == 128)
+    return launch_sm90<128>(q, k, v, o, B, H, group, S, q_sb, q_sh, q_ss,
+                            kv_sb, kv_sh, kv_ss, scale, causal, window,
+                            has_window, nb, st);
+  if (D == 256)
+    return launch_sm90<256>(q, k, v, o, B, H, group, S, q_sb, q_sh, q_ss,
+                            kv_sb, kv_sh, kv_ss, scale, causal, window,
+                            has_window, nb, st);
+  return (int)cudaErrorInvalidValue;
+}

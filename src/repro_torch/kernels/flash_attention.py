@@ -5,11 +5,15 @@ attention, forward).
 D ≤ 256) and returns softmax(scale·qkᵀ | mask)·v in q's dtype, with the
 mask ``key ≤ query`` when causal and ``query − key < window`` when a window
 is given (one-sided when not causal); a row with no key left is 0. On a
-CUDA tensor it launches the kernel of ``csrc/flash_attention.cu``
-(replacing ``src/repro/kernels/flash_attention.py``'s ``flash_attention``);
-on a CPU tensor it runs the plain version in :mod:`.ref`.
-:func:`launch_flash` is the launch both this and
-``ops.gqa_flash_attention`` use: the kernel reads q, k, v through
+CUDA tensor it launches one of two kernels replacing
+``src/repro/kernels/flash_attention.py``'s ``flash_attention``, chosen by
+:func:`flash_route` from the dtype and head dim alone: bf16 at D ∈ {64,
+128, 256} runs on the tensor cores (``csrc/flash_attention_sm90.cu``,
+wgmma fed by TMA); f32, where wgmma would mean TF32, and every other head
+dim run on the CUDA cores (``csrc/flash_attention.cu``). The dispatch is
+fixed: a call the route's kernel refuses raises. On a CPU tensor the plain
+version in :mod:`.ref` runs. :func:`launch_flash` is the launch both this
+and ``ops.gqa_flash_attention`` use: the kernels read q, k, v through
 (batch, head, position) strides, so the model layout [B, S, H, D] and
 grouped KV heads need no copy.
 """
@@ -23,6 +27,31 @@ from . import _build
 from .ref import flash_attention_ref
 
 MAX_HEAD_DIM = 256
+WGMMA_HEAD_DIMS = (64, 128, 256)
+
+
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` (the tensor-core kernel
+    of ``csrc/flash_attention_sm90.cu``) for bf16 at D ∈ {64, 128, 256},
+    else ``"cuda_cores"`` (``csrc/flash_attention.cu``)."""
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_cores"
+
+
+def check_tma(name: str, *tensors: torch.Tensor) -> None:
+    """What the tensor maps of the wgmma route need: 16-byte aligned bases
+    and strides (in bytes) that are positive multiples of 16."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the bf16 tensor-core kernel needs "
+                             "16-byte aligned tensors, got one at "
+                             f"{t.data_ptr():#x}")
+        strides = [st * t.element_size() for st in t.stride()[:-1]]
+        if any(st <= 0 or st % 16 for st in strides):
+            raise ValueError(f"{name}: the bf16 tensor-core kernel needs "
+                             "strides that are multiples of 16 bytes, got "
+                             f"{strides}")
 
 
 def check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -53,21 +82,27 @@ def check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
 def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  head_axis: int, group: int, causal: bool,
                  window: Optional[int], scale: float) -> torch.Tensor:
-    """Launch the kernel on contiguous CUDA q [.., Hq, .., D] and k, v
-    [.., Hkv, .., D] with the heads on ``head_axis`` (1 or 2) and the
-    positions on the other; the output has q's layout."""
+    """Launch the kernel :func:`flash_route` picks on contiguous CUDA q
+    [.., Hq, .., D] and k, v [.., Hkv, .., D] with the heads on
+    ``head_axis`` (1 or 2) and the positions on the other; the output has
+    q's layout."""
     _build.check_cuda("flash_attention", q, k, v)
     pos_axis = 3 - head_axis
     B, H, S, D = q.shape[0], q.shape[head_axis], q.shape[pos_axis], q.shape[3]
     out = torch.empty_like(q)
     # a window of S or more masks nothing more, one of −S or less masks all
     win = 0 if window is None else max(-S, min(int(window), S))
-    _build.launch("repro_flash_attention", q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), _build.DTYPE_CODES[q.dtype],
-                  B, H, group, S, D, q.stride(0), q.stride(head_axis),
-                  q.stride(pos_axis), k.stride(0), k.stride(head_axis),
-                  k.stride(pos_axis), float(scale), int(bool(causal)), win,
-                  int(window is not None))
+    shape = (B, H, group, S, D, q.stride(0), q.stride(head_axis),
+             q.stride(pos_axis), k.stride(0), k.stride(head_axis),
+             k.stride(pos_axis), float(scale), int(bool(causal)), win,
+             int(window is not None))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if flash_route(q.dtype, D) == "wgmma":
+        check_tma("flash_attention", q, k, v, out)
+        _build.launch("repro_flash_attention_sm90", *ptrs, *shape)
+    else:
+        _build.launch("repro_flash_attention", *ptrs,
+                      _build.DTYPE_CODES[q.dtype], *shape)
     flash_attention.launches += 1
     return out
 

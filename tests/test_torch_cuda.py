@@ -133,6 +133,82 @@ def test_ops_api_raises_instead_of_falling_back(gen, name):
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
 
 
+@pytest.mark.parametrize("G", [1, 2, 7])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_wgmma_attention_matches_plain(gen, D, G):
+    """bf16 at the wgmma route's head dims, over lengths around its tiles,
+    causal and not, windows {None, 1, 17, 64, 0}, B = 2 and two KV heads
+    (group 1 through the [B, H, S, D] entry point); a causal window of 0
+    masks every key and gives exactly 0."""
+    for S in (1, 63, 64, 65, 127, 129, 257):
+        q = torch.randn((2, S, 2 * G, D), generator=gen,
+                        device="cuda").bfloat16()
+        k, v = (torch.randn((2, S, 2, D), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        if G == 1:
+            q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            kern, plain = kernels.flash_attention, ref.flash_attention_ref
+        else:
+            kern = kernels.gqa_flash_attention
+            plain = ref.gqa_flash_attention_ref
+        for causal in (True, False):
+            for window in (None, 1, 17, 64, 0):
+                got = kern(q, k, v, causal=causal, window=window)
+                want = plain(q, k, v, causal=causal, window=window)
+                torch.testing.assert_close(got, want, **BF16)
+                if causal and window == 0:
+                    assert bool((got == 0).all())
+
+
+def test_wgmma_route_refuses_misaligned_views(gen):
+    flat = torch.zeros(2 * 64 * 4 + 8, dtype=torch.bfloat16, device="cuda")
+    off = flat[1:1 + 2 * 64 * 4].view(1, 2, 4, 64)   # 2 bytes off 16
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.flash_attention(off, off, off)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.gqa_flash_attention(off, off, off)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+def _stale_args(gen, K, D, dtype):
+    P = torch.rand((K, K), generator=gen, device="cuda") * 0.9 + 0.1
+    P = P / P.sum(0, keepdim=True)
+    kept = torch.diagonal(P).contiguous()
+    w = torch.rand(K, generator=gen, device="cuda") * 1.7 + 0.3
+    return (torch.randn((K, D), generator=gen, device="cuda").to(dtype),
+            w.to(dtype), kept, P - torch.diag(kept),
+            (0.1 * torch.randn((K, D), generator=gen,
+                               device="cuda")).to(dtype),
+            (0.5 * torch.rand(K, generator=gen, device="cuda")).to(dtype))
+
+
+@pytest.mark.parametrize("K", [16, 17, 32])
+def test_stale_mix_at_the_register_bucket_edges(gen, K):
+    """K = 16, 17 and 32 cross the 16- and 32-wide register buckets; odd
+    D takes single columns, even D column pairs; z' stays bit-equal in
+    f32."""
+    for D_ in (1, 1_000, 65_537):
+        for dtype, tol in ((torch.float32, F32), (torch.bfloat16, BF16)):
+            args = _stale_args(gen, K, D_, dtype)
+            got = kernels.fused_stale_mix(*args)
+            want = ref.fused_stale_mix_ref(*args)
+            for g, w_ in _pairs(got, want):
+                torch.testing.assert_close(g, w_, **tol)
+            if dtype == torch.float32:
+                assert torch.equal(got[0], want[0])
+
+
+def test_stale_mix_z_is_bit_equal_at_main_shape(gen):
+    args = _stale_args(gen, 8, D, torch.float32)
+    kernels.reset_launch_counts()
+    z, send, *_ = kernels.fused_stale_mix(*args)
+    assert kernels.launch_counts()["fused_stale_mix"] == 1
+    z_ref, send_ref, *_ = ref.fused_stale_mix_ref(*args)
+    assert torch.equal(z, z_ref)
+    torch.testing.assert_close(send, send_ref, **F32)
+
+
 def test_wrappers_raise_instead_of_falling_back(gen):
     x = torch.randn(64, generator=gen, device="cuda")
     with pytest.raises(TypeError):

@@ -21,6 +21,8 @@ import repro.kernels as jk  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.flash_attention import check_tma, flash_route  # noqa: E402
 from repro_torch.nn.modules import tree_leaves  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -106,6 +108,77 @@ def test_gqa_flash_attention(G):
     got = kernels.gqa_flash_attention(qt, kt, vt, causal=True)
     assert got.shape == qt.shape
     np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 32, "cuda_cores"),
+    (torch.bfloat16, 96, "cuda_cores"), (torch.bfloat16, 16, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
+    (torch.float32, 256, "cuda_cores")])
+def test_flash_route_is_fixed_by_dtype_and_head_dim(dtype, D, route):
+    """bf16 at D ∈ {64, 128, 256} takes the wgmma kernel; f32 (wgmma would
+    mean TF32) and every other head dim the CUDA-core kernel."""
+    assert flash_route(dtype, D) == route
+
+
+def test_tma_check_refuses_misaligned_tensors():
+    """The wgmma route's tensor maps need 16-byte aligned bases and strides
+    of 16-byte multiples; the check raises on anything else."""
+    storage = torch.zeros(2 * 64 * 4 + 8, dtype=torch.bfloat16)
+    base = 0 if storage.data_ptr() % 16 == 0 else \
+        (16 - storage.data_ptr() % 16) // 2
+    aligned = storage[base:base + 2 * 64 * 4].view(1, 2, 4, 64)
+    check_tma("t", aligned)
+    with pytest.raises(ValueError, match="aligned"):
+        check_tma("t", storage[base + 1:base + 1 + 2 * 64 * 4].view(
+            1, 2, 4, 64))
+    with pytest.raises(ValueError, match="multiples of 16"):
+        check_tma("t", torch.zeros(1, 2, 4, 36, dtype=torch.bfloat16))
+
+
+def _attention_bf16_p(q, k, v, *, causal, window, block_k):
+    """The wgmma kernel's arithmetic in torch: an online softmax over key
+    tiles of ``block_k`` in f32, with P rounded to bf16 before P·V — the
+    one rounding the reference does not do."""
+    B, H, S, D = q.shape
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    qp = torch.arange(S)[:, None]
+    m = torch.full((B, H, S, 1), float("-inf"))
+    l, acc = torch.zeros(B, H, S, 1), torch.zeros(B, H, S, D)
+    for k0 in range(0, S, block_k):
+        kp = torch.arange(k0, min(k0 + block_k, S))[None, :]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + block_k]) \
+            * D ** -0.5
+        ok = torch.ones(S, kp.shape[1], dtype=torch.bool)
+        if causal:
+            ok &= kp <= qp
+        if window is not None:
+            ok &= (qp - kp) < window
+        s = torch.where(ok, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_safe = torch.where(m_new == float("-inf"), 0.0, m_new)
+        corr = torch.where(m == float("-inf"), 0.0, torch.exp(m - m_safe))
+        p = torch.exp(s - m_safe)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum(
+            "bhqk,bhkd->bhqd", p.bfloat16().float(), vf[:, :, k0:k0 + block_k])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("D", [128, 256])
+def test_bf16_p_rounding_stays_within_the_bf16_tolerance(D, window):
+    """P rounded to bf16 before P·V, as the wgmma kernel does, against the
+    f32-P reference at S = 1,024, causal, with and without a window."""
+    rng = np.random.default_rng(20 + D + (window or 0))
+    q, k, v = (torch.as_tensor(rng.standard_normal(
+        (1, 2, 1_024, D), dtype=np.float32)).bfloat16() for _ in range(3))
+    got = _attention_bf16_p(q, k, v, causal=True, window=window,
+                            block_k=128 if D <= 128 else 64)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **TOL["bfloat16"])
 
 
 # ---------------------------------------------------------------------------
