@@ -6,23 +6,29 @@
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch and
    CUDA versions, then builds the hand-written kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` and prints the build time
-   and, from ptxas's ``-v`` report, the registers and spills of the wgmma
-   attention and the stale-mix register kernels (0 spill bytes each).
-2. Holds each of the ten kernels (nine TPU kernels; attention has a
-   tensor-core kernel for bf16 at D ∈ {64, 128, 256} and a CUDA-core one
-   for the rest) against its plain PyTorch version on the
+   and, from ptxas's ``-v`` report, the registers and spills of the two
+   tensor-core attention kernels, the stale-mix register kernels and the
+   rmsnorm instantiations (0 spill bytes each).
+2. Holds each of the eleven kernels (nine TPU kernels; attention has three:
+   at D ∈ {64, 128, 256} bf16 on wgmma and f32 in split TF32, both on the
+   tensor cores, and a CUDA-core one for every other head dim) against its
+   plain PyTorch version on the
    card, at the main paths' shapes (D = 199,210 f32, K = 8; the LLM
    kernels at the full widths of qwen2-7b, gemma3-4b and falcon-mamba-7b,
-   attention in bf16 and, on the CUDA cores, in f32)
+   attention in bf16 and f32, and phi-3-vision's head dim 96 on the CUDA
+   cores; rmsnorm on both its vector and its scalar path)
    and at ragged sizes (the mixes at K across every register bucket edge;
    z' of the f32 stale mix bit-equal), with the kernel tests' tolerances
    (f32 rtol = atol = 2e-5, bf16 2e-2, the mamba scan 2e-4), then sweeps
-   the wgmma attention over head dims, lengths, groups, masks and windows
-   and checks that a misaligned bf16 view raises; times each kernel over
+   both tensor-core attention routes over head dims, lengths, groups,
+   masks and windows and checks that a misaligned view raises on each;
+   times each kernel over
    CUDA-event-timed launches (200, or 10 at the LLM widths) beside its
    plain version, one PyTorch library call computing the same function
    where there is one, and its bound (bytes over 3.35 TB/s, operations
-   over 67 TFLOP/s f32, or 989 TFLOP/s for bf16 attention): once eagerly
+   over 67 TFLOP/s f32, 989 TFLOP/s for bf16 attention, or 165 TFLOP/s of
+   f32-grade products, three TF32 products at 495, for f32 attention on
+   the tensor cores): once eagerly
    (what a caller pays, host launch cost included) and once replayed from a
    CUDA graph (the device's time per call), with the rate it reaches.
    Then drives the ops API (``repro_torch.kernels``) once at full width:
@@ -34,8 +40,10 @@
    launch of each kernel, one ``sumsq`` and one ``scale_accumulate``), each
    result finite and within tolerance of its plain version; then gemma3-4b's
    local attention (D = 256, window 1,024), rmsnorm in f32, qwen2-7b's
-   attention in f32 (the CUDA-core kernel) and the flat
-   ``clip_accumulate``, one launch window each.
+   attention in f32 (the split-TF32 kernel; SDPA's f32 kernel named from
+   the profiler), phi-3-vision's attention (D = 96, the CUDA-core kernel)
+   and the flat ``clip_accumulate``, one launch window each, each with its
+   route's launch pinned.
 3. Times the first client step of the process (set-up cost), then
    drives the sync DP path: ``run_federated("proxyfl", ...)`` on the
    paper's MNIST protocol (synthetic data), mlp 784-200-200-10, 8 clients
@@ -59,7 +67,8 @@
 5. Breaks one warm client step, one engine round, the exchange and the
    evaluation of the sync path down on the host clock, and profiles one
    step with torch.profiler for the device's busy share.
-6. Prints one JSON line ``{"kernels": [...]}`` and, last, the result line
+6. Prints one JSON line ``{"kernels": [...]}`` (attention's three kernels
+   under their own keys) and, last, the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits nonzero. The script needs a CUDA device and
@@ -89,6 +98,7 @@ EPSILON_2_ROUNDS = 6.528418259356986
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
+TF32X3_OPS_PER_S = 495e12 / 3   # f32-grade: three TF32 products at 495
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SCAN_TOL = 2e-4             # tests/test_kernels.py's mamba scan tolerance
 MAIN_D, MAIN_K = 199_210, 8
@@ -101,11 +111,12 @@ ASYNC_ROUNDS, ASYNC_TAU = 6, 2   # fig_async runs 30 rounds; cut to 6
 # the ops API at the full widths of models the repo has (one layer's call)
 QWEN_ATTN = dict(B=1, S=4_096, Hq=28, Hkv=4, D=128)       # configs/qwen2_7b.py
 GEMMA_LOCAL = dict(B=1, S=4_096, Hq=8, Hkv=4, D=256, window=1_024)  # gemma3_4b
+PHI3V_ATTN = dict(B=1, S=4_096, Hq=32, Hkv=32, D=96)   # phi_3_vision_4_2b
 RMS_ROWS, RMS_D = 4_096, 3_584                            # qwen2-7b d_model
 MAMBA = dict(B=1, S=4_096, di=8_192, ds=16)   # configs/falcon_mamba_7b.py
-# the attention routes' sweep: head dims of the wgmma kernel, lengths around
-# its 128-row and 64/128-key tiles, query heads per KV head, windows (0
-# masks every key of a causal row)
+# the attention routes' sweep: head dims of the tensor-core kernels, lengths
+# around their 128-row and 16/64/128-key tiles, query heads per KV head,
+# windows (0 masks every key of a causal row)
 ROUTE_D = (64, 128, 256)
 ROUTE_S = (1, 63, 64, 65, 127, 129, 257)
 ROUTE_GROUPS = (1, 2, 7)
@@ -353,6 +364,7 @@ def llm_kernel_cases(gen):
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
+    bf16 = torch.bfloat16
     hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4)
     for D in (MAIN_D,) + RAGGED_D:
         for dt in (torch.float32, torch.bfloat16):
@@ -363,21 +375,32 @@ def llm_kernel_cases(gen):
                        lambda a=args: ref.noise_sgd_step_ref(*a, **hp),
                        None, 8 * D + 2 * D * es + 16, 7 * D)
 
-    for rows, d, dt in [(RMS_ROWS, RMS_D, torch.bfloat16),
-                        (RMS_ROWS, RMS_D, torch.float32), (1, 64, torch.float32),
-                        (77, 1_000, torch.float32), (77, 1_000, torch.bfloat16),
-                        (300, 33, torch.bfloat16), (2, 8_192, torch.float32)]:
+    # (rows, d, dtype, elements x is offset by, gain dtype): the vector path,
+    # the scalar one (a row not a multiple of 16 bytes, or x off 16 bytes),
+    # rows past the registers (re-read), a gain in the other dtype
+    f32 = torch.float32
+    for rows, d, dt, off, gdt in [
+            (RMS_ROWS, RMS_D, bf16, 0, bf16), (RMS_ROWS, RMS_D, f32, 0, f32),
+            (RMS_ROWS, RMS_D, bf16, 1, bf16), (1, 64, f32, 0, f32),
+            (77, 1_000, f32, 0, f32), (77, 1_000, bf16, 0, bf16),
+            (300, 33, bf16, 0, bf16), (2, 8_192, f32, 0, f32),
+            (77, 1_000, bf16, 0, f32), (5, 3_584, f32, 3, bf16),
+            (3, 40_000, f32, 0, f32), (3, 9_001, bf16, 0, bf16),
+            (9, 70_000, bf16, 0, bf16)]:
         es = torch.tensor([], dtype=dt).element_size()
-        x, g = randn(rows, d, dtype=dt), randn(d, dtype=dt)
-        yield Case("rmsnorm", dt, (rows, d),
+        x = randn(rows * d + off, dtype=dt)[off:].view(rows, d)
+        g = randn(d, dtype=gdt)
+        row = {(bf16, 0): "rmsnorm", (f32, 0): "rmsnorm f32",
+               (bf16, 1): "rmsnorm scalar"}.get((dt, off)) \
+            if (rows, d) == (RMS_ROWS, RMS_D) else "rmsnorm"
+        yield Case("rmsnorm", dt, (rows, d, off, str(gdt)),
                    lambda x=x, g=g: kernels.rmsnorm(x, g),
                    lambda x=x, g=g: ref.rmsnorm_ref(x, g),
                    lambda x=x, g=g, d=d: torch.nn.functional.rms_norm(
-                       x, (d,), weight=g, eps=1e-6),
-                   2 * rows * d * es + d * es, 4 * rows * d,
-                   row="rmsnorm" if dt == torch.bfloat16 else "rmsnorm f32")
+                       x, (d,), weight=g.to(x.dtype), eps=1e-6),
+                   2 * rows * d * es + d * g.element_size(), 4 * rows * d,
+                   row=row)
 
-    bf16 = torch.bfloat16
     for label, shape in (("flash_attention", QWEN_ATTN),
                          ("flash_attention window", GEMMA_LOCAL)):
         q, k, v, lib = attention_inputs(gen, dtype=bf16, **shape)
@@ -389,13 +412,18 @@ def llm_kernel_cases(gen):
                    ref.gqa_flash_attention_ref(q, k, v, window=w),
                    lib, *attention_cost(dtype=bf16, **shape),
                    peak=BF16_OPS_PER_S, calls=FULL_WIDTH_CALLS, row=label)
-    # f32 stays on the CUDA cores (wgmma would mean TF32): its own row
-    q, k, v, lib = attention_inputs(gen, dtype=torch.float32, **QWEN_ATTN)
-    yield Case("flash_attention", torch.float32, tuple(QWEN_ATTN.values()),
-               lambda q=q, k=k, v=v: kernels.gqa_flash_attention(q, k, v),
-               lambda q=q, k=k, v=v: ref.gqa_flash_attention_ref(q, k, v),
-               lib, *attention_cost(dtype=torch.float32, **QWEN_ATTN),
-               calls=FULL_WIDTH_CALLS, row="flash_attention f32")
+    # f32 runs the split-TF32 kernel, bound by f32-grade products at 165
+    # TFLOP/s; phi-3-vision's head dim 96 the CUDA-core kernel, bound by the
+    # bf16 tensor-core peak the card could use for the same products
+    for label, dt, shape, peak in (
+            ("flash_attention f32", torch.float32, QWEN_ATTN, TF32X3_OPS_PER_S),
+            ("flash_attention cuda_cores", bf16, PHI3V_ATTN, BF16_OPS_PER_S)):
+        q, k, v, lib = attention_inputs(gen, dtype=dt, **shape)
+        yield Case("flash_attention", dt, tuple(shape.values()),
+                   lambda q=q, k=k, v=v: kernels.gqa_flash_attention(q, k, v),
+                   lambda q=q, k=k, v=v: ref.gqa_flash_attention_ref(q, k, v),
+                   lib, *attention_cost(dtype=dt, **shape), peak=peak,
+                   calls=FULL_WIDTH_CALLS, row=label)
     for D in (32, 64, 128, 256):
         for S, G, causal, win in [(1, 1, True, None), (100, 2, False, None),
                                   (257, 7, True, 64), (130, 1, False, 30)]:
@@ -462,7 +490,12 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:106",
                         "src/repro/kernels/flash_attention.py::"
                         "flash_attention"),
-    # f32 and other head dims: the CUDA cores
+    # f32 at D in {64, 128, 256}: split TF32 on the tensor cores
+    "flash_attention_tf32x3": (
+        "src/repro_torch/kernels/csrc/flash_attention_tf32x3.cu",
+        "src/repro/kernels/flash_attention.py:106",
+        "src/repro/kernels/flash_attention.py::flash_attention"),
+    # every other head dim: the CUDA cores
     "flash_attention_cuda_cores": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:106",
@@ -512,65 +545,73 @@ def check_kernels():
 
 
 def attention_routes():
-    """bf16 at every wgmma head dim over lengths, groups, both masks and
-    windows (B = 2, two KV heads; group 1 through the [B, H, S, D] entry
-    point), each against its plain version at the bf16 tolerance; a causal
-    window of 0 gives exactly 0. Then the route's refusals: a misaligned
-    bf16 view raises and launches nothing."""
+    """Both tensor-core routes, bf16 (wgmma) and f32 (split TF32), at every
+    head dim they take, over lengths, groups, both masks and windows (B = 2,
+    two KV heads; group 1 through the [B, H, S, D] entry point), each
+    against its plain version at its dtype's tolerance, every call on the
+    route's kernel; a causal window of 0 gives exactly 0. Then the routes'
+    refusals: a misaligned view raises on each and launches nothing."""
     from repro_torch import kernels
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_route
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    bf16, n, worst = torch.bfloat16, 0, {}
-    for D in ROUTE_D:
-        assert flash_route(bf16, D) == "wgmma"
-        assert flash_route(torch.float32, D) == "cuda_cores"
-        for S in ROUTE_S:
-            for G in ROUTE_GROUPS:
-                q, k, v, _ = attention_inputs(gen, 2, S, 2 * G, 2, D, bf16)
-                if G == 1:
-                    q, k, v = (t.transpose(1, 2).contiguous()
-                               for t in (q, k, v))
-                    kern, plain = kernels.flash_attention, \
-                        ref.flash_attention_ref
-                else:
-                    kern, plain = kernels.gqa_flash_attention, \
-                        ref.gqa_flash_attention_ref
-                for causal in (True, False):
-                    for win in ROUTE_WINDOWS:
-                        kw = dict(causal=causal, window=win)
-                        got = kern(q, k, v, **kw)
-                        err = check(f"attention route D={D} S={S} G={G} "
-                                    f"{kw}", got, plain(q, k, v, **kw), bf16)
-                        if causal and win == 0:
-                            assert bool((got == 0).all()), (D, S, G)
-                        worst[D] = max(worst.get(D, 0.0), err)
-                        n += 1
-    torch.cuda.synchronize()
-    print(f"attention routes: {n} bf16 cases on the wgmma kernel (D "
-          f"{ROUTE_D}, S {ROUTE_S}, groups {ROUTE_GROUPS}, causal and not, "
-          f"windows {ROUTE_WINDOWS}) agree with the plain version; max abs "
-          "err by D " + ", ".join(f"{d}: {e:.3e}" for d, e in worst.items()))
-    flat = torch.zeros(2 * 64 * 4 + 8, dtype=bf16, device="cuda")
-    off = flat[1:1 + 2 * 64 * 4].view(1, 2, 4, 64)   # 2 bytes off
-    kernels.reset_launch_counts()
-    try:
-        kernels.flash_attention(off, off, off)
-    except ValueError as e:
-        print(f"attention routes: a misaligned bf16 view raises: {e}")
-    else:
-        raise AssertionError("a misaligned bf16 view did not raise")
-    expect(kernels.launch_counts())
+    for dt, route in ((torch.bfloat16, "wgmma"), (torch.float32, "tf32x3")):
+        n, worst = 0, {}
+        kernels.reset_launch_counts()
+        for D in ROUTE_D:
+            assert flash_route(dt, D) == route
+            for S in ROUTE_S:
+                for G in ROUTE_GROUPS:
+                    q, k, v, _ = attention_inputs(gen, 2, S, 2 * G, 2, D, dt)
+                    if G == 1:
+                        q, k, v = (t.transpose(1, 2).contiguous()
+                                   for t in (q, k, v))
+                        kern, plain = kernels.flash_attention, \
+                            ref.flash_attention_ref
+                    else:
+                        kern, plain = kernels.gqa_flash_attention, \
+                            ref.gqa_flash_attention_ref
+                    for causal in (True, False):
+                        for win in ROUTE_WINDOWS:
+                            kw = dict(causal=causal, window=win)
+                            got = kern(q, k, v, **kw)
+                            err = check(f"attention route {route} D={D} "
+                                        f"S={S} G={G} {kw}", got,
+                                        plain(q, k, v, **kw), dt)
+                            if causal and win == 0:
+                                assert bool((got == 0).all()), (D, S, G)
+                            worst[D] = max(worst.get(D, 0.0), err)
+                            n += 1
+        torch.cuda.synchronize()
+        routes = kernels.route_launch_counts()
+        assert routes[f"flash_attention/{route}"] == n, routes
+        print(f"attention routes: {n} {dt} cases on the {route} kernel (D "
+              f"{ROUTE_D}, S {ROUTE_S}, groups {ROUTE_GROUPS}, causal and "
+              f"not, windows {ROUTE_WINDOWS}) agree with the plain version; "
+              "max abs err by D "
+              + ", ".join(f"{d}: {e:.3e}" for d, e in worst.items()))
+        flat = torch.zeros(2 * 64 * 4 + 8, dtype=dt, device="cuda")
+        off = flat[1:1 + 2 * 64 * 4].view(1, 2, 4, 64)   # 2 or 4 bytes off
+        kernels.reset_launch_counts()
+        try:
+            kernels.flash_attention(off, off, off)
+        except ValueError as e:
+            print(f"attention routes: a misaligned {dt} view raises: {e}")
+        else:
+            raise AssertionError(f"a misaligned {dt} view did not raise")
+        expect(kernels.launch_counts())
+        assert not any(kernels.route_launch_counts().values())
 
 
 def ptxas_lines():
-    """Registers and spills of the wgmma attention and the stale-mix
-    register kernels, from ptxas's -v report of this build; every one
-    spills 0 bytes."""
+    """Registers and spills of the two tensor-core attention kernels, the
+    stale-mix register kernels and the rmsnorm instantiations, from
+    ptxas's -v report of this build; every one spills 0 bytes."""
     from repro_torch.kernels import _build
     for name, regs, stores, loads, stack in _build.ptxas_report():
-        if "flash_fwd_sm90" not in name and "stale_reg" not in name:
+        if not any(k in name for k in ("flash_fwd_sm90", "flash_fwd_tf32x3",
+                                        "stale_reg", "rmsnorm_rows")):
             continue
         print(f"ptxas: {name}: {regs} registers, {stores} bytes spill "
               f"stores, {loads} bytes spill loads, {stack} bytes stack")
@@ -582,14 +623,15 @@ def ptxas_lines():
 
 
 def counted(fn):
-    """Launch counts of one call of ``fn``: counters reset just before,
-    read just after; returns (result, counts)."""
+    """Launch counts of one call of ``fn``, by kernel and by route
+    (``flash_attention/<route>``, ``rmsnorm/<route>``): counters reset just
+    before, read just after; returns (result, counts)."""
     from repro_torch import kernels
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     out = fn()
     torch.cuda.synchronize()
-    return out, kernels.launch_counts()
+    return out, {**kernels.launch_counts(), **kernels.route_launch_counts()}
 
 
 def expect(counts, **want):
@@ -604,9 +646,11 @@ def ops_api():
     (qwen2-7b causal), rmsnorm (qwen2-7b bf16), mamba_scan
     (falcon-mamba-7b), noise_sgd_step and tree_clip_accumulate (the mlp
     proxy's tree) in one window; then gemma3-4b's windowed attention,
-    rmsnorm in f32 and the flat clip_accumulate, one window each. Every
-    result is finite, of the expected shape, and agrees with its plain
-    version."""
+    rmsnorm in f32, qwen2-7b's attention in f32 (the split-TF32 route),
+    phi-3-vision's (D = 96, the CUDA-core route) and the flat
+    clip_accumulate, one window each, with each window's attention or
+    rmsnorm route pinned. Every result is finite, of the expected shape,
+    and agrees with its plain version."""
     from repro_torch import kernels
     from repro_torch.kernels import ref
     from repro_torch.nn.modules import (tree_flatten_vector, tree_leaves,
@@ -641,7 +685,8 @@ def ops_api():
     print(f"ops API: one call of each op in {seconds:.3f} s; launches "
           f"{counts}")
     expect(counts, flash_attention=1, rmsnorm=1, mamba_scan=1,
-           noise_sgd_step=1, sumsq=1, scale_accumulate=1)
+           noise_sgd_step=1, sumsq=1, scale_accumulate=1,
+           **{"flash_attention/wgmma": 1, "rmsnorm/vector": 1})
 
     want = dict(attn=ref.gqa_flash_attention_ref(q, k, v),
                 norm=ref.rmsnorm_ref(x, g),
@@ -687,30 +732,39 @@ def ops_api():
     q, k, v, _ = attention_inputs(gen, dtype=bf16, **GEMMA_LOCAL)
     w = GEMMA_LOCAL["window"]
     got, c = counted(lambda: kernels.gqa_flash_attention(q, k, v, window=w))
-    expect(c, flash_attention=1)
+    expect(c, flash_attention=1, **{"flash_attention/wgmma": 1})
     err = check("ops API gemma window", got,
                 ref.gqa_flash_attention_ref(q, k, v, window=w), bf16)
     x, g = randn(RMS_ROWS, RMS_D), randn(RMS_D)
     got, c = counted(lambda: kernels.rmsnorm(x, g))
-    expect(c, rmsnorm=1)
+    expect(c, rmsnorm=1, **{"rmsnorm/vector": 1})
     err_f32 = check("ops API rmsnorm f32", got, ref.rmsnorm_ref(x, g),
                     torch.float32)
-    q, k, v, _ = attention_inputs(gen, dtype=torch.float32, **QWEN_ATTN)
+    q, k, v, lib32 = attention_inputs(gen, dtype=torch.float32, **QWEN_ATTN)
     got, f32_counts = counted(lambda: kernels.gqa_flash_attention(q, k, v))
-    expect(f32_counts, flash_attention=1)
+    expect(f32_counts, flash_attention=1, **{"flash_attention/tf32x3": 1})
     err_attn32 = check("ops API qwen2-7b attention f32", got,
                        ref.gqa_flash_attention_ref(q, k, v), torch.float32)
-    del q, k, v, got
+    print("ops API: SDPA in f32 (the library yardstick) runs "
+          + ", ".join(sorted({e.name for e in device_profile(lib32)[1]})))
+    q, k, v, _ = attention_inputs(gen, dtype=bf16, **PHI3V_ATTN)
+    got, cc_counts = counted(lambda: kernels.gqa_flash_attention(q, k, v))
+    expect(cc_counts, flash_attention=1, **{"flash_attention/cuda_cores": 1})
+    err_phi = check("ops API phi-3-vision attention", got,
+                    ref.gqa_flash_attention_ref(q, k, v), bf16)
+    del q, k, v, got, lib32
     got, c = counted(lambda: kernels.clip_accumulate(acc, noise, 1.0))
     expect(c, sumsq=1, scale_accumulate=1)
     torch.testing.assert_close(got, ref.clip_accumulate_ref(acc, noise, 1.0),
                                rtol=1e-5, atol=1e-6)
     print(f"ops API: gemma3-4b local attention (window {w}) max abs err "
           f"{err:.3e}, rmsnorm f32 {err_f32:.3e}, qwen2-7b attention in f32 "
-          f"(the CUDA-core kernel) {err_attn32:.3e}, clip_accumulate agrees; "
-          "one launch window each")
+          f"(the split-TF32 kernel) {err_attn32:.3e}, phi-3-vision attention "
+          f"(D = 96, the CUDA-core kernel) {err_phi:.3e}, clip_accumulate "
+          "agrees; one launch window each")
     torch.cuda.empty_cache()
-    return counts, f32_counts["flash_attention"]
+    return counts, {"flash_attention_tf32x3": f32_counts["flash_attention"],
+                    "flash_attention_cuda_cores": cc_counts["flash_attention"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1168,7 +1222,7 @@ def main() -> int:
     ptxas_lines()
     rows = check_kernels()
     attention_routes()
-    ops_counts, f32_attention_launches = ops_api()
+    ops_counts, route_windows = ops_api()
     setup = mnist_setup()
     spec, data, test, cfg = setup
     cold_step(*setup)
@@ -1183,8 +1237,9 @@ def main() -> int:
     for name in ("noise_sgd_step", "rmsnorm", "flash_attention",
                  "mamba_scan"):
         counts[name] = ops_counts[name]
-    counts["flash_attention_cuda_cores"] = f32_attention_launches
-    row_of = {"flash_attention_cuda_cores": "flash_attention f32"}
+    counts.update(route_windows)
+    row_of = {"flash_attention_tf32x3": "flash_attention f32",
+              "flash_attention_cuda_cores": "flash_attention cuda_cores"}
     out = []
     for name, (source, replaces, tpu_kernel) in SOURCES.items():
         r = rows[row_of.get(name, name)]
@@ -1209,6 +1264,7 @@ def main() -> int:
             out[-1]["window_row"] = rows["flash_attention window"]
         if name == "rmsnorm":
             out[-1]["f32_row"] = rows["rmsnorm f32"]
+            out[-1]["scalar_row"] = rows["rmsnorm scalar"]
     for row, r in rows.items():
         lib_us, lib_graph = r["library_us"], r["library_graph_us"]
         plain_graph = r["plain_graph_us"]

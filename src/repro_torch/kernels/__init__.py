@@ -35,14 +35,18 @@ port as in the reference):
   ``scale_accumulate``; no kernel of their own).
 - :func:`rmsnorm`, :func:`flash_attention` / :func:`gqa_flash_attention`
   and :func:`mamba_scan` — the LLM forward hot spots (norm, prefill
-  attention, selective scan) as standalone kernels. Attention has two:
-  bf16 at D ∈ {64, 128, 256} on the tensor cores (wgmma fed by TMA), the
-  rest on the CUDA cores; ``flash_attention.flash_route`` picks by dtype
-  and head dim, and both count as ``flash_attention`` launches.
+  attention, selective scan) as standalone kernels. Attention has three:
+  at D ∈ {64, 128, 256} bf16 on wgmma fed by TMA and f32 on mma.sync in
+  split TF32 (both on the tensor cores), every other head dim on the CUDA
+  cores; ``flash_attention.flash_route`` picks by dtype and head dim, and
+  all three count as ``flash_attention`` launches. RMSNorm has a vector
+  (16-byte) and a scalar instantiation, picked by alignment
+  (``rmsnorm.rmsnorm_route``).
 
 Each wrapper counts its kernel launches in a plain integer attribute
 ``launches``; :func:`launch_counts` and :func:`reset_launch_counts` read and
-clear them all.
+clear them all. Attention and RMSNorm also count by route
+(``route_launches``), read by :func:`route_launch_counts`.
 """
 from typing import Dict, Optional
 
@@ -68,6 +72,7 @@ KERNELS = {
     "flash_attention": flash_attention,
     "mamba_scan": mamba_scan,
 }
+ROUTED = (flash_attention, rmsnorm)   # wrappers with more than one kernel
 
 
 def default_interpret(device="cuda") -> bool:
@@ -96,9 +101,18 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def route_launch_counts() -> Dict[str, int]:
+    """Launches by route: ``flash_attention/<route>`` and
+    ``rmsnorm/<route>``."""
+    return {f"{fn.__name__}/{route}": n for fn in ROUTED
+            for route, n in fn.route_launches.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for fn in ROUTED:
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
 __all__ = [
@@ -119,5 +133,6 @@ __all__ = [
     "rmsnorm",
     "KERNELS",
     "launch_counts",
+    "route_launch_counts",
     "reset_launch_counts",
 ]

@@ -10,7 +10,7 @@ reads only this package's sources and needs ``nvcc`` (CUDA 12, ``sm_90a``).
 ``NVCC_FLAGS`` (part of the hash) hold ``-Xptxas -v``: ptxas reports each
 kernel's registers, stack and spills, and :func:`library` keeps that report
 beside the library as ``ptxas.log`` (read it with :func:`ptxas_report`).
-The tensor-map encoder that the Hopper attention kernel needs is looked up
+The tensor-map encoder that the bf16 Hopper attention kernel needs is looked up
 in the driver at run time, so nothing links against ``libcuda``.
 """
 from __future__ import annotations
@@ -52,7 +52,7 @@ _SIGNATURES = {
     "repro_noise_sgd_step": (_P, _P, _P, _P, ctypes.c_int, _P,
                              ctypes.c_int64, _P),
     "repro_rmsnorm": (_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int64,
-                      ctypes.c_int, ctypes.c_float, _P),
+                      ctypes.c_int, ctypes.c_float, ctypes.c_int, _P),
     "repro_flash_attention": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
@@ -66,6 +66,14 @@ _SIGNATURES = {
                                    ctypes.c_int64, ctypes.c_int64,
                                    ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, _P),
+    "repro_flash_attention_tf32x3": (_P, _P, _P, _P, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_float,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     _P),
     "repro_mamba_scan": (_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
                          _P, ctypes.c_int, _P, _P, ctypes.c_int,
                          ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P),

@@ -1,12 +1,13 @@
 // Causal / sliding-window attention with an online softmax (flash
-// attention, forward) on the CUDA cores: the route for f32 and for head
-// dims the tensor-core kernel does not take.
+// attention, forward) on the CUDA cores: the route for the head dims the
+// tensor-core kernels do not take.
 //
 // repro_flash_attention replaces src/repro/kernels/flash_attention.py::
 // flash_attention (_flash_kernel), and serves ops.gqa_flash_attention too,
-// for f32 at any D <= 256 and bf16 at D outside {64, 128, 256}
-// (kernels/flash_attention.py::flash_route; bf16 at those head dims runs
-// flash_attention_sm90.cu's wgmma kernel):
+// for f32 and bf16 at D <= 256 outside {64, 128, 256}
+// (kernels/flash_attention.py::flash_route; at those head dims bf16 runs
+// flash_attention_sm90.cu's wgmma kernel and f32 the split-TF32 kernel of
+// flash_attention_tf32x3.cu):
 //   out[q] = sum_k softmax_k(scale * q.k | mask) v[k]
 // with the mask "key < S, key <= query if causal, query - key < window if a
 // window is given", over q, k, v, out of one dtype (f32 or bf16). The
@@ -15,12 +16,13 @@
 // unit stride along the head dimension D, so the same kernel reads the
 // [B, H, S, D] layout and the model's [B, S, H, D] layout; query head h
 // reads kv head h / group (grouped-query attention without a repeat).
-//   Bound: 4*D flops per (query, key) pair the mask keeps (QK^T and PV) over
-//   the card's 67 TFLOP/s of f32 outside the tensor cores (wgmma in f32
-//   would mean TF32, about three decimal digits, outside the f32
-//   tolerance), or the bytes of q, k, v and out over 3.35 TB/s, whichever
-//   is larger; for qwen2-7b's causal S = 4,096, 28 heads, D = 128 in f32
-//   that is 120 GFLOP, about 1.8 ms, bound by operations.
+//   Bound: 4*D flops per (query, key) pair the mask keeps (QK^T and PV),
+//   done here as f32 FMAs at up to the card's 67 TFLOP/s outside the tensor
+//   cores, or the bytes of q, k, v and out over 3.35 TB/s, whichever is
+//   larger; the same products in bf16 could run on the tensor cores (989
+//   TFLOP/s), which is the bound chip_smoke.py holds a bf16 call to. For
+//   phi-3-vision's causal S = 4,096, 32 heads, D = 96 in bf16 that is
+//   103 GFLOP: 1.5 ms of FMAs, 104 us at the tensor-core peak.
 //   Design: the TPU kernel's grid ran (B*H, q-blocks, kv-blocks) with the
 //   kv axis in order, carrying m, l and acc in VMEM. Here one 256-thread
 //   block owns one 64-query tile of one (batch, head) and loops over the

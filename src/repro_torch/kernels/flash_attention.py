@@ -5,12 +5,15 @@ attention, forward).
 D ≤ 256) and returns softmax(scale·qkᵀ | mask)·v in q's dtype, with the
 mask ``key ≤ query`` when causal and ``query − key < window`` when a window
 is given (one-sided when not causal); a row with no key left is 0. On a
-CUDA tensor it launches one of two kernels replacing
+CUDA tensor it launches one of three kernels replacing
 ``src/repro/kernels/flash_attention.py``'s ``flash_attention``, chosen by
-:func:`flash_route` from the dtype and head dim alone: bf16 at D ∈ {64,
-128, 256} runs on the tensor cores (``csrc/flash_attention_sm90.cu``,
-wgmma fed by TMA); f32, where wgmma would mean TF32, and every other head
-dim run on the CUDA cores (``csrc/flash_attention.cu``). The dispatch is
+:func:`flash_route` from the dtype and head dim alone. At D ∈ {64, 128,
+256} both dtypes run on the tensor cores: bf16 on wgmma fed by TMA
+(``csrc/flash_attention_sm90.cu``, route ``"wgmma"``), f32 on mma.sync in
+split TF32 (``csrc/flash_attention_tf32x3.cu``, route ``"tf32x3"``: each
+operand split into a TF32 high part and its residual, three products per
+product, f32-grade). Every other head dim runs on the CUDA cores
+(``csrc/flash_attention.cu``, route ``"cuda_cores"``). The dispatch is
 fixed: a call the route's kernel refuses raises. On a CPU tensor the plain
 version in :mod:`.ref` runs. :func:`launch_flash` is the launch both this
 and ``ops.gqa_flash_attention`` use: the kernels read q, k, v through
@@ -27,29 +30,37 @@ from . import _build
 from .ref import flash_attention_ref
 
 MAX_HEAD_DIM = 256
-WGMMA_HEAD_DIMS = (64, 128, 256)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
+ROUTES = ("wgmma", "tf32x3", "cuda_cores")
+ROUTE_ENTRY = {"wgmma": "repro_flash_attention_sm90",
+               "tf32x3": "repro_flash_attention_tf32x3"}
 
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a CUDA call takes: ``"wgmma"`` (the tensor-core kernel
-    of ``csrc/flash_attention_sm90.cu``) for bf16 at D ∈ {64, 128, 256},
-    else ``"cuda_cores"`` (``csrc/flash_attention.cu``)."""
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
-        return "wgmma"
+    """The kernel a CUDA call takes: at D ∈ {64, 128, 256} ``"wgmma"``
+    (``csrc/flash_attention_sm90.cu``) for bf16 and ``"tf32x3"``
+    (``csrc/flash_attention_tf32x3.cu``) for f32; at any other head dim
+    ``"cuda_cores"`` (``csrc/flash_attention.cu``)."""
+    if head_dim in TENSOR_CORE_HEAD_DIMS:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32:
+            return "tf32x3"
     return "cuda_cores"
 
 
 def check_tma(name: str, *tensors: torch.Tensor) -> None:
-    """What the tensor maps of the wgmma route need: 16-byte aligned bases
-    and strides (in bytes) that are positive multiples of 16."""
+    """What the tensor-core routes need (the wgmma route's tensor maps, the
+    tf32x3 route's 16-byte copies): 16-byte aligned bases and strides (in
+    bytes) that are positive multiples of 16."""
     for t in tensors:
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: the bf16 tensor-core kernel needs "
+            raise ValueError(f"{name}: the tensor-core kernels need "
                              "16-byte aligned tensors, got one at "
                              f"{t.data_ptr():#x}")
         strides = [st * t.element_size() for st in t.stride()[:-1]]
         if any(st <= 0 or st % 16 for st in strides):
-            raise ValueError(f"{name}: the bf16 tensor-core kernel needs "
+            raise ValueError(f"{name}: the tensor-core kernels need "
                              "strides that are multiples of 16 bytes, got "
                              f"{strides}")
 
@@ -97,13 +108,15 @@ def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              k.stride(pos_axis), float(scale), int(bool(causal)), win,
              int(window is not None))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    if flash_route(q.dtype, D) == "wgmma":
+    route = flash_route(q.dtype, D)
+    if route in ROUTE_ENTRY:
         check_tma("flash_attention", q, k, v, out)
-        _build.launch("repro_flash_attention_sm90", *ptrs, *shape)
+        _build.launch(ROUTE_ENTRY[route], *ptrs, *shape)
     else:
         _build.launch("repro_flash_attention", *ptrs,
                       _build.DTYPE_CODES[q.dtype], *shape)
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return out
 
 
@@ -129,3 +142,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)

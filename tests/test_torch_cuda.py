@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version (the
 ops API's at the full widths of qwen2-7b, falcon-mamba-7b and the mlp
-proxy), the wrappers' refusals, and small federations (sync, and async at
+proxy; both tensor-core attention routes over ragged lengths, groups and
+windows; both rmsnorm instantiations), the wrappers' refusals, and small federations (sync, and async at
 staleness 2 with dropout) through the kernels against the plain path on
 the same seed.
 
@@ -169,6 +170,75 @@ def test_wgmma_route_refuses_misaligned_views(gen):
     with pytest.raises(ValueError, match="aligned"):
         kernels.gqa_flash_attention(off, off, off)
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+@pytest.mark.parametrize("G", [1, 2, 7])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_tf32x3_attention_matches_plain(gen, D, G):
+    """f32 at the split-TF32 route's head dims, over lengths around its
+    128-row and 64-key (16 at D = 256) tiles, causal and not, windows
+    {None, 1, 17, 64, 0}, B = 2 and two KV heads (group 1 through the
+    [B, H, S, D] entry point), at the f32 tolerance; every call takes the
+    tf32x3 kernel, and a causal window of 0 gives exactly 0."""
+    kernels.reset_launch_counts()
+    n = 0
+    for S in (1, 15, 16, 17, 63, 64, 65, 127, 129, 257):
+        q = torch.randn((2, S, 2 * G, D), generator=gen, device="cuda")
+        k, v = (torch.randn((2, S, 2, D), generator=gen, device="cuda")
+                for _ in range(2))
+        if G == 1:
+            q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            kern, plain = kernels.flash_attention, ref.flash_attention_ref
+        else:
+            kern = kernels.gqa_flash_attention
+            plain = ref.gqa_flash_attention_ref
+        for causal in (True, False):
+            for window in (None, 1, 17, 64, 0):
+                got = kern(q, k, v, causal=causal, window=window)
+                want = plain(q, k, v, causal=causal, window=window)
+                torch.testing.assert_close(got, want, **F32)
+                if causal and window == 0:
+                    assert bool((got == 0).all())
+                n += 1
+    assert kernels.route_launch_counts()["flash_attention/tf32x3"] == n
+
+
+def test_tf32x3_route_refuses_misaligned_views(gen):
+    flat = torch.zeros(2 * 64 * 4 + 8, device="cuda")
+    off = flat[1:1 + 2 * 64 * 4].view(1, 2, 4, 64)   # 4 bytes off 16
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.flash_attention(off, off, off)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.gqa_flash_attention(off, off, off)
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+    assert not any(kernels.route_launch_counts().values())
+
+
+@pytest.mark.parametrize("dtype,rows,d,off,route", [
+    (torch.bfloat16, 4_096, 3_584, 0, "vector"),
+    (torch.float32, 4_096, 3_584, 0, "vector"),
+    (torch.bfloat16, 300, 33, 0, "scalar"),
+    (torch.bfloat16, 64, 3_584, 1, "scalar"),
+    (torch.float32, 3, 40_000, 0, "vector"),
+    (torch.bfloat16, 3, 9_001, 0, "scalar")])
+def test_rmsnorm_instantiations_match_plain_and_repeat_exactly(
+        gen, dtype, rows, d, off, route):
+    """Both instantiations (16-byte vectors; one element an access, for a
+    row that is not whole 16 bytes or a view one element off), rows held in
+    registers and rows past them (re-read), against the plain version at
+    the dtype's tolerance; two calls give the same bits (a fixed-order
+    reduction, no atomics)."""
+    x = torch.randn(rows * d + off, generator=gen, device="cuda").to(dtype)
+    x = x[off:].view(rows, d)
+    g = torch.randn(d, generator=gen, device="cuda").to(dtype)
+    kernels.reset_launch_counts()
+    a, b = kernels.rmsnorm(x, g), kernels.rmsnorm(x, g)
+    torch.cuda.synchronize()
+    assert kernels.route_launch_counts()[f"rmsnorm/{route}"] == 2
+    torch.testing.assert_close(a, ref.rmsnorm_ref(x, g),
+                               **(BF16 if dtype == torch.bfloat16 else F32))
+    assert torch.equal(a, b)
 
 
 def _stale_args(gen, K, D, dtype):

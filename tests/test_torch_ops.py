@@ -1,6 +1,8 @@
 """The port's ops API (``repro_torch.kernels``) against the JAX package's
 ``repro.kernels``: flash attention and its GQA wrapper, the mamba scan,
-rmsnorm, the fused noise + SGD step and the clip-and-accumulate composites.
+rmsnorm, the fused noise + SGD step and the clip-and-accumulate composites;
+the routing of attention and rmsnorm between their kernels, and the
+arithmetic of the tensor-core attention kernels (bf16 P, split TF32).
 
 On CPU tensors each port wrapper runs its plain torch version; the Pallas
 kernels run in interpret mode, as tests/test_kernels.py runs them. The same
@@ -23,6 +25,7 @@ from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.flash_attention import check_tma, flash_route  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm_route  # noqa: E402
 from repro_torch.nn.modules import tree_leaves  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -114,11 +117,13 @@ def test_gqa_flash_attention(G):
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 32, "cuda_cores"),
     (torch.bfloat16, 96, "cuda_cores"), (torch.bfloat16, 16, "cuda_cores"),
-    (torch.float32, 64, "cuda_cores"), (torch.float32, 128, "cuda_cores"),
-    (torch.float32, 256, "cuda_cores")])
+    (torch.float32, 64, "tf32x3"), (torch.float32, 128, "tf32x3"),
+    (torch.float32, 256, "tf32x3"), (torch.float32, 32, "cuda_cores"),
+    (torch.float32, 96, "cuda_cores")])
 def test_flash_route_is_fixed_by_dtype_and_head_dim(dtype, D, route):
-    """bf16 at D ∈ {64, 128, 256} takes the wgmma kernel; f32 (wgmma would
-    mean TF32) and every other head dim the CUDA-core kernel."""
+    """At D ∈ {64, 128, 256} bf16 takes the wgmma kernel and f32 the
+    split-TF32 one, both on the tensor cores; every other head dim the
+    CUDA-core kernel."""
     assert flash_route(dtype, D) == route
 
 
@@ -179,6 +184,82 @@ def test_bf16_p_rounding_stays_within_the_bf16_tolerance(D, window):
                             block_k=128 if D <= 128 else 64)
     want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
     torch.testing.assert_close(got.float(), want.float(), **TOL["bfloat16"])
+
+
+def _tf32_split(x):
+    """x = hi + lo as the split-TF32 kernel forms it: hi rounded to TF32
+    half away from zero (cvt.rna), lo the exact residual truncated to the
+    19 bits the tensor core reads."""
+    mask = ~0x1fff
+    hi = ((x.contiguous().view(torch.int32) + 0x1000) & mask).view(
+        torch.float32)
+    lo = ((x - hi).view(torch.int32) & mask).view(torch.float32)
+    return hi, lo
+
+
+def _x3(eq, a, b):
+    """A product in split TF32: a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, each of
+    TF32 operands (exact in f32), summed in f32."""
+    (ah, al), (bh, bl) = _tf32_split(a), _tf32_split(b)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) \
+        + torch.einsum(eq, ah, bh)
+
+
+def _attention_tf32x3(q, k, v, *, causal, window, block_k):
+    """The split-TF32 kernel's arithmetic in torch: both products in split
+    TF32 with f32 accumulation, an online softmax in log2 units over key
+    tiles of ``block_k`` (scale·log2(e) folded into the scores, exp2), the
+    reference's m_safe, corr = 0 for an empty row and l clamped at 1e-30."""
+    B, H, S, D = q.shape
+    scale_log2 = torch.tensor(D ** -0.5, dtype=torch.float32) \
+        * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    qp = torch.arange(S)[:, None]
+    m = torch.full((B, H, S, 1), float("-inf"))
+    l, acc = torch.zeros(B, H, S, 1), torch.zeros(B, H, S, D)
+    for k0 in range(0, S, block_k):
+        kp = torch.arange(k0, min(k0 + block_k, S))[None, :]
+        s = _x3("bhqd,bhkd->bhqk", q, k[:, :, k0:k0 + block_k]) * scale_log2
+        ok = torch.ones(S, kp.shape[1], dtype=torch.bool)
+        if causal:
+            ok &= kp <= qp
+        if window is not None:
+            ok &= (qp - kp) < window
+        s = torch.where(ok, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_safe = torch.where(m_new == float("-inf"), 0.0, m_new)
+        corr = torch.where(m == float("-inf"), 0.0, torch.exp2(m - m_safe))
+        p = torch.exp2(s - m_safe)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _x3("bhqk,bhkd->bhqd", p, v[:, :, k0:k0 + block_k])
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+def test_tf32_split_rounds_half_away_and_keeps_the_residual():
+    x = torch.tensor([1.0 + 2 ** -11, -(1.0 + 2 ** -11), 1.0 + 2 ** -12,
+                      1.0 + 3 * 2 ** -11 + 2 ** -20, 0.0, -3.25e-7])
+    hi, lo = _tf32_split(x)
+    # the tie rounds away from zero, both signs; below the tie rounds down
+    assert hi[:3].tolist() == [1.0 + 2 ** -10, -(1.0 + 2 ** -10), 1.0]
+    assert bool(((hi.view(torch.int32) & 0x1fff) == 0).all())
+    # the residual is exact where it fits 11 bits, and hi + lo is x to 2^-21
+    assert float(x[2] - hi[2]) == float(lo[2])
+    torch.testing.assert_close(hi + lo, x, rtol=2 ** -21, atol=0)
+
+
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("D", [128, 256])
+def test_split_tf32_attention_stays_within_the_f32_tolerance(D, window):
+    """Both products in split TF32, as the f32 tensor-core kernel forms
+    them, with its key tiles (64 keys, 16 at D = 256), against the f32
+    reference at S = 1,024, causal, with and without a window."""
+    rng = np.random.default_rng(40 + D + (window or 0))
+    q, k, v = (torch.as_tensor(rng.standard_normal(
+        (1, 2, 1_024, D), dtype=np.float32)) for _ in range(3))
+    got = _attention_tf32x3(q, k, v, causal=True, window=window,
+                            block_k=64 if D <= 128 else 16)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, want, **TOL["float32"])
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +328,35 @@ def test_rmsnorm_block_boundaries(rows, block_rows):
         _np(kernels.rmsnorm(xt, gt, block_rows=block_rows)),
         _np(jax_rmsnorm(xj, gj, block_rows=block_rows, interpret=True)),
         **TOL["float32"])
+
+
+def _at(dtype, n, off):
+    """A CPU tensor of n elements of ``dtype`` that starts ``off`` elements
+    past a 16-byte boundary."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    storage = torch.zeros(n + off + 16, dtype=dtype)
+    base = (-storage.data_ptr() % 16) // es
+    return storage[base + off:base + off + n]
+
+
+@pytest.mark.parametrize("dtype,d,x_off,g_off,route", [
+    (torch.bfloat16, 3_584, 0, 0, "vector"), (torch.float32, 3_584, 0, 0,
+                                              "vector"),
+    (torch.bfloat16, 8, 0, 0, "vector"), (torch.float32, 4, 0, 0, "vector"),
+    (torch.bfloat16, 1_000, 0, 0, "vector"),
+    (torch.bfloat16, 33, 0, 0, "scalar"), (torch.float32, 6, 0, 0, "scalar"),
+    (torch.bfloat16, 1_001, 0, 0, "scalar"),
+    (torch.bfloat16, 3_584, 1, 0, "scalar"),
+    (torch.float32, 3_584, 0, 1, "scalar")])
+def test_rmsnorm_route_is_fixed_by_row_bytes_and_alignment(dtype, d, x_off,
+                                                           g_off, route):
+    """The vector instantiation (16-byte accesses) takes x, g and out that
+    start on 16-byte boundaries with rows of whole 16 bytes; anything else
+    the scalar one."""
+    x = _at(dtype, 3 * d, x_off).view(3, d)
+    g = _at(dtype, d, g_off)
+    out = _at(dtype, 3 * d, 0).view(3, d)
+    assert rmsnorm_route(x, g, out) == route
 
 
 # ---------------------------------------------------------------------------
@@ -337,6 +447,22 @@ def test_cpu_calls_launch_nothing():
     kernels.clip_accumulate(v, v, 1.0)
     kernels.tree_clip_accumulate({"w": v}, {"w": v}, 1.0)
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+
+
+def test_cpu_calls_count_no_route():
+    """Calls on CPU tensors, on every route's dtype and head dim, leave the
+    per-route counts of attention and rmsnorm at 0."""
+    kernels.reset_launch_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (32, 128):
+            x = torch.randn(1, 2, 16, D).to(dtype)
+            kernels.flash_attention(x, x, x)
+        kernels.rmsnorm(torch.randn(4, 33).to(dtype), torch.ones(33))
+    counts = kernels.route_launch_counts()
+    assert set(counts) == {"flash_attention/wgmma", "flash_attention/tf32x3",
+                           "flash_attention/cuda_cores", "rmsnorm/vector",
+                           "rmsnorm/scalar"}
+    assert not any(counts.values())
 
 
 def _refusal(case):
