@@ -7,11 +7,15 @@
    CUDA versions, then builds the hand-written kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` and prints the build time
    and, from ptxas's ``-v`` report, the registers and spills of the two
-   tensor-core attention kernels, the stale-mix register kernels and the
-   rmsnorm instantiations (0 spill bytes each).
+   tensor-core attention kernels, the stale-mix register kernels, the
+   rmsnorm instantiations and the clip pair's rows accumulate (0 spill
+   bytes each).
 2. Holds each of the eleven kernels (nine TPU kernels; attention has three:
    at D ∈ {64, 128, 256} bf16 on wgmma and f32 in split TF32, both on the
-   tensor cores, and a CUDA-core one for every other head dim) against its
+   tensor cores, and a CUDA-core one for every other head dim) and the
+   ``"rows"`` route of the DP clip pair (``sumsq_rows`` and
+   ``clip_accumulate_rows`` over the [250, 199,210] per-example gradients,
+   also bit for bit against a loop of the 1-D kernels) against its
    plain PyTorch version on the
    card, at the main paths' shapes (D = 199,210 f32, K = 8; the LLM
    kernels at the full widths of qwen2-7b, gemma3-4b and falcon-mamba-7b,
@@ -37,7 +41,8 @@
    ``mamba_scan`` (di = 8,192, ds = 16, S = 4,096, f32), ``noise_sgd_step``
    and ``tree_clip_accumulate`` (the mlp proxy, D = 199,210), with the
    launch counters reset just before and read just after (exactly one
-   launch of each kernel, one ``sumsq`` and one ``scale_accumulate``), each
+   launch of each kernel, one ``sumsq`` and one ``scale_accumulate`` on
+   their 1-D route), each
    result finite and within tolerance of its plain version; then gemma3-4b's
    local attention (D = 256, window 1,024), rmsnorm in f32, qwen2-7b's
    attention in f32 (the split-TF32 kernel; SDPA's f32 kernel named from
@@ -49,8 +54,9 @@
    paper's MNIST protocol (synthetic data), mlp 784-200-200-10, 8 clients
    of 1,000 examples, batch 250, DP sigma = 1, C = 1, ``use_pallas=True``,
    two rounds on ``cuda``, with the kernel launch counters reset just
-   before and read just after; checks the exact launch counts (none of the
-   ops API's four kernels), finite
+   before and read just after; checks the exact launch counts (one
+   ``sumsq`` and one ``scale_accumulate`` per DP step, both on the rows
+   route; none of the ops API's four kernels), finite
    losses, accuracy above chance, the pinned epsilon, and that the plain
    path on the same seed reaches the same params at the conformance
    ``close`` grade.
@@ -68,7 +74,8 @@
    evaluation of the sync path down on the host clock, and profiles one
    step with torch.profiler for the device's busy share.
 6. Prints one JSON line ``{"kernels": [...]}`` (attention's three kernels
-   under their own keys) and, last, the result line
+   and the clip pair's rows route under their own keys) and, last, the
+   result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits nonzero. The script needs a CUDA device and
@@ -102,6 +109,8 @@ TF32X3_OPS_PER_S = 495e12 / 3   # f32-grade: three TF32 products at 495
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SCAN_TOL = 2e-4             # tests/test_kernels.py's mamba scan tolerance
 MAIN_D, MAIN_K = 199_210, 8
+MAIN_B = 250                 # examples of a DP step (the clip rows)
+ROWS_RAGGED = [(B, D) for B in (1, 3, 257) for D in (1, 1_023, 1_025)]
 RAGGED_D = (1, 1_000, 65_537)
 RAGGED_K = (1, 3, 8, 16, 17, 32, 33)   # every K bucket edge of the mixes
 TIMED_LAUNCHES = 200
@@ -213,6 +222,7 @@ class Case(NamedTuple):
     plain_calls: Optional[int] = None   # None: calls
     plain_graph: bool = True        # False: the plain version's graph
     row: Optional[str] = None       # the timed row it opens (None: name)
+    exact: Optional[Callable] = None   # must equal the kernel bit for bit
 
 
 def attention_pairs(S: int, causal: bool, window: Optional[int]) -> int:
@@ -275,6 +285,53 @@ def mamba_inputs(gen, B, S, di, ds, dtype=torch.float32):
             -torch.exp(randn(di, ds)))
 
 
+def padded_rows(gen, B, D, dtype):
+    """[B, D] on the card as core/dp.py lays out the per-example gradients:
+    a view of a buffer whose row stride is padded to 128 bytes."""
+    per_line = 128 // torch.tensor([], dtype=dtype).element_size()
+    buf = torch.randn((B, -(-D // per_line) * per_line), generator=gen,
+                      device="cuda").to(dtype)
+    return buf[:, :D]
+
+
+def clip_rows_cases(gen):
+    """The rows route of the clip pair at the main path's [B, D] f32, then
+    ragged B and D in f32 and bf16; each also bit for bit against the loop
+    of the 1-D kernels it replaces on the main path."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+
+    def vector_norms(x):
+        return torch.stack([kernels.sumsq(r) for r in x])
+
+    def vector_acc(x, s):
+        acc = torch.zeros(x.shape[1], device="cuda")
+        for i in range(x.shape[0]):
+            acc = kernels.scale_accumulate(acc, x[i], s[i])
+        return acc
+
+    shapes = [(MAIN_B, MAIN_D, torch.float32)] + [
+        (B, D, dt) for B, D in ROWS_RAGGED
+        for dt in (torch.float32, torch.bfloat16)]
+    for B, D, dt in shapes:
+        es = torch.tensor([], dtype=dt).element_size()
+        x = padded_rows(gen, B, D, dt)
+        s = torch.rand((B,), generator=gen, device="cuda") + 0.01
+        f32 = dt == torch.float32
+        yield Case("sumsq_rows", dt, (B, D),
+                   lambda x=x: kernels.sumsq_rows(x),
+                   lambda x=x: ref.sumsq_rows_ref(x),
+                   (lambda x=x: torch.linalg.vecdot(x, x)) if f32 else None,
+                   B * D * es + 4 * B, 2 * B * D, plain_calls=10,
+                   exact=lambda x=x: vector_norms(x))
+        yield Case("clip_accumulate_rows", dt, (B, D),
+                   lambda x=x, s=s: kernels.clip_accumulate_rows(x, s),
+                   lambda x=x, s=s: ref.clip_accumulate_rows_ref(x, s),
+                   (lambda x=x, s=s: torch.mv(x.T, s)) if f32 else None,
+                   B * D * es + 4 * B + 4 * D, 2 * B * D, plain_calls=10,
+                   exact=lambda x=x, s=s: vector_acc(x, s))
+
+
 def kernel_cases(gen):
     """Yield a :class:`Case` per checked shape; the main-path shape comes
     first per kernel."""
@@ -311,6 +368,7 @@ def kernel_cases(gen):
                lambda a=args, hp=hp: kernels.noise_adam_step(*a, **hp),
                lambda a=args, hp=hp: ref.noise_adam_step_ref(*a, **hp),
                None, 32 * D + 24, 19 * D)
+    yield from clip_rows_cases(gen)
     mix_shapes = [(MAIN_K, MAIN_D)] + [(K, D) for K in RAGGED_K
                                        for D in RAGGED_D]
     for K, D in mix_shapes:
@@ -469,6 +527,14 @@ SOURCES = {
     "scale_accumulate": ("src/repro_torch/kernels/csrc/dp_clip.cu",
                          "src/repro/kernels/dp_clip.py:68",
                          "src/repro/kernels/dp_clip.py::scale_accumulate"),
+    # the rows routes of the two: the DP step's [B, D] in one call each
+    "sumsq_rows": ("src/repro_torch/kernels/csrc/dp_clip.cu",
+                   "src/repro/kernels/dp_clip.py:40",
+                   "src/repro/kernels/dp_clip.py::sumsq"),
+    "clip_accumulate_rows": ("src/repro_torch/kernels/csrc/dp_clip.cu",
+                             "src/repro/kernels/dp_clip.py:68",
+                             "src/repro/kernels/dp_clip.py::"
+                             "scale_accumulate"),
     "noise_adam_step": ("src/repro_torch/kernels/csrc/dp_step.cu",
                         "src/repro/kernels/dp_step.py:115",
                         "src/repro/kernels/dp_step.py::noise_adam_step"),
@@ -518,6 +584,9 @@ def check_kernels():
         if c.name == "fused_stale_mix" and c.dtype == torch.float32:
             # explicitly rounded re-bias, merge and de-bias: z' bit-equal
             assert torch.equal(got[0], want[0]), f"z' differs at {c.shape}"
+        if c.exact is not None:
+            assert torch.equal(got, c.exact()), \
+                f"{c.name} {c.dtype} {c.shape} differs from the 1-D loop"
         torch.cuda.synchronize()
         print(f"check {c.name:18s} {str(c.dtype):15s} {str(c.shape):22s} "
               f"max_abs_err {err:.3e}")
@@ -606,12 +675,14 @@ def attention_routes():
 
 def ptxas_lines():
     """Registers and spills of the two tensor-core attention kernels, the
-    stale-mix register kernels and the rmsnorm instantiations, from
-    ptxas's -v report of this build; every one spills 0 bytes."""
+    stale-mix register kernels, the rmsnorm instantiations and the clip
+    pair's rows accumulate, from ptxas's -v report of this build; every
+    one spills 0 bytes."""
     from repro_torch.kernels import _build
     for name, regs, stores, loads, stack in _build.ptxas_report():
         if not any(k in name for k in ("flash_fwd_sm90", "flash_fwd_tf32x3",
-                                        "stale_reg", "rmsnorm_rows")):
+                                        "stale_reg", "rmsnorm_rows",
+                                        "clip_acc_rows")):
             continue
         print(f"ptxas: {name}: {regs} registers, {stores} bytes spill "
               f"stores, {loads} bytes spill loads, {stack} bytes stack")
@@ -686,7 +757,8 @@ def ops_api():
           f"{counts}")
     expect(counts, flash_attention=1, rmsnorm=1, mamba_scan=1,
            noise_sgd_step=1, sumsq=1, scale_accumulate=1,
-           **{"flash_attention/wgmma": 1, "rmsnorm/vector": 1})
+           **{"flash_attention/wgmma": 1, "rmsnorm/vector": 1,
+              "sumsq/vector": 1, "scale_accumulate/vector": 1})
 
     want = dict(attn=ref.gqa_flash_attention_ref(q, k, v),
                 norm=ref.rmsnorm_ref(x, g),
@@ -754,7 +826,8 @@ def ops_api():
                     ref.gqa_flash_attention_ref(q, k, v), bf16)
     del q, k, v, got, lib32
     got, c = counted(lambda: kernels.clip_accumulate(acc, noise, 1.0))
-    expect(c, sumsq=1, scale_accumulate=1)
+    expect(c, sumsq=1, scale_accumulate=1,
+           **{"sumsq/vector": 1, "scale_accumulate/vector": 1})
     torch.testing.assert_close(got, ref.clip_accumulate_ref(acc, noise, 1.0),
                                rtol=1e-5, atol=1e-6)
     print(f"ops API: gemma3-4b local attention (window {w}) max abs err "
@@ -836,7 +909,7 @@ def main_path(spec, data, test, cfg):
                         seed=0, eval_every=cfg.rounds, device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = {**kernels.launch_counts(), **kernels.route_launch_counts()}
 
     row = res["history"][-1]
     priv, prox = np.asarray(row["private_acc"]), np.asarray(row["proxy_acc"])
@@ -851,10 +924,11 @@ def main_path(spec, data, test, cfg):
     print(f"main path: test losses {np.round(losses, 4).tolist()}")
     print(f"main path: launches {counts}")
 
+    # one launch of each clip kernel per DP step, both on the rows route
     steps = cfg.rounds * K * (per_client // cfg.batch_size)
-    expect(counts, sumsq=steps * cfg.batch_size,
-           scale_accumulate=steps * cfg.batch_size, noise_adam_step=steps,
-           fused_pushsum_mix=cfg.rounds)
+    expect(counts, sumsq=steps, scale_accumulate=steps, noise_adam_step=steps,
+           fused_pushsum_mix=cfg.rounds,
+           **{"sumsq/rows": steps, "scale_accumulate/rows": steps})
     assert all(math.isfinite(v) for v in losses), losses
     assert priv.mean() > 0.2, priv
     assert all(e == EPSILON_2_ROUNDS for e in res["epsilon"]), res["epsilon"]
@@ -867,7 +941,8 @@ def main_path(spec, data, test, cfg):
                           use_pallas=False)
     torch.cuda.synchronize()
     plain_seconds = time.perf_counter() - t0
-    assert kernels.launch_counts() == counts, "plain path launched a kernel"
+    assert {**kernels.launch_counts(), **kernels.route_launch_counts()} \
+        == counts, "plain path launched a kernel"
     worst = 0.0
     for a, b in zip(res["clients"], plain["clients"]):
         for role in ("private_params", "proxy_params"):
@@ -1191,7 +1266,15 @@ def step_breakdown(spec, data, test, cfg):
               f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
               f"({100 * busy_ms / wall_ms:.2f}%), {len(on_device)} device "
               "kernels and copies")
-        for kname in ("sumsq_partials", "sum_partials", "scale_acc",
+        busy = {}
+        for e in on_device:
+            name = e.name.replace("(anonymous namespace)::", "")
+            key = name.split("<")[0].split("(")[0].split("::")[-1]
+            busy[key] = busy.get(key, 0.0) + e.self_device_time_total
+        print("profile: device us by kernel in the step: " + ", ".join(
+            f"{n} {t:.3f}" for n, t in sorted(busy.items(),
+                                              key=lambda kv: -kv[1])[:10]))
+        for kname in ("sumsq_partials", "sum_partials", "clip_acc_rows",
                       "noise_adam"):
             ts = [e.self_device_time_total for e in on_device
                   if kname + "<" in e.name or kname + "(" in e.name]
@@ -1233,7 +1316,13 @@ def main() -> int:
     step_breakdown(*setup)
 
     # each kernel's launches on the path that runs it
-    counts = dict(counts, fused_stale_mix=async_counts["fused_stale_mix"])
+    # the clip pair: its rows route on the main path, its 1-D route in the
+    # ops window
+    counts = dict(counts, fused_stale_mix=async_counts["fused_stale_mix"],
+                  sumsq_rows=counts["sumsq/rows"],
+                  clip_accumulate_rows=counts["scale_accumulate/rows"],
+                  sumsq=ops_counts["sumsq/vector"],
+                  scale_accumulate=ops_counts["scale_accumulate/vector"])
     for name in ("noise_sgd_step", "rmsnorm", "flash_attention",
                  "mamba_scan"):
         counts[name] = ops_counts[name]

@@ -11,20 +11,24 @@ The noise is an argument: a flat ``[D]`` vector of N(0, 1) draws in
 absent it is drawn flat from ``generator`` on the params' device. Parity
 tests pass the reference's draws here.
 
-``use_pallas`` runs the clip-and-accumulate over flat gradient vectors
-through :mod:`repro_torch.kernels` (``sumsq`` for the norm,
-``scale_accumulate`` for the clipped sum), and :func:`dp_adam_update` adds
-the fused noise + Adam tail (``noise_adam_step``). Nothing on these paths
+``use_pallas`` runs the clip-and-accumulate over the ``[B, D]`` matrix of
+flat per-example gradients through :mod:`repro_torch.kernels`, one launch
+each per step: ``sumsq_rows`` for the norms and ``clip_accumulate_rows``
+for the clipped sum, in example order and bit-equal to a per-example loop
+of ``sumsq`` and ``scale_accumulate``. :func:`dp_adam_update` adds the
+fused noise + Adam tail (``noise_adam_step``). Nothing on these paths
 reads a device value on the host.
 """
 from __future__ import annotations
 
+from functools import reduce
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.func import grad_and_value, vmap
 
-from ..kernels import noise_adam_step, scale_accumulate, sumsq
+from ..kernels import (clip_accumulate_rows, noise_adam_step,
+                       scale_accumulate, sumsq_rows)
 from ..nn.modules import (tree_flatten_vector, tree_leaves, tree_map,
                           tree_unflatten_vector)
 from ..optim.optimizers import Adam, AdamState
@@ -84,20 +88,23 @@ def _per_example(loss_fn: LossFn, params: Params, batch: Any):
 
 def _flat_clip_accumulate(losses, grads, clip_norm: float, D: int,
                           device) -> Tuple[torch.Tensor, Dict]:
-    """The kernel path's per-unit loop, in the reference's order: for each
-    example, ``sumsq`` of its flat gradient, the clip scale formed on the
-    device, then ``scale_accumulate`` into the f32 sum."""
+    """The kernel path's clip and accumulate, the reference's per-unit scan
+    in two launches: the flat per-example gradients as one [B, D] matrix
+    (row stride padded to whole 128-byte cache lines, so the kernels read
+    each row in whole lines), every row's norm, the clip scales formed on
+    the device, then the clipped sum over the rows in example order into
+    f32."""
+    leaves = tree_leaves(grads)
     B = losses.shape[0]
-    flat = torch.cat([g.reshape(B, -1) for g in tree_leaves(grads)], dim=1)
-    acc = torch.zeros((D,), dtype=torch.float32, device=device)
-    norms = []
-    for i in range(B):
-        norm = torch.sqrt(sumsq(flat[i]))
-        scale = 1.0 / torch.clamp(norm / clip_norm, min=1.0)
-        acc = scale_accumulate(acc, flat[i], scale)
-        norms.append(norm)
-    metrics = {"loss": losses.sum() / B,
-               "mean_grad_norm": torch.stack(norms).sum() / B}
+    dtype = reduce(torch.promote_types, (g.dtype for g in leaves))
+    per_line = 128 // torch.empty((), dtype=dtype).element_size()
+    pad = torch.empty((B, -D % per_line), dtype=dtype, device=device)
+    flat = torch.cat([g.reshape(B, -1) for g in leaves] + [pad], dim=1)
+    flat = flat[:, :D]
+    norms = torch.sqrt(sumsq_rows(flat))
+    scales = 1.0 / torch.clamp(norms / clip_norm, min=1.0)
+    acc = clip_accumulate_rows(flat, scales)
+    metrics = {"loss": losses.sum() / B, "mean_grad_norm": norms.sum() / B}
     return acc, metrics
 
 
@@ -161,10 +168,11 @@ def dp_adam_update(
     noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[Params, AdamState, Dict]:
-    """Fused DP-SGD + Adam step: the per-example ``sumsq`` /
-    ``scale_accumulate`` loop, then ``noise_adam_step`` applies noise,
-    clipped mean, weight decay, the moment updates and the bias-corrected
-    step in one pass. Returns ``(params', opt_state', metrics)``.
+    """Fused DP-SGD + Adam step: the clip and accumulate of
+    ``sumsq_rows`` / ``clip_accumulate_rows``, then ``noise_adam_step``
+    applies noise, clipped mean, weight decay, the moment updates and the
+    bias-corrected step in one pass. Returns
+    ``(params', opt_state', metrics)``.
 
     The fused chain repeats Adam's f32 update only; non-f32 params or
     moments (the reference's fallback at ``src/repro/core/dp.py:192-203``)
@@ -173,7 +181,7 @@ def dp_adam_update(
             x.dtype != torch.float32 for x in tree_leaves(params)):
         raise NotImplementedError(
             "dp_adam_update on non-f32 params or moments is not ported yet "
-            "(ROADMAP.md Queue 1 item 4)")
+            "(ROADMAP.md Queue 1 item 6)")
     losses, grads = _per_example(loss_fn, params, batch)
     p_flat = tree_flatten_vector(params)
     acc, metrics = _flat_clip_accumulate(losses, grads, clip_norm,

@@ -15,8 +15,12 @@ Kernel → path map
 -----------------
 The round hot path (``ProxyFLConfig.use_pallas``):
 
-- :func:`sumsq` / :func:`scale_accumulate` — per-example clip and
-  accumulate of DP-SGD (``repro_torch.core.dp``).
+- :func:`sumsq_rows` / :func:`clip_accumulate_rows` — the clip and
+  accumulate of DP-SGD over the ``[B, D]`` per-example gradients, one
+  launch each per step (``repro_torch.core.dp``): the ``"rows"`` route of
+  :func:`sumsq` and :func:`scale_accumulate`.
+- :func:`scale_accumulate` — the noise add of ``dp_gradient`` (its 1-D
+  ``"vector"`` route).
 - :func:`noise_adam_step` — noise add, clipped mean, weight decay and Adam
   in one pass (``repro_torch.core.dp.dp_adam_update``).
 - :func:`fused_pushsum_mix` — the de-biased PushSum exchange
@@ -45,15 +49,16 @@ port as in the reference):
 
 Each wrapper counts its kernel launches in a plain integer attribute
 ``launches``; :func:`launch_counts` and :func:`reset_launch_counts` read and
-clear them all. Attention and RMSNorm also count by route
-(``route_launches``), read by :func:`route_launch_counts`.
+clear them all. Attention, RMSNorm, ``sumsq`` and ``scale_accumulate`` also
+count by route (``route_launches``), read by :func:`route_launch_counts`.
 """
 from typing import Dict, Optional
 
 import torch
 
 from . import ref
-from .dp_clip import clip_accumulate, scale_accumulate, sumsq
+from .dp_clip import (clip_accumulate, clip_accumulate_rows,
+                      scale_accumulate, sumsq, sumsq_rows)
 from .dp_step import noise_adam_step, noise_sgd_step
 from .flash_attention import flash_attention
 from .mamba_scan import mamba_scan
@@ -72,7 +77,8 @@ KERNELS = {
     "flash_attention": flash_attention,
     "mamba_scan": mamba_scan,
 }
-ROUTED = (flash_attention, rmsnorm)   # wrappers with more than one kernel
+# wrappers with more than one kernel or launch shape
+ROUTED = (flash_attention, rmsnorm, sumsq, scale_accumulate)
 
 
 def default_interpret(device="cuda") -> bool:
@@ -102,8 +108,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def route_launch_counts() -> Dict[str, int]:
-    """Launches by route: ``flash_attention/<route>`` and
-    ``rmsnorm/<route>``."""
+    """Launches by route: ``flash_attention/<route>``,
+    ``rmsnorm/<route>``, ``sumsq/<route>`` and
+    ``scale_accumulate/<route>``."""
     return {f"{fn.__name__}/{route}": n for fn in ROUTED
             for route, n in fn.route_launches.items()}
 
@@ -120,6 +127,7 @@ __all__ = [
     "default_interpret",
     "resolve_interpret",
     "clip_accumulate",
+    "clip_accumulate_rows",
     "flash_attention",
     "fused_pushsum_mix",
     "fused_stale_mix",
@@ -129,6 +137,7 @@ __all__ = [
     "noise_sgd_step",
     "scale_accumulate",
     "sumsq",
+    "sumsq_rows",
     "tree_clip_accumulate",
     "rmsnorm",
     "KERNELS",

@@ -41,6 +41,11 @@ _SIGNATURES = {
                     _P),
     "repro_scale_accumulate": (_P, _P, ctypes.c_int, _P, _P, ctypes.c_int64,
                                _P),
+    "repro_sumsq_rows": (_P, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_int64, _P, ctypes.c_int, _P, _P),
+    "repro_clip_accumulate_rows": (_P, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int64, ctypes.c_int64, _P, _P,
+                                   _P),
     "repro_noise_adam_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                               ctypes.c_int64, ctypes.c_float, ctypes.c_float,
                               ctypes.c_float, ctypes.c_float, ctypes.c_float,
@@ -181,12 +186,14 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} failed to launch: cudaError {err}")
 
 
-def check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Every tensor contiguous and on the current CUDA device."""
+def check_cuda(name: str, *tensors: torch.Tensor,
+               contiguous: bool = True) -> None:
+    """Every tensor on the current CUDA device and, unless the caller
+    checks strides itself (``contiguous=False``), contiguous."""
     dev = torch.cuda.current_device()
     for t in tensors:
         if t.device.type != "cuda" or t.device.index != dev:
             raise ValueError(f"{name}: tensor on {t.device}, expected the "
                              f"current CUDA device cuda:{dev}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")

@@ -21,6 +21,23 @@ def scale_accumulate_ref(acc: torch.Tensor, g: torch.Tensor,
     return acc + g.to(torch.float32) * scale
 
 
+def sumsq_rows_ref(x: torch.Tensor) -> torch.Tensor:
+    """Each row's :func:`sumsq_ref`, stacked: [B]. Row by row, because a
+    1-D CPU sum splits a long row across threads and ``sum(dim=1)`` does
+    not, so the two can differ in the last bit."""
+    return torch.stack([sumsq_ref(row) for row in x])
+
+
+def clip_accumulate_rows_ref(g: torch.Tensor,
+                             scales: torch.Tensor) -> torch.Tensor:
+    """Σᵢ gᵢ·scalesᵢ over the rows in order, from 0, as B chained
+    :func:`scale_accumulate_ref` calls: [D] f32."""
+    acc = torch.zeros(g.shape[1], dtype=torch.float32, device=g.device)
+    for i in range(g.shape[0]):
+        acc = acc + g[i].to(torch.float32) * scales[i]
+    return acc
+
+
 def fused_pushsum_mix_ref(flat: torch.Tensor, w: torch.Tensor, P, *,
                           debias: bool = True):
     """Synchronous PushSum exchange, f32 accumulation: (P·z [/ P·w], P·w)."""

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: each against its plain version (the
 ops API's at the full widths of qwen2-7b, falcon-mamba-7b and the mlp
 proxy; both tensor-core attention routes over ragged lengths, groups and
-windows; both rmsnorm instantiations), the wrappers' refusals, and small federations (sync, and async at
-staleness 2 with dropout) through the kernels against the plain path on
-the same seed.
+windows; both rmsnorm instantiations; the DP clip pair's rows route bit
+for bit against its 1-D route), the wrappers' refusals, and small
+federations (sync, and async at staleness 2 with dropout) through the
+kernels against the plain path on the same seed.
 
 Every test here needs a CUDA device and skips without one. The file
 imports torch and ``repro_torch`` only (no jax), so on a GPU machine
@@ -290,6 +291,71 @@ def test_wrappers_raise_instead_of_falling_back(gen):
         kernels.sumsq(x[:1].expand(4))   # stride 0: not contiguous
 
 
+def _padded_rows(gen, B, n, dtype):
+    """[B, n] view of a buffer whose row stride is padded to 128 bytes, as
+    the DP path lays out its per-example gradients."""
+    per_line = 128 // torch.tensor([], dtype=dtype).element_size()
+    buf = torch.randn((B, -(-n // per_line) * per_line), generator=gen,
+                      device="cuda").to(dtype)
+    return buf[:, :n]
+
+
+@pytest.mark.parametrize("B,n,dtype", [(250, D, torch.float32)] + [
+    (B, n, dtype) for B in (1, 3, 257) for n in (1, 1_023, 1_025)
+    for dtype in (torch.float32, torch.bfloat16)])
+def test_clip_rows_are_bit_equal_to_the_vector_loop(gen, B, n, dtype):
+    """sumsq_rows equals sumsq row by row, and clip_accumulate_rows equals B
+    chained scale_accumulate calls from 0, bit for bit; both within the
+    dtype's tolerance of their plain versions."""
+    x = _padded_rows(gen, B, n, dtype)
+    kernels.reset_launch_counts()
+    norms2 = kernels.sumsq_rows(x)
+    scales = 1.0 / torch.clamp(torch.sqrt(norms2) / 1.0, min=1.0)
+    acc = kernels.clip_accumulate_rows(x, scales)
+    torch.cuda.synchronize()
+    assert kernels.route_launch_counts()["sumsq/rows"] == 1
+    assert kernels.route_launch_counts()["scale_accumulate/rows"] == 1
+    loop_norms = torch.stack([kernels.sumsq(x[i]) for i in range(B)])
+    loop_acc = torch.zeros(n, device="cuda")
+    for i in range(B):
+        loop_acc = kernels.scale_accumulate(loop_acc, x[i], scales[i])
+    assert torch.equal(norms2, loop_norms)
+    assert torch.equal(acc, loop_acc)
+    tol = BF16 if dtype == torch.bfloat16 else F32
+    torch.testing.assert_close(norms2, ref.sumsq_rows_ref(x), **tol)
+    torch.testing.assert_close(acc, ref.clip_accumulate_rows_ref(x, scales),
+                               **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_clip_rows_take_unpadded_views_bit_for_bit(gen, dtype):
+    """Unpadded rows of 199,210 elements (odd rows 8 or 4 bytes off a
+    16-byte boundary) and a base one element off give the same bits as
+    the 1-D loop: the rows kernels need no alignment."""
+    for x in (torch.randn((3, D), generator=gen, device="cuda").to(dtype),
+              _padded_rows(gen, 3, D + 1, dtype)[:, 1:]):
+        s = torch.rand(3, generator=gen, device="cuda")
+        assert torch.equal(kernels.sumsq_rows(x),
+                           torch.stack([kernels.sumsq(r) for r in x]))
+        loop = torch.zeros(D, device="cuda")
+        for i in range(3):
+            loop = kernels.scale_accumulate(loop, x[i], s[i])
+        assert torch.equal(kernels.clip_accumulate_rows(x, s), loop)
+
+
+def test_clip_rows_refuse_host_scales_and_launch_nothing(gen):
+    x = _padded_rows(gen, 3, D, torch.float32)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError):   # scales on the host
+        kernels.clip_accumulate_rows(x, torch.ones(3))
+    with pytest.raises(ValueError):   # one scale short
+        kernels.clip_accumulate_rows(x, torch.ones(2, device="cuda"))
+    with pytest.raises(ValueError):   # columns not unit-stride
+        kernels.sumsq_rows(x[:, ::2])
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+    assert not any(kernels.route_launch_counts().values())
+
+
 def test_small_federation_through_every_kernel(gen):
     vm = get_vision_model("mlp")
     shape = (6, 6, 1)
@@ -302,10 +368,15 @@ def test_small_federation_through_every_kernel(gen):
     kernels.reset_launch_counts()
     fused = run_federated("proxyfl", [spec] * 3, spec, data, data[0], cfg)
     steps = cfg.rounds * 3 * (40 // cfg.batch_size)
+    # one launch of each clip kernel per DP step, on the rows route
     assert kernels.launch_counts() == dict(
-        dict.fromkeys(kernels.KERNELS, 0), sumsq=steps * 10,
-        scale_accumulate=steps * 10, noise_adam_step=steps,
+        dict.fromkeys(kernels.KERNELS, 0), sumsq=steps,
+        scale_accumulate=steps, noise_adam_step=steps,
         fused_pushsum_mix=cfg.rounds)
+    routes = kernels.route_launch_counts()
+    assert (routes["sumsq/rows"], routes["scale_accumulate/rows"],
+            routes["sumsq/vector"], routes["scale_accumulate/vector"]) == (
+                steps, steps, 0, 0)
     plain = run_federated("proxyfl", [spec] * 3, spec, data, data[0], cfg,
                           use_pallas=False)
     for a, b in zip(fused["clients"], plain["clients"]):

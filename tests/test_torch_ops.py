@@ -451,17 +451,22 @@ def test_cpu_calls_launch_nothing():
 
 def test_cpu_calls_count_no_route():
     """Calls on CPU tensors, on every route's dtype and head dim, leave the
-    per-route counts of attention and rmsnorm at 0."""
+    per-route counts of attention, rmsnorm and the DP clip pair at 0."""
     kernels.reset_launch_counts()
     for dtype in (torch.float32, torch.bfloat16):
         for D in (32, 128):
             x = torch.randn(1, 2, 16, D).to(dtype)
             kernels.flash_attention(x, x, x)
         kernels.rmsnorm(torch.randn(4, 33).to(dtype), torch.ones(33))
+        g = torch.randn(3, 40).to(dtype)
+        kernels.clip_accumulate_rows(g, kernels.sumsq_rows(g))
+        kernels.clip_accumulate(torch.zeros(40), g[0], 1.0)
     counts = kernels.route_launch_counts()
     assert set(counts) == {"flash_attention/wgmma", "flash_attention/tf32x3",
                            "flash_attention/cuda_cores", "rmsnorm/vector",
-                           "rmsnorm/scalar"}
+                           "rmsnorm/scalar", "sumsq/vector", "sumsq/rows",
+                           "scale_accumulate/vector",
+                           "scale_accumulate/rows"}
     assert not any(counts.values())
 
 
