@@ -7,25 +7,33 @@
    CUDA versions, then builds the hand-written kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` and prints the build time
    and, from ptxas's ``-v`` report, the registers and spills of the two
-   tensor-core attention kernels, the stale-mix register kernels, the
+   tensor-core attention kernels, the register kernels of both mixes, the
    rmsnorm instantiations and the clip pair's rows accumulate (0 spill
    bytes each).
 2. Holds each of the eleven kernels (nine TPU kernels; attention has three:
-   at D ∈ {64, 128, 256} bf16 on wgmma and f32 in split TF32, both on the
-   tensor cores, and a CUDA-core one for every other head dim) and the
+   at every head dim whose rows are whole 16 bytes bf16 on wgmma and f32 in
+   split TF32, both on the tensor cores and zero-padded up to their
+   compiled widths (64, 128 and 256; split TF32 also 96), and a CUDA-core
+   one for the unaligned head dims) and the
    ``"rows"`` route of the DP clip pair (``sumsq_rows`` and
    ``clip_accumulate_rows`` over the [250, 199,210] per-example gradients,
    also bit for bit against a loop of the 1-D kernels) against its
    plain PyTorch version on the
    card, at the main paths' shapes (D = 199,210 f32, K = 8; the LLM
    kernels at the full widths of qwen2-7b, gemma3-4b and falcon-mamba-7b,
-   attention in bf16 and f32, and phi-3-vision's head dim 96 on the CUDA
-   cores; rmsnorm on both its vector and its scalar path)
-   and at ragged sizes (the mixes at K across every register bucket edge;
-   z' of the f32 stale mix bit-equal), with the kernel tests' tolerances
-   (f32 rtol = atol = 2e-5, bf16 2e-2, the mamba scan 2e-4), then sweeps
-   both tensor-core attention routes over head dims, lengths, groups,
-   masks and windows and checks that a misaligned view raises on each;
+   attention in bf16 and f32, phi-3-vision's head dim 96 in both on the
+   tensor cores, and the CUDA-core kernel at phi-3-vision's length and
+   heads with D = 100; rmsnorm on both its vector and its scalar path)
+   and at ragged sizes (the mixes at K across every register bucket edge,
+   the sync mix also on rows one element off; z' of the f32 stale mix
+   bit-equal), with the kernel tests' tolerances (f32 rtol = atol = 2e-5,
+   bf16 2e-2, the mamba scan 2e-4), then sweeps both tensor-core attention
+   routes over head dims (compiled and zero-padded), lengths, groups,
+   masks and windows, checks that a misaligned view raises on each, and
+   sweeps the CUDA-core route at unaligned head dims (the only phase that
+   launches it); times phi-3-vision's attention on the CUDA-core kernel
+   (the route it took before; its C entry point launched directly, not
+   counted);
    times each kernel over
    CUDA-event-timed launches (200, or 10 at the LLM widths) beside its
    plain version, one PyTorch library call computing the same function
@@ -46,9 +54,9 @@
    result finite and within tolerance of its plain version; then gemma3-4b's
    local attention (D = 256, window 1,024), rmsnorm in f32, qwen2-7b's
    attention in f32 (the split-TF32 kernel; SDPA's f32 kernel named from
-   the profiler), phi-3-vision's attention (D = 96, the CUDA-core kernel)
-   and the flat ``clip_accumulate``, one launch window each, each with its
-   route's launch pinned.
+   the profiler), phi-3-vision's attention (D = 96) in bf16 (wgmma) and in
+   f32 (split TF32) and the flat ``clip_accumulate``, one launch window
+   each, each with its route's launch pinned.
 3. Times the first client step of the process (set-up cost), then
    drives the sync DP path: ``run_federated("proxyfl", ...)`` on the
    paper's MNIST protocol (synthetic data), mlp 784-200-200-10, 8 clients
@@ -121,12 +129,20 @@ ASYNC_ROUNDS, ASYNC_TAU = 6, 2   # fig_async runs 30 rounds; cut to 6
 QWEN_ATTN = dict(B=1, S=4_096, Hq=28, Hkv=4, D=128)       # configs/qwen2_7b.py
 GEMMA_LOCAL = dict(B=1, S=4_096, Hq=8, Hkv=4, D=256, window=1_024)  # gemma3_4b
 PHI3V_ATTN = dict(B=1, S=4_096, Hq=32, Hkv=32, D=96)   # phi_3_vision_4_2b
+# the CUDA-core route's timed call: phi-3-vision's length and heads at the
+# nearest head dim that route still takes (bf16 rows of 200 bytes)
+UNALIGNED_ATTN = dict(PHI3V_ATTN, D=100)
 RMS_ROWS, RMS_D = 4_096, 3_584                            # qwen2-7b d_model
 MAMBA = dict(B=1, S=4_096, di=8_192, ds=16)   # configs/falcon_mamba_7b.py
-# the attention routes' sweep: head dims of the tensor-core kernels, lengths
-# around their 128-row and 16/64/128-key tiles, query heads per KV head,
-# windows (0 masks every key of a causal row)
-ROUTE_D = (64, 128, 256)
+# the attention routes' sweep: head dims of the tensor-core kernels (their
+# compiled widths, then aligned widths zero-padded up to them: 8 and 40 (36
+# f32) onto 64, 96 onto 128 in bf16, 72 onto 96 in f32, 136 and 248 onto
+# 256), lengths around their 128-row and 16/64/128-key tiles, query heads
+# per KV head, windows (0 masks every key of a causal row); the CUDA-core
+# route at unaligned head dims
+ROUTE_D = {torch.bfloat16: (64, 128, 256, 8, 40, 96, 136, 248),
+           torch.float32: (64, 96, 128, 256, 8, 36, 40, 72, 136, 248)}
+CUDA_CORE_D = {torch.bfloat16: (36, 100), torch.float32: (30, 98)}
 ROUTE_S = (1, 63, 64, 65, 127, 129, 257)
 ROUTE_GROUPS = (1, 2, 7)
 ROUTE_WINDOWS = (None, 1, 17, 64, 0)
@@ -182,6 +198,27 @@ def graph_us(fn, n: int = TIMED_LAUNCHES) -> float:
     return start.elapsed_time(end) * 1e3 / (5 * n)
 
 
+def cold_us(fn, n: int = 20) -> float:
+    """Mean device µs of ``fn`` with the L2 cache flushed before each call:
+    a sum over 256 MB (about 80 µs of device time, five times the 50 MB L2,
+    read only, so no dirty line is left to write back), then CUDA events
+    around the call alone; the sum gives the host time to enqueue the call
+    before the device reaches it."""
+    flush = torch.zeros(64 * 2 ** 20, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end) * 1e3
+    return total / n
+
+
 def max_err(got, want) -> float:
     got, want = (torch.atleast_1d(t).float() for t in (got, want))
     return float((got - want).abs().max())
@@ -197,6 +234,17 @@ def check(name, got, want, dtype, tol: Optional[float] = None) -> float:
         torch.testing.assert_close(g, w, rtol=tol, atol=tol,
                                    msg=lambda m: f"{name}: {m}")
     return max(max_err(g, w) for g, w in zip(got, want))
+
+
+def tol_share(got, want, tol: float) -> float:
+    """The largest |got − want| / (tol + tol·|want|): the share of the
+    tolerance assert_close allows (rtol = atol = tol) that the worst
+    element uses."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return max(float(((g.float() - w.float()).abs()
+                      / (tol + tol * w.float().abs())).max())
+               for g, w in zip(got, want))
 
 
 def bound_us(n_bytes: float, n_ops: float, peak: float = F32_OPS_PER_S):
@@ -223,6 +271,8 @@ class Case(NamedTuple):
     plain_graph: bool = True        # False: the plain version's graph
     row: Optional[str] = None       # the timed row it opens (None: name)
     exact: Optional[Callable] = None   # must equal the kernel bit for bit
+    padded_ops: Optional[float] = None  # operations at the compiled width
+    cold: bool = False              # also time with L2 flushed per call
 
 
 def attention_pairs(S: int, causal: bool, window: Optional[int]) -> int:
@@ -387,7 +437,21 @@ def kernel_cases(gen):
                        # the library yardstick is the product alone
                        (lambda f=flat, P=P: torch.matmul(P, f))
                        if dt == torch.float32 else None,
-                       2 * K * D * es + 4 * K * K + 4 * K, 2 * K * K * D)
+                       2 * K * D * es + 4 * K * K + 4 * K, 2 * K * K * D,
+                       cold=True)
+    # rows that start one element off 16 bytes: the one-column accesses
+    P = torch.rand((MAIN_K, MAIN_K), generator=gen, device=dev)
+    P = P / P.sum(0, keepdim=True)
+    w = torch.rand((MAIN_K,), generator=gen, device=dev) + 0.5
+    for dt in (torch.float32, torch.bfloat16):
+        flat = randn(MAIN_K * MAIN_D + 1, dtype=dt)[1:].view(MAIN_K, MAIN_D)
+        for debias in (True, False):
+            yield Case("fused_pushsum_mix", dt, (MAIN_K, MAIN_D, debias, "off 1"),
+                       lambda f=flat, P=P, w=w, d=debias:
+                       kernels.fused_pushsum_mix(f, w, P, debias=d),
+                       lambda f=flat, P=P, w=w, d=debias:
+                       ref.fused_pushsum_mix_ref(f, w, P, debias=d),
+                       None, 0, 0)
     # the stale exchange, inputs as tests/test_kernels.py:_stale_inputs
     for K, D in mix_shapes:
         P = torch.rand((K, K), generator=gen, device=dev) * 0.9 + 0.1
@@ -417,6 +481,7 @@ def llm_kernel_cases(gen):
     falcon-mamba-7b, then ragged sizes."""
     from repro_torch import kernels
     from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_route, padded_head_dim
     dev = torch.device("cuda")
 
     def randn(*shape, dtype=torch.float32):
@@ -471,17 +536,30 @@ def llm_kernel_cases(gen):
                    lib, *attention_cost(dtype=bf16, **shape),
                    peak=BF16_OPS_PER_S, calls=FULL_WIDTH_CALLS, row=label)
     # f32 runs the split-TF32 kernel, bound by f32-grade products at 165
-    # TFLOP/s; phi-3-vision's head dim 96 the CUDA-core kernel, bound by the
-    # bf16 tensor-core peak the card could use for the same products
+    # TFLOP/s; phi-3-vision's head dim 96 runs the wgmma kernel at its
+    # 128-wide instantiation (its bound at D = 96, and beside it the padded
+    # work's) and the split-TF32 kernel at its own width; the CUDA-core
+    # kernel at an unaligned head dim is bound by the bf16 tensor-core peak
+    # the card could use for the same products
     for label, dt, shape, peak in (
             ("flash_attention f32", torch.float32, QWEN_ATTN, TF32X3_OPS_PER_S),
-            ("flash_attention cuda_cores", bf16, PHI3V_ATTN, BF16_OPS_PER_S)):
+            ("flash_attention phi-3-vision", bf16, PHI3V_ATTN,
+             BF16_OPS_PER_S),
+            ("flash_attention phi-3-vision f32", torch.float32, PHI3V_ATTN,
+             TF32X3_OPS_PER_S),
+            ("flash_attention cuda_cores", bf16, UNALIGNED_ATTN,
+             BF16_OPS_PER_S)):
         q, k, v, lib = attention_inputs(gen, dtype=dt, **shape)
+        route = flash_route(dt, shape["D"])
+        padded = dict(shape, D=padded_head_dim(shape["D"], route)) \
+            if route != "cuda_cores" else shape
         yield Case("flash_attention", dt, tuple(shape.values()),
                    lambda q=q, k=k, v=v: kernels.gqa_flash_attention(q, k, v),
                    lambda q=q, k=k, v=v: ref.gqa_flash_attention_ref(q, k, v),
                    lib, *attention_cost(dtype=dt, **shape), peak=peak,
-                   calls=FULL_WIDTH_CALLS, row=label)
+                   calls=FULL_WIDTH_CALLS, row=label,
+                   padded_ops=attention_cost(dtype=dt, **padded)[1]
+                   if padded != shape else None)
     for D in (32, 64, 128, 256):
         for S, G, causal, win in [(1, 1, True, None), (100, 2, False, None),
                                   (257, 7, True, 64), (130, 1, False, 30)]:
@@ -551,17 +629,19 @@ SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:48",
                 "src/repro/kernels/rmsnorm.py::rmsnorm"),
-    # bf16 at D in {64, 128, 256}: the tensor cores (the ops API's calls)
+    # bf16 at every head dim of whole 16-byte rows: the tensor cores (the
+    # ops API's calls)
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                         "src/repro/kernels/flash_attention.py:106",
                         "src/repro/kernels/flash_attention.py::"
                         "flash_attention"),
-    # f32 at D in {64, 128, 256}: split TF32 on the tensor cores
+    # f32 at every head dim of whole 16-byte rows: split TF32 on the
+    # tensor cores
     "flash_attention_tf32x3": (
         "src/repro_torch/kernels/csrc/flash_attention_tf32x3.cu",
         "src/repro/kernels/flash_attention.py:106",
         "src/repro/kernels/flash_attention.py::flash_attention"),
-    # every other head dim: the CUDA cores
+    # the unaligned head dims: the CUDA cores
     "flash_attention_cuda_cores": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:106",
@@ -581,6 +661,7 @@ def check_kernels():
         got, want = c.kern(), c.plain()
         err = check(f"{c.name} {c.dtype} {c.shape}", got, want, c.dtype,
                     c.tol)
+        tol = TOL[c.dtype] if c.tol is None else c.tol
         if c.name == "fused_stale_mix" and c.dtype == torch.float32:
             # explicitly rounded re-bias, merge and de-bias: z' bit-equal
             assert torch.equal(got[0], want[0]), f"z' differs at {c.shape}"
@@ -597,13 +678,17 @@ def check_kernels():
         pn = c.plain_calls or c.calls
         rows[row] = dict(
             shape=c.shape, dtype=str(c.dtype), err=err, n_bytes=c.n_bytes,
-            n_ops=c.n_ops,
+            n_ops=c.n_ops, share=tol_share(got, want, tol),
+            padded_bound_us=None if c.padded_ops is None
+            else bound_us(c.n_bytes, c.padded_ops, c.peak)[0],
             kernel_us=cuda_us(c.kern, c.calls), plain_us=cuda_us(c.plain, pn),
             bound_us=b_us, bound_by=b_by,
             library_us=cuda_us(c.lib, c.calls) if c.lib else None,
             kernel_graph_us=graph_us(c.kern, c.calls),
             plain_graph_us=graph_us(c.plain, pn) if c.plain_graph else None,
-            library_graph_us=graph_us(c.lib, c.calls) if c.lib else None)
+            library_graph_us=graph_us(c.lib, c.calls) if c.lib else None,
+            kernel_cold_us=cold_us(c.kern) if c.cold else None,
+            library_cold_us=cold_us(c.lib) if c.cold and c.lib else None)
         if not c.plain_graph:
             print(f"{row}: the plain version's CUDA-graph time is not "
                   f"measured: it is a Python loop of {c.shape[1]:,} steps of "
@@ -613,53 +698,63 @@ def check_kernels():
     return rows
 
 
-def attention_routes():
-    """Both tensor-core routes, bf16 (wgmma) and f32 (split TF32), at every
-    head dim they take, over lengths, groups, both masks and windows (B = 2,
-    two KV heads; group 1 through the [B, H, S, D] entry point), each
-    against its plain version at its dtype's tolerance, every call on the
-    route's kernel; a causal window of 0 gives exactly 0. Then the routes'
-    refusals: a misaligned view raises on each and launches nothing."""
+def route_sweep(gen, dt, route, head_dims):
+    """Every case of one attention route at ``head_dims`` (B = 2, two KV
+    heads; group 1 through the [B, H, S, D] entry point), each against its
+    plain version at its dtype's tolerance, every call on the route's kernel;
+    a causal window of 0 gives exactly 0. Returns the worst error by D."""
     from repro_torch import kernels
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_route
 
+    n, worst = 0, {}
+    kernels.reset_launch_counts()
+    for D in head_dims:
+        assert flash_route(dt, D) == route, (dt, D)
+        for S in ROUTE_S:
+            for G in ROUTE_GROUPS:
+                q, k, v, _ = attention_inputs(gen, 2, S, 2 * G, 2, D, dt)
+                if G == 1:
+                    q, k, v = (t.transpose(1, 2).contiguous()
+                               for t in (q, k, v))
+                    kern, plain = kernels.flash_attention, \
+                        ref.flash_attention_ref
+                else:
+                    kern, plain = kernels.gqa_flash_attention, \
+                        ref.gqa_flash_attention_ref
+                for causal in (True, False):
+                    for win in ROUTE_WINDOWS:
+                        kw = dict(causal=causal, window=win)
+                        got = kern(q, k, v, **kw)
+                        err = check(f"attention route {route} D={D} S={S} "
+                                    f"G={G} {kw}", got, plain(q, k, v, **kw),
+                                    dt)
+                        if causal and win == 0:
+                            assert bool((got == 0).all()), (D, S, G)
+                        worst[D] = max(worst.get(D, 0.0), err)
+                        n += 1
+    torch.cuda.synchronize()
+    routes = kernels.route_launch_counts()
+    expect(routes, **{f"flash_attention/{route}": n})
+    print(f"attention routes: {n} {dt} cases on the {route} kernel (D "
+          f"{head_dims}, S {ROUTE_S}, groups {ROUTE_GROUPS}, causal and not, "
+          f"windows {ROUTE_WINDOWS}) agree with the plain version; max abs "
+          "err by D " + ", ".join(f"{d}: {e:.3e}" for d, e in worst.items()))
+    return n
+
+
+def attention_routes():
+    """Both tensor-core routes, bf16 (wgmma) and f32 (split TF32), at their
+    compiled head dims and at aligned head dims zero-padded up to them, then
+    the CUDA-core route at unaligned head dims (the only phase that launches
+    it): each case against its plain version, every launch on the route.
+    Then the tensor-core routes' refusals: a misaligned view raises on each
+    and launches nothing. Returns the CUDA-core route's launches."""
+    from repro_torch import kernels
+
     gen = torch.Generator(device="cuda").manual_seed(2)
     for dt, route in ((torch.bfloat16, "wgmma"), (torch.float32, "tf32x3")):
-        n, worst = 0, {}
-        kernels.reset_launch_counts()
-        for D in ROUTE_D:
-            assert flash_route(dt, D) == route
-            for S in ROUTE_S:
-                for G in ROUTE_GROUPS:
-                    q, k, v, _ = attention_inputs(gen, 2, S, 2 * G, 2, D, dt)
-                    if G == 1:
-                        q, k, v = (t.transpose(1, 2).contiguous()
-                                   for t in (q, k, v))
-                        kern, plain = kernels.flash_attention, \
-                            ref.flash_attention_ref
-                    else:
-                        kern, plain = kernels.gqa_flash_attention, \
-                            ref.gqa_flash_attention_ref
-                    for causal in (True, False):
-                        for win in ROUTE_WINDOWS:
-                            kw = dict(causal=causal, window=win)
-                            got = kern(q, k, v, **kw)
-                            err = check(f"attention route {route} D={D} "
-                                        f"S={S} G={G} {kw}", got,
-                                        plain(q, k, v, **kw), dt)
-                            if causal and win == 0:
-                                assert bool((got == 0).all()), (D, S, G)
-                            worst[D] = max(worst.get(D, 0.0), err)
-                            n += 1
-        torch.cuda.synchronize()
-        routes = kernels.route_launch_counts()
-        assert routes[f"flash_attention/{route}"] == n, routes
-        print(f"attention routes: {n} {dt} cases on the {route} kernel (D "
-              f"{ROUTE_D}, S {ROUTE_S}, groups {ROUTE_GROUPS}, causal and "
-              f"not, windows {ROUTE_WINDOWS}) agree with the plain version; "
-              "max abs err by D "
-              + ", ".join(f"{d}: {e:.3e}" for d, e in worst.items()))
+        route_sweep(gen, dt, route, ROUTE_D[dt])
         flat = torch.zeros(2 * 64 * 4 + 8, dtype=dt, device="cuda")
         off = flat[1:1 + 2 * 64 * 4].view(1, 2, 4, 64)   # 2 or 4 bytes off
         kernels.reset_launch_counts()
@@ -671,18 +766,54 @@ def attention_routes():
             raise AssertionError(f"a misaligned {dt} view did not raise")
         expect(kernels.launch_counts())
         assert not any(kernels.route_launch_counts().values())
+    return sum(route_sweep(gen, dt, "cuda_cores", CUDA_CORE_D[dt])
+               for dt in (torch.bfloat16, torch.float32))
+
+
+def cuda_core_phi3():
+    """phi-3-vision's attention (D = 96) on the CUDA-core kernel, the route
+    it took while only D ∈ {64, 128, 256} ran on the tensor cores: that
+    kernel's C entry point launched directly (no wrapper, so no launch is
+    counted), checked against the plain version and timed eagerly and from
+    a CUDA graph, in both dtypes. Returns {dtype: (eager µs, graph µs)}."""
+    from repro_torch.kernels import _build, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, _ = attention_inputs(gen, dtype=dt, **PHI3V_ATTN)
+        B, S, H, D = q.shape
+
+        def launch(q=q, k=k, v=v):
+            o = torch.empty_like(q)
+            _build.launch("repro_flash_attention", q.data_ptr(), k.data_ptr(),
+                          v.data_ptr(), o.data_ptr(), _build.DTYPE_CODES[dt],
+                          B, H, 1, S, D, q.stride(0), q.stride(2),
+                          q.stride(1), k.stride(0), k.stride(2), k.stride(1),
+                          D ** -0.5, 1, 0, 0)
+            return o
+        err = check(f"phi-3-vision on the CUDA cores {dt}", launch(),
+                    ref.gqa_flash_attention_ref(q, k, v), dt)
+        out[dt] = (cuda_us(launch, FULL_WIDTH_CALLS),
+                   graph_us(launch, FULL_WIDTH_CALLS))
+        print(f"phi-3-vision attention {dt} on the CUDA-core kernel (the "
+              f"route before): max abs err {err:.3e}; eager "
+              f"{out[dt][0]:.3f} us, from a CUDA graph {out[dt][1]:.3f} us")
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
 
 
 def ptxas_lines():
     """Registers and spills of the two tensor-core attention kernels, the
-    stale-mix register kernels, the rmsnorm instantiations and the clip
+    register kernels of both mixes, the rmsnorm instantiations and the clip
     pair's rows accumulate, from ptxas's -v report of this build; every
     one spills 0 bytes."""
     from repro_torch.kernels import _build
     for name, regs, stores, loads, stack in _build.ptxas_report():
         if not any(k in name for k in ("flash_fwd_sm90", "flash_fwd_tf32x3",
-                                        "stale_reg", "rmsnorm_rows",
-                                        "clip_acc_rows")):
+                                        "stale_reg", "mix_reg",
+                                        "rmsnorm_rows", "clip_acc_rows")):
             continue
         print(f"ptxas: {name}: {regs} registers, {stores} bytes spill "
               f"stores, {loads} bytes spill loads, {stack} bytes stack")
@@ -718,7 +849,8 @@ def ops_api():
     (falcon-mamba-7b), noise_sgd_step and tree_clip_accumulate (the mlp
     proxy's tree) in one window; then gemma3-4b's windowed attention,
     rmsnorm in f32, qwen2-7b's attention in f32 (the split-TF32 route),
-    phi-3-vision's (D = 96, the CUDA-core route) and the flat
+    phi-3-vision's (D = 96, zero-padded onto the 128-wide tensor-core
+    kernels) in bf16 (wgmma) and in f32 (split TF32) and the flat
     clip_accumulate, one window each, with each window's attention or
     rmsnorm route pinned. Every result is finite, of the expected shape,
     and agrees with its plain version."""
@@ -815,16 +947,23 @@ def ops_api():
     q, k, v, lib32 = attention_inputs(gen, dtype=torch.float32, **QWEN_ATTN)
     got, f32_counts = counted(lambda: kernels.gqa_flash_attention(q, k, v))
     expect(f32_counts, flash_attention=1, **{"flash_attention/tf32x3": 1})
-    err_attn32 = check("ops API qwen2-7b attention f32", got,
-                       ref.gqa_flash_attention_ref(q, k, v), torch.float32)
+    want = ref.gqa_flash_attention_ref(q, k, v)
+    err_attn32 = check("ops API qwen2-7b attention f32", got, want,
+                       torch.float32)
+    share32 = tol_share(got, want, TOL[torch.float32])
     print("ops API: SDPA in f32 (the library yardstick) runs "
           + ", ".join(sorted({e.name for e in device_profile(lib32)[1]})))
-    q, k, v, _ = attention_inputs(gen, dtype=bf16, **PHI3V_ATTN)
-    got, cc_counts = counted(lambda: kernels.gqa_flash_attention(q, k, v))
-    expect(cc_counts, flash_attention=1, **{"flash_attention/cuda_cores": 1})
-    err_phi = check("ops API phi-3-vision attention", got,
-                    ref.gqa_flash_attention_ref(q, k, v), bf16)
-    del q, k, v, got, lib32
+    err_phi = {}
+    for dt, route in ((bf16, "wgmma"), (torch.float32, "tf32x3")):
+        q, k, v, _ = attention_inputs(gen, dtype=dt, **PHI3V_ATTN)
+        got, c = counted(lambda: kernels.gqa_flash_attention(q, k, v))
+        expect(c, flash_attention=1, **{f"flash_attention/{route}": 1})
+        assert bool(torch.isfinite(got).all())
+        want = ref.gqa_flash_attention_ref(q, k, v)
+        err_phi[dt] = (check(f"ops API phi-3-vision attention {dt}", got,
+                             want, dt), tol_share(got, want, TOL[dt]))
+        del q, k, v, got, want
+    del lib32
     got, c = counted(lambda: kernels.clip_accumulate(acc, noise, 1.0))
     expect(c, sumsq=1, scale_accumulate=1,
            **{"sumsq/vector": 1, "scale_accumulate/vector": 1})
@@ -832,12 +971,14 @@ def ops_api():
                                rtol=1e-5, atol=1e-6)
     print(f"ops API: gemma3-4b local attention (window {w}) max abs err "
           f"{err:.3e}, rmsnorm f32 {err_f32:.3e}, qwen2-7b attention in f32 "
-          f"(the split-TF32 kernel) {err_attn32:.3e}, phi-3-vision attention "
-          f"(D = 96, the CUDA-core kernel) {err_phi:.3e}, clip_accumulate "
-          "agrees; one launch window each")
+          f"(the split-TF32 kernel) {err_attn32:.3e} ({share32:.1%} of the "
+          "f32 tolerance), phi-3-vision attention (D = 96) bf16 on wgmma "
+          f"{err_phi[bf16][0]:.3e} ({err_phi[bf16][1]:.1%}), f32 on tf32x3 "
+          f"{err_phi[torch.float32][0]:.3e} ({err_phi[torch.float32][1]:.1%} "
+          "of the f32 tolerance), clip_accumulate agrees; one launch window "
+          "each")
     torch.cuda.empty_cache()
-    return counts, {"flash_attention_tf32x3": f32_counts["flash_attention"],
-                    "flash_attention_cuda_cores": cc_counts["flash_attention"]}
+    return counts, {"flash_attention_tf32x3": f32_counts["flash_attention"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1304,7 +1445,8 @@ def main() -> int:
 
     ptxas_lines()
     rows = check_kernels()
-    attention_routes()
+    cuda_core_launches = attention_routes()
+    before = cuda_core_phi3()
     ops_counts, route_windows = ops_api()
     setup = mnist_setup()
     spec, data, test, cfg = setup
@@ -1326,7 +1468,8 @@ def main() -> int:
     for name in ("noise_sgd_step", "rmsnorm", "flash_attention",
                  "mamba_scan"):
         counts[name] = ops_counts[name]
-    counts.update(route_windows)
+    counts.update(route_windows,
+                  flash_attention_cuda_cores=cuda_core_launches)
     row_of = {"flash_attention_tf32x3": "flash_attention f32",
               "flash_attention_cuda_cores": "flash_attention cuda_cores"}
     out = []
@@ -1351,6 +1494,9 @@ def main() -> int:
             "shape": r["shape"], "dtype": r["dtype"]})
         if name == "flash_attention":
             out[-1]["window_row"] = rows["flash_attention window"]
+            out[-1]["phi3_row"] = rows["flash_attention phi-3-vision"]
+        if name == "flash_attention_tf32x3":
+            out[-1]["phi3_row"] = rows["flash_attention phi-3-vision f32"]
         if name == "rmsnorm":
             out[-1]["f32_row"] = rows["rmsnorm f32"]
             out[-1]["scalar_row"] = rows["rmsnorm scalar"]
@@ -1365,8 +1511,25 @@ def main() -> int:
               f"{'not measured' if plain_graph is None else f'{plain_graph:10.3f} us'}"
               f", library "
               f"{'-' if lib_graph is None else f'{lib_graph:10.3f} us'}; "
-              f"bound {r['bound_us']:9.3f} us ({r['bound_by']}); launches "
-              f"{counts.get(row, '-')}")
+              f"bound {r['bound_us']:9.3f} us ({r['bound_by']})"
+              + ("" if r["padded_bound_us"] is None else
+                 f", at the compiled width {r['padded_bound_us']:9.3f} us")
+              + f"; max abs err {r['err']:.3e} ({r['share']:.1%} of the "
+              f"tolerance); launches {counts.get(row, '-')}")
+    for dt, (eager, graph) in before.items():
+        r = rows["flash_attention phi-3-vision"
+                 + (" f32" if dt == torch.float32 else "")]
+        print(f"phi-3-vision attention {dt}: the CUDA-core kernel (the route "
+              f"before) eager {eager:.3f} us, graph {graph:.3f} us; the "
+              f"tensor-core route eager {r['kernel_us']:.3f} us, graph "
+              f"{r['kernel_graph_us']:.3f} us: {graph / r['kernel_graph_us']:.2f}x "
+              "faster from a CUDA graph")
+    for row, r in rows.items():
+        if r["kernel_cold_us"] is not None:
+            print(f"{row:22s} with L2 flushed before each call: kernel "
+                  f"{r['kernel_cold_us']:.3f} us, library "
+                  f"{r['library_cold_us']:.3f} us; bound "
+                  f"{r['bound_us']:.3f} us")
     for row, r in rows.items():
         g = r["kernel_graph_us"]
         print(f"{row:22s} from a CUDA graph: {r['n_ops'] / g / 1e6:.3f} "

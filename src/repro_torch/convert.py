@@ -34,7 +34,7 @@ def _adam_from_numpy(opt, device) -> AdamState:
     m, v, t, p32 = opt
     if p32 is not None:
         raise NotImplementedError("AdamState.p32 (f32 master copy) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 4)")
+                                  "ported yet (ROADMAP.md Queue 1 item 6)")
     return AdamState(params_from_numpy(m, device), params_from_numpy(v, device),
                      torch.as_tensor(np.array(t, np.int32), device=device),
                      None)

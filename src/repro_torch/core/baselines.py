@@ -3,7 +3,7 @@
 private + proxy DML per client, DP-SGD on the proxies, PushSum on the
 exponential graph, with §3.4 dropout (``cfg.dropout_rate``) and the
 ``"async"`` stale-gossip backend (``cfg.staleness``). The other six
-methods are later work (ROADMAP.md Queue 1 item 11).
+methods are later work (ROADMAP.md Queue 1 item 1).
 """
 from __future__ import annotations
 
@@ -60,7 +60,7 @@ def run_federated(
     if method != "proxyfl":
         raise NotImplementedError(
             f"method {method!r} is not ported yet (ROADMAP.md Queue 1 item "
-            "11)")
+            "1)")
     dev = resolve_device(device)
     if use_pallas is not None:
         cfg = dataclasses.replace(cfg, use_pallas=use_pallas)

@@ -15,7 +15,7 @@ dropped client holds its own mass (identity column):
   kernel under ``cfg.use_pallas``). All three run the per-client loop: the
   reference's ``loop`` and ``vmap`` backends agree at the conformance
   ``close`` grade, and a batched executor over clients is later work
-  (ROADMAP.md Queue 1 item 10).
+  (ROADMAP.md Queue 1 item 5).
 * ``backend="async"`` with staleness τ = ``cfg.staleness`` > 0: the stale
   exchange (:func:`repro_torch.core.gossip.stale_mix_apply`, the stale-mix
   kernel under ``cfg.use_pallas``). Each client keeps ``kept(t)·θ`` of its
@@ -58,7 +58,7 @@ from .gossip import (mix_matrix, pushsum_mix_debiased, stale_mix_apply,
 ROUND_KEY_OFFSET = 10_000
 BACKENDS = ("auto", "vmap", "loop", "async")
 MIXES = ("pushsum", "mean", "ring", "none")
-_UNPORTED_BACKENDS = {"shard_map": 18, "hier": 15}
+_UNPORTED_BACKENDS = {"shard_map": 12, "hier": 10}
 
 StepFn = Callable[..., Tuple[Dict, Dict]]
 InitFn = Callable[[torch.Generator], Dict]
@@ -112,8 +112,8 @@ def _refuse_unported(cfg: ProxyFLConfig, backend: str) -> None:
             f"{_UNPORTED_BACKENDS[backend]})")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
-    for on, what, item in ((cfg.compress != "none", "compress", 16),
-                           (cfg.verify_commitments, "verify_commitments", 13)):
+    for on, what, item in ((cfg.compress != "none", "compress", 9),
+                           (cfg.verify_commitments, "verify_commitments", 8)):
         if on:
             raise NotImplementedError(
                 f"ProxyFLConfig.{what} is not ported yet (ROADMAP.md Queue 1 "
@@ -386,7 +386,7 @@ def dml_engine(private_specs: Tuple, proxy_spec, cfg: ProxyFLConfig,
     if any(s != private_specs[0] for s in private_specs):
         raise NotImplementedError(
             "heterogeneous private architectures are not ported yet "
-            "(ROADMAP.md Queue 1 item 10)")
+            "(ROADMAP.md Queue 1 item 4)")
     return FederationEngine(
         cfg, n_clients=len(private_specs),
         step_fn=_dml_state_step(private_specs[0], proxy_spec, cfg),

@@ -139,7 +139,7 @@ def pushsum_mix_debiased(thetas: torch.Tensor, weights: torch.Tensor, P, *,
     """The engine's whole stacked exchange (Algorithm 1 lines 7-11):
     ``z' = (P·z) / (P·w)[:, None]``, ``w' = P·w`` — mix AND de-bias, plain
     torch or the mix kernel with the de-bias fused (``use_pallas``). The
-    compressed exchange is not ported yet (ROADMAP.md Queue 1 item 16)."""
+    compressed exchange is not ported yet (ROADMAP.md Queue 1 item 9)."""
     if use_pallas:
         return fused_pushsum_mix(thetas, weights, P, debias=True)
     mixed = _as_matrix(P, thetas) @ thetas
@@ -161,11 +161,11 @@ def stale_mix_apply(flat: torch.Tensor, w: torch.Tensor, kept, sent,
     w', send_w)``; the caller owns the buffer rotation. ``use_pallas``
     fuses the whole chain into one pass of the stale-mix kernel
     (:func:`repro_torch.kernels.fused_stale_mix`). The compressed exchange
-    is not ported yet (ROADMAP.md Queue 1 item 16)."""
+    is not ported yet (ROADMAP.md Queue 1 item 9)."""
     if compress is not None:
         raise NotImplementedError(
             "compressed stale gossip is not ported yet (ROADMAP.md Queue 1 "
-            "item 16)")
+            "item 9)")
     if use_pallas:
         return fused_stale_mix(flat, w, kept, sent, buf_t0, buf_w0)
     theta = flat * w[:, None]                  # raw PushSum numerator

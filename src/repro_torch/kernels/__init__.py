@@ -40,8 +40,10 @@ port as in the reference):
 - :func:`rmsnorm`, :func:`flash_attention` / :func:`gqa_flash_attention`
   and :func:`mamba_scan` — the LLM forward hot spots (norm, prefill
   attention, selective scan) as standalone kernels. Attention has three:
-  at D ∈ {64, 128, 256} bf16 on wgmma fed by TMA and f32 on mma.sync in
-  split TF32 (both on the tensor cores), every other head dim on the CUDA
+  at every head dim whose rows are whole 16 bytes bf16 on wgmma fed by TMA
+  and f32 on mma.sync in split TF32 (both on the tensor cores, compiled
+  at D ∈ {64, 128, 256}, the split-TF32 kernel also at 96, and
+  zero-padded up to the next of them), every other head dim on the CUDA
   cores; ``flash_attention.flash_route`` picks by dtype and head dim, and
   all three count as ``flash_attention`` launches. RMSNorm has a vector
   (16-byte) and a scalar instantiation, picked by alignment

@@ -4,10 +4,12 @@
 //
 // repro_flash_attention replaces src/repro/kernels/flash_attention.py::
 // flash_attention (_flash_kernel), and serves ops.gqa_flash_attention too,
-// for f32 and bf16 at D <= 256 outside {64, 128, 256}
-// (kernels/flash_attention.py::flash_route; at those head dims bf16 runs
-// flash_attention_sm90.cu's wgmma kernel and f32 the split-TF32 kernel of
-// flash_attention_tf32x3.cu):
+// for f32 and bf16 at the head dims D <= 256 whose rows are not whole 16
+// bytes (bf16 D % 8 != 0, f32 D % 4 != 0; kernels/flash_attention.py::
+// flash_route). Every aligned D runs on the tensor cores, zero-padded up to
+// 64, 128 or 256 columns: bf16 on flash_attention_sm90.cu's wgmma kernel,
+// f32 on the split-TF32 kernel of flash_attention_tf32x3.cu. The entry
+// point still takes any D <= 256.
 //   out[q] = sum_k softmax_k(scale * q.k | mask) v[k]
 // with the mask "key < S, key <= query if causal, query - key < window if a
 // window is given", over q, k, v, out of one dtype (f32 or bf16). The
@@ -20,9 +22,9 @@
 //   done here as f32 FMAs at up to the card's 67 TFLOP/s outside the tensor
 //   cores, or the bytes of q, k, v and out over 3.35 TB/s, whichever is
 //   larger; the same products in bf16 could run on the tensor cores (989
-//   TFLOP/s), which is the bound chip_smoke.py holds a bf16 call to. For
-//   phi-3-vision's causal S = 4,096, 32 heads, D = 96 in bf16 that is
-//   103 GFLOP: 1.5 ms of FMAs, 104 us at the tensor-core peak.
+//   TFLOP/s), which is the bound chip_smoke.py holds a bf16 call to. At
+//   phi-3-vision's causal S = 4,096 and 32 heads, an unaligned D = 100 in
+//   bf16 is 107 GFLOP: 1.6 ms of FMAs, 109 us at the tensor-core peak.
 //   Design: the TPU kernel's grid ran (B*H, q-blocks, kv-blocks) with the
 //   kv axis in order, carrying m, l and acc in VMEM. Here one 256-thread
 //   block owns one 64-query tile of one (batch, head) and loops over the

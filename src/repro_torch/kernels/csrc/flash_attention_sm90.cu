@@ -1,15 +1,16 @@
 // Causal / sliding-window attention with an online softmax (flash
-// attention, forward) for bf16 at head dims 64, 128 and 256, on Hopper's
-// tensor cores.
+// attention, forward) for bf16 at every head dim D <= 256 with D % 8 == 0,
+// on Hopper's tensor cores.
 //
 // repro_flash_attention_sm90 replaces src/repro/kernels/flash_attention.py::
-// flash_attention (_flash_kernel) for bf16 q, k, v with D in {64, 128, 256},
-// and serves ops.gqa_flash_attention too:
+// flash_attention (_flash_kernel) for bf16 q, k, v with D % 8 == 0 (a row is
+// whole 16 bytes), and serves ops.gqa_flash_attention too:
 //   out[q] = sum_k softmax_k(scale * q.k | mask) v[k]
 // with the mask "key < S, key <= query if causal, query - key < window if a
-// window is given"; f32 and other head dims stay on flash_attention.cu's
-// CUDA-core kernel (kernels/flash_attention.py::flash_route picks). A row
-// with no key left gives 0. Tensors are addressed by (batch, head,
+// window is given"; f32 runs flash_attention_tf32x3.cu and the unaligned
+// head dims flash_attention.cu's CUDA-core kernel
+// (kernels/flash_attention.py::flash_route picks). A row with no key left
+// gives 0. Tensors are addressed by (batch, head,
 // position) strides with unit stride along D, so the kernel reads the
 // [B, H, S, D] layout and the model's [B, S, H, D] layout alike; query head
 // h reads kv head h / group (grouped-query attention without a repeat).
@@ -48,6 +49,22 @@
 //   and stores rows < S from the fragments. Shared memory is 161 KB at
 //   D = 128 and 193 KB at D = 256, above the 48 KB default, so the entry
 //   point raises the kernel's dynamic limit.
+//   Head dims: the kernel is compiled at Dp in {64, 128, 256}, and a call
+//   at D runs the smallest Dp >= D with D passed at run time (96 runs at
+//   128, 136 at 256), in a second instantiation (PAD) so that a call at
+//   Dp itself runs code without the checks below. The tensor maps take D
+//   as the extent of dim 0, so the columns of a 64-column box past D are
+//   zero-filled by TMA, as keys >= S are; a box wholly past D (D <= 192 at
+//   Dp = 256) is not loaded, and its Q, K and V blocks are zeroed once in
+//   shared memory before the first load (a cross-proxy fence makes the
+//   zeros visible to wgmma). Zero columns of Q and K add exact zeros to
+//   QK^T; zero columns of V fill output columns >= D, which the epilogue
+//   never stores (it stores columns < D, as it stores rows < S). The scale
+//   is the caller's, from the real D. The byte count of a stage: TMA
+//   signals complete_tx with the whole box's bytes, zero-filled part
+//   included (the keys >= S of a partial tile have relied on this since
+//   the kernel's first version), so expect_tx counts (loaded boxes) x (box
+//   bytes), the dead boxes left out.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -292,32 +309,36 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Thread 0: key tile kt_lo + n into stage n & 1 (K, then V at +KV_BYTES),
-// its bytes counted on full[n & 1].
+// the ncb 64-column blocks that hold columns < D, their bytes counted on
+// full[n & 1].
 template <int D>
 __device__ __forceinline__ void load_kv(uint8_t* sKV, const CUtensorMap* k_map,
                                         const CUtensorMap* v_map,
                                         uint64_t* full, int n, int kt_lo,
-                                        int hk, int b) {
+                                        int hk, int b, int ncb) {
   using T = Tile<D>;
   uint8_t* const dst = sKV + (n & 1) * 2 * T::KV_BYTES;
   const int k0 = (kt_lo + n) * T::BK;
-  mbar_expect_tx(&full[n & 1], 2 * T::KV_BYTES);
+  mbar_expect_tx(&full[n & 1], 2 * ncb * T::KV_CB);
 #pragma unroll
   for (int cb = 0; cb < T::NCB; ++cb) {
-    tma_load(dst + cb * T::KV_CB, k_map, &full[n & 1], cb * 64, hk, k0, b);
-    tma_load(dst + T::KV_BYTES + cb * T::KV_CB, v_map, &full[n & 1], cb * 64,
-             hk, k0, b);
+    if (cb < ncb) {
+      tma_load(dst + cb * T::KV_CB, k_map, &full[n & 1], cb * 64, hk, k0, b);
+      tma_load(dst + T::KV_BYTES + cb * T::KV_CB, v_map, &full[n & 1],
+               cb * 64, hk, k0, b);
+    }
   }
 }
 
-template <int D>
+// PAD: the head dim d < D is passed at run time
+template <int D, bool PAD>
 __global__ void __launch_bounds__(kSm90Threads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap k_map,
                const __grid_constant__ CUtensorMap v_map,
                __nv_bfloat16* __restrict__ o, int BH, int H, int group, int S,
-               int64_t o_sb, int64_t o_sh, int64_t o_ss, float scale_log2,
-               int causal, int window, int has_window) {
+               int d, int64_t o_sb, int64_t o_sh, int64_t o_ss,
+               float scale_log2, int causal, int window, int has_window) {
   using T = Tile<D>;
   constexpr int BK = T::BK, NCB = T::NCB;
   extern __shared__ uint8_t smem_raw[];
@@ -345,6 +366,24 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
   const int kt_hi = causal ? q_last / BK + 1 : (S + BK - 1) / BK;
   const int n_tiles = kt_hi - kt_lo;
 
+  // 64-column blocks that hold columns < d; the rest are zeroed here once
+  // (Q's and both stages' K and V) and never loaded
+  const int ncb = PAD ? (d + 63) / 64 : NCB;
+  if (PAD && ncb < NCB) {
+    for (int cb = ncb; cb < NCB; ++cb) {
+      uint4* const zq = reinterpret_cast<uint4*>(sQ + cb * T::Q_CB);
+      for (int i = tid; i < T::Q_CB / 16; i += kSm90Threads)
+        zq[i] = make_uint4(0, 0, 0, 0);
+      for (int blk = 0; blk < 4; ++blk) {   // K, V of stage 0, then stage 1
+        uint4* const zkv =
+            reinterpret_cast<uint4*>(sKV + blk * T::KV_BYTES + cb * T::KV_CB);
+        for (int i = tid; i < T::KV_CB / 16; i += kSm90Threads)
+          zkv[i] = make_uint4(0, 0, 0, 0);
+      }
+    }
+    // the zeros are read by wgmma, in the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
   if (tid == 0) {
     mbar_init(&full[0], 1);
     mbar_init(&full[1], 1);
@@ -356,11 +395,12 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
   __syncthreads();
 
   if (tid == 0 && n_tiles > 0) {
-    mbar_expect_tx(q_full, T::Q_BYTES);
+    mbar_expect_tx(q_full, ncb * T::Q_CB);
 #pragma unroll
     for (int cb = 0; cb < NCB; ++cb)
-      tma_load(sQ + cb * T::Q_CB, &q_map, q_full, cb * 64, h, q0, b);
-    load_kv<D>(sKV, &k_map, &v_map, full, 0, kt_lo, hk, b);
+      if (cb < ncb)
+        tma_load(sQ + cb * T::Q_CB, &q_map, q_full, cb * 64, h, q0, b);
+    load_kv<D>(sKV, &k_map, &v_map, full, 0, kt_lo, hk, b, ncb);
   }
 
   // this thread's rows: r0 and r0 + 8; its columns of an 8-wide group:
@@ -380,7 +420,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
     if (tid == 0 && n + 1 < n_tiles) {
       // stage (n + 1) & 1 last held tile n - 1: wait until it is released
       if (n >= 1) mbar_wait(&empty[(n + 1) & 1], ((n - 1) >> 1) & 1);
-      load_kv<D>(sKV, &k_map, &v_map, full, n + 1, kt_lo, hk, b);
+      load_kv<D>(sKV, &k_map, &v_map, full, n + 1, kt_lo, hk, b, ncb);
     }
     __syncwarp();
     mbar_wait(&full[st], (n >> 1) & 1);
@@ -473,7 +513,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
     if (lane == 0) mbar_arrive(&empty[st]);
   }
 
-  // epilogue: O / l in bf16, rows < S
+  // epilogue: O / l in bf16, rows < S and columns < d
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -484,7 +524,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2) {
     const int r = (i >> 1) & 1, qp = r0 + 8 * r;
-    if (qp < S) {
+    // d % 8 == 0: a pair of columns is in or out
+    if (qp < S && (!PAD || 8 * (i >> 2) < d)) {
       const __nv_bfloat162 v = __floats2bfloat162_rn(
           __fdiv_rn(acc[i], l[r]), __fdiv_rn(acc[i + 1], l[r]));
       *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)qp * o_ss + 8 * (i >> 2) +
@@ -523,7 +564,7 @@ EncodeTiledFn encode_tiled() {
 
 // A bf16 [B, *, S, D] tensor as a 4-D map (D, heads, positions, batch) with
 // boxes of 64 columns x rows positions, swizzled 128 B; positions past S
-// read as zeros.
+// and columns past D read as zeros.
 bool encode_map(CUtensorMap* map, const void* ptr, int B, int heads, int S,
                 int D, int64_t sb, int64_t sh, int64_t ss, int rows) {
   const EncodeTiledFn fn = encode_tiled();
@@ -540,25 +581,26 @@ bool encode_map(CUtensorMap* map, const void* ptr, int B, int heads, int S,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+// head dim d on the kernel compiled at D >= d
+template <int D, bool PAD>
 int launch_sm90(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int group, int S, int64_t q_sb, int64_t q_sh,
+                int H, int group, int S, int d, int64_t q_sb, int64_t q_sh,
                 int64_t q_ss, int64_t kv_sb, int64_t kv_sh, int64_t kv_ss,
                 float scale, int causal, int window, int has_window,
                 unsigned n_blocks, cudaStream_t st) {
   using T = Tile<D>;
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_map(&q_map, q, B, H, S, D, q_sb, q_sh, q_ss, kBQ) ||
-      !encode_map(&k_map, k, B, H / group, S, D, kv_sb, kv_sh, kv_ss, T::BK) ||
-      !encode_map(&v_map, v, B, H / group, S, D, kv_sb, kv_sh, kv_ss, T::BK))
+  if (!encode_map(&q_map, q, B, H, S, d, q_sb, q_sh, q_ss, kBQ) ||
+      !encode_map(&k_map, k, B, H / group, S, d, kv_sb, kv_sh, kv_ss, T::BK) ||
+      !encode_map(&v_map, v, B, H / group, S, d, kv_sb, kv_sh, kv_ss, T::BK))
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
-      (const void*)flash_fwd_sm90<D>,
+      (const void*)flash_fwd_sm90<D, PAD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_sm90<D><<<n_blocks, kSm90Threads, T::SMEM, st>>>(
-      q_map, k_map, v_map, (__nv_bfloat16*)o, B * H, H, group, S, q_sb, q_sh,
-      q_ss, scale * 1.4426950408889634f, causal, window, has_window);
+  flash_fwd_sm90<D, PAD><<<n_blocks, kSm90Threads, T::SMEM, st>>>(
+      q_map, k_map, v_map, (__nv_bfloat16*)o, B * H, H, group, S, d, q_sb,
+      q_sh, q_ss, scale * 1.4426950408889634f, causal, window, has_window);
   return (int)cudaGetLastError();
 }
 
@@ -570,13 +612,15 @@ using namespace repro;
 // bf16 q, k, v and out; q and out share the strides (q_sb, q_sh, q_ss), k
 // and v share (kv_sb, kv_sh, kv_ss); the head dimension is contiguous in
 // all four. TMA needs 16-byte aligned bases and strides that are multiples
-// of 16 bytes: anything else is refused, as is a D outside {64, 128, 256}.
+// of 16 bytes: anything else is refused, as is a D that is not a multiple of
+// 8 in 8..256. D runs on the kernel compiled at the next of 64, 128, 256.
 extern "C" int repro_flash_attention_sm90(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int group, int S, int D, int64_t q_sb, int64_t q_sh, int64_t q_ss,
     int64_t kv_sb, int64_t kv_sh, int64_t kv_ss, float scale, int causal,
     int window, int has_window, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || group < 1 || H % group != 0)
+  if (B < 1 || H < 1 || S < 1 || group < 1 || H % group != 0 || D < 8 ||
+      D > 256 || D % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const uintptr_t bases[4] = {(uintptr_t)q, (uintptr_t)k, (uintptr_t)v,
                               (uintptr_t)o};
@@ -591,17 +635,16 @@ extern "C" int repro_flash_attention_sm90(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned nb = (unsigned)n_blocks;
-  if (D == 64)
-    return launch_sm90<64>(q, k, v, o, B, H, group, S, q_sb, q_sh, q_ss,
-                           kv_sb, kv_sh, kv_ss, scale, causal, window,
-                           has_window, nb, st);
-  if (D == 128)
-    return launch_sm90<128>(q, k, v, o, B, H, group, S, q_sb, q_sh, q_ss,
-                            kv_sb, kv_sh, kv_ss, scale, causal, window,
-                            has_window, nb, st);
-  if (D == 256)
-    return launch_sm90<256>(q, k, v, o, B, H, group, S, q_sb, q_sh, q_ss,
-                            kv_sb, kv_sh, kv_ss, scale, causal, window,
-                            has_window, nb, st);
-  return (int)cudaErrorInvalidValue;
+  if (D == 64 || D == 128 || D == 256) {
+    const auto launch = D == 64 ? launch_sm90<64, false>
+                        : D == 128 ? launch_sm90<128, false>
+                                   : launch_sm90<256, false>;
+    return launch(q, k, v, o, B, H, group, S, D, q_sb, q_sh, q_ss, kv_sb,
+                  kv_sh, kv_ss, scale, causal, window, has_window, nb, st);
+  }
+  const auto launch = D < 64    ? launch_sm90<64, true>
+                      : D < 128 ? launch_sm90<128, true>
+                                : launch_sm90<256, true>;
+  return launch(q, k, v, o, B, H, group, S, D, q_sb, q_sh, q_ss, kv_sb,
+                kv_sh, kv_ss, scale, causal, window, has_window, nb, st);
 }

@@ -1,15 +1,14 @@
 // Causal / sliding-window attention with an online softmax (flash
-// attention, forward) for f32 at head dims 64, 128 and 256, on Hopper's
-// tensor cores in split TF32.
+// attention, forward) for f32 at every head dim D <= 256 with D % 4 == 0,
+// on Hopper's tensor cores in split TF32.
 //
 // repro_flash_attention_tf32x3 replaces src/repro/kernels/flash_attention.py::
-// flash_attention (_flash_kernel) for f32 q, k, v with D in {64, 128, 256},
-// and serves ops.gqa_flash_attention too:
+// flash_attention (_flash_kernel) for f32 q, k, v with D % 4 == 0 (a row is
+// whole 16 bytes), and serves ops.gqa_flash_attention too:
 //   out[q] = sum_k softmax_k(scale * q.k | mask) v[k]
 // with the mask "key < S, key <= query if causal, query - key < window if a
-// window is given"; bf16 at those head dims runs flash_attention_sm90.cu,
-// every other head dim flash_attention.cu (kernels/flash_attention.py::
-// flash_route picks). The softmax state, the accumulator and the output are
+// window is given"; bf16 runs flash_attention_sm90.cu, the unaligned head
+// dims flash_attention.cu (kernels/flash_attention.py::flash_route picks). The softmax state, the accumulator and the output are
 // f32; a row with no key left gives 0. Tensors are addressed by (batch,
 // head, position) strides with unit stride along D, so the kernel reads the
 // [B, H, S, D] layout and the model's [B, S, H, D] layout alike; query head
@@ -57,8 +56,19 @@
 //   >= S, zero-filled: a zero key would score 0, not -inf) take element
 //   masks, and query tiles run heavy first. The epilogue divides by
 //   max(l, 1e-30) and stores rows < S. Shared memory is
-//   106 KB at D = 64, 202 KB at D = 128 and 198 KB at D = 256, above the
-//   48 KB default, so the entry point raises the kernel's dynamic limit.
+//   106 KB at D = 64, 158 KB at D = 96, 202 KB at D = 128 and 198 KB at
+//   D = 256, above the 48 KB default, so the entry point raises the
+//   kernel's dynamic limit.
+//   Head dims: compiled at D in {64, 96, 128, 256}. 96 is phi-3-vision's
+//   head dim and runs natively: its shared-memory plan fits (158 KB) and
+//   keeps the padded rows' bank pattern (the row strides are 8 and 4 mod
+//   32 floats at every width), and its 12 n8 tiles make whole groups of 4.
+//   A call at another D runs the smallest compiled width above it, with D
+//   passed at run time, in a second instantiation (PAD) so that a call at
+//   a compiled width runs code without the checks: the 16-byte copies of
+//   columns >= D are zero-filled (src-size 0, as rows >= S are), a zero
+//   splits into hi = lo = 0 exactly, so those columns add exact zeros to
+//   QK^T and fill output columns >= D, which the epilogue never stores.
 #include "common.cuh"
 
 namespace repro {
@@ -104,17 +114,18 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // ROWS rows of D floats from position p0 on (stride ss) into shared memory
-// with row stride RS; rows at or past S read as zeros.
-template <int D, int ROWS, int RS>
+// with row stride RS; rows at or past S and, with PAD, columns at or past d
+// (a multiple of 4) read as zeros.
+template <int D, int ROWS, int RS, bool PAD>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int64_t ss, int p0, int S) {
+                                          int64_t ss, int p0, int S, int d) {
   constexpr int kChunks = D / 4;  // 16-byte chunks of a row
   static_assert(ROWS * kChunks % kX3Threads == 0, "whole rounds of chunks");
 #pragma unroll
   for (int it = 0; it < ROWS * kChunks / kX3Threads; ++it) {
     const int i = threadIdx.x + it * kX3Threads;
     const int r = i / kChunks, c = (i - r * kChunks) * 4;
-    const bool in = p0 + r < S;
+    const bool in = p0 + r < S && (!PAD || c < d);
     cp_async16(dst + r * RS + c, in ? src + (int64_t)(p0 + r) * ss + c : src,
                in);
   }
@@ -140,11 +151,12 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int D>
+// PAD: the head dim d < D is passed at run time
+template <int D, bool PAD>
 __global__ void __launch_bounds__(kX3Threads, 1)
 flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int BH,
-                 int H, int group, int S, int64_t q_sb, int64_t q_sh,
+                 int H, int group, int S, int d, int64_t q_sb, int64_t q_sh,
                  int64_t q_ss, int64_t kv_sb, int64_t kv_sh, int64_t kv_ss,
                  float scale_log2, int causal, int window, int has_window) {
   using T = TileX3<D>;
@@ -175,9 +187,9 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   const int n_tiles = kt_hi - kt_lo;
 
   if (n_tiles > 0) {
-    load_rows<D, kBQ, QS>(sQ, qb, q_ss, q0, S);
-    load_rows<D, BK, KS>(sK, kb, kv_ss, kt_lo * BK, S);
-    load_rows<D, BK, VS>(sV, vb, kv_ss, kt_lo * BK, S);
+    load_rows<D, kBQ, QS, PAD>(sQ, qb, q_ss, q0, S, d);
+    load_rows<D, BK, KS, PAD>(sK, kb, kv_ss, kt_lo * BK, S, d);
+    load_rows<D, BK, VS, PAD>(sV, vb, kv_ss, kt_lo * BK, S, d);
   }
   cp_commit();
 
@@ -196,8 +208,10 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   for (int n = 0; n < n_tiles; ++n) {
     const int st = n & 1, k0 = (kt_lo + n) * BK;
     if (n + 1 < n_tiles) {  // the next tile into the other stage
-      load_rows<D, BK, KS>(sK + (st ^ 1) * BK * KS, kb, kv_ss, k0 + BK, S);
-      load_rows<D, BK, VS>(sV + (st ^ 1) * BK * VS, vb, kv_ss, k0 + BK, S);
+      load_rows<D, BK, KS, PAD>(sK + (st ^ 1) * BK * KS, kb, kv_ss, k0 + BK,
+                                S, d);
+      load_rows<D, BK, VS, PAD>(sV + (st ^ 1) * BK * VS, vb, kv_ss, k0 + BK,
+                                S, d);
     }
     cp_commit();
     cp_wait<1>();  // this thread's copies of tile n have landed
@@ -321,7 +335,7 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   }
   cp_wait<0>();
 
-  // epilogue: O / l, rows < S
+  // epilogue: O / l, rows < S (and with PAD columns < d)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -336,26 +350,29 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
     float* const orow = ob + (int64_t)qp * q_ss + 2 * tq;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c)
-      *reinterpret_cast<float2*>(orow + 8 * c) =
-          make_float2(__fdiv_rn(acc[c][2 * r], l[r]),
-                      __fdiv_rn(acc[c][2 * r + 1], l[r]));
+      if (!PAD || 8 * c + 2 * tq < d)  // d % 4 == 0: a pair is in or out
+        *reinterpret_cast<float2*>(orow + 8 * c) =
+            make_float2(__fdiv_rn(acc[c][2 * r], l[r]),
+                        __fdiv_rn(acc[c][2 * r + 1], l[r]));
   }
 }
 
-template <int D>
+// head dim d on the kernel compiled at D >= d
+template <int D, bool PAD>
 int launch_tf32x3(const void* q, const void* k, const void* v, void* o,
-                  int B, int H, int group, int S, int64_t q_sb, int64_t q_sh,
+                  int B, int H, int group, int S, int d, int64_t q_sb,
+                  int64_t q_sh,
                   int64_t q_ss, int64_t kv_sb, int64_t kv_sh, int64_t kv_ss,
                   float scale, int causal, int window, int has_window,
                   unsigned n_blocks, cudaStream_t st) {
   const size_t smem = TileX3<D>::SMEM;
   const cudaError_t e = cudaFuncSetAttribute(
-      (const void*)flash_fwd_tf32x3<D>,
+      (const void*)flash_fwd_tf32x3<D, PAD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_tf32x3<D><<<n_blocks, kX3Threads, smem, st>>>(
+  flash_fwd_tf32x3<D, PAD><<<n_blocks, kX3Threads, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, B * H, H,
-      group, S, q_sb, q_sh, q_ss, kv_sb, kv_sh, kv_ss,
+      group, S, d, q_sb, q_sh, q_ss, kv_sb, kv_sh, kv_ss,
       scale * 1.4426950408889634f, causal, window, has_window);
   return (int)cudaGetLastError();
 }
@@ -368,14 +385,16 @@ using namespace repro;
 // f32 q, k, v and out; q and out share the strides (q_sb, q_sh, q_ss), k
 // and v share (kv_sb, kv_sh, kv_ss); the head dimension is contiguous in
 // all four. The 16-byte copies need 16-byte aligned bases and strides that
-// are multiples of 16 bytes: anything else is refused, as is a D outside
-// {64, 128, 256}.
+// are multiples of 16 bytes: anything else is refused, as is a D that is
+// not a multiple of 4 in 4..256. D runs on the kernel compiled at the next
+// of 64, 96, 128, 256.
 extern "C" int repro_flash_attention_tf32x3(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int group, int S, int D, int64_t q_sb, int64_t q_sh, int64_t q_ss,
     int64_t kv_sb, int64_t kv_sh, int64_t kv_ss, float scale, int causal,
     int window, int has_window, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || group < 1 || H % group != 0)
+  if (B < 1 || H < 1 || S < 1 || group < 1 || H % group != 0 || D < 4 ||
+      D > 256 || D % 4 != 0)
     return (int)cudaErrorInvalidValue;
   const uintptr_t bases[4] = {(uintptr_t)q, (uintptr_t)k, (uintptr_t)v,
                               (uintptr_t)o};
@@ -390,17 +409,12 @@ extern "C" int repro_flash_attention_tf32x3(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned nb = (unsigned)n_blocks;
-  if (D == 64)
-    return launch_tf32x3<64>(q, k, v, o, B, H, group, S, q_sb, q_sh, q_ss,
-                             kv_sb, kv_sh, kv_ss, scale, causal, window,
-                             has_window, nb, st);
-  if (D == 128)
-    return launch_tf32x3<128>(q, k, v, o, B, H, group, S, q_sb, q_sh, q_ss,
-                              kv_sb, kv_sh, kv_ss, scale, causal, window,
-                              has_window, nb, st);
-  if (D == 256)
-    return launch_tf32x3<256>(q, k, v, o, B, H, group, S, q_sb, q_sh, q_ss,
-                              kv_sb, kv_sh, kv_ss, scale, causal, window,
-                              has_window, nb, st);
-  return (int)cudaErrorInvalidValue;
+  const bool pad = D != 64 && D != 96 && D != 128 && D != 256;
+  const auto launch =
+      D <= 64 ? (pad ? launch_tf32x3<64, true> : launch_tf32x3<64, false>)
+      : D <= 96 ? (pad ? launch_tf32x3<96, true> : launch_tf32x3<96, false>)
+      : D <= 128 ? (pad ? launch_tf32x3<128, true> : launch_tf32x3<128, false>)
+                 : (pad ? launch_tf32x3<256, true> : launch_tf32x3<256, false>);
+  return launch(q, k, v, o, B, H, group, S, D, q_sb, q_sh, q_ss, kv_sb, kv_sh,
+                kv_ss, scale, causal, window, has_window, nb, st);
 }

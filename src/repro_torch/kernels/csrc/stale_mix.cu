@@ -38,45 +38,6 @@ namespace {
 
 constexpr int kRegK = 32;  // the largest K bucket of the register kernel
 
-// C neighbouring values of a row as f32, and the store back (C = 1 or 2;
-// 8-byte accesses for f32 pairs, 4-byte for bf16 pairs).
-template <int C>
-__device__ __forceinline__ void load_cols(const float* p, float (&v)[C]) {
-  if constexpr (C == 2) {
-    const float2 u = *reinterpret_cast<const float2*>(p);
-    v[0] = u.x;
-    v[1] = u.y;
-  } else {
-    v[0] = *p;
-  }
-}
-template <int C>
-__device__ __forceinline__ void load_cols(const __nv_bfloat16* p,
-                                          float (&v)[C]) {
-  if constexpr (C == 2) {
-    const __nv_bfloat162 u = *reinterpret_cast<const __nv_bfloat162*>(p);
-    v[0] = __low2float(u);
-    v[1] = __high2float(u);
-  } else {
-    v[0] = __bfloat162float(*p);
-  }
-}
-template <int C>
-__device__ __forceinline__ void store_cols(float* p, const float (&v)[C]) {
-  if constexpr (C == 2)
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  else
-    *p = v[0];
-}
-template <int C>
-__device__ __forceinline__ void store_cols(__nv_bfloat16* p,
-                                           const float (&v)[C]) {
-  if constexpr (C == 2)
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-  else
-    *p = __float2bfloat16_rn(v[0]);
-}
-
 // K <= KB; each thread owns columns j .. j + C - 1 of a grid-stride loop
 template <typename T, int KB, int C>
 __global__ void __launch_bounds__(kThreads)

@@ -7,18 +7,22 @@ mask ``key ≤ query`` when causal and ``query − key < window`` when a window
 is given (one-sided when not causal); a row with no key left is 0. On a
 CUDA tensor it launches one of three kernels replacing
 ``src/repro/kernels/flash_attention.py``'s ``flash_attention``, chosen by
-:func:`flash_route` from the dtype and head dim alone. At D ∈ {64, 128,
-256} both dtypes run on the tensor cores: bf16 on wgmma fed by TMA
+:func:`flash_route` from the dtype and head dim alone. At every head dim
+whose rows are whole 16 bytes (bf16 D % 8 == 0, f32 D % 4 == 0) both
+dtypes run on the tensor cores: bf16 on wgmma fed by TMA
 (``csrc/flash_attention_sm90.cu``, route ``"wgmma"``), f32 on mma.sync in
 split TF32 (``csrc/flash_attention_tf32x3.cu``, route ``"tf32x3"``: each
 operand split into a TF32 high part and its residual, three products per
-product, f32-grade). Every other head dim runs on the CUDA cores
-(``csrc/flash_attention.cu``, route ``"cuda_cores"``). The dispatch is
-fixed: a call the route's kernel refuses raises. On a CPU tensor the plain
-version in :mod:`.ref` runs. :func:`launch_flash` is the launch both this
-and ``ops.gqa_flash_attention`` use: the kernels read q, k, v through
-(batch, head, position) strides, so the model layout [B, S, H, D] and
-grouped KV heads need no copy.
+product, f32-grade). The wgmma kernel is compiled at D ∈ {64, 128, 256},
+the split-TF32 one also at 96 (phi-3-vision's head dim); a call at
+another aligned D runs the width :func:`padded_head_dim` gives, its
+columns past D read as zeros and never stored. The unaligned head dims run
+on the CUDA cores (``csrc/flash_attention.cu``, route ``"cuda_cores"``).
+The dispatch is fixed: a call the route's kernel refuses raises. On a CPU
+tensor the plain version in :mod:`.ref` runs. :func:`launch_flash` is the
+launch both this and ``ops.gqa_flash_attention`` use: the kernels read q,
+k, v through (batch, head, position) strides, so the model layout
+[B, S, H, D] and grouped KV heads need no copy.
 """
 from __future__ import annotations
 
@@ -30,22 +34,36 @@ from . import _build
 from .ref import flash_attention_ref
 
 MAX_HEAD_DIM = 256
-TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
+# the widths each tensor-core kernel is compiled at
+COMPILED_HEAD_DIMS = {"wgmma": (64, 128, 256), "tf32x3": (64, 96, 128, 256)}
 ROUTES = ("wgmma", "tf32x3", "cuda_cores")
+TENSOR_CORE_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 ROUTE_ENTRY = {"wgmma": "repro_flash_attention_sm90",
                "tf32x3": "repro_flash_attention_tf32x3"}
 
 
+def _check_head_dim(head_dim: int) -> None:
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {head_dim} outside 1..{MAX_HEAD_DIM}")
+
+
+def padded_head_dim(head_dim: int, route: str = "wgmma") -> int:
+    """The width the tensor-core ``route`` runs a call at head dim D on: the
+    smallest of its :data:`COMPILED_HEAD_DIMS` that is ≥ D."""
+    _check_head_dim(head_dim)
+    return next(w for w in COMPILED_HEAD_DIMS[route] if w >= head_dim)
+
+
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a CUDA call takes: at D ∈ {64, 128, 256} ``"wgmma"``
-    (``csrc/flash_attention_sm90.cu``) for bf16 and ``"tf32x3"``
-    (``csrc/flash_attention_tf32x3.cu``) for f32; at any other head dim
-    ``"cuda_cores"`` (``csrc/flash_attention.cu``)."""
-    if head_dim in TENSOR_CORE_HEAD_DIMS:
-        if dtype == torch.bfloat16:
-            return "wgmma"
-        if dtype == torch.float32:
-            return "tf32x3"
+    """The kernel a CUDA call takes: where a row of D elements is whole 16
+    bytes, ``"wgmma"`` (``csrc/flash_attention_sm90.cu``) for bf16 and
+    ``"tf32x3"`` (``csrc/flash_attention_tf32x3.cu``) for f32, each at
+    :func:`padded_head_dim`; at any other head dim ``"cuda_cores"``
+    (``csrc/flash_attention.cu``). A head dim above 256 raises."""
+    _check_head_dim(head_dim)
+    route = TENSOR_CORE_ROUTE.get(dtype)
+    if route is not None and head_dim * dtype.itemsize % 16 == 0:
+        return route
     return "cuda_cores"
 
 

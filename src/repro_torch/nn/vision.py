@@ -104,5 +104,5 @@ def get_vision_model(name: str) -> VisionModel:
     if name not in MODELS:
         raise NotImplementedError(
             f"vision model {name!r} is not ported yet (ROADMAP.md Queue 1 "
-            f"item 3); ported: {sorted(MODELS)}")
+            f"item 4); ported: {sorted(MODELS)}")
     return MODELS[name]

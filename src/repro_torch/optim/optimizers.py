@@ -4,7 +4,7 @@ DP kernel can take over its tail. Matches ``torch.optim.Adam`` with
 additive L2 weight decay (the paper's lr 1e-3, weight decay 1e-4), not
 AdamW. This slice ports the f32 update path; f32 master copies (``p32``) of
 sub-f32 params and non-f32 moments are not ported yet (ROADMAP.md Queue 1
-item 4).
+item 6).
 """
 from __future__ import annotations
 
@@ -39,12 +39,12 @@ class Adam:
         if self.moment_dtype != "float32":
             raise NotImplementedError(
                 "Adam moment_dtype other than float32 is not ported yet "
-                "(ROADMAP.md Queue 1 item 4)")
+                "(ROADMAP.md Queue 1 item 6)")
         if self.master_weights and any(x.dtype != torch.float32
                                        for x in tree_leaves(params)):
             raise NotImplementedError(
                 "Adam on sub-f32 params needs the f32 master copy p32, "
-                "which is not ported yet (ROADMAP.md Queue 1 item 4)")
+                "which is not ported yet (ROADMAP.md Queue 1 item 6)")
 
     def init(self, params: Params) -> AdamState:
         self._check(params)

@@ -142,7 +142,7 @@ def test_stale_mix_apply_matches_reference(K, D, dtype, use_pallas):
 
 def test_stale_mix_apply_refuses_compression():
     _, targs = _stale_args(4, 100, "float32")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         gossip.stale_mix_apply(*targs, compress="int8")
 
 

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain version (the
 ops API's at the full widths of qwen2-7b, falcon-mamba-7b and the mlp
 proxy; both tensor-core attention routes over ragged lengths, groups and
-windows; both rmsnorm instantiations; the DP clip pair's rows route bit
+windows at compiled and zero-padded head dims, the CUDA-core route at
+unaligned ones; the sync mix at its register bucket edges; both rmsnorm
+instantiations; the DP clip pair's rows route bit
 for bit against its 1-D route), the wrappers' refusals, and small
 federations (sync, and async at staleness 2 with dropout) through the
 kernels against the plain path on the same seed.
@@ -136,9 +138,11 @@ def test_ops_api_raises_instead_of_falling_back(gen, name):
 
 
 @pytest.mark.parametrize("G", [1, 2, 7])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256, 40, 96, 136])
 def test_wgmma_attention_matches_plain(gen, D, G):
-    """bf16 at the wgmma route's head dims, over lengths around its tiles,
+    """bf16 at the wgmma route's compiled head dims and at aligned ones
+    zero-padded up to them (40 onto 64, 96 onto 128, 136 onto 256, where a
+    64-column block lies wholly past D), over lengths around its tiles,
     causal and not, windows {None, 1, 17, 64, 0}, B = 2 and two KV heads
     (group 1 through the [B, H, S, D] entry point); a causal window of 0
     masks every key and gives exactly 0."""
@@ -174,9 +178,11 @@ def test_wgmma_route_refuses_misaligned_views(gen):
 
 
 @pytest.mark.parametrize("G", [1, 2, 7])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 96, 128, 256, 40, 72, 136])
 def test_tf32x3_attention_matches_plain(gen, D, G):
-    """f32 at the split-TF32 route's head dims, over lengths around its
+    """f32 at the split-TF32 route's compiled head dims and at aligned ones
+    zero-padded up to them (40 onto 64, 72 onto 96, 136 onto 256), over
+    lengths around its
     128-row and 64-key (16 at D = 256) tiles, causal and not, windows
     {None, 1, 17, 64, 0}, B = 2 and two KV heads (group 1 through the
     [B, H, S, D] entry point), at the f32 tolerance; every call takes the
@@ -216,6 +222,39 @@ def test_tf32x3_route_refuses_misaligned_views(gen):
     assert not any(kernels.route_launch_counts().values())
 
 
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 36),
+                                     (torch.bfloat16, 100),
+                                     (torch.float32, 30), (torch.float32, 98)])
+def test_cuda_core_attention_at_unaligned_head_dims(gen, dtype, D):
+    """Head dims whose rows are not whole 16 bytes stay on the CUDA-core
+    kernel: every call of both entry points takes it and agrees with the
+    plain version."""
+    tol = BF16 if dtype == torch.bfloat16 else F32
+    kernels.reset_launch_counts()
+    n = 0
+    for S, G in ((1, 1), (65, 2), (129, 1), (257, 7)):
+        q = torch.randn((2, S, 2 * G, D), generator=gen,
+                        device="cuda").to(dtype)
+        k, v = (torch.randn((2, S, 2, D), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        if G == 1:
+            q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            kern, plain = kernels.flash_attention, ref.flash_attention_ref
+        else:
+            kern = kernels.gqa_flash_attention
+            plain = ref.gqa_flash_attention_ref
+        for causal, window in ((True, None), (False, None), (True, 17),
+                               (False, 64)):
+            got = kern(q, k, v, causal=causal, window=window)
+            torch.testing.assert_close(
+                got, plain(q, k, v, causal=causal, window=window), **tol)
+            n += 1
+    routes = kernels.route_launch_counts()
+    assert routes["flash_attention/cuda_cores"] == n
+    assert routes["flash_attention/wgmma"] == routes[
+        "flash_attention/tf32x3"] == 0
+
+
 @pytest.mark.parametrize("dtype,rows,d,off,route", [
     (torch.bfloat16, 4_096, 3_584, 0, "vector"),
     (torch.float32, 4_096, 3_584, 0, "vector"),
@@ -240,6 +279,31 @@ def test_rmsnorm_instantiations_match_plain_and_repeat_exactly(
     torch.testing.assert_close(a, ref.rmsnorm_ref(x, g),
                                **(BF16 if dtype == torch.bfloat16 else F32))
     assert torch.equal(a, b)
+
+
+def _mix_args(gen, K, D, dtype, off=0):
+    P = torch.rand((K, K), generator=gen, device="cuda")
+    P = P / P.sum(0, keepdim=True)
+    w = torch.rand(K, generator=gen, device="cuda") + 0.5
+    flat = torch.randn(K * D + off, generator=gen, device="cuda").to(dtype)
+    return flat[off:].view(K, D), w, P
+
+
+@pytest.mark.parametrize("K", [8, 9, 16, 17, 32, 33])
+def test_pushsum_mix_at_the_register_bucket_edges(gen, K):
+    """K = 8, 9, 16, 17, 32 and 33 cross the 8-, 16- and 32-wide register
+    buckets and the streaming kernel above; D = 1 and 65,537 take single
+    columns, 1,000 four at a time at K = 8, two at 9 and 16 and one at 17
+    and 32; then rows one element off 16 bytes (single columns); de-biased
+    and not, both dtypes."""
+    for D_, off in ((1, 0), (1_000, 0), (65_537, 0), (1_000, 1)):
+        for dtype, tol in ((torch.float32, F32), (torch.bfloat16, BF16)):
+            flat, w, P = _mix_args(gen, K, D_, dtype, off)
+            for debias in (True, False):
+                got = kernels.fused_pushsum_mix(flat, w, P, debias=debias)
+                want = ref.fused_pushsum_mix_ref(flat, w, P, debias=debias)
+                for g, w_ in _pairs(got, want):
+                    torch.testing.assert_close(g, w_, **tol)
 
 
 def _stale_args(gen, K, D, dtype):

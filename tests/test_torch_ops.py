@@ -24,7 +24,8 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.flash_attention import check_tma, flash_route  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    check_tma, flash_route, padded_head_dim)
 from repro_torch.kernels.rmsnorm import rmsnorm_route  # noqa: E402
 from repro_torch.nn.modules import tree_leaves  # noqa: E402
 
@@ -115,16 +116,60 @@ def test_gqa_flash_attention(G):
 
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 32, "cuda_cores"),
-    (torch.bfloat16, 96, "cuda_cores"), (torch.bfloat16, 16, "cuda_cores"),
+    (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 32, "wgmma"),
+    (torch.bfloat16, 96, "wgmma"), (torch.bfloat16, 16, "wgmma"),
+    (torch.bfloat16, 8, "wgmma"), (torch.bfloat16, 136, "wgmma"),
+    (torch.bfloat16, 36, "cuda_cores"), (torch.bfloat16, 100, "cuda_cores"),
+    (torch.bfloat16, 4, "cuda_cores"), (torch.bfloat16, 255, "cuda_cores"),
     (torch.float32, 64, "tf32x3"), (torch.float32, 128, "tf32x3"),
-    (torch.float32, 256, "tf32x3"), (torch.float32, 32, "cuda_cores"),
-    (torch.float32, 96, "cuda_cores")])
+    (torch.float32, 256, "tf32x3"), (torch.float32, 32, "tf32x3"),
+    (torch.float32, 96, "tf32x3"), (torch.float32, 4, "tf32x3"),
+    (torch.float32, 36, "tf32x3"), (torch.float32, 30, "cuda_cores"),
+    (torch.float32, 98, "cuda_cores"), (torch.float32, 1, "cuda_cores")])
 def test_flash_route_is_fixed_by_dtype_and_head_dim(dtype, D, route):
-    """At D ∈ {64, 128, 256} bf16 takes the wgmma kernel and f32 the
-    split-TF32 one, both on the tensor cores; every other head dim the
-    CUDA-core kernel."""
+    """Where a row of D elements is whole 16 bytes (bf16 D % 8 == 0, f32
+    D % 4 == 0) bf16 takes the wgmma kernel and f32 the split-TF32 one, both
+    on the tensor cores; every other head dim the CUDA-core kernel."""
     assert flash_route(dtype, D) == route
+
+
+@pytest.mark.parametrize("D", [0, 257, 512])
+def test_flash_route_refuses_head_dims_past_the_kernels(D):
+    with pytest.raises(ValueError, match="head dim"):
+        flash_route(torch.bfloat16, D)
+    with pytest.raises(ValueError, match="head dim"):
+        padded_head_dim(D)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "tf32x3"])
+@pytest.mark.parametrize("D", range(1, 257))
+def test_padded_head_dim_is_the_next_compiled_width(D, route):
+    """The tensor-core kernels run head dim D at the smallest width they
+    are compiled at that holds it: 64, 128 or 256, and for split TF32 also
+    96."""
+    widths = {"wgmma": (64, 128, 256), "tf32x3": (64, 96, 128, 256)}[route]
+    Dp = padded_head_dim(D, route)
+    assert Dp in widths and Dp >= D
+    assert all(w < D for w in widths if w < Dp)
+
+
+@pytest.mark.parametrize("D", [40, 96])
+@pytest.mark.parametrize("G", [1, 2])
+def test_attention_at_padded_head_dims_matches_jax(D, G):
+    """Head dims the tensor-core routes run zero-padded (40 onto 64, 96,
+    phi-3-vision's, onto 128): the port's plain version against the Pallas
+    kernel in interpret mode, causal and with a window, S not a multiple
+    of the tile."""
+    B, S, Hkv = 1, 100, 2
+    rng = np.random.default_rng(50 + D + G)
+    qj, qt = _pair(rng.standard_normal((B, S, Hkv * G, D), dtype=np.float32))
+    kj, kt = _pair(rng.standard_normal((B, S, Hkv, D), dtype=np.float32))
+    vj, vt = _pair(rng.standard_normal((B, S, Hkv, D), dtype=np.float32))
+    for kw in (dict(causal=True), dict(causal=True, window=24)):
+        want = jops.gqa_flash_attention(qj, kj, vj, interpret=True, **kw)
+        got = kernels.gqa_flash_attention(qt, kt, vt, **kw)
+        assert got.shape == qt.shape
+        np.testing.assert_allclose(_np(got), _np(want), **TOL["float32"])
 
 
 def test_tma_check_refuses_misaligned_tensors():
