@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 1. Prints the card (``nvidia-smi`` name and power limit) and the torch and
    CUDA versions, then builds the hand-written kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` and prints the build time
    and, from ptxas's ``-v`` report, the registers and spills of the two
    tensor-core attention kernels, the register kernels of both mixes, the
-   rmsnorm instantiations and the clip pair's rows accumulate (0 spill
-   bytes each).
+   rmsnorm instantiations, the clip pair's rows accumulate, the mamba
+   scan's instantiations and the Adam step's (0 spill bytes each).
 2. Holds each of the eleven kernels (nine TPU kernels; attention has three:
    at every head dim whose rows are whole 16 bytes bf16 on wgmma and f32 in
    split TF32, both on the tensor cores and zero-padded up to their
@@ -20,20 +20,30 @@
    also bit for bit against a loop of the 1-D kernels) against its
    plain PyTorch version on the
    card, at the main paths' shapes (D = 199,210 f32, K = 8; the LLM
-   kernels at the full widths of qwen2-7b, gemma3-4b and falcon-mamba-7b,
+   kernels at the full widths of qwen2-7b, gemma3-4b, falcon-mamba-7b and
+   (the scan) jamba-1.5-large,
    attention in bf16 and f32, phi-3-vision's head dim 96 in both on the
    tensor cores, and the CUDA-core kernel at phi-3-vision's length and
    heads with D = 100; rmsnorm on both its vector and its scalar path)
    and at ragged sizes (the mixes at K across every register bucket edge,
    the sync mix also on rows one element off; z' of the f32 stale mix
    bit-equal), with the kernel tests' tolerances (f32 rtol = atol = 2e-5,
-   bf16 2e-2, the mamba scan 2e-4), then sweeps both tensor-core attention
+   bf16 2e-2, the mamba scan 2e-4, also over a sweep of state sizes 1-64,
+   lengths around its 32-step chunks and batch 1 and 3, in f32 and with dt,
+   B and C in bf16; noise_adam_step also with L2 flushed before each call),
+   then sweeps both tensor-core attention
    routes over head dims (compiled and zero-padded), lengths, groups,
    masks and windows, checks that a misaligned view raises on each, and
    sweeps the CUDA-core route at unaligned head dims (the only phase that
    launches it); times phi-3-vision's attention on the CUDA-core kernel
    (the route it took before; its C entry point launched directly, not
-   counted);
+   counted); counts the device kernels of one ``noise_adam_step`` call
+   (one) and holds it bit for bit to the plain version with n_units a
+   device tensor; with ``--parent DIR`` (a checkout of the commit before
+   the scan's and the Adam step's redesign, whose C entry points are
+   checked against the arguments passed) builds its scan and DP-step
+   kernels into a library of their own and times them in turns with this
+   tree's (Adam and SGD bit for bit against them);
    times each kernel over
    CUDA-event-timed launches (200, or 10 at the LLM widths) beside its
    plain version, one PyTorch library call computing the same function
@@ -91,9 +101,12 @@ the repository's ``src/`` beside it; it never runs on the CPU.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -134,6 +147,16 @@ PHI3V_ATTN = dict(B=1, S=4_096, Hq=32, Hkv=32, D=96)   # phi_3_vision_4_2b
 UNALIGNED_ATTN = dict(PHI3V_ATTN, D=100)
 RMS_ROWS, RMS_D = 4_096, 3_584                            # qwen2-7b d_model
 MAMBA = dict(B=1, S=4_096, di=8_192, ds=16)   # configs/falcon_mamba_7b.py
+# configs/jamba_1_5_large_398b.py: d_model 8,192, expand 2, d_state 16
+JAMBA = dict(B=1, S=4_096, di=16_384, ds=16)
+# the scan's sweep: state sizes around its lane and state buckets, lengths
+# around its 32-step chunks, di = 96 + ds (aligned and unaligned rows)
+SCAN_DS = (1, 3, 8, 16, 17, 32, 64)
+SCAN_S = (1, 31, 33, 4_097)
+SCAN_B = (1, 3)
+C_TYPES = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
+           "float": ctypes.c_float}   # of the parent's entry points
+SFU_PER_CLOCK_SM, SMS = 16, 132   # H100 SXM: exponentials a clock an SM
 # the attention routes' sweep: head dims of the tensor-core kernels (their
 # compiled widths, then aligned widths zero-padded up to them: 8 and 40 (36
 # f32) onto 64, 96 onto 128 in bf16, 72 onto 96 in f32, 136 and 248 onto
@@ -146,6 +169,15 @@ CUDA_CORE_D = {torch.bfloat16: (36, 100), torch.float32: (30, 98)}
 ROUTE_S = (1, 63, 64, 65, 127, 129, 257)
 ROUTE_GROUPS = (1, 2, 7)
 ROUTE_WINDOWS = (None, 1, 17, 64, 0)
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi prints it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.strip()
+    return float(out.splitlines()[0]) * 1e6
 
 
 def card_line() -> str:
@@ -273,6 +305,7 @@ class Case(NamedTuple):
     exact: Optional[Callable] = None   # must equal the kernel bit for bit
     padded_ops: Optional[float] = None  # operations at the compiled width
     cold: bool = False              # also time with L2 flushed per call
+    ops_name: str = "FLOP"          # what n_ops counts
 
 
 def attention_pairs(S: int, causal: bool, window: Optional[int]) -> int:
@@ -414,10 +447,26 @@ def kernel_cases(gen):
                   b1=0.9, b2=0.999, eps=1e-8, c1=1 - 0.9 ** t,
                   c2=1 - 0.999 ** t)
         args = (acc, noise, p, m, v)
+        # bit for bit the plain version's arithmetic where it divides by
+        # n_units (given as a tensor on the card: with a host scalar,
+        # PyTorch's CUDA division multiplies by its f32 reciprocal; see
+        # adam_checks); 6.4 MB at the main shape, which stays in the 50 MB
+        # L2 across graph replays: also timed with L2 flushed
         yield Case("noise_adam_step", torch.float32, (D,),
                lambda a=args, hp=hp: kernels.noise_adam_step(*a, **hp),
                lambda a=args, hp=hp: ref.noise_adam_step_ref(*a, **hp),
-               None, 32 * D + 24, 19 * D)
+               None, 32 * D + 8, 19 * D, cold=True,
+               exact=lambda a=args, hp=hp: ref.noise_adam_step_ref(
+                   *a, **dict(hp, n_units=torch.full((), 250.0, device=dev))))
+    # every vector one element off 16 bytes: the one-column accesses
+    off = [randn(MAIN_D + 1)[1:] for _ in range(4)] + \
+        [torch.rand((MAIN_D + 1,), generator=gen, device=dev)[1:]]
+    yield Case("noise_adam_step", torch.float32, (MAIN_D, "off 1"),
+               lambda a=off, hp=hp: kernels.noise_adam_step(*a, **hp),
+               lambda a=off, hp=hp: ref.noise_adam_step_ref(*a, **hp),
+               None, 0, 0,
+               exact=lambda a=off, hp=hp: ref.noise_adam_step_ref(
+                   *a, **dict(hp, n_units=torch.full((), 250.0, device=dev))))
     yield from clip_rows_cases(gen)
     mix_shapes = [(MAIN_K, MAIN_D)] + [(K, D) for K in RAGGED_K
                                        for D in RAGGED_D]
@@ -580,14 +629,35 @@ def llm_kernel_cases(gen):
                 yield Case("flash_attention", dt, (2, S, G, 1, D, causal, win),
                            kern, plain, None, 0, 0)
 
-    B, S, di, ds = MAMBA.values()
-    args = mamba_inputs(gen, B, S, di, ds)
-    yield Case("mamba_scan", torch.float32, (B, S, di, ds),
-               lambda a=args: kernels.mamba_scan(*a),
-               lambda a=args: ref.mamba_scan_ref(*a), None,
-               4 * (3 * B * S * di + 2 * B * S * ds + di * ds),
-               6 * B * S * di * ds, tol=SCAN_TOL, calls=FULL_WIDTH_CALLS,
-               plain_calls=2, plain_graph=False)
+    # the scan's bound: its bytes, or one exponential a state and step on
+    # the special-function units (every exp on MUFU, as expf forms it; FMA
+    # polynomials could take some off them), whichever takes longer
+    sfu = SFU_PER_CLOCK_SM * SMS * sm_clock_hz()
+    for label, width in (("mamba_scan", MAMBA), ("mamba_scan jamba", JAMBA)):
+        B, S, di, ds = width.values()
+        args = mamba_inputs(gen, B, S, di, ds)
+        yield Case("mamba_scan", torch.float32, (B, S, di, ds),
+                   lambda a=args: kernels.mamba_scan(*a),
+                   lambda a=args: ref.mamba_scan_ref(*a), None,
+                   4 * (3 * B * S * di + 2 * B * S * ds + di * ds),
+                   B * S * di * ds, peak=sfu, ops_name="exp", tol=SCAN_TOL,
+                   calls=FULL_WIDTH_CALLS, plain_calls=2, plain_graph=False,
+                   row=label)
+        del args
+    for ds in SCAN_DS:
+        for S in SCAN_S:
+            for B in SCAN_B:
+                for bf in (False, True):
+                    dt, x, Bm, C, A = mamba_inputs(gen, B, S, 96 + ds, ds)
+                    if bf:   # bf16 inputs, f32 out: dt, B and C in bf16
+                        dt, Bm, C = (t.to(bf16) for t in (dt, Bm, C))
+                    args = (dt, x, Bm, C, A)
+                    yield Case("mamba_scan", torch.float32,
+                               (B, S, 96 + ds, ds, "bf16 dt B C" if bf
+                                else "f32"),
+                               lambda a=args: kernels.mamba_scan(*a),
+                               lambda a=args: ref.mamba_scan_ref(*a), None,
+                               0, 0, tol=SCAN_TOL)
     for B, S, di, ds in [(2, 100, 100, 16), (1, 257, 1_024, 4),
                          (2, 33, 64, 64), (1, 1, 8, 8)]:
         for dt in (torch.float32, bf16):
@@ -666,8 +736,11 @@ def check_kernels():
             # explicitly rounded re-bias, merge and de-bias: z' bit-equal
             assert torch.equal(got[0], want[0]), f"z' differs at {c.shape}"
         if c.exact is not None:
-            assert torch.equal(got, c.exact()), \
-                f"{c.name} {c.dtype} {c.shape} differs from the 1-D loop"
+            exact = c.exact()
+            assert all(torch.equal(g, w) for g, w in zip(
+                got if isinstance(got, tuple) else (got,),
+                exact if isinstance(exact, tuple) else (exact,))), \
+                f"{c.name} {c.dtype} {c.shape} differs bit for bit"
         torch.cuda.synchronize()
         print(f"check {c.name:18s} {str(c.dtype):15s} {str(c.shape):22s} "
               f"max_abs_err {err:.3e}")
@@ -678,11 +751,13 @@ def check_kernels():
         pn = c.plain_calls or c.calls
         rows[row] = dict(
             shape=c.shape, dtype=str(c.dtype), err=err, n_bytes=c.n_bytes,
-            n_ops=c.n_ops, share=tol_share(got, want, tol),
+            n_ops=c.n_ops, ops_name=c.ops_name,
+            share=tol_share(got, want, tol),
             padded_bound_us=None if c.padded_ops is None
             else bound_us(c.n_bytes, c.padded_ops, c.peak)[0],
             kernel_us=cuda_us(c.kern, c.calls), plain_us=cuda_us(c.plain, pn),
             bound_us=b_us, bound_by=b_by,
+            bytes_bound_us=c.n_bytes / HBM_BYTES_PER_S * 1e6,
             library_us=cuda_us(c.lib, c.calls) if c.lib else None,
             kernel_graph_us=graph_us(c.kern, c.calls),
             plain_graph_us=graph_us(c.plain, pn) if c.plain_graph else None,
@@ -804,16 +879,223 @@ def cuda_core_phi3():
     return out
 
 
+def adam_checks():
+    """noise_adam_step at the main shape: the device kernels of one wrapper
+    call, from torch.profiler (exactly one); the kernel bit for bit against
+    the plain version with n_units given as a device tensor (it divides, as
+    the kernel does); and how far the plain version with n_units a host
+    scalar (PyTorch's CUDA division then multiplies by the scalar's f32
+    reciprocal) lies from it. Returns the kernel count."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    vecs = [torch.randn(MAIN_D, generator=gen, device="cuda")
+            for _ in range(4)] + [torch.rand(MAIN_D, generator=gen,
+                                             device="cuda")]
+    t = torch.full((), 3.0, device="cuda")
+    hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4,
+              c1=1 - 0.9 ** t, c2=1 - 0.999 ** t)
+    got = kernels.noise_adam_step(*vecs, **hp)
+    _, on_device = device_profile(lambda: kernels.noise_adam_step(*vecs,
+                                                                  **hp))
+    names = [e.name for e in on_device]
+    print(f"noise_adam_step: one wrapper call runs {len(names)} device "
+          f"kernel(s): {names}")
+    assert len(names) == 1 and "noise_adam" in names[0], names
+
+    dividing = ref.noise_adam_step_ref(
+        *vecs, **dict(hp, n_units=torch.full((), 250.0, device="cuda")))
+    host = ref.noise_adam_step_ref(*vecs, **hp)
+    x = vecs[0] + 1.0 * vecs[1]
+    recip = torch.equal(x / 250, x * (torch.ones((), device="cuda") / 250))
+    divides = torch.equal(x / 250, x / torch.full((), 250.0, device="cuda"))
+    print(f"noise_adam_step: on the card x / 250 (a host scalar) "
+          f"{'equals' if recip else 'differs from'} x times the f32 "
+          f"reciprocal of 250, and {'equals' if divides else 'differs from'}"
+          " x divided by 250 held on the card")
+    for name, k, d, h in zip(("p'", "m'", "v'"), got, dividing, host):
+        assert torch.equal(k, d), name
+        print(f"noise_adam_step {name}: bit-equal to the plain version with "
+              f"n_units a device tensor; with n_units a host scalar it "
+              f"differs in {int((k != h).sum()):,} of {MAIN_D:,} elements, "
+              f"max abs {max_err(k, h):.3e}")
+    return len(names)
+
+
+def c_params(path: Path, fn_name: str) -> tuple:
+    """The ctypes types of the parameters of ``extern "C" int fn_name(...)``
+    as the source at ``path`` declares them."""
+    m = re.search(r'extern "C" int ' + fn_name + r"\((.*?)\)\s*\{",
+                  path.read_text(), re.S)
+    if m is None:
+        raise SystemExit(f"--parent: no extern \"C\" {fn_name} in {path}")
+    types = []
+    for param in m.group(1).split(","):
+        if "*" in param:
+            types.append(ctypes.c_void_p)
+        elif param.split()[0] in C_TYPES:
+            types.append(C_TYPES[param.split()[0]])
+        else:
+            raise SystemExit(f"--parent: {fn_name}: unknown parameter "
+                             f"{param.strip()!r} in {path}")
+    return tuple(types)
+
+
+def parent_kernels(parent: Path):
+    """Before times, in this process: the parent commit's scan, Adam and
+    SGD kernels, built with nvcc from ``parent``'s csrc into a library of
+    their own under build/ and called through their C entry points (the
+    Adam and SGD calls with the device scalar vector their wrappers
+    assembled), timed in turns parent, this tree, this tree, parent against
+    this tree's wrappers on the same inputs. Adam and SGD bit for bit
+    against the parent's kernels; the scan within its tolerance of them.
+    Returns {name: {"parent": [µs, µs], "tree": [µs, µs], ...}}."""
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+
+    csrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
+    out_dir = _build.BUILD_ROOT.parent / "parent_kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c",
+                               str(csrc / f"{n}.cu"), "-o",
+                               str(out_dir / f"{n}.o")],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for n in ("mamba_scan", "dp_step")]
+    for p in procs:
+        assert p.wait() == 0, p.stdout.read()
+    lib_path = out_dir / "libparent.so"
+    # linked against the CUDA runtime torch has loaded: a second, static
+    # runtime first used after a torch.profiler session makes every later
+    # session lose its first device kernel
+    subprocess.run([nvcc, *_build.NVCC_FLAGS, "-cudart", "shared", "-shared",
+                    str(out_dir / "mamba_scan.o"), str(out_dir / "dp_step.o"),
+                    "-o", str(lib_path)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    # the calls below pass the parent's arguments as these entry points
+    # took them before the Adam step's redesign (its scalars in one device
+    # vector); a parent that declares any of them otherwise is refused
+    P = ctypes.c_void_p
+    calls_as = {
+        "repro_mamba_scan": ("mamba_scan", _build._SIGNATURES[
+            "repro_mamba_scan"]),
+        "repro_noise_sgd_step": ("dp_step", _build._SIGNATURES[
+            "repro_noise_sgd_step"]),
+        "repro_noise_adam_step": ("dp_step", (P,) * 9 + (ctypes.c_int64,)
+                                  + (ctypes.c_float,) * 5 + (P,))}
+    for fn_name, (src, want) in calls_as.items():
+        got = c_params(csrc / f"{src}.cu", fn_name)
+        if got != want:
+            raise SystemExit(
+                f"--parent: {fn_name} in {parent} is declared with "
+                f"{[t.__name__ for t in got]}; this comparison calls it with "
+                f"{[t.__name__ for t in want]}")
+        getattr(lib, fn_name).argtypes = got
+
+    def call(fn, *args):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+
+    def turns(name, tree, old, n, cold=False):
+        """parent, tree, tree, parent: graph µs (and eager, cold)."""
+        r = {"parent": [], "tree": []}
+        for who, fn in (("parent", old), ("tree", tree), ("tree", tree),
+                        ("parent", old)):
+            r[who].append(graph_us(fn, n))
+        r["eager"] = {"parent": cuda_us(old, n), "tree": cuda_us(tree, n)}
+        if cold:
+            r["cold"] = {"parent": cold_us(old), "tree": cold_us(tree)}
+        print(f"before/after {name}: from a CUDA graph parent "
+              f"{' '.join(f'{u:.3f}' for u in r['parent'])} us, this tree "
+              f"{' '.join(f'{u:.3f}' for u in r['tree'])} us (turns parent, "
+              f"tree, tree, parent); eager parent {r['eager']['parent']:.3f}"
+              f", tree {r['eager']['tree']:.3f} us"
+              + ("" if not cold else f"; L2 flushed parent "
+                 f"{r['cold']['parent']:.3f}, tree {r['cold']['tree']:.3f} us"))
+        return r
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    res = {}
+    for label, width in (("mamba_scan", MAMBA), ("mamba_scan jamba", JAMBA)):
+        B, S, di, ds = width.values()
+        dt, x, Bm, C, A = mamba_inputs(gen, B, S, di, ds)
+
+        def old_scan(a=(dt, x, Bm, C, A)):
+            y = torch.empty_like(a[1])
+            call(lib.repro_mamba_scan, *(v for t in a[:4]
+                                         for v in (t.data_ptr(), 0)),
+                 a[4].data_ptr(), y.data_ptr(), B, S, di, ds)
+            return y
+
+        def new_scan(a=(dt, x, Bm, C, A)):
+            return kernels.mamba_scan(*a)
+        err = check(f"{label} against the parent's kernel", new_scan(),
+                    old_scan(), torch.float32, SCAN_TOL)
+        res[label] = turns(label, new_scan, old_scan, FULL_WIDTH_CALLS)
+        res[label]["err_vs_parent"] = err
+        del dt, x, Bm, C, A
+        torch.cuda.empty_cache()
+
+    t = torch.full((), 3.0, device="cuda")
+    c1, c2 = 1 - 0.9 ** t, 1 - 0.999 ** t
+    hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4)
+    for off in (0, 1):
+        vecs = [torch.randn(MAIN_D + 1, generator=gen, device="cuda")[off:]
+                [:MAIN_D] for _ in range(4)] + \
+            [torch.rand(MAIN_D + 1, generator=gen, device="cuda")[off:]
+             [:MAIN_D]]
+
+        def old_adam(a=vecs):
+            sc = torch.stack([c1.new_full((), 1.0), c1.new_full((), 250),
+                              c1.new_full((), 1e-3), c1.new_full((), 1e-4),
+                              c1.reshape(()), c2.reshape(())])
+            outs = [torch.empty_like(a[0]) for _ in range(3)]
+            call(lib.repro_noise_adam_step, sc.data_ptr(),
+                 *(v.data_ptr() for v in a + outs), MAIN_D, 0.9, 0.999,
+                 1.0 - 0.9, 1.0 - 0.999, 1e-8)
+            return outs
+
+        def new_adam(a=vecs):
+            return kernels.noise_adam_step(*a, **hp, c1=c1, c2=c2)
+        assert all(torch.equal(g, w) for g, w in zip(new_adam(), old_adam())), \
+            f"noise_adam_step differs from the parent's kernel (off {off})"
+        if off == 0:
+            res["noise_adam_step"] = turns("noise_adam_step", new_adam,
+                                           old_adam, TIMED_LAUNCHES, cold=True)
+    print("before/after noise_adam_step: bit-equal to the parent's kernel at "
+          "the main shape, aligned and one element off 16 bytes")
+
+    acc, noise, p = (torch.randn(MAIN_D, generator=gen, device="cuda")
+                     for _ in range(3))
+
+    def old_sgd():
+        sc = torch.stack([acc.new_full((), x) for x in hp.values()])
+        out = torch.empty_like(p)
+        call(lib.repro_noise_sgd_step, sc.data_ptr(), acc.data_ptr(),
+             noise.data_ptr(), p.data_ptr(), 0, out.data_ptr(), MAIN_D)
+        return out
+
+    def new_sgd():
+        return kernels.noise_sgd_step(acc, noise, p, **hp)
+    assert torch.equal(new_sgd(), old_sgd()), "noise_sgd_step changed bits"
+    res["noise_sgd_step"] = turns("noise_sgd_step", new_sgd, old_sgd,
+                                  TIMED_LAUNCHES)
+    print("before/after noise_sgd_step: bit-equal to the parent's kernel")
+    return res
+
+
 def ptxas_lines():
     """Registers and spills of the two tensor-core attention kernels, the
-    register kernels of both mixes, the rmsnorm instantiations and the clip
-    pair's rows accumulate, from ptxas's -v report of this build; every
-    one spills 0 bytes."""
+    register kernels of both mixes, the rmsnorm instantiations, the clip
+    pair's rows accumulate, the scan's instantiations and the Adam step's,
+    from ptxas's -v report of this build; every one spills 0 bytes."""
     from repro_torch.kernels import _build
     for name, regs, stores, loads, stack in _build.ptxas_report():
         if not any(k in name for k in ("flash_fwd_sm90", "flash_fwd_tf32x3",
                                         "stale_reg", "mix_reg",
-                                        "rmsnorm_rows", "clip_acc_rows")):
+                                        "rmsnorm_rows", "clip_acc_rows",
+                                        "selective_scan", "noise_adam")):
             continue
         print(f"ptxas: {name}: {regs} registers, {stores} bytes spill "
               f"stores, {loads} bytes spill loads, {stack} bytes stack")
@@ -922,8 +1204,7 @@ def ops_api():
         kernels.tree_clip_accumulate(zeros, grads, 1.0)))
     busy = {}
     for e in on_device:
-        name = e.name.replace("(anonymous namespace)::", "")
-        key = name.split("<")[0].split("(")[0].split("::")[-1]
+        key = kernel_key(e.name)
         busy[key] = busy.get(key, 0.0) + e.self_device_time_total
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
     print(f"ops API profile: one call of each op: wall {wall_ms:.3f} ms, "
@@ -931,6 +1212,9 @@ def ops_api():
           f"({sum(busy.values()) / 10 / wall_ms:.2f}%), {len(on_device)} "
           "device kernels and copies; device us by kernel "
           + ", ".join(f"{n} {t:.3f}" for n, t in top))
+    scan_us = busy.get("selective_scan", 0.0)
+    print(f"ops API profile: the scan (selective_scan) {scan_us:.3f} us, "
+          f"{scan_us / sum(busy.values()):.2%} of the device's busy time")
     del q, k, v, x, g, scan
 
     q, k, v, _ = attention_inputs(gen, dtype=bf16, **GEMMA_LOCAL)
@@ -1126,21 +1410,81 @@ def timed_round(eng, state, data, t):
     return time.perf_counter() - t0, step_s
 
 
+def kernel_key(name: str) -> str:
+    """A device kernel's name without its namespaces, template arguments
+    and parameters."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("<")[0].split("(")[0].split("::")[-1]
+
+
+# the device kernel one launch of each counted wrapper (or route) runs,
+# besides second passes such as sumsq's sum_partials
+DEVICE_KERNELS = {
+    "flash_attention/wgmma": ("flash_fwd_sm90",),
+    "flash_attention/tf32x3": ("flash_fwd_tf32x3",),
+    "flash_attention/cuda_cores": ("flash_fwd",),
+    "rmsnorm": ("rmsnorm_rows",),
+    "mamba_scan": ("selective_scan",),
+    "noise_sgd_step": ("noise_sgd",),
+    "noise_adam_step": ("noise_adam",),
+    "sumsq": ("sumsq_partials",),
+    "scale_accumulate/vector": ("scale_acc",),
+    "scale_accumulate/rows": ("clip_acc_rows",),
+    "fused_pushsum_mix": ("mix_reg", "mix_stream"),
+    "fused_stale_mix": ("stale_reg", "stale_stream"),
+}
+
+
 def device_profile(fn):
     """Wall ms of one synchronised call of ``fn`` under torch.profiler,
-    and the device events (kernels and copies) it recorded."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    and the device events (kernels and copies) it recorded. ``fn`` runs
+    twice in one profiler session: the first call is the session's
+    warm-up step, whose events are dropped (on the H100, sessions without
+    one lost up to three of their first device kernels once the main path
+    had run), the second is recorded. The recorded step must hold a device kernel for every
+    kernel launch it recorded on the host (by correlation id), and as many
+    device kernels of each counted wrapper as the launch counters (reset
+    just before the recorded call, read just after) say it launched, or
+    the run fails."""
+    from collections import Counter
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch import kernels
+
+    recorded = {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: recorded.update(
+                     events=p.events())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return wall_ms, [e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA]
+        prof.step()
+    counts = {**kernels.launch_counts(), **kernels.route_launch_counts()}
+    events = recorded["events"]
+    # the device events bar the step's own span (ProfilerStep#1)
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith("ProfilerStep")]
+    launched = {e.id for e in events if e.device_type == DeviceType.CPU
+                and "LaunchKernel" in e.name}
+    lost = launched - {e.id for e in on_device}
+    assert on_device and not lost, (f"the profile recorded no device kernel "
+                                     f"for {len(lost)} of {len(launched)} "
+                                     "kernel launches")
+    seen = Counter(kernel_key(e.name) for e in on_device)
+    for counter, names in DEVICE_KERNELS.items():
+        got, want = sum(seen[n] for n in names), counts.get(counter, 0)
+        assert got == want, (f"the profile recorded {got} {'/'.join(names)} "
+                             f"kernel(s) where {counter} launched {want}")
+    return wall_ms, on_device
 
 
 def async_config(cfg):
@@ -1402,32 +1746,33 @@ def step_breakdown(spec, data, test, cfg):
     wall_ms, on_device = device_profile(
         lambda: eng.step_fn(state, batch, gen))
     busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-    if on_device:
-        print(f"profile: one client step under the profiler: wall "
-              f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-              f"({100 * busy_ms / wall_ms:.2f}%), {len(on_device)} device "
-              "kernels and copies")
-        busy = {}
-        for e in on_device:
-            name = e.name.replace("(anonymous namespace)::", "")
-            key = name.split("<")[0].split("(")[0].split("::")[-1]
-            busy[key] = busy.get(key, 0.0) + e.self_device_time_total
-        print("profile: device us by kernel in the step: " + ", ".join(
-            f"{n} {t:.3f}" for n, t in sorted(busy.items(),
-                                              key=lambda kv: -kv[1])[:10]))
-        for kname in ("sumsq_partials", "sum_partials", "clip_acc_rows",
-                      "noise_adam"):
-            ts = [e.self_device_time_total for e in on_device
-                  if kname + "<" in e.name or kname + "(" in e.name]
-            if ts:
-                print(f"profile: {kname} device time {np.mean(ts):.3f} us "
-                      f"per launch over {len(ts)} launches")
-    else:
-        print("profile: the profiler recorded no device activity; the "
-              "device busy share is not measured")
+    print(f"profile: one client step under the profiler: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.2f}%), {len(on_device)} device "
+          "kernels and copies")
+    busy = {}
+    for e in on_device:
+        key = kernel_key(e.name)
+        busy[key] = busy.get(key, 0.0) + e.self_device_time_total
+    print("profile: device us by kernel in the step: " + ", ".join(
+        f"{n} {t:.3f}" for n, t in sorted(busy.items(),
+                                          key=lambda kv: -kv[1])[:10]))
+    for kname in ("sumsq_partials", "sum_partials", "clip_acc_rows",
+                  "noise_adam"):
+        ts = [e.self_device_time_total for e in on_device
+              if kernel_key(e.name) == kname]
+        print(f"profile: {kname} device time {np.mean(ts):.3f} us per "
+              f"launch over {len(ts)} launches")
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a checkout of the commit before the scan's and "
+                    "the Adam step's redesign: time its scan, Adam and SGD "
+                    "kernels beside this tree's (refused where its entry "
+                    "points are declared otherwise)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -1445,9 +1790,11 @@ def main() -> int:
 
     ptxas_lines()
     rows = check_kernels()
+    before_after = parent_kernels(args.parent) if args.parent else None
     cuda_core_launches = attention_routes()
     before = cuda_core_phi3()
     ops_counts, route_windows = ops_api()
+    adam_kernels = adam_checks()
     setup = mnist_setup()
     spec, data, test, cfg = setup
     cold_step(*setup)
@@ -1483,6 +1830,7 @@ def main() -> int:
             "max_err": r["err"], "ms": r["kernel_us"] / 1e3,
             "plain_ms": r["plain_us"] / 1e3, "bound_ms": r["bound_us"] / 1e3,
             "bound_by": r["bound_by"],
+            "bytes_bound_ms": r["bytes_bound_us"] / 1e3,
             "library_ms": None if lib_us is None else lib_us / 1e3,
             "kernel_us": r["kernel_us"], "plain_us": r["plain_us"],
             "bound_us": r["bound_us"], "library_us": lib_us,
@@ -1500,6 +1848,15 @@ def main() -> int:
         if name == "rmsnorm":
             out[-1]["f32_row"] = rows["rmsnorm f32"]
             out[-1]["scalar_row"] = rows["rmsnorm scalar"]
+        if name == "mamba_scan":
+            out[-1]["jamba_row"] = rows["mamba_scan jamba"]
+        if name == "noise_adam_step":
+            out[-1]["cold_us"] = r["kernel_cold_us"]
+            out[-1]["device_kernels_per_call"] = adam_kernels
+        if before_after and name in before_after:
+            out[-1]["before_after"] = before_after[name]
+            if name == "mamba_scan":
+                out[-1]["jamba_before_after"] = before_after["mamba_scan jamba"]
     for row, r in rows.items():
         lib_us, lib_graph = r["library_us"], r["library_graph_us"]
         plain_graph = r["plain_graph_us"]
@@ -1512,6 +1869,8 @@ def main() -> int:
               f", library "
               f"{'-' if lib_graph is None else f'{lib_graph:10.3f} us'}; "
               f"bound {r['bound_us']:9.3f} us ({r['bound_by']})"
+              + ("" if r["bound_by"] == "bytes" or not r["n_bytes"] else
+                 f", bytes alone {r['bytes_bound_us']:9.3f} us")
               + ("" if r["padded_bound_us"] is None else
                  f", at the compiled width {r['padded_bound_us']:9.3f} us")
               + f"; max abs err {r['err']:.3e} ({r['share']:.1%} of the "
@@ -1526,14 +1885,15 @@ def main() -> int:
               "faster from a CUDA graph")
     for row, r in rows.items():
         if r["kernel_cold_us"] is not None:
+            lib = r["library_cold_us"]
             print(f"{row:22s} with L2 flushed before each call: kernel "
                   f"{r['kernel_cold_us']:.3f} us, library "
-                  f"{r['library_cold_us']:.3f} us; bound "
+                  f"{'-' if lib is None else f'{lib:.3f} us'}; bound "
                   f"{r['bound_us']:.3f} us")
     for row, r in rows.items():
         g = r["kernel_graph_us"]
         print(f"{row:22s} from a CUDA graph: {r['n_ops'] / g / 1e6:.3f} "
-              f"TFLOP/s, {r['n_bytes'] / g / 1e3:.3f} GB/s, "
+              f"T{r['ops_name']}/s, {r['n_bytes'] / g / 1e3:.3f} GB/s, "
               f"{100 * r['bound_us'] / g:.2f}% of its bound "
               f"({r['bound_by']})")
     print(f"main path rounds/s {rounds_per_s:.4f} on {card}")

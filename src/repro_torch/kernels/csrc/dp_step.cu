@@ -18,49 +18,84 @@
 //   v' = b2*v + (1-b2)*g*g
 //   p' = p - lr*(m'/c1) / (sqrt(v'/c2) + eps)
 // over five f32 [D] inputs into three f32 [D] outputs.
-//   Bound: 32*D bytes (five vectors read, three written); 6.4 MB at the main
-//   path's D = 199,210, so a call is near the launch cost.
-//   Design: one grid-stride elementwise pass. stddev, n_units, lr, wd, c1
-//   and c2 are read from a six-float device vector, as the TPU kernel read
-//   them from SMEM: c1 = 1 - b1^t and c2 = 1 - b2^t are computed on the
-//   device from the step counter, so the step needs no host sync. b1, b2,
-//   1-b1, 1-b2 and eps are optimizer constants passed by value; 1-b1 and 1-b2
-//   come from the host in double and are rounded once, as the plain version
-//   rounds the Python scalars. Every operation is rounded on its own in the
-//   reference's order (no FMA contraction), so the kernel repeats the plain
-//   version's arithmetic.
+//   Bound: 32*D + 8 bytes (five vectors and c1, c2 read, three vectors
+//   written); 6.4 MB at the main path's D = 199,210, about 1.9 us.
+//   Design: one launch a call, nothing assembled on the device before it.
+//   stddev, n_units, lr, wd, b1, b2, 1-b1, 1-b2 and eps go by value (the
+//   host rounds each once to f32, as the plain version rounds its Python
+//   scalars); c1 = 1 - b1^t and c2 = 1 - b2^t are read through their own
+//   device pointers, since they come from the step counter on the device
+//   and the step must not sync with the host. A thread takes C = 4, 2 or 1
+//   neighbouring elements with one 16-, 8- or 4-byte access per vector,
+//   C chosen on the host as the widest that every vector's base is aligned
+//   to (kernels/dp_step.py::adam_columns); the D % C elements past the last
+//   whole group go to the first threads of the grid. Every operation is
+//   rounded on its own in the reference's order (no FMA contraction), so
+//   the kernel repeats the plain version's arithmetic bit for bit at every C
+//   where that divides by n_units (given n_units as a Python number,
+//   PyTorch's CUDA division multiplies by its f32 reciprocal instead, an
+//   ulp apart in g).
 #include "common.cuh"
 
 namespace repro {
 namespace {
 
-__global__ void noise_adam(const float* __restrict__ sc,
+struct AdamScalars {
+  float stddev, n_units, lr, wd, b1, b2, omb1, omb2, eps;
+};
+
+// One element of the Adam step; writes p', m', v'.
+__device__ __forceinline__ void adam_element(const AdamScalars& s, float c1,
+                                             float c2, float acc, float noise,
+                                             float pf, float m, float v,
+                                             float& p2, float& m2,
+                                             float& v2) {
+  float g = __fdiv_rn(__fadd_rn(acc, __fmul_rn(s.stddev, noise)), s.n_units);
+  g = __fadd_rn(g, __fmul_rn(s.wd, pf));
+  m2 = __fadd_rn(__fmul_rn(s.b1, m), __fmul_rn(s.omb1, g));
+  v2 = __fadd_rn(__fmul_rn(s.b2, v), __fmul_rn(__fmul_rn(s.omb2, g), g));
+  const float step =
+      __fdiv_rn(__fmul_rn(s.lr, __fdiv_rn(m2, c1)),
+                __fadd_rn(__fsqrt_rn(__fdiv_rn(v2, c2)), s.eps));
+  p2 = __fsub_rn(pf, step);
+}
+
+template <int C>
+__global__ void noise_adam(const float* __restrict__ c1p,
+                           const float* __restrict__ c2p,
                            const float* __restrict__ acc,
                            const float* __restrict__ noise,
                            const float* __restrict__ p,
                            const float* __restrict__ m,
                            const float* __restrict__ v,
                            float* __restrict__ p2, float* __restrict__ m2,
-                           float* __restrict__ v2, int64_t n, float b1,
-                           float b2, float omb1, float omb2, float eps) {
-  const float stddev = sc[0], n_units = sc[1], lr = sc[2];
-  const float wd = sc[3], c1 = sc[4], c2 = sc[5];
+                           float* __restrict__ v2, int64_t n,
+                           AdamScalars s) {
+  const float c1 = *c1p, c2 = *c2p;
+  const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t groups = n / C;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    float g = __fdiv_rn(__fadd_rn(acc[i], __fmul_rn(stddev, noise[i])),
-                        n_units);
-    const float pf = p[i];
-    g = __fadd_rn(g, __fmul_rn(wd, pf));
-    const float mm = __fadd_rn(__fmul_rn(b1, m[i]), __fmul_rn(omb1, g));
-    const float vv =
-        __fadd_rn(__fmul_rn(b2, v[i]), __fmul_rn(__fmul_rn(omb2, g), g));
-    const float step =
-        __fdiv_rn(__fmul_rn(lr, __fdiv_rn(mm, c1)),
-                  __fadd_rn(__fsqrt_rn(__fdiv_rn(vv, c2)), eps));
-    p2[i] = __fsub_rn(pf, step);
-    m2[i] = mm;
-    v2[i] = vv;
+  for (int64_t gi = first; gi < groups; gi += stride) {
+    const int64_t i = gi * C;
+    float a[C], z[C], pf[C], mm[C], vv[C], po[C], mo[C], vo[C];
+    load_cols<C>(acc + i, a);
+    load_cols<C>(noise + i, z);
+    load_cols<C>(p + i, pf);
+    load_cols<C>(m + i, mm);
+    load_cols<C>(v + i, vv);
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      adam_element(s, c1, c2, a[k], z[k], pf[k], mm[k], vv[k], po[k], mo[k],
+                   vo[k]);
+    store_cols<C>(p2 + i, po);
+    store_cols<C>(m2 + i, mo);
+    store_cols<C>(v2 + i, vo);
+  }
+  if constexpr (C > 1) {  // the n % C elements past the last group
+    const int64_t i = groups * C + first;
+    if (i < n)
+      adam_element(s, c1, c2, acc[i], noise[i], p[i], m[i], v[i], p2[i],
+                   m2[i], v2[i]);
   }
 }
 
@@ -87,16 +122,31 @@ __global__ void noise_sgd(const float* __restrict__ sc,
 
 using namespace repro;
 
-extern "C" int repro_noise_adam_step(const float* sc, const float* acc,
-                                     const float* noise, const float* p,
-                                     const float* m, const float* v,
-                                     float* p2, float* m2, float* v2,
-                                     int64_t n, float b1, float b2,
-                                     float omb1, float omb2, float eps,
+// cols: elements a thread (1, 2 or 4); every vector's base must be aligned
+// to cols floats.
+extern "C" int repro_noise_adam_step(const float* c1, const float* c2,
+                                     const float* acc, const float* noise,
+                                     const float* p, const float* m,
+                                     const float* v, float* p2, float* m2,
+                                     float* v2, int64_t n, float stddev,
+                                     float n_units, float lr, float wd,
+                                     float b1, float b2, float omb1,
+                                     float omb2, float eps, int cols,
                                      void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  noise_adam<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      sc, acc, noise, p, m, v, p2, m2, v2, n, b1, b2, omb1, omb2, eps);
+  const AdamScalars s{stddev, n_units, lr, wd, b1, b2, omb1, omb2, eps};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (cols == 4)
+    noise_adam<4><<<grid_for(n / 4 > 0 ? n / 4 : 1), kThreads, 0, st>>>(
+        c1, c2, acc, noise, p, m, v, p2, m2, v2, n, s);
+  else if (cols == 2)
+    noise_adam<2><<<grid_for(n / 2 > 0 ? n / 2 : 1), kThreads, 0, st>>>(
+        c1, c2, acc, noise, p, m, v, p2, m2, v2, n, s);
+  else if (cols == 1)
+    noise_adam<1><<<grid_for(n), kThreads, 0, st>>>(
+        c1, c2, acc, noise, p, m, v, p2, m2, v2, n, s);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

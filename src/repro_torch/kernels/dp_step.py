@@ -75,17 +75,25 @@ def noise_adam_step(acc: torch.Tensor, noise: torch.Tensor, p: torch.Tensor,
             weight_decay=weight_decay, b1=b1, b2=b2, eps=eps,
             c1=c1.reshape(()), c2=c2.reshape(()))
     _build.check_cuda("noise_adam_step", *vecs, c1, c2)
-    # the kernel's scalar vector, assembled on the device (no host sync)
-    sc = torch.stack([c1.new_full((), stddev), c1.new_full((), n_units),
-                      c1.new_full((), lr), c1.new_full((), weight_decay),
-                      c1.reshape(()), c2.reshape(())])
     p2, m2, v2 = (torch.empty_like(acc) for _ in range(3))
-    _build.launch("repro_noise_adam_step", sc.data_ptr(), acc.data_ptr(),
-                  noise.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(),
-                  p2.data_ptr(), m2.data_ptr(), v2.data_ptr(), acc.numel(),
-                  b1, b2, 1.0 - b1, 1.0 - b2, eps)
+    outs = (p2, m2, v2)
+    # one launch: the Python scalars go by value (rounded once to f32, as
+    # the plain version rounds them), c1 and c2 stay on the device
+    _build.launch("repro_noise_adam_step", c1.data_ptr(), c2.data_ptr(),
+                  *(t.data_ptr() for t in vecs + outs), acc.numel(), stddev,
+                  n_units, lr, weight_decay, b1, b2, 1.0 - b1, 1.0 - b2, eps,
+                  adam_columns(*vecs, *outs))
     noise_adam_step.launches += 1
     return p2, m2, v2
+
+
+def adam_columns(*vecs: torch.Tensor) -> int:
+    """Elements a thread of the Adam kernel takes: 4 (16-byte accesses)
+    when every vector's base is 16-byte aligned, 2 when 8-byte, else 1."""
+    for cols in (4, 2):
+        if all(t.data_ptr() % (4 * cols) == 0 for t in vecs):
+            return cols
+    return 1
 
 
 noise_sgd_step.launches = 0

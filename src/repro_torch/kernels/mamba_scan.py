@@ -5,7 +5,9 @@ and the gate).
 ``y_t = C_t·h_t`` with an f32 state from zero. On a CUDA tensor it launches
 the kernel of ``csrc/mamba_scan.cu`` (replacing
 ``src/repro/kernels/mamba_scan.py``'s ``mamba_scan``); on a CPU tensor it
-runs the plain version in :mod:`.ref`.
+runs the plain version in :mod:`.ref`. The kernel spreads a channel's
+states over :func:`scan_lanes` lanes of a warp, :func:`scan_states` states
+a lane.
 """
 from __future__ import annotations
 
@@ -15,6 +17,23 @@ from . import _build
 from .ref import mamba_scan_ref
 
 MAX_STATE = 64   # the kernel keeps a channel's states in registers
+LANE_COUNTS = (2, 4, 8, 16)   # the kernel's compiled lanes a channel
+
+
+def scan_lanes(ds: int) -> int:
+    """Lanes a channel that the kernel takes at ``ds`` states (the C
+    entry point's ``lanes_for``)."""
+    if not 1 <= ds <= MAX_STATE:
+        raise ValueError(f"scan_lanes: ds = {ds} outside 1..{MAX_STATE}")
+    return 2 if ds <= 8 else 4 if ds <= 16 else 8 if ds <= 32 else 16
+
+
+def scan_states(ds: int) -> int:
+    """States a lane at ``ds`` states: ``ds / scan_lanes(ds)`` rounded up to
+    a power of two, 1, 2 or 4 (the states past ds are zero; the C entry
+    point's ``states_for``)."""
+    per = -(-ds // scan_lanes(ds))
+    return next(n for n in (1, 2, 4) if per <= n)
 
 
 def mamba_scan(dt: torch.Tensor, x: torch.Tensor, B_in: torch.Tensor,

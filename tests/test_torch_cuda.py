@@ -4,7 +4,10 @@ proxy; both tensor-core attention routes over ragged lengths, groups and
 windows at compiled and zero-padded head dims, the CUDA-core route at
 unaligned ones; the sync mix at its register bucket edges; both rmsnorm
 instantiations; the DP clip pair's rows route bit
-for bit against its 1-D route), the wrappers' refusals, and small
+for bit against its 1-D route; the scan at falcon-mamba-7b's and
+jamba-1.5-large's widths and over a sweep of state sizes and lengths;
+noise_adam_step bit for bit and as one device kernel a call), the
+wrappers' refusals, and small
 federations (sync, and async at staleness 2 with dropout) through the
 kernels against the plain path on the same seed.
 
@@ -353,6 +356,98 @@ def test_wrappers_raise_instead_of_falling_back(gen):
                                  torch.ones((), device="cuda"))
     with pytest.raises(ValueError):
         kernels.sumsq(x[:1].expand(4))   # stride 0: not contiguous
+
+
+def _scan_inputs(gen, B, S, di, ds):
+    """dt = softplus(N(0, 1)), x, B, C ~ N(0, 1), A = −exp(N(0, 1)) on the
+    card, as tests/test_kernels.py draws them."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return (torch.nn.functional.softplus(randn(B, S, di)), randn(B, S, di),
+            randn(B, S, ds), randn(B, S, ds), -torch.exp(randn(di, ds)))
+
+
+SCAN = dict(rtol=2e-4, atol=2e-4)   # tests/test_kernels.py's
+
+
+@pytest.mark.parametrize("di", [8_192, 16_384])
+def test_scan_matches_plain_at_model_widths(gen, di):
+    """falcon-mamba-7b (di 8,192) and jamba-1.5-large (di 16,384), ds 16,
+    S 4,096, f32: one launch each, within the scan's tolerance."""
+    args = _scan_inputs(gen, 1, 4_096, di, 16)
+    kernels.reset_launch_counts()
+    got = kernels.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["mamba_scan"] == 1
+    torch.testing.assert_close(got, ref.mamba_scan_ref(*args), **SCAN)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("ds", [1, 3, 8, 16, 17, 32, 64])
+def test_scan_sweep_matches_plain(gen, ds, bf16):
+    """State sizes around the lane and state buckets, lengths around the
+    32-step chunks, batch 1 and 3, di = 96 + ds (rows aligned to 16 bytes
+    or not), in f32 and with dt, B and C in bf16 (y in x's f32), within the
+    scan's tolerance."""
+    for S in (1, 31, 33, 4_097):
+        for B in (1, 3):
+            dt, x, Bm, C, A = _scan_inputs(gen, B, S, 96 + ds, ds)
+            if bf16:
+                dt, Bm, C = (t.bfloat16() for t in (dt, Bm, C))
+            got = kernels.mamba_scan(dt, x, Bm, C, A)
+            assert got.dtype == torch.float32
+            torch.testing.assert_close(
+                got, ref.mamba_scan_ref(dt, x, Bm, C, A), **SCAN)
+
+
+def _adam_vectors(gen, n, off):
+    """acc, noise, p, m ~ N(0, 1) and v ~ U(0, 1), each starting ``off``
+    elements past a 16-byte boundary."""
+    def vec(draw):
+        return draw(n + 4, generator=gen, device="cuda")[off:off + n]
+    return [vec(torch.randn) for _ in range(4)] + [vec(torch.rand)]
+
+
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 65_537, D])
+def test_noise_adam_step_is_bit_equal_to_plain(gen, n, off):
+    """Every element the plain version's arithmetic bit for bit, at four
+    columns a thread (aligned) and at one (every vector one element off 16
+    bytes), with the tail past the last group of four: against the plain
+    version with n_units a device tensor, so that it divides (with a host
+    scalar PyTorch's CUDA division multiplies by the scalar's f32
+    reciprocal instead: within the f32 tolerance)."""
+    t = torch.full((), 3.0, device="cuda")
+    hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4,
+              c1=1 - 0.9 ** t, c2=1 - 0.999 ** t)
+    vecs = _adam_vectors(gen, n, off)
+    got = kernels.noise_adam_step(*vecs, **hp)
+    dividing = ref.noise_adam_step_ref(
+        *vecs, **dict(hp, n_units=torch.full((), 250.0, device="cuda")))
+    assert all(torch.equal(g, w) for g, w in zip(got, dividing))
+    for g, w in zip(got, ref.noise_adam_step_ref(*vecs, **hp)):
+        torch.testing.assert_close(g, w, **F32)
+
+
+def test_noise_adam_step_is_one_device_kernel(gen):
+    """One wrapper call runs exactly one device kernel (no scalar vector
+    assembled on the device), by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t = torch.full((), 3.0, device="cuda")
+    hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4,
+              c1=1 - 0.9 ** t, c2=1 - 0.999 ** t)
+    vecs = _adam_vectors(gen, D, 0)
+    kernels.noise_adam_step(*vecs, **hp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        kernels.noise_adam_step(*vecs, **hp)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "noise_adam" in names[0], names
 
 
 def _padded_rows(gen, B, n, dtype):

@@ -20,6 +20,7 @@ from repro.kernels.dp_step import noise_adam_step as jax_noise_adam_step  # noqa
 from repro.kernels.pushsum_mix import fused_pushsum_mix as jax_mix  # noqa: E402
 from repro.kernels.pushsum_mix import fused_stale_mix as jax_stale_mix  # noqa: E402
 from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels.dp_step import adam_columns  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -86,6 +87,25 @@ def test_noise_adam_step(D):
         c1=1 - 0.9 ** tf, c2=1 - 0.999 ** tf)
     for g, w in zip(got, want):
         np.testing.assert_allclose(_np(g), _np(w), **TOL["float32"])
+
+
+@pytest.mark.parametrize("D", [3, 4, 5])
+def test_noise_adam_step_around_a_group_of_four(D):
+    """The lengths around the Adam kernel's four-column groups (a tail of
+    D % 4 elements), against the Pallas kernel."""
+    test_noise_adam_step(D)
+
+
+@pytest.mark.parametrize("offs,cols", [
+    ((0,) * 8, 4), ((2,) * 8, 2), ((1,) * 8, 1), ((3,) * 8, 1),
+    ((0,) * 7 + (2,), 2), ((0,) * 7 + (1,), 1), ((2,) * 7 + (1,), 1)])
+def test_adam_columns_are_the_widest_every_vector_is_aligned_to(offs, cols):
+    """Four elements a thread where every vector's base is 16-byte aligned,
+    two where 8-byte, else one; a vector one element off holds all back."""
+    store = torch.zeros(64)
+    base = (-(store.data_ptr() // 4)) % 4   # first 16-byte aligned element
+    vecs = [store[base + o:base + o + 8] for o in offs]
+    assert adam_columns(*vecs) == cols
 
 
 @pytest.mark.parametrize("K", SIZES_K)

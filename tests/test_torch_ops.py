@@ -21,11 +21,14 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro.kernels as jk  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     check_tma, flash_route, padded_head_dim)
+from repro_torch.kernels.mamba_scan import (  # noqa: E402
+    LANE_COUNTS, scan_lanes, scan_states)
 from repro_torch.kernels.rmsnorm import rmsnorm_route  # noqa: E402
 from repro_torch.nn.modules import tree_leaves  # noqa: E402
 
@@ -334,6 +337,108 @@ def test_mamba_scan_chunks(S, chunk):
 @pytest.mark.parametrize("di,ds", [(8, 4), (32, 16), (64, 8)])
 def test_mamba_scan_dims(di, ds):
     _scan_case(di + ds, 1, 64, di, ds, chunk=16)
+
+
+def _scan_lanes_emulated(dt, x, Bm, C, A):
+    """The scan kernel's arithmetic in torch, each f32 op rounded on its
+    own: the inputs converted to f32 at use, a channel's states over
+    ``scan_lanes(ds)`` lanes of ``scan_states(ds)`` states each (zero past
+    ds), exp as expf(dt·A); each lane's y partial summed in state order, the
+    partials added pairwise in lane order ((p0 + p1) + (p2 + p3)), as
+    __shfl_xor_sync at offsets 1, 2, 4, 8 adds them; y in x's dtype."""
+    Bsz, S, di = x.shape
+    ds = A.shape[1]
+    lanes, ns = scan_lanes(ds), scan_states(ds)
+    width = lanes * ns
+    a = torch.zeros(di, width)
+    a[:, :ds] = A
+    bp, cp = (torch.zeros(Bsz, S, width) for _ in range(2))
+    bp[..., :ds], cp[..., :ds] = Bm.float(), C.float()
+    dtf, xf = dt.float(), x.float()
+    h = torch.zeros(Bsz, di, width)
+    ys = []
+    for t in range(S):
+        e = torch.exp(dtf[:, t, :, None] * a)
+        dx = dtf[:, t] * xf[:, t]
+        h = e * h + dx[..., None] * bp[:, t, None, :]
+        hc = (h * cp[:, t, None, :]).view(Bsz, di, lanes, ns)
+        part = hc[..., 0]
+        for k in range(1, ns):
+            part = part + hc[..., k]
+        off = 1
+        while off < lanes:
+            part = part.clone()
+            part[..., ::2 * off] = part[..., ::2 * off] + part[..., off::2 * off]
+            off *= 2
+        ys.append(part[..., 0])
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def _scan_numpy(seed, B, S, di, ds):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, di), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, di), dtype=np.float32)))
+    A = -np.exp(rng.standard_normal((di, ds), dtype=np.float32))
+    Bm = rng.standard_normal((B, S, ds), dtype=np.float32)
+    C = rng.standard_normal((B, S, ds), dtype=np.float32)
+    return dt, x, Bm, C, A
+
+
+@pytest.mark.parametrize("ds", [1, 3, 8, 9, 16, 17, 32, 64])
+def test_scan_lane_split_stays_within_the_scan_tolerance(ds):
+    """The kernel's arithmetic at every compiled (lanes, states a lane)
+    pair against the JAX reference (repro.kernels.ref.mamba_scan_ref) over
+    S = 4,096 steps, di 32, at the scan's 2e-4."""
+    arrays = _scan_numpy(7, 1, 4_096, 32, ds)
+    want = jax_ref.mamba_scan_ref(*(jnp.asarray(a) for a in arrays))
+    got = _scan_lanes_emulated(*(torch.as_tensor(a) for a in arrays))
+    np.testing.assert_allclose(_np(got), _np(want), **SCAN)
+
+
+@pytest.mark.parametrize("bf16_dt_b_c", [False, True])
+@pytest.mark.parametrize("B,S,di,ds,chunk", [
+    (2, 64, 16, 8, 16), (2, 128, 16, 8, 32), (2, 96, 16, 8, 32),
+    (2, 256, 16, 8, 128), (1, 64, 8, 4, 16), (1, 64, 32, 16, 16),
+    (1, 64, 64, 8, 16)])
+def test_scan_lane_split_matches_pallas(B, S, di, ds, chunk, bf16_dt_b_c):
+    """The kernel's arithmetic, at the lanes it takes for ds, against the
+    Pallas kernel in interpret mode at the shapes of test_mamba_scan_chunks
+    and test_mamba_scan_dims, in f32 and with dt, B and C in bf16 (both
+    convert them at use), at the scan's 2e-4."""
+    dt, x, Bm, C, A = _scan_numpy(S + di + ds, B, S, di, ds)
+    jx = [jnp.asarray(a) for a in (dt, x, Bm, C, A)]
+    if bf16_dt_b_c:
+        for i in (0, 2, 3):
+            jx[i] = jx[i].astype(jnp.bfloat16)
+    want = jk.mamba_scan(*jx, chunk=chunk, interpret=True)
+    got = _scan_lanes_emulated(*(torch.from_numpy(
+        np.array(a.astype(jnp.float32))).to(
+            torch.bfloat16 if a.dtype == jnp.bfloat16 else torch.float32)
+        for a in jx))
+    np.testing.assert_allclose(_np(got), _np(want), **SCAN)
+
+
+@pytest.mark.parametrize("ds", range(1, 65))
+def test_scan_lanes_keep_at_most_four_states_a_lane(ds):
+    """The fewest compiled lanes that hold ds states at four a lane, and a
+    lane's states a power of two that covers ds."""
+    lanes = scan_lanes(ds)
+    assert lanes == min(n for n in LANE_COUNTS if 4 * n >= ds)
+    ns = scan_states(ds)
+    assert ns in (1, 2, 4) and lanes * ns >= ds
+    assert ns == 1 or lanes * (ns // 2) < ds
+
+
+@pytest.mark.parametrize("ds,ns", [(1, 1), (2, 1), (3, 2), (4, 2), (5, 4),
+                                   (16, 4), (17, 4), (64, 4)])
+def test_scan_states_round_up_to_a_power_of_two(ds, ns):
+    assert scan_states(ds) == ns
+
+
+@pytest.mark.parametrize("ds", [0, 65])
+def test_scan_lanes_refuse_state_sizes_past_the_kernel(ds):
+    with pytest.raises(ValueError):
+        scan_lanes(ds)
 
 
 # ---------------------------------------------------------------------------
