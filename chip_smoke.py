@@ -10,11 +10,12 @@
    tensor-core attention kernels, the register kernels of both mixes, the
    rmsnorm instantiations, the clip pair's rows accumulate, the mamba
    scan's instantiations and the Adam step's (0 spill bytes each).
-2. Holds each of the eleven kernels (nine TPU kernels; attention has three:
-   at every head dim whose rows are whole 16 bytes bf16 on wgmma and f32 in
-   split TF32, both on the tensor cores and zero-padded up to their
-   compiled widths (64, 128 and 256; split TF32 also 96), and a CUDA-core
-   one for the unaligned head dims) and the
+2. Holds each of the twelve kernels (nine TPU kernels; attention has four:
+   bf16 on wgmma and f32 in split TF32, both on the tensor cores at every
+   head dim, zero-padded up to their compiled widths (64, 128 and 256;
+   split TF32 also 96), each with a 16-byte loader (TMA, cp.async) for
+   aligned calls and a narrow one (8-, 4- or 2-byte copies) for the rest)
+   and the
    ``"rows"`` route of the DP clip pair (``sumsq_rows`` and
    ``clip_accumulate_rows`` over the [250, 199,210] per-example gradients,
    also bit for bit against a loop of the 1-D kernels) against its
@@ -22,9 +23,9 @@
    card, at the main paths' shapes (D = 199,210 f32, K = 8; the LLM
    kernels at the full widths of qwen2-7b, gemma3-4b, falcon-mamba-7b and
    (the scan) jamba-1.5-large,
-   attention in bf16 and f32, phi-3-vision's head dim 96 in both on the
-   tensor cores, and the CUDA-core kernel at phi-3-vision's length and
-   heads with D = 100; rmsnorm on both its vector and its scalar path)
+   attention in bf16 and f32, phi-3-vision's head dim 96 in both, and the
+   narrow loaders at phi-3-vision's length and heads with D = 100 (bf16)
+   and 98 (f32); rmsnorm on both its vector and its scalar path)
    and at ragged sizes (the mixes at K across every register bucket edge,
    the sync mix also on rows one element off; z' of the f32 stale mix
    bit-equal), with the kernel tests' tolerances (f32 rtol = atol = 2e-5,
@@ -32,18 +33,20 @@
    lengths around its 32-step chunks and batch 1 and 3, in f32 and with dt,
    B and C in bf16; noise_adam_step also with L2 flushed before each call),
    then sweeps both tensor-core attention
-   routes over head dims (compiled and zero-padded), lengths, groups,
-   masks and windows, checks that a misaligned view raises on each, and
-   sweeps the CUDA-core route at unaligned head dims (the only phase that
-   launches it); times phi-3-vision's attention on the CUDA-core kernel
-   (the route it took before; its C entry point launched directly, not
-   counted); counts the device kernels of one ``noise_adam_step`` call
-   (one) and holds it bit for bit to the plain version with n_units a
-   device tensor; with ``--parent DIR`` (a checkout of the commit before
-   the scan's and the Adam step's redesign, whose C entry points are
-   checked against the arguments passed) builds its scan and DP-step
-   kernels into a library of their own and times them in turns with this
-   tree's (Adam and SGD bit for bit against them);
+   routes' 16-byte loaders over head dims (compiled and zero-padded),
+   lengths, groups, masks and windows, checks misaligned views of an
+   aligned head dim at every copy width on the narrow loaders, and sweeps
+   the narrow loaders at unaligned head dims (bf16 33, 34, 36, 100, 255;
+   f32 1, 30, 33, 98, 255: every copy width), each call asserted on its
+   narrow launch key; counts the device kernels of one ``noise_adam_step``
+   and one ``noise_sgd_step`` call (one each) and holds both bit for bit to
+   the plain version with n_units a device tensor; with ``--parent DIR``
+   (a checkout of the commit before the narrow loaders and the one-launch
+   SGD step, whose C entry points are checked against the arguments
+   passed) builds its attention and DP-step kernels into a library of
+   their own and times them in turns with this tree's (the unaligned head
+   dims against its CUDA-core kernel; the aligned attention, Adam and SGD
+   bit for bit against its kernels);
    times each kernel over
    CUDA-event-timed launches (200, or 10 at the LLM widths) beside its
    plain version, one PyTorch library call computing the same function
@@ -91,8 +94,9 @@
 5. Breaks one warm client step, one engine round, the exchange and the
    evaluation of the sync path down on the host clock, and profiles one
    step with torch.profiler for the device's busy share.
-6. Prints one JSON line ``{"kernels": [...]}`` (attention's three kernels
-   and the clip pair's rows route under their own keys) and, last, the
+6. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
+   and their narrow loaders, and the clip pair's rows route, under their
+   own keys) and, last, the
    result line
    ``{"ok": true, "device": {...}}``.
 
@@ -142,9 +146,16 @@ ASYNC_ROUNDS, ASYNC_TAU = 6, 2   # fig_async runs 30 rounds; cut to 6
 QWEN_ATTN = dict(B=1, S=4_096, Hq=28, Hkv=4, D=128)       # configs/qwen2_7b.py
 GEMMA_LOCAL = dict(B=1, S=4_096, Hq=8, Hkv=4, D=256, window=1_024)  # gemma3_4b
 PHI3V_ATTN = dict(B=1, S=4_096, Hq=32, Hkv=32, D=96)   # phi_3_vision_4_2b
-# the CUDA-core route's timed call: phi-3-vision's length and heads at the
-# nearest head dim that route still takes (bf16 rows of 200 bytes)
+# the narrow loaders' timed calls: phi-3-vision's length and heads at the
+# nearest head dims whose rows are not whole 16 bytes (bf16 rows of 200
+# bytes, f32 of 392: 8-byte copies)
 UNALIGNED_ATTN = dict(PHI3V_ATTN, D=100)
+UNALIGNED_ATTN_F32 = dict(PHI3V_ATTN, D=98)
+# and the narrower copies at the same length and heads: bf16 rows of 196
+# bytes (4-byte copies) and 198 (2-byte loads), f32 rows of 388 (4-byte)
+NARROWER_ATTN = (("4-byte", torch.bfloat16, 98),
+                 ("2-byte", torch.bfloat16, 99),
+                 ("f32 4-byte", torch.float32, 97))
 RMS_ROWS, RMS_D = 4_096, 3_584                            # qwen2-7b d_model
 MAMBA = dict(B=1, S=4_096, di=8_192, ds=16)   # configs/falcon_mamba_7b.py
 # configs/jamba_1_5_large_398b.py: d_model 8,192, expand 2, d_state 16
@@ -161,11 +172,14 @@ SFU_PER_CLOCK_SM, SMS = 16, 132   # H100 SXM: exponentials a clock an SM
 # compiled widths, then aligned widths zero-padded up to them: 8 and 40 (36
 # f32) onto 64, 96 onto 128 in bf16, 72 onto 96 in f32, 136 and 248 onto
 # 256), lengths around their 128-row and 16/64/128-key tiles, query heads
-# per KV head, windows (0 masks every key of a causal row); the CUDA-core
-# route at unaligned head dims
+# per KV head, windows (0 masks every key of a causal row); the narrow
+# loaders at head dims of every copy width (bf16: 2-byte rows at 33 and 255,
+# 4-byte at 34, 8-byte at 36 and 100; f32: 4-byte at 1, 33 and 255, 8-byte
+# at 30 and 98)
 ROUTE_D = {torch.bfloat16: (64, 128, 256, 8, 40, 96, 136, 248),
            torch.float32: (64, 96, 128, 256, 8, 36, 40, 72, 136, 248)}
-CUDA_CORE_D = {torch.bfloat16: (36, 100), torch.float32: (30, 98)}
+NARROW_D = {torch.bfloat16: (33, 34, 36, 100, 255),
+            torch.float32: (1, 30, 33, 98, 255)}
 ROUTE_S = (1, 63, 64, 65, 127, 129, 257)
 ROUTE_GROUPS = (1, 2, 7)
 ROUTE_WINDOWS = (None, 1, 17, 64, 0)
@@ -538,14 +552,22 @@ def llm_kernel_cases(gen):
 
     bf16 = torch.bfloat16
     hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4)
+    # bit for bit the plain version's arithmetic where it divides by
+    # n_units (a tensor on the card; see adam_checks), at four, two and one
+    # columns a thread (every vector aligned, or p one element off)
+    dividing = dict(hp, n_units=torch.full((), 250.0, device=dev))
     for D in (MAIN_D,) + RAGGED_D:
         for dt in (torch.float32, torch.bfloat16):
             es = torch.tensor([], dtype=dt).element_size()
-            args = (randn(D), randn(D), randn(D, dtype=dt))
-            yield Case("noise_sgd_step", dt, (D,),
-                       lambda a=args: kernels.noise_sgd_step(*a, **hp),
-                       lambda a=args: ref.noise_sgd_step_ref(*a, **hp),
-                       None, 8 * D + 2 * D * es + 16, 7 * D)
+            for off in (0, 1) if D == MAIN_D else (0,):
+                args = (randn(D), randn(D), randn(D + off, dtype=dt)[off:])
+                yield Case("noise_sgd_step", dt,
+                           (D,) + (("off 1",) if off else ()),
+                           lambda a=args: kernels.noise_sgd_step(*a, **hp),
+                           lambda a=args: ref.noise_sgd_step_ref(*a, **hp),
+                           None, 8 * D + 2 * D * es, 7 * D,
+                           exact=lambda a=args: ref.noise_sgd_step_ref(
+                               *a, **dividing))
 
     # (rows, d, dtype, elements x is offset by, gain dtype): the vector path,
     # the scalar one (a row not a multiple of 16 bytes, or x off 16 bytes),
@@ -587,21 +609,25 @@ def llm_kernel_cases(gen):
     # f32 runs the split-TF32 kernel, bound by f32-grade products at 165
     # TFLOP/s; phi-3-vision's head dim 96 runs the wgmma kernel at its
     # 128-wide instantiation (its bound at D = 96, and beside it the padded
-    # work's) and the split-TF32 kernel at its own width; the CUDA-core
-    # kernel at an unaligned head dim is bound by the bf16 tensor-core peak
-    # the card could use for the same products
+    # work's) and the split-TF32 kernel at its own width; the unaligned head
+    # dims 100 (bf16) and 98 (f32) run the narrow loaders at the 128-wide
+    # instantiations
     for label, dt, shape, peak in (
             ("flash_attention f32", torch.float32, QWEN_ATTN, TF32X3_OPS_PER_S),
             ("flash_attention phi-3-vision", bf16, PHI3V_ATTN,
              BF16_OPS_PER_S),
             ("flash_attention phi-3-vision f32", torch.float32, PHI3V_ATTN,
              TF32X3_OPS_PER_S),
-            ("flash_attention cuda_cores", bf16, UNALIGNED_ATTN,
-             BF16_OPS_PER_S)):
+            ("flash_attention unaligned", bf16, UNALIGNED_ATTN,
+             BF16_OPS_PER_S),
+            ("flash_attention unaligned f32", torch.float32,
+             UNALIGNED_ATTN_F32, TF32X3_OPS_PER_S)) + tuple(
+            (f"flash_attention unaligned {name}", dt, dict(PHI3V_ATTN, D=D),
+             BF16_OPS_PER_S if dt == bf16 else TF32X3_OPS_PER_S)
+            for name, dt, D in NARROWER_ATTN):
         q, k, v, lib = attention_inputs(gen, dtype=dt, **shape)
         route = flash_route(dt, shape["D"])
-        padded = dict(shape, D=padded_head_dim(shape["D"], route)) \
-            if route != "cuda_cores" else shape
+        padded = dict(shape, D=padded_head_dim(shape["D"], route))
         yield Case("flash_attention", dt, tuple(shape.values()),
                    lambda q=q, k=k, v=v: kernels.gqa_flash_attention(q, k, v),
                    lambda q=q, k=k, v=v: ref.gqa_flash_attention_ref(q, k, v),
@@ -711,9 +737,14 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/flash_attention_tf32x3.cu",
         "src/repro/kernels/flash_attention.py:106",
         "src/repro/kernels/flash_attention.py::flash_attention"),
-    # the unaligned head dims: the CUDA cores
-    "flash_attention_cuda_cores": (
-        "src/repro_torch/kernels/csrc/flash_attention.cu",
+    # the narrow loaders of both: every call the 16-byte loaders do not
+    # take (the unaligned head dims, misaligned views)
+    "flash_attention_narrow": (
+        "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+        "src/repro/kernels/flash_attention.py:106",
+        "src/repro/kernels/flash_attention.py::flash_attention"),
+    "flash_attention_tf32x3_narrow": (
+        "src/repro_torch/kernels/csrc/flash_attention_tf32x3.cu",
         "src/repro/kernels/flash_attention.py:106",
         "src/repro/kernels/flash_attention.py::flash_attention"),
     "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
@@ -773,11 +804,12 @@ def check_kernels():
     return rows
 
 
-def route_sweep(gen, dt, route, head_dims):
-    """Every case of one attention route at ``head_dims`` (B = 2, two KV
-    heads; group 1 through the [B, H, S, D] entry point), each against its
-    plain version at its dtype's tolerance, every call on the route's kernel;
-    a causal window of 0 gives exactly 0. Returns the worst error by D."""
+def route_sweep(gen, dt, key, head_dims):
+    """Every case of one attention launch key (``wgmma``, ``tf32x3`` or
+    either's ``/narrow`` loader) at ``head_dims`` (B = 2, two KV heads;
+    group 1 through the [B, H, S, D] entry point), each against its plain
+    version at its dtype's tolerance, every call launched under ``key``; a
+    causal window of 0 gives exactly 0. Returns the number of cases."""
     from repro_torch import kernels
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_route
@@ -785,7 +817,7 @@ def route_sweep(gen, dt, route, head_dims):
     n, worst = 0, {}
     kernels.reset_launch_counts()
     for D in head_dims:
-        assert flash_route(dt, D) == route, (dt, D)
+        assert flash_route(dt, D) == key.split("/")[0], (dt, D)
         for S in ROUTE_S:
             for G in ROUTE_GROUPS:
                 q, k, v, _ = attention_inputs(gen, 2, S, 2 * G, 2, D, dt)
@@ -801,91 +833,90 @@ def route_sweep(gen, dt, route, head_dims):
                     for win in ROUTE_WINDOWS:
                         kw = dict(causal=causal, window=win)
                         got = kern(q, k, v, **kw)
-                        err = check(f"attention route {route} D={D} S={S} "
-                                    f"G={G} {kw}", got, plain(q, k, v, **kw),
-                                    dt)
+                        err = check(f"attention {key} D={D} S={S} G={G} "
+                                    f"{kw}", got, plain(q, k, v, **kw), dt)
                         if causal and win == 0:
                             assert bool((got == 0).all()), (D, S, G)
                         worst[D] = max(worst.get(D, 0.0), err)
                         n += 1
     torch.cuda.synchronize()
     routes = kernels.route_launch_counts()
-    expect(routes, **{f"flash_attention/{route}": n})
-    print(f"attention routes: {n} {dt} cases on the {route} kernel (D "
-          f"{head_dims}, S {ROUTE_S}, groups {ROUTE_GROUPS}, causal and not, "
-          f"windows {ROUTE_WINDOWS}) agree with the plain version; max abs "
-          "err by D " + ", ".join(f"{d}: {e:.3e}" for d, e in worst.items()))
+    expect(routes, **{f"flash_attention/{key}": n})
+    print(f"attention routes: {n} {dt} cases on {key} (D {head_dims}, S "
+          f"{ROUTE_S}, groups {ROUTE_GROUPS}, causal and not, windows "
+          f"{ROUTE_WINDOWS}) agree with the plain version; max abs err by D "
+          + ", ".join(f"{d}: {e:.3e}" for d, e in worst.items()))
+    return n
+
+
+def misaligned_views(gen, dt):
+    """Views of an aligned head dim (64) whose bases lie past a 16-byte
+    boundary (bf16 2, 4 and 8 bytes; f32 4, 8 and 12; before the narrow
+    loaders the tensor-core kernels refused them): each on the narrow
+    loader at the copy width its alignment allows, against the plain
+    version, both entry points. Returns the launches."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_copy_width
+
+    es = torch.tensor([], dtype=dt).element_size()
+    widths, n = set(), 0
+    kernels.reset_launch_counts()
+    for off in {torch.bfloat16: (1, 2, 4), torch.float32: (1, 2, 3)}[dt]:
+        for G in (1, 2):
+            q, k, v, _ = attention_inputs(gen, 1, 129, 2 * G, 2, 64, dt)
+            if G == 1:
+                q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            views = []
+            for t in (q, k, v):
+                flat = torch.empty(t.numel() + 16, dtype=dt, device="cuda")
+                base = (-(flat.data_ptr() // es)) % (16 // es)
+                view = flat[base + off:base + off + t.numel()].view(t.shape)
+                views.append(view.copy_(t))
+            widths.add(flash_copy_width(64, es, [t.data_ptr() for t in views],
+                                        views[0].stride()[:-1]))
+            kern, plain = (kernels.flash_attention, ref.flash_attention_ref) \
+                if G == 1 else (kernels.gqa_flash_attention,
+                                ref.gqa_flash_attention_ref)
+            for causal, win in ((True, None), (False, 17)):
+                got = kern(*views, causal=causal, window=win)
+                check(f"misaligned {dt} view off {off} G={G}", got,
+                      plain(q, k, v, causal=causal, window=win), dt)
+                n += 1
+    route = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}[dt]
+    expect(kernels.route_launch_counts(),
+           **{f"flash_attention/{route}/narrow": n})
+    print(f"attention routes: {n} misaligned {dt} views of D = 64 (copy "
+          f"widths {sorted(widths)}) run on the narrow loader and agree with "
+          "the plain version")
     return n
 
 
 def attention_routes():
-    """Both tensor-core routes, bf16 (wgmma) and f32 (split TF32), at their
-    compiled head dims and at aligned head dims zero-padded up to them, then
-    the CUDA-core route at unaligned head dims (the only phase that launches
-    it): each case against its plain version, every launch on the route.
-    Then the tensor-core routes' refusals: a misaligned view raises on each
-    and launches nothing. Returns the CUDA-core route's launches."""
-    from repro_torch import kernels
-
+    """Both tensor-core kernels, bf16 (wgmma) and f32 (split TF32): their
+    16-byte loaders at the compiled head dims and at aligned head dims
+    zero-padded up to them; misaligned views of an aligned head dim and the
+    unaligned head dims (every copy width) on their narrow loaders; each
+    case against its plain version, every launch on its key. Returns the
+    narrow launches by dtype."""
     gen = torch.Generator(device="cuda").manual_seed(2)
+    narrow = {}
     for dt, route in ((torch.bfloat16, "wgmma"), (torch.float32, "tf32x3")):
         route_sweep(gen, dt, route, ROUTE_D[dt])
-        flat = torch.zeros(2 * 64 * 4 + 8, dtype=dt, device="cuda")
-        off = flat[1:1 + 2 * 64 * 4].view(1, 2, 4, 64)   # 2 or 4 bytes off
-        kernels.reset_launch_counts()
-        try:
-            kernels.flash_attention(off, off, off)
-        except ValueError as e:
-            print(f"attention routes: a misaligned {dt} view raises: {e}")
-        else:
-            raise AssertionError(f"a misaligned {dt} view did not raise")
-        expect(kernels.launch_counts())
-        assert not any(kernels.route_launch_counts().values())
-    return sum(route_sweep(gen, dt, "cuda_cores", CUDA_CORE_D[dt])
-               for dt in (torch.bfloat16, torch.float32))
-
-
-def cuda_core_phi3():
-    """phi-3-vision's attention (D = 96) on the CUDA-core kernel, the route
-    it took while only D ∈ {64, 128, 256} ran on the tensor cores: that
-    kernel's C entry point launched directly (no wrapper, so no launch is
-    counted), checked against the plain version and timed eagerly and from
-    a CUDA graph, in both dtypes. Returns {dtype: (eager µs, graph µs)}."""
-    from repro_torch.kernels import _build, ref
-
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    out = {}
-    for dt in (torch.bfloat16, torch.float32):
-        q, k, v, _ = attention_inputs(gen, dtype=dt, **PHI3V_ATTN)
-        B, S, H, D = q.shape
-
-        def launch(q=q, k=k, v=v):
-            o = torch.empty_like(q)
-            _build.launch("repro_flash_attention", q.data_ptr(), k.data_ptr(),
-                          v.data_ptr(), o.data_ptr(), _build.DTYPE_CODES[dt],
-                          B, H, 1, S, D, q.stride(0), q.stride(2),
-                          q.stride(1), k.stride(0), k.stride(2), k.stride(1),
-                          D ** -0.5, 1, 0, 0)
-            return o
-        err = check(f"phi-3-vision on the CUDA cores {dt}", launch(),
-                    ref.gqa_flash_attention_ref(q, k, v), dt)
-        out[dt] = (cuda_us(launch, FULL_WIDTH_CALLS),
-                   graph_us(launch, FULL_WIDTH_CALLS))
-        print(f"phi-3-vision attention {dt} on the CUDA-core kernel (the "
-              f"route before): max abs err {err:.3e}; eager "
-              f"{out[dt][0]:.3f} us, from a CUDA graph {out[dt][1]:.3f} us")
-        del q, k, v
-    torch.cuda.empty_cache()
-    return out
+        narrow[dt] = misaligned_views(gen, dt) + route_sweep(
+            gen, dt, f"{route}/narrow", NARROW_D[dt])
+    return narrow
 
 
 def adam_checks():
     """noise_adam_step at the main shape: the device kernels of one wrapper
-    call, from torch.profiler (exactly one); the kernel bit for bit against
-    the plain version with n_units given as a device tensor (it divides, as
-    the kernel does); and how far the plain version with n_units a host
-    scalar (PyTorch's CUDA division then multiplies by the scalar's f32
-    reciprocal) lies from it. Returns the kernel count."""
+    call of it and one of noise_sgd_step, from one torch.profiler session
+    (exactly one each: both take their scalars by value); the Adam kernel
+    bit for bit against the plain version with n_units given as a device
+    tensor (it divides, as the kernel does); and how far the plain version
+    with n_units a host scalar (PyTorch's CUDA division then multiplies by
+    the scalar's f32 reciprocal) lies from it. Returns the device kernels
+    of one call of each, {"noise_adam_step": n, "noise_sgd_step": n}."""
     from repro_torch import kernels
     from repro_torch.kernels import ref
 
@@ -896,13 +927,19 @@ def adam_checks():
     t = torch.full((), 3.0, device="cuda")
     hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4,
               c1=1 - 0.9 ** t, c2=1 - 0.999 ** t)
+    sgd_hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4)
     got = kernels.noise_adam_step(*vecs, **hp)
-    _, on_device = device_profile(lambda: kernels.noise_adam_step(*vecs,
-                                                                  **hp))
+    _, on_device = device_profile(lambda: (
+        kernels.noise_adam_step(*vecs, **hp),
+        kernels.noise_sgd_step(*vecs[:3], **sgd_hp)))
     names = [e.name for e in on_device]
-    print(f"noise_adam_step: one wrapper call runs {len(names)} device "
-          f"kernel(s): {names}")
-    assert len(names) == 1 and "noise_adam" in names[0], names
+    per_call = {name: sum(key in n for n in names) for name, key in
+                (("noise_adam_step", "noise_adam"),
+                 ("noise_sgd_step", "noise_sgd"))}
+    print(f"noise_adam_step and noise_sgd_step: one wrapper call of each "
+          f"runs {len(names)} device kernel(s): {names}")
+    assert len(names) == 2 and per_call == dict(noise_adam_step=1,
+                                                noise_sgd_step=1), names
 
     dividing = ref.noise_adam_step_ref(
         *vecs, **dict(hp, n_units=torch.full((), 250.0, device="cuda")))
@@ -920,7 +957,32 @@ def adam_checks():
               f"n_units a device tensor; with n_units a host scalar it "
               f"differs in {int((k != h).sum()):,} of {MAIN_D:,} elements, "
               f"max abs {max_err(k, h):.3e}")
-    return len(names)
+    return per_call
+
+
+def sgd_checks():
+    """noise_sgd_step at the main shape, p f32 and bf16: the kernel bit for
+    bit against the plain version with n_units a device tensor, and how far
+    the plain version with n_units a host scalar lies from it (its device
+    kernels a call are counted in adam_checks' profile)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4)
+    n_units = torch.full((), 250.0, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        acc, noise, p = (torch.randn(MAIN_D, generator=gen, device="cuda")
+                         for _ in range(3))
+        p = p.to(dt)
+        got = kernels.noise_sgd_step(acc, noise, p, **hp)
+        assert torch.equal(got, ref.noise_sgd_step_ref(
+            acc, noise, p, **dict(hp, n_units=n_units))), dt
+        host = ref.noise_sgd_step_ref(acc, noise, p, **hp)
+        print(f"noise_sgd_step p {dt}: bit-equal to the plain version with "
+              f"n_units a device tensor; with n_units a host scalar it "
+              f"differs in {int((got != host).sum()):,} of {MAIN_D:,} "
+              f"elements, max abs {max_err(got, host):.3e}")
 
 
 def c_params(path: Path, fn_name: str) -> tuple:
@@ -943,26 +1005,32 @@ def c_params(path: Path, fn_name: str) -> tuple:
 
 
 def parent_kernels(parent: Path):
-    """Before times, in this process: the parent commit's scan, Adam and
-    SGD kernels, built with nvcc from ``parent``'s csrc into a library of
-    their own under build/ and called through their C entry points (the
-    Adam and SGD calls with the device scalar vector their wrappers
-    assembled), timed in turns parent, this tree, this tree, parent against
-    this tree's wrappers on the same inputs. Adam and SGD bit for bit
-    against the parent's kernels; the scan within its tolerance of them.
-    Returns {name: {"parent": [µs, µs], "tree": [µs, µs], ...}}."""
+    """Before times, in this process: the parent commit's attention and
+    DP-step kernels, built with nvcc from ``parent``'s csrc into a library
+    of their own under build/ and called through their C entry points,
+    timed in turns parent, this tree, this tree, parent against this tree's
+    wrappers on the same inputs. phi-3-vision's length and heads at D = 100
+    (bf16) and 98 (f32) on the parent's CUDA-core kernel against the narrow
+    loaders, both against the plain version; the aligned attention
+    (qwen2-7b and phi-3-vision, bf16 and f32), the SGD step (p f32 and
+    bf16, aligned and one element off 16 bytes, with the parent's device
+    scalar vector) and the Adam step (aligned and one element off) bit for
+    bit against the parent's kernels. Returns {row: {"parent": [µs, µs],
+    "tree": [µs, µs], ...}}."""
     from repro_torch import kernels
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ref
 
     csrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
     out_dir = _build.BUILD_ROOT.parent / "parent_kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
+    srcs = ("flash_attention", "flash_attention_sm90",
+            "flash_attention_tf32x3", "dp_step")
     procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c",
                                str(csrc / f"{n}.cu"), "-o",
                                str(out_dir / f"{n}.o")],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for n in ("mamba_scan", "dp_step")]
+             for n in srcs]
     for p in procs:
         assert p.wait() == 0, p.stdout.read()
     lib_path = out_dir / "libparent.so"
@@ -970,20 +1038,27 @@ def parent_kernels(parent: Path):
     # runtime first used after a torch.profiler session makes every later
     # session lose its first device kernel
     subprocess.run([nvcc, *_build.NVCC_FLAGS, "-cudart", "shared", "-shared",
-                    str(out_dir / "mamba_scan.o"), str(out_dir / "dp_step.o"),
+                    *(str(out_dir / f"{n}.o") for n in srcs),
                     "-o", str(lib_path)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     # the calls below pass the parent's arguments as these entry points
-    # took them before the Adam step's redesign (its scalars in one device
-    # vector); a parent that declares any of them otherwise is refused
-    P = ctypes.c_void_p
+    # took them before the narrow loaders and the one-launch SGD step (the
+    # CUDA-core attention with its dtype code, the SGD scalars in one
+    # device vector); a parent that declares any of them otherwise is
+    # refused
+    P, I = ctypes.c_void_p, ctypes.c_int
     calls_as = {
-        "repro_mamba_scan": ("mamba_scan", _build._SIGNATURES[
-            "repro_mamba_scan"]),
-        "repro_noise_sgd_step": ("dp_step", _build._SIGNATURES[
-            "repro_noise_sgd_step"]),
-        "repro_noise_adam_step": ("dp_step", (P,) * 9 + (ctypes.c_int64,)
-                                  + (ctypes.c_float,) * 5 + (P,))}
+        "repro_flash_attention": ("flash_attention", (P,) * 4 + (I,) * 6
+                                  + (ctypes.c_int64,) * 6
+                                  + (ctypes.c_float,) + (I,) * 3 + (P,)),
+        "repro_flash_attention_sm90": ("flash_attention_sm90",
+                                       (*_build._FLASH, P)),
+        "repro_flash_attention_tf32x3": ("flash_attention_tf32x3",
+                                         (*_build._FLASH, P)),
+        "repro_noise_adam_step": ("dp_step", _build._SIGNATURES[
+            "repro_noise_adam_step"]),
+        "repro_noise_sgd_step": ("dp_step", (P, P, P, P, I, P,
+                                             ctypes.c_int64, P))}
     for fn_name, (src, want) in calls_as.items():
         got = c_params(csrc / f"{src}.cu", fn_name)
         if got != want:
@@ -997,44 +1072,65 @@ def parent_kernels(parent: Path):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
         assert err == 0, err
 
-    def turns(name, tree, old, n, cold=False):
-        """parent, tree, tree, parent: graph µs (and eager, cold)."""
+    def turns(name, tree, old, n):
+        """parent, tree, tree, parent: graph µs (and eager)."""
         r = {"parent": [], "tree": []}
         for who, fn in (("parent", old), ("tree", tree), ("tree", tree),
                         ("parent", old)):
             r[who].append(graph_us(fn, n))
         r["eager"] = {"parent": cuda_us(old, n), "tree": cuda_us(tree, n)}
-        if cold:
-            r["cold"] = {"parent": cold_us(old), "tree": cold_us(tree)}
         print(f"before/after {name}: from a CUDA graph parent "
               f"{' '.join(f'{u:.3f}' for u in r['parent'])} us, this tree "
               f"{' '.join(f'{u:.3f}' for u in r['tree'])} us (turns parent, "
               f"tree, tree, parent); eager parent {r['eager']['parent']:.3f}"
-              f", tree {r['eager']['tree']:.3f} us"
-              + ("" if not cold else f"; L2 flushed parent "
-                 f"{r['cold']['parent']:.3f}, tree {r['cold']['tree']:.3f} us"))
+              f", tree {r['eager']['tree']:.3f} us")
         return r
 
+    def old_attention(entry, q, k, v, *code):
+        """The parent's kernel on q [B, S, H, D], k, v [B, S, Hkv, D],
+        causal, the default scale."""
+        o = torch.empty_like(q)
+        B, S, H, D = q.shape
+        call(getattr(lib, entry), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             o.data_ptr(), *code, B, H, H // k.shape[2], S, D, q.stride(0),
+             q.stride(2), q.stride(1), k.stride(0), k.stride(2), k.stride(1),
+             D ** -0.5, 1, 0, 0)
+        return o
+
     gen = torch.Generator(device="cuda").manual_seed(6)
+    bf16, f32 = torch.bfloat16, torch.float32
     res = {}
-    for label, width in (("mamba_scan", MAMBA), ("mamba_scan jamba", JAMBA)):
-        B, S, di, ds = width.values()
-        dt, x, Bm, C, A = mamba_inputs(gen, B, S, di, ds)
+    for label, dt, shape, entry in (
+            ("flash_attention unaligned", bf16, UNALIGNED_ATTN, None),
+            ("flash_attention unaligned f32", f32, UNALIGNED_ATTN_F32, None),
+            ("flash_attention", bf16, QWEN_ATTN, "repro_flash_attention_sm90"),
+            ("flash_attention phi-3-vision", bf16, PHI3V_ATTN,
+             "repro_flash_attention_sm90"),
+            ("flash_attention f32", f32, QWEN_ATTN,
+             "repro_flash_attention_tf32x3"),
+            ("flash_attention phi-3-vision f32", f32, PHI3V_ATTN,
+             "repro_flash_attention_tf32x3")):
+        q, k, v, _ = attention_inputs(gen, dtype=dt, **shape)
 
-        def old_scan(a=(dt, x, Bm, C, A)):
-            y = torch.empty_like(a[1])
-            call(lib.repro_mamba_scan, *(v for t in a[:4]
-                                         for v in (t.data_ptr(), 0)),
-                 a[4].data_ptr(), y.data_ptr(), B, S, di, ds)
-            return y
-
-        def new_scan(a=(dt, x, Bm, C, A)):
-            return kernels.mamba_scan(*a)
-        err = check(f"{label} against the parent's kernel", new_scan(),
-                    old_scan(), torch.float32, SCAN_TOL)
-        res[label] = turns(label, new_scan, old_scan, FULL_WIDTH_CALLS)
-        res[label]["err_vs_parent"] = err
-        del dt, x, Bm, C, A
+        def new(q=q, k=k, v=v):
+            return kernels.gqa_flash_attention(q, k, v)
+        if entry is None:   # the parent's CUDA-core kernel
+            def old(q=q, k=k, v=v, dt=dt):
+                return old_attention("repro_flash_attention", q, k, v,
+                                     _build.DTYPE_CODES[dt])
+            want = ref.gqa_flash_attention_ref(q, k, v)
+            errs = {who: check(f"{label} ({who})", fn(), want, dt)
+                    for who, fn in (("parent", old), ("tree", new))}
+            print(f"before/after {label}: max abs err against the plain "
+                  f"version: parent's CUDA-core kernel {errs['parent']:.3e}, "
+                  f"this tree's narrow loader {errs['tree']:.3e}")
+        else:
+            def old(q=q, k=k, v=v, entry=entry):
+                return old_attention(entry, q, k, v)
+            assert torch.equal(new(), old()), f"{label} changed bits"
+            print(f"before/after {label}: bit-equal to the parent's kernel")
+        res[label] = turns(label, new, old, FULL_WIDTH_CALLS)
+        del q, k, v
         torch.cuda.empty_cache()
 
     t = torch.full((), 3.0, device="cuda")
@@ -1045,57 +1141,59 @@ def parent_kernels(parent: Path):
                 [:MAIN_D] for _ in range(4)] + \
             [torch.rand(MAIN_D + 1, generator=gen, device="cuda")[off:]
              [:MAIN_D]]
-
-        def old_adam(a=vecs):
-            sc = torch.stack([c1.new_full((), 1.0), c1.new_full((), 250),
-                              c1.new_full((), 1e-3), c1.new_full((), 1e-4),
-                              c1.reshape(()), c2.reshape(())])
-            outs = [torch.empty_like(a[0]) for _ in range(3)]
-            call(lib.repro_noise_adam_step, sc.data_ptr(),
-                 *(v.data_ptr() for v in a + outs), MAIN_D, 0.9, 0.999,
-                 1.0 - 0.9, 1.0 - 0.999, 1e-8)
-            return outs
-
-        def new_adam(a=vecs):
-            return kernels.noise_adam_step(*a, **hp, c1=c1, c2=c2)
-        assert all(torch.equal(g, w) for g, w in zip(new_adam(), old_adam())), \
+        outs = [torch.empty_like(vecs[0]) for _ in range(3)]
+        call(lib.repro_noise_adam_step, c1.data_ptr(), c2.data_ptr(),
+             *(x.data_ptr() for x in vecs + outs), MAIN_D, *hp.values(), 0.9,
+             0.999, 1.0 - 0.9, 1.0 - 0.999, 1e-8,
+             kernels.dp_step.step_columns(*vecs, *outs))
+        assert all(torch.equal(g, w) for g, w in zip(
+            kernels.noise_adam_step(*vecs, **hp, c1=c1, c2=c2), outs)), \
             f"noise_adam_step differs from the parent's kernel (off {off})"
-        if off == 0:
-            res["noise_adam_step"] = turns("noise_adam_step", new_adam,
-                                           old_adam, TIMED_LAUNCHES, cold=True)
     print("before/after noise_adam_step: bit-equal to the parent's kernel at "
           "the main shape, aligned and one element off 16 bytes")
 
-    acc, noise, p = (torch.randn(MAIN_D, generator=gen, device="cuda")
-                     for _ in range(3))
+    for dt in (f32, bf16):
+        for off in (0, 1):
+            acc, noise = (torch.randn(MAIN_D + 1, generator=gen,
+                                      device="cuda")[off:][:MAIN_D]
+                          for _ in range(2))
+            p = torch.randn(MAIN_D + 1, generator=gen,
+                            device="cuda").to(dt)[off:][:MAIN_D]
 
-    def old_sgd():
-        sc = torch.stack([acc.new_full((), x) for x in hp.values()])
-        out = torch.empty_like(p)
-        call(lib.repro_noise_sgd_step, sc.data_ptr(), acc.data_ptr(),
-             noise.data_ptr(), p.data_ptr(), 0, out.data_ptr(), MAIN_D)
-        return out
+            def old_sgd(acc=acc, noise=noise, p=p):
+                sc = torch.stack([acc.new_full((), x) for x in hp.values()])
+                out = torch.empty_like(p)
+                call(lib.repro_noise_sgd_step, sc.data_ptr(), acc.data_ptr(),
+                     noise.data_ptr(), p.data_ptr(),
+                     _build.DTYPE_CODES[p.dtype], out.data_ptr(), MAIN_D)
+                return out
 
-    def new_sgd():
-        return kernels.noise_sgd_step(acc, noise, p, **hp)
-    assert torch.equal(new_sgd(), old_sgd()), "noise_sgd_step changed bits"
-    res["noise_sgd_step"] = turns("noise_sgd_step", new_sgd, old_sgd,
-                                  TIMED_LAUNCHES)
-    print("before/after noise_sgd_step: bit-equal to the parent's kernel")
+            def new_sgd(acc=acc, noise=noise, p=p):
+                return kernels.noise_sgd_step(acc, noise, p, **hp)
+            assert torch.equal(new_sgd(), old_sgd()), \
+                f"noise_sgd_step changed bits (p {dt}, off {off})"
+            if off == 0:
+                res["noise_sgd_step" + ("" if dt == f32 else " bf16")] = \
+                    turns(f"noise_sgd_step p {dt}", new_sgd, old_sgd,
+                          TIMED_LAUNCHES)
+    print("before/after noise_sgd_step: bit-equal to the parent's kernel at "
+          "p f32 and bf16, aligned and one element off 16 bytes")
     return res
 
 
 def ptxas_lines():
-    """Registers and spills of the two tensor-core attention kernels, the
-    register kernels of both mixes, the rmsnorm instantiations, the clip
-    pair's rows accumulate, the scan's instantiations and the Adam step's,
-    from ptxas's -v report of this build; every one spills 0 bytes."""
+    """Registers and spills of the two tensor-core attention kernels (both
+    loaders), the register kernels of both mixes, the rmsnorm
+    instantiations, the clip pair's rows accumulate, the scan's
+    instantiations and the Adam and SGD steps', from ptxas's -v report of
+    this build; every one spills 0 bytes."""
     from repro_torch.kernels import _build
     for name, regs, stores, loads, stack in _build.ptxas_report():
         if not any(k in name for k in ("flash_fwd_sm90", "flash_fwd_tf32x3",
                                         "stale_reg", "mix_reg",
                                         "rmsnorm_rows", "clip_acc_rows",
-                                        "selective_scan", "noise_adam")):
+                                        "selective_scan", "noise_adam",
+                                        "noise_sgd")):
             continue
         print(f"ptxas: {name}: {regs} registers, {stores} bytes spill "
               f"stores, {loads} bytes spill loads, {stack} bytes stack")
@@ -1422,7 +1520,8 @@ def kernel_key(name: str) -> str:
 DEVICE_KERNELS = {
     "flash_attention/wgmma": ("flash_fwd_sm90",),
     "flash_attention/tf32x3": ("flash_fwd_tf32x3",),
-    "flash_attention/cuda_cores": ("flash_fwd",),
+    "flash_attention/wgmma/narrow": ("flash_fwd_sm90_narrow",),
+    "flash_attention/tf32x3/narrow": ("flash_fwd_tf32x3_narrow",),
     "rmsnorm": ("rmsnorm_rows",),
     "mamba_scan": ("selective_scan",),
     "noise_sgd_step": ("noise_sgd",),
@@ -1435,17 +1534,20 @@ DEVICE_KERNELS = {
 }
 
 
-def device_profile(fn):
+def device_profile(fn, sessions: int = 3):
     """Wall ms of one synchronised call of ``fn`` under torch.profiler,
     and the device events (kernels and copies) it recorded. ``fn`` runs
     twice in one profiler session: the first call is the session's
     warm-up step, whose events are dropped (on the H100, sessions without
     one lost up to three of their first device kernels once the main path
-    had run), the second is recorded. The recorded step must hold a device kernel for every
-    kernel launch it recorded on the host (by correlation id), and as many
-    device kernels of each counted wrapper as the launch counters (reset
-    just before the recorded call, read just after) say it launched, or
-    the run fails."""
+    had run), the second is recorded. The recorded step must hold a
+    device kernel for every kernel launch it recorded on the host (by
+    correlation id): a session that lost any (one recorded step lost 44 of
+    265 on the H100 after its warm-up) is discarded, said so, and taken
+    again, up to ``sessions`` in all, and the run fails if none is whole.
+    A whole recording must hold as many device kernels of each counted
+    wrapper as the launch counters (reset just before the recorded call,
+    read just after) say it launched, or the run fails."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -1453,32 +1555,38 @@ def device_profile(fn):
 
     from repro_torch import kernels
 
-    recorded = {}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: recorded.update(
-                     events=p.events())) as prof:
-        fn()
+    for attempt in range(1, sessions + 1):
+        recorded = {}
         torch.cuda.synchronize()
-        prof.step()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        prof.step()
-    counts = {**kernels.launch_counts(), **kernels.route_launch_counts()}
-    events = recorded["events"]
-    # the device events bar the step's own span (ProfilerStep#1)
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA
-                 and not e.name.startswith("ProfilerStep")]
-    launched = {e.id for e in events if e.device_type == DeviceType.CPU
-                and "LaunchKernel" in e.name}
-    lost = launched - {e.id for e in on_device}
-    assert on_device and not lost, (f"the profile recorded no device kernel "
-                                     f"for {len(lost)} of {len(launched)} "
-                                     "kernel launches")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: recorded.update(
+                         events=p.events())) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+        counts = {**kernels.launch_counts(), **kernels.route_launch_counts()}
+        events = recorded["events"]
+        # the device events bar the step's own span (ProfilerStep#1)
+        on_device = [e for e in events if e.device_type == DeviceType.CUDA
+                     and not e.name.startswith("ProfilerStep")]
+        launched = {e.id for e in events if e.device_type == DeviceType.CPU
+                    and "LaunchKernel" in e.name}
+        lost = launched - {e.id for e in on_device}
+        if on_device and not lost:
+            break
+        print(f"profile: session {attempt} of {sessions} recorded no device "
+              f"kernel for {len(lost)} of {len(launched)} kernel launches; "
+              "discarded")
+    else:
+        raise AssertionError(f"no whole profile in {sessions} sessions")
     seen = Counter(kernel_key(e.name) for e in on_device)
     for counter, names in DEVICE_KERNELS.items():
         got, want = sum(seen[n] for n in names), counts.get(counter, 0)
@@ -1768,10 +1876,12 @@ def step_breakdown(spec, data, test, cfg):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of the commit before the scan's and "
-                    "the Adam step's redesign: time its scan, Adam and SGD "
-                    "kernels beside this tree's (refused where its entry "
-                    "points are declared otherwise)")
+                    help="a checkout of the commit before the narrow "
+                    "attention loaders and the one-launch SGD step: time its "
+                    "attention and SGD kernels beside this tree's, and hold "
+                    "its aligned attention, Adam and SGD kernels bit for bit "
+                    "(refused where its entry points are declared "
+                    "otherwise)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1791,10 +1901,10 @@ def main() -> int:
     ptxas_lines()
     rows = check_kernels()
     before_after = parent_kernels(args.parent) if args.parent else None
-    cuda_core_launches = attention_routes()
-    before = cuda_core_phi3()
+    narrow_launches = attention_routes()
     ops_counts, route_windows = ops_api()
-    adam_kernels = adam_checks()
+    step_kernels = adam_checks()
+    sgd_checks()
     setup = mnist_setup()
     spec, data, test, cfg = setup
     cold_step(*setup)
@@ -1806,7 +1916,7 @@ def main() -> int:
 
     # each kernel's launches on the path that runs it
     # the clip pair: its rows route on the main path, its 1-D route in the
-    # ops window
+    # ops window; the narrow loaders: their sweeps
     counts = dict(counts, fused_stale_mix=async_counts["fused_stale_mix"],
                   sumsq_rows=counts["sumsq/rows"],
                   clip_accumulate_rows=counts["scale_accumulate/rows"],
@@ -1816,9 +1926,13 @@ def main() -> int:
                  "mamba_scan"):
         counts[name] = ops_counts[name]
     counts.update(route_windows,
-                  flash_attention_cuda_cores=cuda_core_launches)
+                  flash_attention_narrow=narrow_launches[torch.bfloat16],
+                  flash_attention_tf32x3_narrow=narrow_launches[
+                      torch.float32])
     row_of = {"flash_attention_tf32x3": "flash_attention f32",
-              "flash_attention_cuda_cores": "flash_attention cuda_cores"}
+              "flash_attention_narrow": "flash_attention unaligned",
+              "flash_attention_tf32x3_narrow":
+              "flash_attention unaligned f32"}
     out = []
     for name, (source, replaces, tpu_kernel) in SOURCES.items():
         r = rows[row_of.get(name, name)]
@@ -1852,11 +1966,11 @@ def main() -> int:
             out[-1]["jamba_row"] = rows["mamba_scan jamba"]
         if name == "noise_adam_step":
             out[-1]["cold_us"] = r["kernel_cold_us"]
-            out[-1]["device_kernels_per_call"] = adam_kernels
-        if before_after and name in before_after:
-            out[-1]["before_after"] = before_after[name]
-            if name == "mamba_scan":
-                out[-1]["jamba_before_after"] = before_after["mamba_scan jamba"]
+            out[-1]["device_kernels_per_call"] = step_kernels[name]
+        if name == "noise_sgd_step":
+            out[-1]["device_kernels_per_call"] = step_kernels[name]
+        if before_after and row_of.get(name, name) in before_after:
+            out[-1]["before_after"] = before_after[row_of.get(name, name)]
     for row, r in rows.items():
         lib_us, lib_graph = r["library_us"], r["library_graph_us"]
         plain_graph = r["plain_graph_us"]
@@ -1875,14 +1989,6 @@ def main() -> int:
                  f", at the compiled width {r['padded_bound_us']:9.3f} us")
               + f"; max abs err {r['err']:.3e} ({r['share']:.1%} of the "
               f"tolerance); launches {counts.get(row, '-')}")
-    for dt, (eager, graph) in before.items():
-        r = rows["flash_attention phi-3-vision"
-                 + (" f32" if dt == torch.float32 else "")]
-        print(f"phi-3-vision attention {dt}: the CUDA-core kernel (the route "
-              f"before) eager {eager:.3f} us, graph {graph:.3f} us; the "
-              f"tensor-core route eager {r['kernel_us']:.3f} us, graph "
-              f"{r['kernel_graph_us']:.3f} us: {graph / r['kernel_graph_us']:.2f}x "
-              "faster from a CUDA graph")
     for row, r in rows.items():
         if r["kernel_cold_us"] is not None:
             lib = r["library_cold_us"]

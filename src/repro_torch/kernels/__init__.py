@@ -39,13 +39,15 @@ port as in the reference):
   ``scale_accumulate``; no kernel of their own).
 - :func:`rmsnorm`, :func:`flash_attention` / :func:`gqa_flash_attention`
   and :func:`mamba_scan` — the LLM forward hot spots (norm, prefill
-  attention, selective scan) as standalone kernels. Attention has three:
-  at every head dim whose rows are whole 16 bytes bf16 on wgmma fed by TMA
-  and f32 on mma.sync in split TF32 (both on the tensor cores, compiled
-  at D ∈ {64, 128, 256}, the split-TF32 kernel also at 96, and
-  zero-padded up to the next of them), every other head dim on the CUDA
-  cores; ``flash_attention.flash_route`` picks by dtype and head dim, and
-  all three count as ``flash_attention`` launches. RMSNorm has a vector
+  attention, selective scan) as standalone kernels. Attention has two,
+  both on the tensor cores at every head dim ≤ 256: bf16 on wgmma and f32
+  on mma.sync in split TF32 (compiled at D ∈ {64, 128, 256}, the
+  split-TF32 kernel also at 96, and zero-padded up to the next of them);
+  ``flash_attention.flash_route`` picks by dtype, and
+  ``flash_attention.flash_copy_width`` picks each kernel's loader by
+  alignment: 16-byte copies (TMA, cp.async) where every base, stride and
+  row is 16-byte aligned, else the narrow loader (8-, 4- or 2-byte
+  copies). All count as ``flash_attention`` launches. RMSNorm has a vector
   (16-byte) and a scalar instantiation, picked by alignment
   (``rmsnorm.rmsnorm_route``).
 

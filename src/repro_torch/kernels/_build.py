@@ -35,6 +35,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
+# the attention entry points' arguments before the stream: q, k, v, out, B,
+# H, group, S, D, q's and k's (batch, head, position) strides, scale,
+# causal, window, has_window
+_FLASH = (_P, _P, _P, _P, *(ctypes.c_int,) * 5, *(ctypes.c_int64,) * 6,
+          ctypes.c_float, *(ctypes.c_int,) * 3)
 _SIGNATURES = {
     # name: argtypes (every entry point returns cudaError_t as an int)
     "repro_sumsq": (_P, ctypes.c_int, ctypes.c_int64, _P, ctypes.c_int, _P,
@@ -53,31 +58,15 @@ _SIGNATURES = {
                           ctypes.c_int64, ctypes.c_int, _P),
     "repro_stale_mix": (_P, _P, ctypes.c_int, _P, _P, _P, _P, _P, _P,
                         ctypes.c_int, ctypes.c_int64, _P),
-    "repro_noise_sgd_step": (_P, _P, _P, _P, ctypes.c_int, _P,
-                             ctypes.c_int64, _P),
+    "repro_noise_sgd_step": (_P, _P, _P, ctypes.c_int, _P, ctypes.c_int64,
+                             *(ctypes.c_float,) * 4, ctypes.c_int, _P),
     "repro_rmsnorm": (_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int64,
                       ctypes.c_int, ctypes.c_float, ctypes.c_int, _P),
-    "repro_flash_attention": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
-                              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                              ctypes.c_int64, ctypes.c_float, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int, _P),
-    "repro_flash_attention_sm90": (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_int64, ctypes.c_int64,
-                                   ctypes.c_int64, ctypes.c_int64,
-                                   ctypes.c_int64, ctypes.c_int64,
-                                   ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_int, _P),
-    "repro_flash_attention_tf32x3": (_P, _P, _P, _P, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int64,
-                                     ctypes.c_int64, ctypes.c_int64,
-                                     ctypes.c_int64, ctypes.c_int64,
-                                     ctypes.c_int64, ctypes.c_float,
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                     _P),
+    "repro_flash_attention_sm90": (*_FLASH, _P),
+    "repro_flash_attention_tf32x3": (*_FLASH, _P),
+    # the narrow loaders take the bytes a copy last
+    "repro_flash_attention_sm90_narrow": (*_FLASH, ctypes.c_int, _P),
+    "repro_flash_attention_tf32x3_narrow": (*_FLASH, ctypes.c_int, _P),
     "repro_mamba_scan": (_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
                          _P, ctypes.c_int, _P, _P, ctypes.c_int,
                          ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P),

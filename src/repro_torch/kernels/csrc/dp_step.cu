@@ -6,10 +6,14 @@
 //   p' = p - lr*((acc + stddev*noise)/n_units + wd*p)
 // over f32 acc and noise [D] and p [D] f32 or bf16; p' in p's dtype.
 //   Bound: 8*D + 2*D*sizeof(p) bytes; 3.19 MB at the mlp proxy's
-//   D = 199,210 f32, so a call is near the launch cost.
-//   Design: one grid-stride elementwise pass; stddev, n_units, lr and wd
-//   from a four-float device vector (as the TPU kernel read them from
-//   SMEM), each operation rounded on its own in the reference's order.
+//   D = 199,210 f32, about 0.95 us.
+//   Design: one launch a call, as the Adam step below: stddev, n_units, lr
+//   and wd go by value (the host rounds each once to f32, as the TPU kernel
+//   read four f32 values from SMEM), C = 4, 2 or 1 neighbouring elements a
+//   thread with one access of C elements per vector (kernels/dp_step.py::
+//   step_columns: 16 bytes of f32 or 8 of bf16 where every base allows),
+//   the D % C tail on the first threads; each operation rounded on its own
+//   in the reference's order.
 //
 // repro_noise_adam_step replaces src/repro/kernels/dp_step.py::
 // noise_adam_step (_adam_kernel):
@@ -28,7 +32,7 @@
 //   and the step must not sync with the host. A thread takes C = 4, 2 or 1
 //   neighbouring elements with one 16-, 8- or 4-byte access per vector,
 //   C chosen on the host as the widest that every vector's base is aligned
-//   to (kernels/dp_step.py::adam_columns); the D % C elements past the last
+//   to (kernels/dp_step.py::step_columns); the D % C elements past the last
 //   whole group go to the first threads of the grid. Every operation is
 //   rounded on its own in the reference's order (no FMA contraction), so
 //   the kernel repeats the plain version's arithmetic bit for bit at every C
@@ -99,22 +103,60 @@ __global__ void noise_adam(const float* __restrict__ c1p,
   }
 }
 
-template <typename T>
-__global__ void noise_sgd(const float* __restrict__ sc,
-                          const float* __restrict__ acc,
+struct SgdScalars {
+  float stddev, n_units, lr, wd;
+};
+
+// One element of the SGD step, p' as f32.
+__device__ __forceinline__ float sgd_element(const SgdScalars& s, float acc,
+                                             float noise, float pf) {
+  float g = __fdiv_rn(__fadd_rn(acc, __fmul_rn(s.stddev, noise)), s.n_units);
+  g = __fadd_rn(g, __fmul_rn(s.wd, pf));
+  return __fsub_rn(pf, __fmul_rn(s.lr, g));
+}
+
+template <typename T, int C>
+__global__ void noise_sgd(const float* __restrict__ acc,
                           const float* __restrict__ noise,
                           const T* __restrict__ p, T* __restrict__ p2,
-                          int64_t n) {
-  const float stddev = sc[0], n_units = sc[1], lr = sc[2], wd = sc[3];
+                          int64_t n, SgdScalars s) {
+  const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t groups = n / C;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    float g = __fdiv_rn(__fadd_rn(acc[i], __fmul_rn(stddev, noise[i])),
-                        n_units);
-    const float pf = to_f32(p[i]);
-    g = __fadd_rn(g, __fmul_rn(wd, pf));
-    p2[i] = from_f32<T>(__fsub_rn(pf, __fmul_rn(lr, g)));
+  for (int64_t gi = first; gi < groups; gi += stride) {
+    const int64_t i = gi * C;
+    float a[C], z[C], pf[C], po[C];
+    load_cols<C>(acc + i, a);
+    load_cols<C>(noise + i, z);
+    load_cols<C>(p + i, pf);
+#pragma unroll
+    for (int k = 0; k < C; ++k) po[k] = sgd_element(s, a[k], z[k], pf[k]);
+    store_cols<C>(p2 + i, po);
   }
+  if constexpr (C > 1) {  // the n % C elements past the last group
+    const int64_t i = groups * C + first;
+    if (i < n)
+      p2[i] = from_f32<T>(sgd_element(s, acc[i], noise[i], to_f32(p[i])));
+  }
+}
+
+template <typename T>
+int launch_sgd(const float* acc, const float* noise, const void* p, void* p2,
+               int64_t n, const SgdScalars& s, int cols, cudaStream_t st) {
+  const T* pt = (const T*)p;
+  T* p2t = (T*)p2;
+  if (cols == 4)
+    noise_sgd<T, 4><<<grid_for(n / 4 > 0 ? n / 4 : 1), kThreads, 0, st>>>(
+        acc, noise, pt, p2t, n, s);
+  else if (cols == 2)
+    noise_sgd<T, 2><<<grid_for(n / 2 > 0 ? n / 2 : 1), kThreads, 0, st>>>(
+        acc, noise, pt, p2t, n, s);
+  else if (cols == 1)
+    noise_sgd<T, 1><<<grid_for(n), kThreads, 0, st>>>(acc, noise, pt, p2t, n,
+                                                      s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -150,19 +192,19 @@ extern "C" int repro_noise_adam_step(const float* c1, const float* c2,
   return (int)cudaGetLastError();
 }
 
-extern "C" int repro_noise_sgd_step(const float* sc, const float* acc,
-                                    const float* noise, const void* p,
-                                    int p_code, void* p2, int64_t n,
+// cols: elements a thread (1, 2 or 4); every vector's base must be aligned
+// to cols of its elements.
+extern "C" int repro_noise_sgd_step(const float* acc, const float* noise,
+                                    const void* p, int p_code, void* p2,
+                                    int64_t n, float stddev, float n_units,
+                                    float lr, float wd, int cols,
                                     void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
+  const SgdScalars s{stddev, n_units, lr, wd};
   cudaStream_t st = (cudaStream_t)stream;
   if (p_code == kF32)
-    noise_sgd<float><<<grid_for(n), kThreads, 0, st>>>(
-        sc, acc, noise, (const float*)p, (float*)p2, n);
-  else if (p_code == kBF16)
-    noise_sgd<__nv_bfloat16><<<grid_for(n), kThreads, 0, st>>>(
-        sc, acc, noise, (const __nv_bfloat16*)p, (__nv_bfloat16*)p2, n);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_sgd<float>(acc, noise, p, p2, n, s, cols, st);
+  if (p_code == kBF16)
+    return launch_sgd<__nv_bfloat16>(acc, noise, p, p2, n, s, cols, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,16 +1,18 @@
 // Causal / sliding-window attention with an online softmax (flash
-// attention, forward) for f32 at every head dim D <= 256 with D % 4 == 0,
-// on Hopper's tensor cores in split TF32.
+// attention, forward) for f32 at every head dim D <= 256, on Hopper's
+// tensor cores in split TF32.
 //
-// repro_flash_attention_tf32x3 replaces src/repro/kernels/flash_attention.py::
-// flash_attention (_flash_kernel) for f32 q, k, v with D % 4 == 0 (a row is
-// whole 16 bytes), and serves ops.gqa_flash_attention too:
+// repro_flash_attention_tf32x3 and repro_flash_attention_tf32x3_narrow
+// replace src/repro/kernels/flash_attention.py::flash_attention
+// (_flash_kernel) for f32 q, k, v, and serve ops.gqa_flash_attention too:
 //   out[q] = sum_k softmax_k(scale * q.k | mask) v[k]
 // with the mask "key < S, key <= query if causal, query - key < window if a
-// window is given"; bf16 runs flash_attention_sm90.cu, the unaligned head
-// dims flash_attention.cu (kernels/flash_attention.py::flash_route picks). The softmax state, the accumulator and the output are
-// f32; a row with no key left gives 0. Tensors are addressed by (batch,
-// head, position) strides with unit stride along D, so the kernel reads the
+// window is given"; bf16 runs flash_attention_sm90.cu
+// (kernels/flash_attention.py::flash_route picks the kernel by dtype,
+// flash_copy_width the loader by alignment). The softmax state, the
+// accumulator and the output are f32; a row with no key left gives 0.
+// Tensors are addressed by (batch, head, position) strides with unit
+// stride along D, so the kernel reads the
 // [B, H, S, D] layout and the model's [B, S, H, D] layout alike; query head
 // h reads kv head h / group (grouped-query attention without a repeat).
 //   Precision: one TF32 product keeps about three decimal digits, outside
@@ -25,7 +27,7 @@
 //   over 495 / 3 = 165 TFLOP/s, or the bytes of q, k, v and out over
 //   3.35 TB/s, whichever is larger; for qwen2-7b's causal S = 4,096, 28
 //   heads, D = 128 that is 120 GFLOP, about 729 us, bound by operations
-//   (1.8 ms at the 67 TFLOP/s of f32 FMAs on the CUDA cores).
+//   (1.8 ms at the 67 TFLOP/s of f32 FMAs outside the tensor cores).
 //   Design: wgmma in TF32 takes both operands K-major from shared memory,
 //   which fits QK^T but not V (MN-major), and a second shared copy of each
 //   lo part does not fit at D = 128 f32. mma.sync.m16n8k8.tf32 takes its
@@ -65,10 +67,21 @@
 //   32 floats at every width), and its 12 n8 tiles make whole groups of 4.
 //   A call at another D runs the smallest compiled width above it, with D
 //   passed at run time, in a second instantiation (PAD) so that a call at
-//   a compiled width runs code without the checks: the 16-byte copies of
-//   columns >= D are zero-filled (src-size 0, as rows >= S are), a zero
-//   splits into hi = lo = 0 exactly, so those columns add exact zeros to
-//   QK^T and fill output columns >= D, which the epilogue never stores.
+//   a compiled width runs code without the checks: the copies of columns
+//   >= D are zero-filled (src-size 0, as rows >= S are), a zero splits into
+//   hi = lo = 0 exactly, so those columns add exact zeros to QK^T and fill
+//   output columns >= D, which the epilogue never stores.
+//   Loaders: where D * 4, every base and every stride are multiples of 16
+//   bytes, flash_fwd_tf32x3 copies 16 bytes a cp.async. Anywhere else
+//   flash_fwd_tf32x3_narrow (always PAD) fills the same padded rows with
+//   the widest copy the rows allow, 8 bytes (two floats: D even, bases and
+//   strides 8-byte aligned) or 4, through the same two-stage cp.async ring,
+//   so the products, the softmax and the bits of the result are the same
+//   kernel's; its epilogue stores float pairs where rows are 8-byte aligned
+//   and single floats otherwise (an odd D ends in half a pair). The copies
+//   are smaller, the bytes the same: at phi-3-vision's length and heads
+//   with D = 98 (the 128-wide instantiation) the bound is still the
+//   split-TF32 products, about 638 us.
 #include "common.cuh"
 
 namespace repro {
@@ -97,13 +110,19 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // ---- cp.async ---------------------------------------------------------------
 
-// 16 bytes global -> shared; with in = false nothing is read and the
-// destination is zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 16 : 0)
-               : "memory");
+// W bytes (16, 8 or 4) global -> shared; with in = false nothing is read
+// and the destination is zero-filled. Only 16-byte copies may bypass L1.
+template <int W>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool in) {
+  if constexpr (W == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "n"(W), "r"(in ? W : 0)
+                 : "memory");
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -114,20 +133,28 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // ROWS rows of D floats from position p0 on (stride ss) into shared memory
-// with row stride RS; rows at or past S and, with PAD, columns at or past d
-// (a multiple of 4) read as zeros.
-template <int D, int ROWS, int RS, bool PAD>
+// with row stride RS, W bytes a copy; rows at or past S and, with PAD,
+// columns at or past d (a multiple of W / 4) read as zeros.
+template <int D, int ROWS, int RS, bool PAD, int W>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int64_t ss, int p0, int S, int d) {
-  constexpr int kChunks = D / 4;  // 16-byte chunks of a row
-  static_assert(ROWS * kChunks % kX3Threads == 0, "whole rounds of chunks");
-#pragma unroll
-  for (int it = 0; it < ROWS * kChunks / kX3Threads; ++it) {
+  constexpr int E = W / 4;        // floats a copy
+  constexpr int kChunks = D / E;  // copies of a row
+  constexpr int kIters = ROWS * kChunks / kX3Threads;
+  static_assert(ROWS * kChunks % kX3Threads == 0, "whole rounds of copies");
+  auto copy = [&](int it) {
     const int i = threadIdx.x + it * kX3Threads;
-    const int r = i / kChunks, c = (i - r * kChunks) * 4;
+    const int r = i / kChunks, c = (i - r * kChunks) * E;
     const bool in = p0 + r < S && (!PAD || c < d);
-    cp_async16(dst + r * RS + c, in ? src + (int64_t)(p0 + r) * ss + c : src,
-               in);
+    cp_async<W>(dst + r * RS + c, in ? src + (int64_t)(p0 + r) * ss + c : src,
+                in);
+  };
+  if constexpr (W == 16) {
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) copy(it);
+  } else {   // up to 128 narrow copies a thread: unrolled fully they spill
+#pragma unroll 4
+    for (int it = 0; it < kIters; ++it) copy(it);
   }
 }
 
@@ -151,14 +178,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// PAD: the head dim d < D is passed at run time
-template <int D, bool PAD>
-__global__ void __launch_bounds__(kX3Threads, 1)
-flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int BH,
-                 int H, int group, int S, int d, int64_t q_sb, int64_t q_sh,
-                 int64_t q_ss, int64_t kv_sb, int64_t kv_sh, int64_t kv_ss,
-                 float scale_log2, int causal, int window, int has_window) {
+// The kernel's body. PAD: the head dim d < D is passed at run time; W:
+// bytes a copy of the loads, and with W < 8 the epilogue stores single
+// floats.
+template <int D, bool PAD, int W>
+__device__ __forceinline__ void attend_x3(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int BH, int H,
+    int group, int S, int d, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+    int64_t kv_sb, int64_t kv_sh, int64_t kv_ss, float scale_log2,
+    int causal, int window, int has_window) {
   using T = TileX3<D>;
   constexpr int BK = T::BK, NJ = BK / 8, QS = T::QS, KS = T::KS, VS = T::VS;
   constexpr int NG = 4;  // n8 tiles of V a P.V pass loads at once
@@ -187,9 +216,9 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   const int n_tiles = kt_hi - kt_lo;
 
   if (n_tiles > 0) {
-    load_rows<D, kBQ, QS, PAD>(sQ, qb, q_ss, q0, S, d);
-    load_rows<D, BK, KS, PAD>(sK, kb, kv_ss, kt_lo * BK, S, d);
-    load_rows<D, BK, VS, PAD>(sV, vb, kv_ss, kt_lo * BK, S, d);
+    load_rows<D, kBQ, QS, PAD, W>(sQ, qb, q_ss, q0, S, d);
+    load_rows<D, BK, KS, PAD, W>(sK, kb, kv_ss, kt_lo * BK, S, d);
+    load_rows<D, BK, VS, PAD, W>(sV, vb, kv_ss, kt_lo * BK, S, d);
   }
   cp_commit();
 
@@ -208,10 +237,10 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
   for (int n = 0; n < n_tiles; ++n) {
     const int st = n & 1, k0 = (kt_lo + n) * BK;
     if (n + 1 < n_tiles) {  // the next tile into the other stage
-      load_rows<D, BK, KS, PAD>(sK + (st ^ 1) * BK * KS, kb, kv_ss, k0 + BK,
-                                S, d);
-      load_rows<D, BK, VS, PAD>(sV + (st ^ 1) * BK * VS, vb, kv_ss, k0 + BK,
-                                S, d);
+      load_rows<D, BK, KS, PAD, W>(sK + (st ^ 1) * BK * KS, kb, kv_ss,
+                                   k0 + BK, S, d);
+      load_rows<D, BK, VS, PAD, W>(sV + (st ^ 1) * BK * VS, vb, kv_ss,
+                                   k0 + BK, S, d);
     }
     cp_commit();
     cp_wait<1>();  // this thread's copies of tile n have landed
@@ -349,16 +378,52 @@ flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
     if (qp >= S) continue;
     float* const orow = ob + (int64_t)qp * q_ss + 2 * tq;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
-      if (!PAD || 8 * c + 2 * tq < d)  // d % 4 == 0: a pair is in or out
-        *reinterpret_cast<float2*>(orow + 8 * c) =
-            make_float2(__fdiv_rn(acc[c][2 * r], l[r]),
-                        __fdiv_rn(acc[c][2 * r + 1], l[r]));
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + 2 * tq;
+      if constexpr (W >= 8) {  // d even: a pair is in or out
+        if (!PAD || col < d)
+          *reinterpret_cast<float2*>(orow + 8 * c) =
+              make_float2(__fdiv_rn(acc[c][2 * r], l[r]),
+                          __fdiv_rn(acc[c][2 * r + 1], l[r]));
+      } else {  // rows 4-byte aligned, d maybe odd
+        if (col < d) orow[8 * c] = __fdiv_rn(acc[c][2 * r], l[r]);
+        if (col + 1 < d) orow[8 * c + 1] = __fdiv_rn(acc[c][2 * r + 1], l[r]);
+      }
+    }
   }
 }
 
-// head dim d on the kernel compiled at D >= d
+// 16-byte copies: D * 4, bases and strides multiples of 16 bytes
 template <int D, bool PAD>
+__global__ void __launch_bounds__(kX3Threads, 1)
+flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int BH,
+                 int H, int group, int S, int d, int64_t q_sb, int64_t q_sh,
+                 int64_t q_ss, int64_t kv_sb, int64_t kv_sh, int64_t kv_ss,
+                 float scale_log2, int causal, int window, int has_window) {
+  attend_x3<D, PAD, 16>(q, k, v, o, BH, H, group, S, d, q_sb, q_sh, q_ss,
+                        kv_sb, kv_sh, kv_ss, scale_log2, causal, window,
+                        has_window);
+}
+
+// W = 8 or 4 bytes a copy: anything the 16-byte loader does not take
+template <int D, int W>
+__global__ void __launch_bounds__(kX3Threads, 1)
+flash_fwd_tf32x3_narrow(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        int BH, int H, int group, int S, int d, int64_t q_sb,
+                        int64_t q_sh, int64_t q_ss, int64_t kv_sb,
+                        int64_t kv_sh, int64_t kv_ss, float scale_log2,
+                        int causal, int window, int has_window) {
+  attend_x3<D, true, W>(q, k, v, o, BH, H, group, S, d, q_sb, q_sh, q_ss,
+                        kv_sb, kv_sh, kv_ss, scale_log2, causal, window,
+                        has_window);
+}
+
+// head dim d on the kernel compiled at D >= d: the 16-byte loader (W = 16)
+// or the narrow one (W = 8 or 4)
+template <int D, bool PAD, int W>
 int launch_tf32x3(const void* q, const void* k, const void* v, void* o,
                   int B, int H, int group, int S, int d, int64_t q_sb,
                   int64_t q_sh,
@@ -366,15 +431,33 @@ int launch_tf32x3(const void* q, const void* k, const void* v, void* o,
                   float scale, int causal, int window, int has_window,
                   unsigned n_blocks, cudaStream_t st) {
   const size_t smem = TileX3<D>::SMEM;
+  using Kernel = void (*)(const float*, const float*, const float*, float*,
+                          int, int, int, int, int, int64_t, int64_t, int64_t,
+                          int64_t, int64_t, int64_t, float, int, int, int);
+  Kernel kernel;
+  if constexpr (W == 16)
+    kernel = flash_fwd_tf32x3<D, PAD>;
+  else
+    kernel = flash_fwd_tf32x3_narrow<D, W>;
   const cudaError_t e = cudaFuncSetAttribute(
-      (const void*)flash_fwd_tf32x3<D, PAD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_tf32x3<D, PAD><<<n_blocks, kX3Threads, smem, st>>>(
+  kernel<<<n_blocks, kX3Threads, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, B * H, H,
       group, S, d, q_sb, q_sh, q_ss, kv_sb, kv_sh, kv_ss,
       scale * 1.4426950408889634f, causal, window, has_window);
   return (int)cudaGetLastError();
+}
+
+// Shape checks shared by both entry points; the CTA count, or 0 to refuse.
+int64_t x3_blocks(int B, int H, int group, int S, int D) {
+  if (B < 1 || H < 1 || S < 1 || group < 1 || H % group != 0 || D < 1 ||
+      D > 256)
+    return 0;
+  const int64_t n_blocks = (int64_t)B * H * ((S + kBQ - 1) / kBQ);
+  if ((int64_t)B * H > 0x7fffffff || n_blocks > 0x7fffffff) return 0;
+  return n_blocks;
 }
 
 }  // namespace
@@ -386,16 +469,15 @@ using namespace repro;
 // and v share (kv_sb, kv_sh, kv_ss); the head dimension is contiguous in
 // all four. The 16-byte copies need 16-byte aligned bases and strides that
 // are multiples of 16 bytes: anything else is refused, as is a D that is
-// not a multiple of 4 in 4..256. D runs on the kernel compiled at the next
-// of 64, 96, 128, 256.
+// not a multiple of 4 in 4..256 (repro_flash_attention_tf32x3_narrow takes
+// those). D runs on the kernel compiled at the next of 64, 96, 128, 256.
 extern "C" int repro_flash_attention_tf32x3(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int group, int S, int D, int64_t q_sb, int64_t q_sh, int64_t q_ss,
     int64_t kv_sb, int64_t kv_sh, int64_t kv_ss, float scale, int causal,
     int window, int has_window, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || group < 1 || H % group != 0 || D < 4 ||
-      D > 256 || D % 4 != 0)
-    return (int)cudaErrorInvalidValue;
+  const int64_t n_blocks = x3_blocks(B, H, group, S, D);
+  if (n_blocks == 0 || D % 4 != 0) return (int)cudaErrorInvalidValue;
   const uintptr_t bases[4] = {(uintptr_t)q, (uintptr_t)k, (uintptr_t)v,
                               (uintptr_t)o};
   const int64_t strides[6] = {q_sb, q_sh, q_ss, kv_sb, kv_sh, kv_ss};
@@ -404,17 +486,52 @@ extern "C" int repro_flash_attention_tf32x3(
   for (int i = 0; i < 6; ++i)
     if (strides[i] <= 0 || strides[i] * 4 % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
-  const int64_t n_blocks = (int64_t)B * H * ((S + kBQ - 1) / kBQ);
-  if ((int64_t)B * H > 0x7fffffff || n_blocks > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned nb = (unsigned)n_blocks;
   const bool pad = D != 64 && D != 96 && D != 128 && D != 256;
   const auto launch =
-      D <= 64 ? (pad ? launch_tf32x3<64, true> : launch_tf32x3<64, false>)
-      : D <= 96 ? (pad ? launch_tf32x3<96, true> : launch_tf32x3<96, false>)
-      : D <= 128 ? (pad ? launch_tf32x3<128, true> : launch_tf32x3<128, false>)
-                 : (pad ? launch_tf32x3<256, true> : launch_tf32x3<256, false>);
+      D <= 64 ? (pad ? launch_tf32x3<64, true, 16>
+                     : launch_tf32x3<64, false, 16>)
+      : D <= 96 ? (pad ? launch_tf32x3<96, true, 16>
+                       : launch_tf32x3<96, false, 16>)
+      : D <= 128 ? (pad ? launch_tf32x3<128, true, 16>
+                        : launch_tf32x3<128, false, 16>)
+                 : (pad ? launch_tf32x3<256, true, 16>
+                        : launch_tf32x3<256, false, 16>);
+  return launch(q, k, v, o, B, H, group, S, D, q_sb, q_sh, q_ss, kv_sb, kv_sh,
+                kv_ss, scale, causal, window, has_window, nb, st);
+}
+
+// The narrow loader: the same arguments and any D in 1..256, plus width,
+// the bytes a copy (8 or 4), which every base and stride and D * 4 must be
+// multiples of; anything else is refused.
+extern "C" int repro_flash_attention_tf32x3_narrow(
+    const void* q, const void* k, const void* v, void* o, int B, int H,
+    int group, int S, int D, int64_t q_sb, int64_t q_sh, int64_t q_ss,
+    int64_t kv_sb, int64_t kv_sh, int64_t kv_ss, float scale, int causal,
+    int window, int has_window, int width, void* stream) {
+  const int64_t n_blocks = x3_blocks(B, H, group, S, D);
+  if (n_blocks == 0 || (width != 8 && width != 4) || D * 4 % width != 0)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t bases[4] = {(uintptr_t)q, (uintptr_t)k, (uintptr_t)v,
+                              (uintptr_t)o};
+  const int64_t strides[6] = {q_sb, q_sh, q_ss, kv_sb, kv_sh, kv_ss};
+  for (int i = 0; i < 4; ++i)
+    if (bases[i] % width != 0) return (int)cudaErrorMisalignedAddress;
+  for (int i = 0; i < 6; ++i)
+    if (strides[i] <= 0 || strides[i] * 4 % width != 0)
+      return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned nb = (unsigned)n_blocks;
+  const bool w8 = width == 8;
+  const auto launch =
+      D <= 64 ? (w8 ? launch_tf32x3<64, true, 8> : launch_tf32x3<64, true, 4>)
+      : D <= 96 ? (w8 ? launch_tf32x3<96, true, 8>
+                      : launch_tf32x3<96, true, 4>)
+      : D <= 128 ? (w8 ? launch_tf32x3<128, true, 8>
+                       : launch_tf32x3<128, true, 4>)
+                 : (w8 ? launch_tf32x3<256, true, 8>
+                       : launch_tf32x3<256, true, 4>);
   return launch(q, k, v, o, B, H, group, S, D, q_sb, q_sh, q_ss, kv_sb, kv_sh,
                 kv_ss, scale, causal, window, has_window, nb, st);
 }

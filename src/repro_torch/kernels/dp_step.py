@@ -8,8 +8,11 @@ moment updates and bias-corrected step in one pass over flat f32 vectors,
 returning ``(p', m', v')``. On a CUDA tensor each launches its kernel of
 ``csrc/dp_step.cu`` (replacing ``src/repro/kernels/dp_step.py``'s
 ``noise_sgd_step`` and ``noise_adam_step``); on a CPU tensor it runs the
-plain version in :mod:`.ref`. The caller draws the noise and, for Adam,
-owns the gate to f32 params and moments
+plain version in :mod:`.ref`. Each CUDA call is one launch: the Python
+scalars go by value, rounded once to f32 (the TPU kernels read them as f32
+from SMEM), and a thread takes the :func:`step_columns` neighbouring
+elements its vectors' alignment allows. The caller draws the noise and, for
+Adam, owns the gate to f32 params and moments
 (``repro_torch.core.dp.dp_adam_update``).
 """
 from __future__ import annotations
@@ -41,13 +44,12 @@ def noise_sgd_step(acc: torch.Tensor, noise: torch.Tensor, p: torch.Tensor,
                                   n_units=n_units, lr=lr,
                                   weight_decay=weight_decay)
     _build.check_cuda("noise_sgd_step", acc, noise, p)
-    # the kernel's scalar vector, assembled on the device (no host sync)
-    sc = torch.stack([acc.new_full((), x)
-                      for x in (stddev, n_units, lr, weight_decay)])
     out = torch.empty_like(p)
-    _build.launch("repro_noise_sgd_step", sc.data_ptr(), acc.data_ptr(),
-                  noise.data_ptr(), p.data_ptr(), _build.DTYPE_CODES[p.dtype],
-                  out.data_ptr(), acc.numel())
+    # one launch: the Python scalars go by value, rounded once to f32
+    _build.launch("repro_noise_sgd_step", acc.data_ptr(), noise.data_ptr(),
+                  p.data_ptr(), _build.DTYPE_CODES[p.dtype], out.data_ptr(),
+                  acc.numel(), stddev, n_units, lr, weight_decay,
+                  step_columns(acc, noise, p, out))
     noise_sgd_step.launches += 1
     return out
 
@@ -82,16 +84,17 @@ def noise_adam_step(acc: torch.Tensor, noise: torch.Tensor, p: torch.Tensor,
     _build.launch("repro_noise_adam_step", c1.data_ptr(), c2.data_ptr(),
                   *(t.data_ptr() for t in vecs + outs), acc.numel(), stddev,
                   n_units, lr, weight_decay, b1, b2, 1.0 - b1, 1.0 - b2, eps,
-                  adam_columns(*vecs, *outs))
+                  step_columns(*vecs, *outs))
     noise_adam_step.launches += 1
     return p2, m2, v2
 
 
-def adam_columns(*vecs: torch.Tensor) -> int:
-    """Elements a thread of the Adam kernel takes: 4 (16-byte accesses)
-    when every vector's base is 16-byte aligned, 2 when 8-byte, else 1."""
+def step_columns(*vecs: torch.Tensor) -> int:
+    """Elements a thread of either step kernel takes: 4 when every vector's
+    base is aligned to four of its elements (16 bytes of f32, 8 of bf16), 2
+    when to two, else 1."""
     for cols in (4, 2):
-        if all(t.data_ptr() % (4 * cols) == 0 for t in vecs):
+        if all(t.data_ptr() % (cols * t.element_size()) == 0 for t in vecs):
             return cols
     return 1
 

@@ -5,24 +5,26 @@ attention, forward).
 D ≤ 256) and returns softmax(scale·qkᵀ | mask)·v in q's dtype, with the
 mask ``key ≤ query`` when causal and ``query − key < window`` when a window
 is given (one-sided when not causal); a row with no key left is 0. On a
-CUDA tensor it launches one of three kernels replacing
-``src/repro/kernels/flash_attention.py``'s ``flash_attention``, chosen by
-:func:`flash_route` from the dtype and head dim alone. At every head dim
-whose rows are whole 16 bytes (bf16 D % 8 == 0, f32 D % 4 == 0) both
-dtypes run on the tensor cores: bf16 on wgmma fed by TMA
-(``csrc/flash_attention_sm90.cu``, route ``"wgmma"``), f32 on mma.sync in
-split TF32 (``csrc/flash_attention_tf32x3.cu``, route ``"tf32x3"``: each
-operand split into a TF32 high part and its residual, three products per
-product, f32-grade). The wgmma kernel is compiled at D ∈ {64, 128, 256},
-the split-TF32 one also at 96 (phi-3-vision's head dim); a call at
-another aligned D runs the width :func:`padded_head_dim` gives, its
-columns past D read as zeros and never stored. The unaligned head dims run
-on the CUDA cores (``csrc/flash_attention.cu``, route ``"cuda_cores"``).
-The dispatch is fixed: a call the route's kernel refuses raises. On a CPU
-tensor the plain version in :mod:`.ref` runs. :func:`launch_flash` is the
-launch both this and ``ops.gqa_flash_attention`` use: the kernels read q,
-k, v through (batch, head, position) strides, so the model layout
-[B, S, H, D] and grouped KV heads need no copy.
+CUDA tensor it launches a kernel replacing
+``src/repro/kernels/flash_attention.py``'s ``flash_attention``, on the
+tensor cores at every head dim: :func:`flash_route` picks it by dtype, bf16
+on wgmma (``csrc/flash_attention_sm90.cu``, route ``"wgmma"``) and f32 on
+mma.sync in split TF32 (``csrc/flash_attention_tf32x3.cu``, route
+``"tf32x3"``: each operand split into a TF32 high part and its residual,
+three products per product, f32-grade). The wgmma kernel is compiled at
+D ∈ {64, 128, 256}, the split-TF32 one also at 96 (phi-3-vision's head
+dim); a call at another D runs the width :func:`padded_head_dim` gives, its
+columns past D read as zeros and never stored. :func:`flash_copy_width`
+picks how a kernel fills its shared memory: where D·itemsize, every base
+and every stride are multiples of 16 bytes, 16 bytes a copy (TMA for
+wgmma, cp.async for split TF32; :func:`check_tma` is that predicate);
+anywhere else the narrow loader of the same kernel, 8-, 4- or (bf16 rows of
+an odd D) 2-byte copies into the same shared layout, counted under
+``"wgmma/narrow"`` and ``"tf32x3/narrow"``. A call the chosen kernel
+refuses raises. On a CPU tensor the plain version in :mod:`.ref` runs.
+:func:`launch_flash` is the launch both this and ``ops.gqa_flash_attention``
+use: the kernels read q, k, v through (batch, head, position) strides, so
+the model layout [B, S, H, D] and grouped KV heads need no copy.
 """
 from __future__ import annotations
 
@@ -36,10 +38,14 @@ from .ref import flash_attention_ref
 MAX_HEAD_DIM = 256
 # the widths each tensor-core kernel is compiled at
 COMPILED_HEAD_DIMS = {"wgmma": (64, 128, 256), "tf32x3": (64, 96, 128, 256)}
-ROUTES = ("wgmma", "tf32x3", "cuda_cores")
+ROUTES = ("wgmma", "wgmma/narrow", "tf32x3", "tf32x3/narrow")
 TENSOR_CORE_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 ROUTE_ENTRY = {"wgmma": "repro_flash_attention_sm90",
-               "tf32x3": "repro_flash_attention_tf32x3"}
+               "wgmma/narrow": "repro_flash_attention_sm90_narrow",
+               "tf32x3": "repro_flash_attention_tf32x3",
+               "tf32x3/narrow": "repro_flash_attention_tf32x3_narrow"}
+# bytes a copy of the loaders, widest first: 16 is the aligned loader
+COPY_WIDTHS = (16, 8, 4, 2)
 
 
 def _check_head_dim(head_dim: int) -> None:
@@ -55,22 +61,41 @@ def padded_head_dim(head_dim: int, route: str = "wgmma") -> int:
 
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a CUDA call takes: where a row of D elements is whole 16
-    bytes, ``"wgmma"`` (``csrc/flash_attention_sm90.cu``) for bf16 and
-    ``"tf32x3"`` (``csrc/flash_attention_tf32x3.cu``) for f32, each at
-    :func:`padded_head_dim`; at any other head dim ``"cuda_cores"``
-    (``csrc/flash_attention.cu``). A head dim above 256 raises."""
+    """The kernel a CUDA call takes at every head dim 1..256: ``"wgmma"``
+    (``csrc/flash_attention_sm90.cu``) for bf16 and ``"tf32x3"``
+    (``csrc/flash_attention_tf32x3.cu``) for f32, each at
+    :func:`padded_head_dim`. A head dim above 256 raises."""
     _check_head_dim(head_dim)
-    route = TENSOR_CORE_ROUTE.get(dtype)
-    if route is not None and head_dim * dtype.itemsize % 16 == 0:
-        return route
-    return "cuda_cores"
+    if dtype not in TENSOR_CORE_ROUTE:
+        raise TypeError(f"flash attention takes float32 or bfloat16, got "
+                        f"{dtype}")
+    return TENSOR_CORE_ROUTE[dtype]
+
+
+def flash_copy_width(head_dim: int, itemsize: int, addresses, strides
+                     ) -> int:
+    """Bytes a copy of the loader that fills the kernel's shared memory:
+    the widest of 16, 8, 4 and 2 (not below ``itemsize``) that D·itemsize,
+    every base address and every stride (in elements, times ``itemsize``)
+    are multiples of. 16 is the aligned loader (TMA, or 16-byte cp.async);
+    8, 4 and 2 the narrow one. A stride ≤ 0 raises."""
+    if any(st <= 0 for st in strides):
+        raise ValueError(f"flash_attention: strides must be positive, got "
+                         f"{list(strides)}")
+    for width in COPY_WIDTHS:
+        if width >= itemsize and head_dim * itemsize % width == 0 and all(
+                a % width == 0 for a in addresses) and all(
+                st * itemsize % width == 0 for st in strides):
+            return width
+    raise ValueError(f"flash_attention: tensors not aligned to their "
+                     f"{itemsize}-byte elements")
 
 
 def check_tma(name: str, *tensors: torch.Tensor) -> None:
-    """What the tensor-core routes need (the wgmma route's tensor maps, the
-    tf32x3 route's 16-byte copies): 16-byte aligned bases and strides (in
-    bytes) that are positive multiples of 16."""
+    """What the 16-byte loaders need (the wgmma kernel's tensor maps, the
+    split-TF32 kernel's 16-byte copies): 16-byte aligned bases and strides
+    (in bytes) that are positive multiples of 16. Where a tensor fails it,
+    :func:`flash_copy_width` sends the call to the narrow loader."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: the tensor-core kernels need "
@@ -111,10 +136,10 @@ def check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
 def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  head_axis: int, group: int, causal: bool,
                  window: Optional[int], scale: float) -> torch.Tensor:
-    """Launch the kernel :func:`flash_route` picks on contiguous CUDA q
-    [.., Hq, .., D] and k, v [.., Hkv, .., D] with the heads on
-    ``head_axis`` (1 or 2) and the positions on the other; the output has
-    q's layout."""
+    """Launch the kernel :func:`flash_route` picks, with the loader
+    :func:`flash_copy_width` picks, on contiguous CUDA q [.., Hq, .., D] and
+    k, v [.., Hkv, .., D] with the heads on ``head_axis`` (1 or 2) and the
+    positions on the other; the output has q's layout."""
     _build.check_cuda("flash_attention", q, k, v)
     pos_axis = 3 - head_axis
     B, H, S, D = q.shape[0], q.shape[head_axis], q.shape[pos_axis], q.shape[3]
@@ -127,12 +152,16 @@ def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              int(window is not None))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     route = flash_route(q.dtype, D)
-    if route in ROUTE_ENTRY:
-        check_tma("flash_attention", q, k, v, out)
+    tensors = (q, k, v, out)
+    width = flash_copy_width(D, q.element_size(),
+                             [t.data_ptr() for t in tensors],
+                             [st for t in tensors for st in t.stride()[:-1]])
+    if width == 16:
+        check_tma("flash_attention", *tensors)
         _build.launch(ROUTE_ENTRY[route], *ptrs, *shape)
     else:
-        _build.launch("repro_flash_attention", *ptrs,
-                      _build.DTYPE_CODES[q.dtype], *shape)
+        route += "/narrow"
+        _build.launch(ROUTE_ENTRY[route], *ptrs, *shape, width)
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
     return out

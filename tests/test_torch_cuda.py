@@ -1,12 +1,14 @@
 """The port's CUDA kernels on the card: each against its plain version (the
 ops API's at the full widths of qwen2-7b, falcon-mamba-7b and the mlp
 proxy; both tensor-core attention routes over ragged lengths, groups and
-windows at compiled and zero-padded head dims, the CUDA-core route at
-unaligned ones; the sync mix at its register bucket edges; both rmsnorm
+windows at compiled and zero-padded head dims, their narrow loaders at
+unaligned head dims and on misaligned views; the sync mix at its register
+bucket edges; both rmsnorm
 instantiations; the DP clip pair's rows route bit
 for bit against its 1-D route; the scan at falcon-mamba-7b's and
 jamba-1.5-large's widths and over a sweep of state sizes and lengths;
-noise_adam_step bit for bit and as one device kernel a call), the
+noise_adam_step and noise_sgd_step bit for bit and as one device kernel a
+call), the
 wrappers' refusals, and small
 federations (sync, and async at staleness 2 with dropout) through the
 kernels against the plain path on the same seed.
@@ -169,15 +171,32 @@ def test_wgmma_attention_matches_plain(gen, D, G):
                     assert bool((got == 0).all())
 
 
+def _misaligned(t, off):
+    """A copy of t whose base lies ``off`` elements past a 16-byte
+    boundary."""
+    es = t.element_size()
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    base = (-(flat.data_ptr() // es)) % (16 // es)
+    return flat[base + off:base + off + t.numel()].view(t.shape).copy_(t)
+
+
 def test_wgmma_route_refuses_misaligned_views(gen):
-    flat = torch.zeros(2 * 64 * 4 + 8, dtype=torch.bfloat16, device="cuda")
-    off = flat[1:1 + 2 * 64 * 4].view(1, 2, 4, 64)   # 2 bytes off 16
+    """The TMA loader refuses a view 2 bytes off 16 (check_tma raises);
+    both entry points run it on the narrow loader instead, and agree with
+    the plain version."""
+    from repro_torch.kernels.flash_attention import check_tma
+    x = torch.randn((1, 2, 4, 64), generator=gen, device="cuda").bfloat16()
+    off = _misaligned(x, 1)   # 2 bytes off 16
+    with pytest.raises(ValueError, match="aligned"):
+        check_tma("t", off)
     kernels.reset_launch_counts()
-    with pytest.raises(ValueError, match="aligned"):
-        kernels.flash_attention(off, off, off)
-    with pytest.raises(ValueError, match="aligned"):
-        kernels.gqa_flash_attention(off, off, off)
-    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+    torch.testing.assert_close(kernels.flash_attention(off, off, off),
+                               ref.flash_attention_ref(x, x, x), **BF16)
+    torch.testing.assert_close(kernels.gqa_flash_attention(off, off, off),
+                               ref.gqa_flash_attention_ref(x, x, x), **BF16)
+    routes = kernels.route_launch_counts()
+    assert routes["flash_attention/wgmma/narrow"] == 2
+    assert routes["flash_attention/wgmma"] == 0
 
 
 @pytest.mark.parametrize("G", [1, 2, 7])
@@ -214,24 +233,66 @@ def test_tf32x3_attention_matches_plain(gen, D, G):
 
 
 def test_tf32x3_route_refuses_misaligned_views(gen):
-    flat = torch.zeros(2 * 64 * 4 + 8, device="cuda")
-    off = flat[1:1 + 2 * 64 * 4].view(1, 2, 4, 64)   # 4 bytes off 16
+    """The 16-byte loader refuses a view 4 bytes off 16 (check_tma
+    raises); both entry points run it on the narrow loader instead, and
+    agree with the plain version."""
+    from repro_torch.kernels.flash_attention import check_tma
+    x = torch.randn((1, 2, 4, 64), generator=gen, device="cuda")
+    off = _misaligned(x, 1)   # 4 bytes off 16
+    with pytest.raises(ValueError, match="aligned"):
+        check_tma("t", off)
     kernels.reset_launch_counts()
-    with pytest.raises(ValueError, match="aligned"):
-        kernels.flash_attention(off, off, off)
-    with pytest.raises(ValueError, match="aligned"):
-        kernels.gqa_flash_attention(off, off, off)
-    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
-    assert not any(kernels.route_launch_counts().values())
+    torch.testing.assert_close(kernels.flash_attention(off, off, off),
+                               ref.flash_attention_ref(x, x, x), **F32)
+    torch.testing.assert_close(kernels.gqa_flash_attention(off, off, off),
+                               ref.gqa_flash_attention_ref(x, x, x), **F32)
+    routes = kernels.route_launch_counts()
+    assert routes["flash_attention/tf32x3/narrow"] == 2
+    assert routes["flash_attention/tf32x3"] == 0
+
+
+@pytest.mark.parametrize("dtype,off", [
+    (torch.bfloat16, 1), (torch.bfloat16, 2), (torch.bfloat16, 4),
+    (torch.float32, 1), (torch.float32, 2), (torch.float32, 3)])
+def test_misaligned_views_run_on_the_narrow_loader(gen, dtype, off):
+    """q, k and v each ``off`` elements past 16 bytes at D = 64 (copy
+    widths 2, 4 and 8 bytes in bf16; 4, 8 and 4 in f32), S = 129, groups 1
+    and 2, causal and windowed: every call on the narrow loader, each
+    against the plain version."""
+    tol = BF16 if dtype == torch.bfloat16 else F32
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    kernels.reset_launch_counts()
+    n = 0
+    for G in (1, 2):
+        q = torch.randn((1, 129, 2 * G, 64), generator=gen,
+                        device="cuda").to(dtype)
+        k, v = (torch.randn((1, 129, 2, 64), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        if G == 1:
+            q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            kern, plain = kernels.flash_attention, ref.flash_attention_ref
+        else:
+            kern = kernels.gqa_flash_attention
+            plain = ref.gqa_flash_attention_ref
+        views = [_misaligned(t, off) for t in (q, k, v)]
+        for causal, window in ((True, None), (False, 17)):
+            torch.testing.assert_close(
+                kern(*views, causal=causal, window=window),
+                plain(q, k, v, causal=causal, window=window), **tol)
+            n += 1
+    routes = kernels.route_launch_counts()
+    assert routes[f"flash_attention/{route}/narrow"] == n
+    assert routes[f"flash_attention/{route}"] == 0
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 36),
                                      (torch.bfloat16, 100),
                                      (torch.float32, 30), (torch.float32, 98)])
 def test_cuda_core_attention_at_unaligned_head_dims(gen, dtype, D):
-    """Head dims whose rows are not whole 16 bytes stay on the CUDA-core
-    kernel: every call of both entry points takes it and agrees with the
-    plain version."""
+    """Head dims whose rows are not whole 16 bytes, which a CUDA-core
+    kernel took until the narrow loaders: every call of both entry points
+    takes its tensor-core kernel's narrow loader and agrees with the plain
+    version."""
     tol = BF16 if dtype == torch.bfloat16 else F32
     kernels.reset_launch_counts()
     n = 0
@@ -253,7 +314,8 @@ def test_cuda_core_attention_at_unaligned_head_dims(gen, dtype, D):
                 got, plain(q, k, v, causal=causal, window=window), **tol)
             n += 1
     routes = kernels.route_launch_counts()
-    assert routes["flash_attention/cuda_cores"] == n
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    assert routes[f"flash_attention/{route}/narrow"] == n
     assert routes["flash_attention/wgmma"] == routes[
         "flash_attention/tf32x3"] == 0
 
@@ -448,6 +510,55 @@ def test_noise_adam_step_is_one_device_kernel(gen):
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA]
     assert len(names) == 1 and "noise_adam" in names[0], names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 65_537, D])
+def test_noise_sgd_step_is_bit_equal_to_plain(gen, n, off, dtype):
+    """Every element the plain version's arithmetic bit for bit, p f32 and
+    bf16, at four columns a thread (aligned) and at one (every vector one
+    element off), with the tail past the last group of four: against the
+    plain version with n_units a device tensor (with a host scalar PyTorch's
+    CUDA division multiplies by the scalar's f32 reciprocal: within the
+    tolerance of p's dtype)."""
+    hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4)
+    acc, noise = (torch.randn(n + 4, generator=gen, device="cuda")[off:off + n]
+                  for _ in range(2))
+    p = torch.randn(n + 4, generator=gen, device="cuda").to(dtype)[off:off + n]
+    got = kernels.noise_sgd_step(acc, noise, p, **hp)
+    assert torch.equal(got, ref.noise_sgd_step_ref(
+        acc, noise, p, **dict(hp, n_units=torch.full((), 250.0,
+                                                     device="cuda"))))
+    torch.testing.assert_close(got, ref.noise_sgd_step_ref(acc, noise, p,
+                                                           **hp),
+                               **(F32 if dtype == torch.float32 else BF16))
+
+
+def test_noise_sgd_step_is_one_device_kernel(gen):
+    """One wrapper call runs exactly one device kernel (its scalars go by
+    value), by torch.profiler: the second of two calls in one session, the
+    first its warm-up step (a session's first kernels can go unrecorded
+    on the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    hp = dict(stddev=1.0, n_units=250, lr=1e-3, weight_decay=1e-4)
+    acc, noise, p = (torch.randn(D, generator=gen, device="cuda")
+                     for _ in range(3))
+    recorded = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda pr: recorded.update(
+                     events=pr.events())) as prof:
+        for _ in range(2):
+            kernels.noise_sgd_step(acc, noise, p, **hp)
+            torch.cuda.synchronize()
+            prof.step()
+    names = [e.name for e in recorded["events"]
+             if e.device_type == DeviceType.CUDA
+             and not e.name.startswith("ProfilerStep")]
+    assert len(names) == 1 and "noise_sgd" in names[0], names
 
 
 def _padded_rows(gen, B, n, dtype):

@@ -8,6 +8,9 @@ tests/test_kernels.py. The CUDA kernels themselves are held against the
 same plain versions on the card by chip_smoke.py and
 tests/test_torch_cuda.py.
 """
+import ctypes
+import re
+
 import numpy as np
 import pytest
 
@@ -20,7 +23,8 @@ from repro.kernels.dp_step import noise_adam_step as jax_noise_adam_step  # noqa
 from repro.kernels.pushsum_mix import fused_pushsum_mix as jax_mix  # noqa: E402
 from repro.kernels.pushsum_mix import fused_stale_mix as jax_stale_mix  # noqa: E402
 from repro_torch import kernels  # noqa: E402
-from repro_torch.kernels.dp_step import adam_columns  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.dp_step import step_columns  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -98,14 +102,32 @@ def test_noise_adam_step_around_a_group_of_four(D):
 
 @pytest.mark.parametrize("offs,cols", [
     ((0,) * 8, 4), ((2,) * 8, 2), ((1,) * 8, 1), ((3,) * 8, 1),
-    ((0,) * 7 + (2,), 2), ((0,) * 7 + (1,), 1), ((2,) * 7 + (1,), 1)])
+    ((0,) * 7 + (2,), 2), ((0,) * 7 + (1,), 1), ((2,) * 7 + (1,), 1),
+    # bf16 vectors (offsets in bf16 elements): four a thread at 8 bytes
+    ((("bf16", 0),) * 3, 4), ((("bf16", 4),) * 3, 4),
+    ((("bf16", 2),) * 3, 2), ((("bf16", 6),) * 3, 2),
+    ((("bf16", 1),) * 3, 1), ((("bf16", 4),) * 2 + (("bf16", 3),), 1),
+    # the SGD step's mix: f32 acc and noise, bf16 p and p'
+    ((0, 0, ("bf16", 4), ("bf16", 0)), 4),
+    ((0, 0, ("bf16", 2), ("bf16", 0)), 2),
+    ((2, 0, ("bf16", 4), ("bf16", 0)), 2),
+    ((0, 1, ("bf16", 0), ("bf16", 0)), 1)])
 def test_adam_columns_are_the_widest_every_vector_is_aligned_to(offs, cols):
-    """Four elements a thread where every vector's base is 16-byte aligned,
-    two where 8-byte, else one; a vector one element off holds all back."""
-    store = torch.zeros(64)
-    base = (-(store.data_ptr() // 4)) % 4   # first 16-byte aligned element
-    vecs = [store[base + o:base + o + 8] for o in offs]
-    assert adam_columns(*vecs) == cols
+    """Four elements a thread where every vector's base is aligned to four
+    of its elements (16 bytes of f32, 8 of bf16), two where to two, else
+    one; a vector one element off holds all back. An offset is in f32
+    elements, or ("bf16", n) in bf16 elements."""
+    stores = {dt: torch.zeros(64, dtype=dt)
+              for dt in (torch.float32, torch.bfloat16)}
+    vecs = []
+    for o in offs:
+        dt, o = (torch.bfloat16, o[1]) if isinstance(o, tuple) else \
+            (torch.float32, o)
+        store = stores[dt]
+        es = store.element_size()
+        base = (-(store.data_ptr() // es)) % (16 // es)   # 16-byte aligned
+        vecs.append(store[base + o:base + o + 8])
+    assert step_columns(*vecs) == cols
 
 
 @pytest.mark.parametrize("K", SIZES_K)
@@ -208,3 +230,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         kernels.noise_adam_step(x, x, x, x, x.bfloat16(), stddev=1.0,
                                 n_units=2, lr=1e-3, c1=t, c2=t)
+
+
+_C_TYPES = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
+            "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_ctypes_signatures_match_the_c_entry_points(name):
+    """Each entry point's ctypes argument types are the parameters its
+    ``extern "C"`` declaration in kernels/csrc has, in order (a pointer as
+    c_void_p): ctypes passes what it is told, so a mismatch would hand the
+    kernel a cut pointer or a float as an int."""
+    src = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+    m = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{", src, re.S)
+    assert m is not None, name
+    params = tuple(ctypes.c_void_p if "*" in p else _C_TYPES[p.split()[0]]
+                   for p in m.group(1).split(","))
+    assert params == _build._SIGNATURES[name]

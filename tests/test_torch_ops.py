@@ -26,7 +26,7 @@ from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    check_tma, flash_route, padded_head_dim)
+    check_tma, flash_copy_width, flash_route, padded_head_dim)
 from repro_torch.kernels.mamba_scan import (  # noqa: E402
     LANE_COUNTS, scan_lanes, scan_states)
 from repro_torch.kernels.rmsnorm import rmsnorm_route  # noqa: E402
@@ -122,18 +122,81 @@ def test_gqa_flash_attention(G):
     (torch.bfloat16, 256, "wgmma"), (torch.bfloat16, 32, "wgmma"),
     (torch.bfloat16, 96, "wgmma"), (torch.bfloat16, 16, "wgmma"),
     (torch.bfloat16, 8, "wgmma"), (torch.bfloat16, 136, "wgmma"),
-    (torch.bfloat16, 36, "cuda_cores"), (torch.bfloat16, 100, "cuda_cores"),
-    (torch.bfloat16, 4, "cuda_cores"), (torch.bfloat16, 255, "cuda_cores"),
+    (torch.bfloat16, 36, "wgmma"), (torch.bfloat16, 100, "wgmma"),
+    (torch.bfloat16, 4, "wgmma"), (torch.bfloat16, 255, "wgmma"),
     (torch.float32, 64, "tf32x3"), (torch.float32, 128, "tf32x3"),
     (torch.float32, 256, "tf32x3"), (torch.float32, 32, "tf32x3"),
     (torch.float32, 96, "tf32x3"), (torch.float32, 4, "tf32x3"),
-    (torch.float32, 36, "tf32x3"), (torch.float32, 30, "cuda_cores"),
-    (torch.float32, 98, "cuda_cores"), (torch.float32, 1, "cuda_cores")])
+    (torch.float32, 36, "tf32x3"), (torch.float32, 30, "tf32x3"),
+    (torch.float32, 98, "tf32x3"), (torch.float32, 1, "tf32x3")])
 def test_flash_route_is_fixed_by_dtype_and_head_dim(dtype, D, route):
-    """Where a row of D elements is whole 16 bytes (bf16 D % 8 == 0, f32
-    D % 4 == 0) bf16 takes the wgmma kernel and f32 the split-TF32 one, both
-    on the tensor cores; every other head dim the CUDA-core kernel."""
+    """At every head dim bf16 takes the wgmma kernel and f32 the split-TF32
+    one, both on the tensor cores; where a row is not whole 16 bytes (bf16
+    36, 100, 4, 255; f32 30, 98, 1) the loader, not the kernel, differs."""
     assert flash_route(dtype, D) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", range(1, 257))
+def test_every_head_dim_runs_on_the_tensor_cores(D, dtype):
+    """Every head dim 1..256 of both dtypes routes to a tensor-core kernel
+    whose padded width holds it."""
+    route = flash_route(dtype, D)
+    assert route == {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}[dtype]
+    assert padded_head_dim(D, route) >= D
+
+
+_ALIGNED = 1 << 20   # a base address 16-byte aligned
+
+
+@pytest.mark.parametrize("D,itemsize,offset,strides,width", [
+    # whole 16-byte rows, aligned bases and strides: the 16-byte loader
+    (128, 2, 0, (4096 * 128, 128), 16), (96, 4, 0, (32 * 96, 96), 16),
+    (64, 2, 0, (28 * 64, 64), 16),
+    # a row of 8-byte multiples (bf16 D = 100, f32 D = 98): 8-byte copies
+    (100, 2, 0, (4096 * 100, 100), 8), (98, 4, 0, (32 * 98, 98), 8),
+    # 4-byte rows (bf16 D = 34, f32 D = 33): 4-byte copies
+    (34, 2, 0, (256 * 34, 34), 4), (33, 4, 0, (256 * 33, 33), 4),
+    # an odd bf16 head dim: 2-byte loads
+    (33, 2, 0, (256 * 33, 33), 2), (255, 2, 0, (255,), 2),
+    # a misaligned view at an aligned D: the base decides
+    (64, 2, 2, (256 * 64, 64), 2), (64, 2, 4, (256 * 64, 64), 4),
+    (64, 2, 8, (256 * 64, 64), 8), (64, 4, 4, (256 * 64, 64), 4),
+    (64, 4, 8, (256 * 64, 64), 8), (128, 4, 12, (128,), 4),
+    # an aligned D in rows whose stride is not a multiple of 16 bytes
+    (64, 2, 0, (68,), 8), (64, 2, 0, (66,), 4), (64, 2, 0, (65,), 2),
+    (64, 4, 0, (66,), 8), (64, 4, 0, (65,), 4)])
+def test_flash_copy_width_is_the_widest_every_base_and_stride_allows(
+        D, itemsize, offset, strides, width):
+    """The loader a call takes, from D, the base addresses (one of them
+    ``offset`` bytes past a 16-byte boundary) and the strides: 16 where the
+    16-byte loaders take it, else 8, 4 or (bf16) 2 bytes a copy."""
+    addresses = (_ALIGNED, _ALIGNED + 256, _ALIGNED + offset)
+    assert flash_copy_width(D, itemsize, addresses, strides) == width
+
+
+def test_flash_copy_width_refuses_strides_that_are_not_positive():
+    with pytest.raises(ValueError, match="positive"):
+        flash_copy_width(64, 2, (_ALIGNED,), (0, 64))
+
+
+def test_flash_copy_width_of_tensors_agrees_with_the_tma_check():
+    """A 16-byte width is exactly what check_tma accepts: an aligned view
+    and a view one element off, both dtypes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        storage = torch.zeros(2 * 64 * 4 + 8, dtype=dtype)
+        es = storage.element_size()
+        base = (-(storage.data_ptr() // es)) % (16 // es)
+        for off, want in ((0, 16), (1, es)):
+            t = storage[base + off:base + off + 2 * 64 * 4].view(1, 2, 4, 64)
+            width = flash_copy_width(64, es, (t.data_ptr(),),
+                                     t.stride()[:-1])
+            assert width == want
+            if width == 16:
+                check_tma("t", t)
+            else:
+                with pytest.raises(ValueError):
+                    check_tma("t", t)
 
 
 @pytest.mark.parametrize("D", [0, 257, 512])
@@ -156,13 +219,14 @@ def test_padded_head_dim_is_the_next_compiled_width(D, route):
     assert all(w < D for w in widths if w < Dp)
 
 
-@pytest.mark.parametrize("D", [40, 96])
+@pytest.mark.parametrize("D", [40, 96, 33, 100])
 @pytest.mark.parametrize("G", [1, 2])
 def test_attention_at_padded_head_dims_matches_jax(D, G):
     """Head dims the tensor-core routes run zero-padded (40 onto 64, 96,
-    phi-3-vision's, onto 128): the port's plain version against the Pallas
-    kernel in interpret mode, causal and with a window, S not a multiple
-    of the tile."""
+    phi-3-vision's, onto 128; the unaligned 33 onto 64 and 100 onto 128,
+    which the narrow loaders fill): the port's plain version against the
+    Pallas kernel in interpret mode, causal and with a window, S not a
+    multiple of the tile."""
     B, S, Hkv = 1, 100, 2
     rng = np.random.default_rng(50 + D + G)
     qj, qt = _pair(rng.standard_normal((B, S, Hkv * G, D), dtype=np.float32))
@@ -190,11 +254,13 @@ def test_tma_check_refuses_misaligned_tensors():
         check_tma("t", torch.zeros(1, 2, 4, 36, dtype=torch.bfloat16))
 
 
-def _attention_bf16_p(q, k, v, *, causal, window, block_k):
+def _attention_bf16_p(q, k, v, *, causal, window, block_k, scale=None):
     """The wgmma kernel's arithmetic in torch: an online softmax over key
     tiles of ``block_k`` in f32, with P rounded to bf16 before P·V — the
-    one rounding the reference does not do."""
+    one rounding the reference does not do. ``scale`` defaults to the
+    width's D**-0.5."""
     B, H, S, D = q.shape
+    scale = D ** -0.5 if scale is None else scale
     qf, kf, vf = (t.float() for t in (q, k, v))
     qp = torch.arange(S)[:, None]
     m = torch.full((B, H, S, 1), float("-inf"))
@@ -202,7 +268,7 @@ def _attention_bf16_p(q, k, v, *, causal, window, block_k):
     for k0 in range(0, S, block_k):
         kp = torch.arange(k0, min(k0 + block_k, S))[None, :]
         s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + block_k]) \
-            * D ** -0.5
+            * scale
         ok = torch.ones(S, kp.shape[1], dtype=torch.bool)
         if causal:
             ok &= kp <= qp
@@ -232,6 +298,73 @@ def test_bf16_p_rounding_stays_within_the_bf16_tolerance(D, window):
                             block_k=128 if D <= 128 else 64)
     want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
     torch.testing.assert_close(got.float(), want.float(), **TOL["bfloat16"])
+
+
+def _narrow_stage(x, p0, rows, Dp):
+    """The narrow wgmma loader's staging of one tile in torch: positions
+    p0 .. p0 + rows − 1 of x [S, d] (bf16) written at the byte address the
+    loader computes for (row r, column c): 64-column block c // 64 at
+    rows·128 bytes a block, row r at r·128, 16-byte chunk (c % 64) // 8 XOR
+    r % 8, 2 bytes a column, into a zeroed tile of the compiled width Dp;
+    rows at or past S and columns at or past d stay zero."""
+    S, d = x.shape
+    buf = torch.zeros(Dp // 64 * rows * 128, dtype=torch.uint8)
+    n = max(0, min(rows, S - p0))
+    r, c = torch.arange(n)[:, None], torch.arange(d)[None, :]
+    addr = (c // 64) * rows * 128 + r * 128 + \
+        ((((c % 64) // 8) ^ (r % 8)) << 4) + (c % 8) * 2
+    raw = x[p0:p0 + n].contiguous().view(torch.int16).to(torch.int32)
+    buf[addr.flatten()] = (raw & 0xff).to(torch.uint8).flatten()
+    buf[addr.flatten() + 1] = ((raw >> 8) & 0xff).to(torch.uint8).flatten()
+    return buf
+
+
+def _swizzled_read(buf, rows, Dp):
+    """The tile as wgmma reads it, by the 128-byte swizzle as the hardware
+    defines it on byte offsets from a 1,024-byte aligned base: bits 4–6
+    XOR bits 7–9; column c of row r at logical offset (c // 64)·rows·128 +
+    r·128 + (c % 64)·2."""
+    r, c = torch.arange(rows)[:, None], torch.arange(Dp)[None, :]
+    logical = (c // 64) * rows * 128 + r * 128 + (c % 64) * 2
+    phys = logical ^ (((logical >> 7) & 7) << 4)
+    lo, hi = buf[phys].to(torch.int32), buf[phys + 1].to(torch.int32)
+    return ((hi << 8) | lo).to(torch.int16).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("D", [1, 33, 100, 129, 255])
+def test_narrow_wgmma_staging_matches_the_plain_version(D, window):
+    """Q, K and V staged tile by tile as the narrow loader writes them (its
+    swizzled addresses, zeros past S and D), read back through the
+    hardware's swizzle, then the wgmma kernel's arithmetic at the compiled
+    width with the real D's scale: columns < D agree with the plain
+    version at the bf16 tolerance and columns ≥ D are exactly 0, at odd
+    and even D, S = 200 (a partial last tile), causal."""
+    S, H = 200, 2
+    Dp = padded_head_dim(D, "wgmma")
+    bk = 128 if Dp <= 128 else 64
+    rng = np.random.default_rng(60 + D)
+    q, k, v = (torch.as_tensor(rng.standard_normal(
+        (1, H, S, D), dtype=np.float32)).bfloat16() for _ in range(3))
+
+    def staged(x, rows):
+        tiles = [_swizzled_read(_narrow_stage(x[0, h], p0, rows, Dp), rows,
+                                Dp)
+                 for h in range(H) for p0 in range(0, S, rows)]
+        out = torch.stack([torch.cat(tiles[h * len(tiles) // H:
+                                           (h + 1) * len(tiles) // H])
+                           for h in range(H)])[None]
+        assert not bool(out[:, :, S:].any()) and not bool(out[..., D:].any())
+        assert torch.equal(out[:, :, :S, :D], x)
+        return out[:, :, :S]
+
+    qs, ks, vs = staged(q, 128), staged(k, bk), staged(v, bk)
+    got = _attention_bf16_p(qs, ks, vs, causal=True, window=window,
+                            block_k=bk, scale=D ** -0.5)
+    assert not bool(got[..., D:].any())
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got[..., :D].float(), want.float(),
+                               **TOL["bfloat16"])
 
 
 def _tf32_split(x):
@@ -612,8 +745,10 @@ def test_cpu_calls_count_no_route():
         kernels.clip_accumulate_rows(g, kernels.sumsq_rows(g))
         kernels.clip_accumulate(torch.zeros(40), g[0], 1.0)
     counts = kernels.route_launch_counts()
-    assert set(counts) == {"flash_attention/wgmma", "flash_attention/tf32x3",
-                           "flash_attention/cuda_cores", "rmsnorm/vector",
+    assert set(counts) == {"flash_attention/wgmma",
+                           "flash_attention/wgmma/narrow",
+                           "flash_attention/tf32x3",
+                           "flash_attention/tf32x3/narrow", "rmsnorm/vector",
                            "rmsnorm/scalar", "sumsq/vector", "sumsq/rows",
                            "scale_accumulate/vector",
                            "scale_accumulate/rows"}
