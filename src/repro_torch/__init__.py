@@ -1,14 +1,16 @@
 """ProxyFL on PyTorch and CUDA: the port of the JAX package ``repro``.
 
 The layout mirrors ``repro`` module for module (``configs``, ``convert``,
-``nn``, ``optim``, ``core``, ``data``, ``kernels``) so each function has an
+``nn``, ``optim``, ``core``, ``data``, ``kernels``, and ``benchmarks`` for
+the figure drivers) so each function has an
 obvious counterpart, and the state layout is the reference's: parameter
 trees are nested dicts with the same key paths and leaf shapes, flattened
 in sorted-key order. The package imports torch, numpy and the standard
 library only — never jax and never ``repro``.
 
 Entry points (``core.baselines.run_federated``, ``core.engine.dml_engine``,
-``core.engine.FederationEngine``) take a ``device``: ``"cuda"`` by default,
+``core.engine.single_model_engine``, ``core.engine.FederationEngine``,
+``benchmarks.common.bench_methods``) take a ``device``: ``"cuda"`` by default,
 where ``use_pallas`` runs the hand-written kernels of :mod:`.kernels`; the
 CPU only when the caller asks for it, where the kernels' plain versions
 run. A missing GPU is an error, never a silent switch to the CPU.

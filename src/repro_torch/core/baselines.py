@@ -1,13 +1,32 @@
-"""The federated run (port of ``run_federated`` in
-``src/repro/core/baselines.py``). This port runs ``method="proxyfl"``:
-private + proxy DML per client, DP-SGD on the proxies, PushSum on the
-exponential graph, with §3.4 dropout (``cfg.dropout_rate``) and the
-``"async"`` stale-gossip backend (``cfg.staleness``). The other six
-methods are later work (ROADMAP.md Queue 1 item 1).
+"""All comparison methods of the paper (§4.1), run by the port's
+:class:`repro_torch.core.engine.FederationEngine` (port of
+``src/repro/core/baselines.py``):
+
+* **ProxyFL** — private + proxy DML per client, DP-SGD on the proxies,
+  PushSum on the exponential graph (engine mix="pushsum").
+* **FML** (Shen et al. 2020) — the same two models, proxies averaged at a
+  central server (mix="mean").
+* **FedAvg** (McMahan et al. 2017) — centralized mean of the single client
+  models (mix="mean").
+* **AvgPush** — decentralized FedAvg: PushSum of the single model
+  (mix="pushsum").
+* **CWT** (Chang et al. 2018) — cyclical weight transfer around the ring
+  (mix="ring").
+* **Regular** — local training only (mix="none").
+* **Joint** — the pooled-data upper bound: one client holding every
+  client's data (mix="none").
+
+As in the paper, the single-model methods train their one model with
+DP-SGD; ProxyFL and FML apply it to the proxies only. Every method runs
+with §3.4 dropout (``cfg.dropout_rate``) and on the ``"async"``
+stale-gossip backend (``cfg.staleness``), which refuses CWT at τ > 0.
+Checkpoints, compression, the hier backend, commitments and round-blocks
+are not ported (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -16,10 +35,21 @@ import torch
 from .. import resolve_device
 from ..configs import ProxyFLConfig
 from .accountant import PrivacyAccountant
-from .engine import dml_engine
+from .engine import dml_engine, single_model_engine
 from .protocol import ClientState, ModelSpec, evaluate_batched
 
 METHODS = ("proxyfl", "fml", "fedavg", "avgpush", "cwt", "regular", "joint")
+
+# engine exchange rule per single-model method
+_SINGLE_MIX = {"fedavg": "mean", "avgpush": "pushsum", "cwt": "ring",
+               "regular": "none", "joint": "none"}
+
+
+@dataclass
+class SingleModelClient:
+    params: object
+    opt: object
+    accountant: Optional[PrivacyAccountant] = None
 
 
 def _accountants(cfg: ProxyFLConfig, sizes: Sequence[int]
@@ -50,25 +80,47 @@ def run_federated(
     ``{"history", "epsilon", "clients"}`` as the reference does.
 
     ``history`` holds one row per evaluation (every ``eval_every`` rounds
-    and after the last): ``{"round", "private_acc", "proxy_acc"}`` with one
-    test accuracy per client. ``use_pallas`` overrides ``cfg.use_pallas``
-    (None keeps the config). The engine backend is ``backend``, else
-    ``cfg.backend``, else ``"auto"``; ``"async"`` delays delivery by
-    ``cfg.staleness`` rounds and is never chosen by ``"auto"``."""
+    and after the last) with one test accuracy per client: ``{"round",
+    "private_acc", "proxy_acc"}`` for ProxyFL and FML, ``{"round", "acc"}``
+    for the single-model methods, whose model is ``proxy_spec`` (all
+    clients share one architecture, the constraint ProxyFL removes).
+    ``clients`` holds a :class:`ClientState` or a
+    :class:`SingleModelClient` per client. Joint pools every client's data,
+    in client order, into one client that takes ``cfg.local_steps × K``
+    steps a round when ``cfg.local_steps`` is set, else one epoch of the
+    pooled set; its one accountant samples at B / n_pooled.
+
+    ``use_pallas`` overrides ``cfg.use_pallas`` (None keeps the config).
+    The engine backend is ``backend``, else ``cfg.backend``, else
+    ``"auto"``; ``"async"`` delays delivery by ``cfg.staleness`` rounds and
+    is never chosen by ``"auto"``."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
-    if method != "proxyfl":
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP.md Queue 1 item "
-            "1)")
     dev = resolve_device(device)
     if use_pallas is not None:
         cfg = dataclasses.replace(cfg, use_pallas=use_pallas)
+    backend = backend or cfg.backend or "auto"
     K = len(client_data)
     data = [(x.to(dev), y.to(dev)) for x, y in client_data]
     xt, yt = (t.to(dev) for t in test_data)
-    engine = dml_engine(tuple(private_specs[:K]), proxy_spec, cfg,
-                        backend=backend or cfg.backend or "auto", device=dev)
+
+    if method in ("proxyfl", "fml"):
+        engine = dml_engine(
+            tuple(private_specs[:K]), proxy_spec, cfg, backend=backend,
+            mix="pushsum" if method == "proxyfl" else "mean", device=dev)
+        roles = [("private_acc", private_specs[0], "private"),
+                 ("proxy_acc", proxy_spec, "proxy")]
+    else:
+        if method == "joint":
+            data = [(torch.cat([d[0] for d in data]),
+                     torch.cat([d[1] for d in data]))]
+            if cfg.local_steps:
+                cfg = dataclasses.replace(cfg,
+                                          local_steps=cfg.local_steps * K)
+        engine = single_model_engine(
+            proxy_spec, cfg, cfg.dp.enabled, mix=_SINGLE_MIX[method],
+            backend=backend, n_clients=len(data), device=dev)
+        roles = [("acc", proxy_spec, "proxy")]
     accs = _accountants(cfg, [d[0].shape[0] for d in data])
     engine.attach_accountants(accs)
     state = engine.init_states(seed)
@@ -77,18 +129,22 @@ def run_federated(
         state, _ = engine.run_round(state, data, t, seed)
         done = t + 1
         if (eval_every > 0 and done % eval_every == 0) or done == cfg.rounds:
-            history.append({
-                "round": done,
-                "private_acc": evaluate_batched(
-                    private_specs[0], engine.stacked_params(state, "private"),
-                    xt, yt),
-                "proxy_acc": evaluate_batched(
-                    proxy_spec, engine.stacked_params(state, "proxy"), xt,
-                    yt)})
-    clients = [ClientState(s["private"]["params"], s["private"]["opt"],
-                           s["proxy"]["params"], s["proxy"]["opt"],
-                           float(s["w"]), accs[k])
-               for k, s in enumerate(engine.export_states(state))]
+            row: Dict = {"round": done}
+            for key, spec, role in roles:
+                row[key] = evaluate_batched(
+                    spec, engine.stacked_params(state, role), xt, yt)
+            history.append(row)
+    states = engine.export_states(state)
+    if method in ("proxyfl", "fml"):
+        clients: List = [
+            ClientState(s["private"]["params"], s["private"]["opt"],
+                        s["proxy"]["params"], s["proxy"]["opt"],
+                        float(s["w"]), accs[k])
+            for k, s in enumerate(states)]
+    else:
+        clients = [SingleModelClient(s["proxy"]["params"], s["proxy"]["opt"],
+                                     accs[k])
+                   for k, s in enumerate(states)]
     return {"history": history,
             "epsilon": [a.epsilon() if a else None for a in accs],
             "clients": clients}

@@ -393,3 +393,45 @@ def dml_engine(private_specs: Tuple, proxy_spec, cfg: ProxyFLConfig,
         init_fn=_dml_state_init(private_specs[0], proxy_spec, cfg),
         sample_fn=classifier_sampler(cfg.batch_size), backend=backend,
         mix=mix, device=device, draws=draws)
+
+
+def _ce_state_step(spec, cfg: ProxyFLConfig, dp: bool) -> StepFn:
+    from .protocol import ce_step_fn
+    raw = ce_step_fn(spec, cfg, dp)
+
+    def step(state, batch, generator, noise=None):
+        params, opt, loss = raw(state["proxy"]["params"],
+                                state["proxy"]["opt"], batch, generator,
+                                noise)
+        return {"proxy": {"params": params, "opt": opt},
+                "w": state["w"]}, {"loss": loss}
+
+    return step
+
+
+def _ce_state_init(spec, cfg: ProxyFLConfig) -> InitFn:
+    opt = Adam(lr=cfg.lr, weight_decay=cfg.weight_decay)
+
+    def init(generator):
+        params = spec.init(generator)
+        return {"proxy": {"params": params, "opt": opt.init(params)},
+                "w": torch.ones((), dtype=torch.float32)}
+
+    return init
+
+
+def single_model_engine(spec, cfg: ProxyFLConfig, dp: bool,
+                        mix: str = "mean", backend: str = "auto",
+                        n_clients: int = 0, device="cuda",
+                        draws: Optional[DrawsFn] = None) -> FederationEngine:
+    """Engine for the single-model baselines: FedAvg (mix="mean"), AvgPush
+    ("pushsum"), CWT ("ring"), Regular and Joint ("none"). The model lives
+    in the exchanged ``proxy`` slot of the state ``{"proxy": {"params",
+    "opt"}, "w"}``; ``dp`` runs its step under DP-SGD. ``n_clients`` (0:
+    ``cfg.n_clients``) is the cohort size."""
+    return FederationEngine(
+        cfg, n_clients=n_clients or cfg.n_clients,
+        step_fn=_ce_state_step(spec, cfg, dp),
+        init_fn=_ce_state_init(spec, cfg),
+        sample_fn=classifier_sampler(cfg.batch_size), backend=backend,
+        mix=mix, device=device, draws=draws)

@@ -1,9 +1,13 @@
-"""ProxyFL — Algorithm 1 of the paper, the client step and evaluation; port
-of the parts of ``src/repro/core/protocol.py`` the ProxyFL round uses.
+"""ProxyFL — Algorithm 1 of the paper, the client steps and evaluation;
+port of the parts of ``src/repro/core/protocol.py`` the federated rounds
+use.
 
 A *ModelSpec* abstracts a classifier as ``init(generator) -> params`` /
-``apply(params, x) -> logits``. Each client holds a private model (trained
-WITHOUT DP, Eq. 4) and a proxy model (trained WITH DP-SGD, Eq. 5/7).
+``apply(params, x) -> logits``. Each ProxyFL / FML client holds a private
+model (trained WITHOUT DP, Eq. 4) and a proxy model (trained WITH DP-SGD,
+Eq. 5/7): :func:`dml_step_fn`. The single-model baselines (FedAvg,
+AvgPush, CWT, Regular, Joint) take a plain cross-entropy step on one
+model: :func:`ce_step_fn`.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ import torch
 from torch.func import vmap
 
 from ..configs import ProxyFLConfig
-from ..nn.losses import dml_loss
+from ..nn.losses import cross_entropy, dml_loss
 from ..optim import Adam
 from .accountant import PrivacyAccountant
 from .dp import dp_adam_update, dp_gradient, non_dp_gradient
@@ -85,6 +89,41 @@ def dml_step_fn(private_spec: ModelSpec, proxy_spec: ModelSpec,
         phi2, opt_phi2 = opt.update(g_phi, opt_phi, phi)
         return phi2, opt_phi2, theta2, opt_theta2, {
             "private_loss": m_phi["loss"], "proxy_loss": m_theta["loss"]}
+
+    return step
+
+
+def ce_step_fn(spec: ModelSpec, cfg: ProxyFLConfig, dp: bool):
+    """Plain CE step of the single-model methods (FedAvg/AvgPush/CWT/...):
+    the fused clip → noise → Adam chain under DP with ``cfg.use_pallas``,
+    else the DP gradient (or the plain one without DP) and an Adam step.
+
+    ``step(params, opt, batch, generator=None, noise=None) -> (params',
+    opt', loss)``; ``noise`` is the flat N(0, 1) draw, as for
+    :func:`dml_step_fn`."""
+    opt = Adam(lr=cfg.lr, weight_decay=cfg.weight_decay)
+
+    def loss(params, batch):
+        x, y = batch
+        return cross_entropy(spec.apply(params, x), y)
+
+    def step(params, opt_state, batch, generator=None, noise=None):
+        if dp and cfg.use_pallas:
+            params2, opt_state2, m = dp_adam_update(
+                loss, params, opt_state, batch, opt=opt,
+                clip_norm=cfg.dp.clip_norm,
+                noise_multiplier=cfg.dp.noise_multiplier, noise=noise,
+                generator=generator)
+        else:
+            if dp:
+                g, m = dp_gradient(
+                    loss, params, batch, clip_norm=cfg.dp.clip_norm,
+                    noise_multiplier=cfg.dp.noise_multiplier, noise=noise,
+                    generator=generator, vectorized=cfg.dp.vectorized)
+            else:
+                g, m = non_dp_gradient(loss, params, batch)
+            params2, opt_state2 = opt.update(g, opt_state, params)
+        return params2, opt_state2, m["loss"]
 
     return step
 

@@ -1,5 +1,5 @@
-"""Losses: cross-entropy and the DML KL term (paper Eqs. 2-5), ported from
-``src/repro/nn/losses.py``."""
+"""Losses: cross-entropy and the DML KL term (paper Eqs. 2-5), accuracy
+and macro-accuracy, ported from ``src/repro/nn/losses.py``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -52,3 +52,17 @@ def accuracy(logits, labels, mask: Optional[torch.Tensor] = None
              ) -> torch.Tensor:
     ok = (torch.argmax(logits, dim=-1) == labels).to(torch.float32)
     return _masked_mean(ok, mask)
+
+
+def macro_accuracy(logits, labels, n_classes: int) -> torch.Tensor:
+    """Per-class accuracy averaged over classes (the paper's
+    macro-accuracy, fig. 9). A class absent from ``labels`` counts as 0,
+    as in the reference."""
+    pred = torch.argmax(logits, dim=-1).reshape(-1)
+    labels = labels.reshape(-1)
+    accs = []
+    for c in range(n_classes):
+        m = (labels == c).to(torch.float32)
+        accs.append(torch.sum((pred == c) * m)
+                    / torch.clamp(torch.sum(m), min=1.0))
+    return torch.mean(torch.stack(accs))

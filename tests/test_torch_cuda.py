@@ -10,8 +10,9 @@ jamba-1.5-large's widths and over a sweep of state sizes and lengths;
 noise_adam_step and noise_sgd_step bit for bit and as one device kernel a
 call), the
 wrappers' refusals, and small
-federations (sync, and async at staleness 2 with dropout) through the
-kernels against the plain path on the same seed.
+federations (ProxyFL sync, and async at staleness 2 with dropout; each of
+the six other fig. 3 methods) through the kernels against the plain path
+on the same seed.
 
 Every test here needs a CUDA device and skips without one. The file
 imports torch and ``repro_torch`` only (no jax), so on a GPU machine
@@ -679,3 +680,41 @@ def test_small_async_federation_through_the_stale_kernel(gen):
         for x, y in zip(tree_leaves(a.proxy_params),
                         tree_leaves(b.proxy_params)):
             torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("method", ["fml", "fedavg", "avgpush", "cwt",
+                                    "regular", "joint"])
+def test_small_federation_of_each_other_method(gen, method):
+    """Two rounds of each of the six other fig. 3 methods through the
+    kernels against the plain path on the same seed: one launch of each
+    clip kernel (rows route) and of Adam per DP step, one mix a round
+    where the method exchanges, none where it does not."""
+    vm = get_vision_model("mlp")
+    shape = (6, 6, 1)
+    spec = ModelSpec("mlp", lambda g: vm.init(g, shape, 4), vm.apply)
+    data = [(torch.randn((40,) + shape, generator=gen, device="cuda"),
+             torch.randint(0, 4, (40,), generator=gen, device="cuda"))
+            for _ in range(3)]
+    cfg = ProxyFLConfig(n_clients=3, rounds=2, batch_size=10,
+                        use_pallas=True, dp=DPConfig(enabled=True))
+    kernels.reset_launch_counts()
+    fused = run_federated(method, [spec] * 3, spec, data, data[0], cfg)
+    steps = cfg.rounds * 3 * (40 // cfg.batch_size)
+    mixes = 0 if method in ("regular", "joint") else cfg.rounds
+    assert kernels.launch_counts() == dict(
+        dict.fromkeys(kernels.KERNELS, 0), sumsq=steps,
+        scale_accumulate=steps, noise_adam_step=steps,
+        fused_pushsum_mix=mixes)
+    routes = kernels.route_launch_counts()
+    assert (routes["sumsq/rows"], routes["scale_accumulate/rows"]) == (
+        steps, steps)
+    plain = run_federated(method, [spec] * 3, spec, data, data[0], cfg,
+                          use_pallas=False)
+    roles = (("private_params", "proxy_params") if method == "fml"
+             else ("params",))
+    for a, b in zip(fused["clients"], plain["clients"]):
+        for role in roles:
+            for x, y in zip(tree_leaves(getattr(a, role)),
+                            tree_leaves(getattr(b, role))):
+                torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-4)
+    assert fused["epsilon"] == plain["epsilon"]

@@ -11,9 +11,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.benchmarks.common import bench_methods  # noqa: E402
 from repro_torch.configs import ProxyFLConfig  # noqa: E402
 from repro_torch.core.baselines import run_federated  # noqa: E402
-from repro_torch.core.engine import dml_engine  # noqa: E402
+from repro_torch.core.engine import (dml_engine,  # noqa: E402
+                                     single_model_engine)
 from repro_torch.core.protocol import ModelSpec  # noqa: E402
 from repro_torch.nn.vision import get_vision_model  # noqa: E402
 
@@ -31,6 +33,7 @@ def test_import_loads_no_jax_and_no_reference_package():
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
+        assert "repro_torch.benchmarks.fig3_accuracy" in names
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -55,10 +58,16 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         dml_engine((spec,) * 2, spec, cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        run_federated("proxyfl", [spec] * 2, spec, data, data[0], cfg)
-    res = run_federated("proxyfl", [spec] * 2, spec, data, data[0], cfg,
-                        device="cpu")
-    assert len(res["history"]) == 1 and len(res["clients"]) == 2
+        single_model_engine(spec, cfg, True)
+    for method in ("proxyfl", "fedavg"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run_federated(method, [spec] * 2, spec, data, data[0], cfg)
+        res = run_federated(method, [spec] * 2, spec, data, data[0], cfg,
+                            device="cpu")
+        assert len(res["history"]) == 1 and len(res["clients"]) == 2
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_methods("mnist", ("fedavg",), n_clients=2, rounds=1,
+                      seeds=(0,), n_train_factor=0.01)
 
 
 @pytest.mark.parametrize("backend", ["shard_map", "hier"])
