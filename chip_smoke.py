@@ -18,7 +18,9 @@
    and the
    ``"rows"`` route of the DP clip pair (``sumsq_rows`` and
    ``clip_accumulate_rows`` over the [250, 199,210] per-example gradients
-   and over fig. 3's cifar10 proxy's [250, 656,810], also bit for bit
+   and over fig. 3's cifar10 proxy's [250, 656,810], table 2's cnn1
+   proxy's [32, 66,778], fig. 6's VGG's [128, 110,792] and fig. 5b's
+   Regular proxies' [250, D] (D = 107,786, 51,830, 211,594), also bit for bit
    against a loop of the 1-D kernels) against its
    plain PyTorch version on the
    card, at the main paths' shapes (D = 199,210 f32, K = 8; the LLM
@@ -27,7 +29,9 @@
    attention in bf16 and f32, phi-3-vision's head dim 96 in both, and the
    narrow loaders at phi-3-vision's length and heads with D = 100 (bf16)
    and 98 (f32); rmsnorm on both its vector and its scalar path)
-   and at ragged sizes (the sync mix and Adam also at D = 656,810, the
+   and at ragged sizes (the sync mix and Adam also at D = 656,810 and at
+   the figures phase's widths: Adam at 66,778 and 110,792, the mix at
+   [4, 199,210], [4, 66,778] and [8, 110,792]; the
    sync mix also on the dense "mean" P of FedAvg and FML and the "ring"
    permutation of CWT; the mixes at K across every register bucket edge,
    the sync mix also on rows one element off; z' of the f32 stale mix
@@ -96,7 +100,25 @@
    accuracies in [0, 1], and the same run with ``use_pallas=False`` at the
    ``close`` grade; prints each method's rounds/s with the kernels and on
    the plain path beside the card.
-5. Drives the async path: ``run_federated(..., backend="async")`` on
+5. Drives the "figures" configurations through the port's own drivers
+   (``fig5_ablations.hetero_setup``, ``table2_histo.configuration``,
+   ``fig6_kvasir.configuration``) and ``run_federated``, one round each,
+   seed 0, at full width: fig. 5b's heterogeneous cohort (privates mlp,
+   lenet5, cnn1 and cnn2 around an mlp proxy, 4 clients of 1,000 MNIST
+   examples, B = 250) and the Regular baseline of each architecture;
+   table 2's camelyon (cnn1, a Dirichlet cohort of 4, B = 32, sigma 1.4,
+   C 0.7, alpha 0.3) and fig. 6's kvasir (the small VGG, a Dirichlet
+   cohort of 8, B = 128), ProxyFL and FedAvg or AvgPush each. The counters
+   reset just before and read just after each run: one ``sumsq`` and one
+   ``scale_accumulate`` on the rows route and one ``noise_adam_step`` per
+   DP step, sum_k max(1, n_k // B) steps a round from the clients' own
+   sizes, one ``fused_pushsum_mix`` a round where the method mixes,
+   nothing else; each client's epsilon the accountant's for its own
+   sample rate and steps, and table 2's privacy rows the JAX package's;
+   finite losses; a second run bit-equal, each of its client steps equal
+   to the plain path's from the same state at the ``close`` grade; rounds/s
+   with the kernels and plain.
+6. Drives the async path: ``run_federated(..., backend="async")`` on
    fig_async's protocol (staleness 2, 2 local steps of batch 64, DP off)
    on the same data for 6 rounds, counters reset just before and read just
    after (exactly one stale-mix launch a round, nothing else); checks
@@ -106,13 +128,13 @@
    Then checks that async at staleness 0 equals the sync backend bit for
    bit, and that PushSum mass (clients plus in-flight buffer) is conserved
    round by round at staleness 2 under §3.4 dropout.
-6. Breaks one warm client step, one engine round, the exchange and the
+7. Breaks one warm client step, one engine round, the exchange and the
    evaluation of the sync path down on the host clock, and profiles one
    step with torch.profiler for the device's busy share.
-7. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
+8. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
    and their narrow loaders, and the clip pair's rows route, under their
    own keys; the DP kernels and the mix also with their launches on each
-   method's path) and, last, the
+   method's path and each figures run's, with its shape) and, last, the
    result line
    ``{"ok": true, "device": {...}}``.
 
@@ -164,6 +186,21 @@ TF32X3_OPS_PER_S = 495e12 / 3   # f32-grade: three TF32 products at 495
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SCAN_TOL = 2e-4             # tests/test_kernels.py's mamba scan tolerance
 MAIN_D, MAIN_K = 199_210, 8
+# the figures phase's proxies (table 2's cnn1 on camelyon's 32x32x3, 2
+# classes; fig. 6's small VGG on kvasir's 25x20x3, 8 classes; fig. 5b's
+# Regular baselines of lenet5, cnn1 and cnn2 on MNIST) and batches
+TABLE2_D, TABLE2_B, TABLE2_K = 66_778, 32, 4
+FIG6_D, FIG6_B, FIG6_K = 110_792, 128, 8
+FIG5_REGULAR_D = (107_786, 51_830, 211_594)
+# one round each keeps the phase near 90 s: the plain path's per-example
+# loop and the lockstep run cost 20-40x a kernel round
+FIGURE_ROUNDS = 1
+# table 2's privacy rows (benchmarks/table2_histo.py: sigma 1.4, batch 32,
+# 30 epochs, delta 1e-5, each institution's training-set size), evaluated
+# with the JAX package's accountant on the CPU and pinned here
+TABLE2_EPSILONS = {"C1": 2.381721055853542, "C2": 2.1759964739464497,
+                   "C3": 2.0809329681079025, "C4": 2.1198894308107272,
+                   "Joint": 1.0006292618507429}
 MAIN_B = 250                 # examples of a DP step (the clip rows)
 # the mlp on fig. 3's cifar10 stand-in (32x32x3): 32·32·3·200 + 200 +
 # 200·200 + 200 + 200·10 + 10 params, its proxy's width on that path
@@ -441,7 +478,10 @@ def clip_rows_cases(gen):
         return acc
 
     shapes = [(MAIN_B, MAIN_D, torch.float32, None),
-              (MAIN_B, CIFAR_D, torch.float32, "cifar10")] + [
+              (MAIN_B, CIFAR_D, torch.float32, "cifar10"),
+              (TABLE2_B, TABLE2_D, torch.float32, "table2"),
+              (FIG6_B, FIG6_D, torch.float32, "fig6")] + [
+        (MAIN_B, D, torch.float32, None) for D in FIG5_REGULAR_D] + [
         (B, D, dt, None) for B, D in ROWS_RAGGED
         for dt in (torch.float32, torch.bfloat16)]
     for B, D, dt, tag in shapes:
@@ -519,6 +559,17 @@ def kernel_cases(gen):
                row="noise_adam_step cifar10",
                exact=lambda a=args, hp=hp: ref.noise_adam_step_ref(
                    *a, **dict(hp, n_units=torch.full((), 250.0, device=dev))))
+    # the Adam steps of the figures phase's conv proxies
+    for D, tag in ((TABLE2_D, "table2"), (FIG6_D, "fig6")):
+        args = tuple(randn(D) for _ in range(4)) + (
+            torch.rand((D,), generator=gen, device=dev),)
+        yield Case("noise_adam_step", torch.float32, (D,),
+                   lambda a=args, hp=hp: kernels.noise_adam_step(*a, **hp),
+                   lambda a=args, hp=hp: ref.noise_adam_step_ref(*a, **hp),
+                   None, 32 * D + 8, 19 * D, row=f"noise_adam_step {tag}",
+                   exact=lambda a=args, hp=hp: ref.noise_adam_step_ref(
+                       *a, **dict(hp, n_units=torch.full((), 250.0,
+                                                         device=dev))))
     # every vector one element off 16 bytes: the one-column accesses
     off = [randn(MAIN_D + 1)[1:] for _ in range(4)] + \
         [torch.rand((MAIN_D + 1,), generator=gen, device=dev)[1:]]
@@ -531,7 +582,13 @@ def kernel_cases(gen):
     yield from clip_rows_cases(gen)
     mix_shapes = [(MAIN_K, MAIN_D), (MAIN_K, CIFAR_D)] + [
         (K, D) for K in RAGGED_K for D in RAGGED_D]
-    for K, D in mix_shapes:
+    # the figures phase's exchanges: fig. 5b's four mlp proxies, table 2's
+    # four cnn1 proxies and fig. 6's eight VGG proxies
+    mix_rows = {(MAIN_K, CIFAR_D): "fused_pushsum_mix cifar10",
+                (TABLE2_K, TABLE2_D): "fused_pushsum_mix table2",
+                (FIG6_K, FIG6_D): "fused_pushsum_mix fig6"}
+    for K, D in mix_shapes + [(4, MAIN_D), (TABLE2_K, TABLE2_D),
+                              (FIG6_K, FIG6_D)]:
         P = torch.rand((K, K), generator=gen, device=dev)
         P = P / P.sum(0, keepdim=True)   # column-stochastic, dense
         w = torch.rand((K,), generator=gen, device=dev) + 0.5
@@ -549,8 +606,8 @@ def kernel_cases(gen):
                        if dt == torch.float32 else None,
                        2 * K * D * es + 4 * K * K + 4 * K, 2 * K * K * D,
                        cold=True,
-                       row="fused_pushsum_mix cifar10" if (K, D, dt, debias)
-                       == (MAIN_K, CIFAR_D, torch.float32, True) else None)
+                       row=mix_rows.get((K, D)) if dt == torch.float32
+                       and debias else None)
     # rows that start one element off 16 bytes: the one-column accesses
     P = torch.rand((MAIN_K, MAIN_K), generator=gen, device=dev)
     P = P / P.sum(0, keepdim=True)
@@ -1477,7 +1534,7 @@ def cold_step(spec, data, test, cfg):
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng.step_fn(state, eng.sample_fn(data[0], gen), gen)
+        eng.step_fns[0](state, eng.sample_fn(data[0], gen), gen)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     print(f"set-up: first client step of the process {times[0]:.3f} s, "
@@ -1550,8 +1607,8 @@ def main_path(spec, data, test, cfg):
 
 def param_trees(result, method):
     """Each client's model params of a ``run_federated`` result."""
-    roles = (("private_params", "proxy_params") if method == "fml"
-             else ("params",))
+    roles = (("private_params", "proxy_params")
+             if method in ("proxyfl", "fml") else ("params",))
     return [getattr(c, role) for c in result["clients"] for role in roles]
 
 
@@ -1629,28 +1686,237 @@ def methods_path(spec, data, test, cfg, card):
     return out
 
 
+def all_leaves(result, method):
+    """Every model param of a ``run_federated`` result, in client order."""
+    from repro_torch.nn.modules import tree_leaves
+    return [leaf for tree in param_trees(result, method)
+            for leaf in tree_leaves(tree)]
+
+
+def figure_runs():
+    """The figures phase's runs, each (name, method, client data, test set,
+    private specs, proxy spec, config): fig. 5b's heterogeneous cohort
+    (privates mlp / lenet5 / cnn1 / cnn2, an mlp proxy) and the Regular
+    baseline of each architecture; table 2's and fig. 6's ``--full``
+    configurations (seed 0), ProxyFL and one single-model method each. All
+    at full width (image size, client count, all the data, batch), cut to
+    ``FIGURE_ROUNDS`` rounds, from the port's own drivers."""
+    from repro_torch.benchmarks import (common, fig5_ablations,
+                                        fig6_kvasir, table2_histo)
+
+    data, test, specs, proxy, cfg = fig5_ablations.hetero_setup(
+        True, "cuda", rounds=FIGURE_ROUNDS)
+    K = len(specs)
+    yield "fig5b hetero", "proxyfl", data, test, specs, proxy, cfg
+    for arch, spec in zip(fig5_ablations.HETERO_ARCHS, specs):
+        yield f"fig5b {arch}", "regular", data, test, [spec] * K, spec, cfg
+    for fig, module, single in (("table2", table2_histo, "fedavg"),
+                                ("fig6", fig6_kvasir, "avgpush")):
+        conf = module.configuration(True)
+        for key in ("methods", "seeds", "rounds"):
+            conf.pop(key)
+        data, test, priv, prox, cfg = common.method_setup(
+            conf.pop("dataset"), conf.pop("n_clients"), 0,
+            rounds=FIGURE_ROUNDS, device="cuda", **conf)
+        K = len(data)
+        for method in ("proxyfl", single):
+            yield fig, method, data, test, [priv] * K, prox, cfg
+
+
+class Lockstep:
+    """Within the block, every client step the engines build also runs on
+    the plain path (``use_pallas=False``) from the same state and the same
+    draws (a twin of the step's generator), and its result is compared
+    with the kernel path's at the ``close`` grade; the kernel path's state
+    goes on. This holds the kernels to the plain path step by step: over a
+    run the two trajectories may part further, since a one-ulp difference
+    in a near-zero first Adam step, spread by the conv models' max-pool
+    near-ties, grows from step to step (fig. 6's ProxyFL: 9.595e-05 after
+    2 rounds on the H100)."""
+
+    def __init__(self):
+        self.worst, self.beyond, self.steps = 0.0, 0, 0
+
+    def __enter__(self):
+        from repro_torch.core import engine
+        self.engine = engine
+        self.raw = engine._dml_state_step, engine._ce_state_step
+        dml_raw, ce_raw = self.raw
+
+        def dml(private_spec, proxy_spec, cfg):
+            return self.both(dml_raw(private_spec, proxy_spec, cfg),
+                             dml_raw(private_spec, proxy_spec,
+                                     dataclasses.replace(cfg,
+                                                         use_pallas=False)))
+
+        def ce(spec, cfg, dp):
+            return self.both(ce_raw(spec, cfg, dp), ce_raw(
+                spec, dataclasses.replace(cfg, use_pallas=False), dp))
+
+        engine._dml_state_step, engine._ce_state_step = dml, ce
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._dml_state_step, self.engine._ce_state_step = self.raw
+
+    def both(self, kernel_step, plain_step):
+        from repro_torch.nn.modules import tree_leaves
+
+        def step(state, batch, generator, noise=None):
+            twin = torch.Generator(device=generator.device)
+            twin.set_state(generator.get_state())
+            out = kernel_step(state, batch, generator, noise)
+            ref = plain_step(state, batch, twin, noise)
+            for a, b in zip(tree_leaves(out[0]), tree_leaves(ref[0])):
+                if a.is_floating_point():
+                    self.worst = max(self.worst, max_err(a, b))
+                    self.beyond += int(((a - b).abs() > CLOSE["atol"]
+                                        + CLOSE["rtol"] * b.abs()).sum())
+                else:
+                    assert torch.equal(a, b)
+            self.steps += 1
+            return out
+
+        return step
+
+
+def figures_path(card):
+    """The configurations of fig. 5b, table 2 and fig. 6 through
+    ``run_federated`` (:func:`figure_runs`), each with the counters reset
+    just before and read just after: one ``sumsq`` and one
+    ``scale_accumulate`` on the rows route and one ``noise_adam_step`` per
+    DP step, Σ_k max(1, n_k // B) steps a round from the clients' own
+    sizes, one ``fused_pushsum_mix`` a round for the mixing methods and
+    none for Regular, nothing else; every client's epsilon the port
+    accountant's for its own sample rate and steps; finite test losses; a
+    second run of the same seed bit-equal (cuDNN deterministic), each of
+    its client steps also taken on the plain path (``use_pallas=False``)
+    from the same state and draws and equal to it at the ``close`` grade
+    (:class:`Lockstep`); the whole plain run timed, and how far its params
+    end from the kernel run's printed. Also table 2's privacy rows against
+    the JAX package's pinned epsilons. Returns each run's launches, proxy
+    width, rounds/s with the kernels and plain, and both differences."""
+    from repro_torch import kernels
+    from repro_torch.benchmarks import table2_histo
+    from repro_torch.core.accountant import epsilon_for
+    from repro_torch.core.baselines import run_federated
+    from repro_torch.nn.losses import cross_entropy
+    from repro_torch.nn.modules import tree_size
+
+    for row in table2_histo.privacy_rows():
+        n = (sum(table2_histo.TRAIN_SIZES.values()) if row["client"] ==
+             "Joint" else table2_histo.TRAIN_SIZES[row["client"]])
+        eps = epsilon_for(noise_multiplier=1.4, sample_rate=32 / n,
+                          steps=30 * (n // 32), delta=1e-5)
+        assert eps == TABLE2_EPSILONS[row["client"]], (row, eps)
+        assert row["epsilon"] == round(eps, 3)
+    print(f"figures: table 2's privacy rows equal the JAX package's "
+          f"epsilons {TABLE2_EPSILONS}")
+
+    out, failures = {}, []
+    for name, method, data, test, privs, prox, cfg in figure_runs():
+        key = f"{name} {method}"
+        sizes = [x.shape[0] for x, _ in data]
+        B = cfg.batch_size
+        steps = [max(1, n // B) for n in sizes]
+        total = cfg.rounds * sum(steps)
+        D = tree_size(prox.init(torch.Generator(device="cuda")))
+
+        def run(use_pallas):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_federated(method, privs, prox, data, test, cfg, seed=0,
+                                eval_every=cfg.rounds, device="cuda",
+                                use_pallas=use_pallas)
+            torch.cuda.synchronize()
+            return res, cfg.rounds / (time.perf_counter() - t0)
+
+        kernels.reset_launch_counts()
+        res, rate = run(True)
+        counts = {**kernels.launch_counts(), **kernels.route_launch_counts()}
+        mixes = 0 if method == "regular" else cfg.rounds
+        expect(counts, sumsq=total, scale_accumulate=total,
+               noise_adam_step=total, fused_pushsum_mix=mixes,
+               **{"sumsq/rows": total, "scale_accumulate/rows": total})
+        sigma, delta = cfg.dp.noise_multiplier, cfg.dp.delta
+        want_eps = [epsilon_for(noise_multiplier=sigma,
+                                sample_rate=min(1.0, B / n),
+                                steps=cfg.rounds * s, delta=delta)
+                    for n, s in zip(sizes, steps)]
+        assert res["epsilon"] == want_eps, (key, res["epsilon"], want_eps)
+        models = []
+        for c, spec in zip(res["clients"], privs):
+            models += ([(spec, c.private_params), (prox, c.proxy_params)]
+                       if method == "proxyfl" else [(prox, c.params)])
+        with torch.no_grad():
+            losses = [float(cross_entropy(spec.apply(p, test[0]), test[1]))
+                      for spec, p in models]
+        assert all(math.isfinite(v) for v in losses), (key, losses)
+        row = res["history"][-1]
+        acc = np.asarray(row["private_acc" if method == "proxyfl" else "acc"])
+        assert ((acc >= 0) & (acc <= 1)).all(), (key, acc)
+
+        plain, plain_rate = run(False)
+        assert {**kernels.launch_counts(), **kernels.route_launch_counts()} \
+            == counts, f"{key}: the plain path launched a kernel"
+        apart = max(max_err(a, b) for a, b in zip(all_leaves(res, method),
+                                                   all_leaves(plain, method)))
+        assert plain["epsilon"] == res["epsilon"]
+        # the second run of the seed: each step also on the plain path
+        with Lockstep() as lock:
+            again, _ = run(True)
+        assert lock.steps == total, (key, lock.steps)
+        if lock.beyond:
+            failures.append(f"{key}: {lock.beyond} values of a step differ "
+                            "from the plain path's beyond the close grade "
+                            f"(max abs diff {lock.worst:.3e})")
+        assert all(torch.equal(a, b) for a, b in zip(
+            all_leaves(res, method), all_leaves(again, method))), \
+            f"{key}: a second run of the same seed differs"
+        print(f"figures: {key:24s} K {len(sizes)} sizes {sizes} B {B} D {D:,}"
+              f"; acc mean {acc.mean():.4f}; epsilon max "
+              f"{max(res['epsilon'])!r}; each of {lock.steps} client steps "
+              "against the plain path's from the same state: max abs diff "
+              f"{lock.worst:.3e} (close grade); the two paths' params "
+              f"{apart:.3e} apart after {cfg.rounds} round(s); a second run "
+              f"bit-equal; {rate:.4f} rounds/s with the kernels, "
+              f"{plain_rate:.4f} plain (evaluation included) on {card}; "
+              "launches sumsq/rows "
+              f"{counts['sumsq/rows']} scale_accumulate/rows "
+              f"{counts['scale_accumulate/rows']} noise_adam_step "
+              f"{counts['noise_adam_step']} fused_pushsum_mix "
+              f"{counts['fused_pushsum_mix']}")
+        out[key] = dict(counts=counts, rate=rate, plain_rate=plain_rate,
+                        step_diff=lock.worst, apart=apart, rows=[B, D],
+                        K=len(sizes))
+    assert not failures, failures
+    return out
+
+
 def timed_round(eng, state, data, t):
     """Host-clock seconds of one engine round and of each local step in
     it (each step synchronised and timed in place)."""
     step_s = []
-    raw_step = eng.step_fn
+    raw_steps = eng.step_fns
 
-    def timed_step(*args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = raw_step(*args)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        return out
+    def timed(raw_step):
+        def timed_step(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = raw_step(*args)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+        return timed_step
 
-    eng.step_fn = timed_step
+    eng.step_fns = [timed(f) for f in raw_steps]
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng.run_round(state, data, t, seed=0)
         torch.cuda.synchronize()
     finally:
-        eng.step_fn = raw_step
+        eng.step_fns = raw_steps
     return time.perf_counter() - t0, step_s
 
 
@@ -1966,7 +2232,7 @@ def step_breakdown(spec, data, test, cfg):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / 3 * 1e3, out
 
-    step_ms, _ = timed(lambda: eng.step_fn(state, batch, gen))
+    step_ms, _ = timed(lambda: eng.step_fns[0](state, batch, gen))
     grads_ms, (losses, grads) = timed(
         lambda: dp._per_example(proxy_loss, theta, batch))
     clip_ms, _ = timed(lambda: dp._flat_clip_accumulate(
@@ -1998,7 +2264,7 @@ def step_breakdown(spec, data, test, cfg):
           f"max {max(step_s) * 1e3:.3f} ms per step)")
 
     wall_ms, on_device = device_profile(
-        lambda: eng.step_fn(state, batch, gen))
+        lambda: eng.step_fns[0](state, batch, gen))
     busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
     print(f"profile: one client step under the profiler: wall "
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
@@ -2056,6 +2322,7 @@ def main() -> int:
     cold_step(*setup)
     counts, rounds_per_s = main_path(*setup)
     methods = methods_path(*setup, card)
+    figures = figures_path(card)
     async_counts, async_rates, _ = async_path(*setup)
     tau0_equals_sync(spec, data, cfg)
     mass_conservation(spec, data, cfg)
@@ -2081,13 +2348,13 @@ def main() -> int:
               "flash_attention_tf32x3_narrow":
               "flash_attention unaligned f32"}
     # the DP kernels' and the mix's launches on each other method's path
+    key_of = {"sumsq_rows": "sumsq/rows",
+              "clip_accumulate_rows": "scale_accumulate/rows",
+              "noise_adam_step": "noise_adam_step",
+              "fused_pushsum_mix": "fused_pushsum_mix"}
     by_method = {name: {"proxyfl": counts[key],
                         **{m: r["counts"][key] for m, r in methods.items()}}
-                 for name, key in (("sumsq_rows", "sumsq/rows"),
-                                   ("clip_accumulate_rows",
-                                    "scale_accumulate/rows"),
-                                   ("noise_adam_step", "noise_adam_step"),
-                                   ("fused_pushsum_mix", "fused_pushsum_mix"))}
+                 for name, key in key_of.items()}
     out = []
     for name, (source, replaces, tpu_kernel) in SOURCES.items():
         r = rows[row_of.get(name, name)]
@@ -2111,6 +2378,16 @@ def main() -> int:
             "shape": r["shape"], "dtype": r["dtype"]})
         if name in by_method:
             out[-1]["launches_by_method"] = by_method[name]
+            out[-1]["launches_by_figure"] = {
+                run: {"launches": f["counts"][key_of[name]],
+                      "shape": ([f["K"], f["rows"][1]]
+                                if name == "fused_pushsum_mix" else
+                                [f["rows"][1]] if name == "noise_adam_step"
+                                else f["rows"])}
+                for run, f in figures.items()}
+            for fig in ("table2", "fig6"):
+                if f"{name} {fig}" in rows:
+                    out[-1][f"{fig}_row"] = rows[f"{name} {fig}"]
         if name == "flash_attention":
             out[-1]["window_row"] = rows["flash_attention window"]
             out[-1]["phi3_row"] = rows["flash_attention phi-3-vision"]
@@ -2171,6 +2448,9 @@ def main() -> int:
     print(f"main path rounds/s {rounds_per_s:.4f} on {card}")
     for method, r in methods.items():
         print(f"methods path {method} rounds/s {r['rate']:.4f} (plain path "
+              f"{r['plain_rate']:.4f}) on {card}")
+    for run, r in figures.items():
+        print(f"figures path {run} rounds/s {r['rate']:.4f} (plain path "
               f"{r['plain_rate']:.4f}) on {card}")
     print(f"async path engine rounds/s {async_rates[True]:.4f} (plain path "
           f"{async_rates[False]:.4f}, means of two runs each) on {card}")

@@ -22,6 +22,10 @@ import torch
 # process from the moment the port is imported.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# One seed gives one trajectory, as in the reference: cuDNN picks its
+# convolution algorithms deterministically instead of by timing them.
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
 
 
 def resolve_device(device) -> torch.device:

@@ -1,20 +1,23 @@
 """Shared figure machinery of the port: a copy of the parts of
-``benchmarks/common.py`` that fig. 3 uses, without jax.
+``benchmarks/common.py`` that the ported figure drivers use, without jax.
 
 ``DATASETS`` holds the synthetic stand-ins for the paper's datasets (the
 same image geometry, class count and non-IID partition as the
 reference's). The draws are the port's own (torch generators on the run's
 device), so a seed gives other numbers than in the JAX package; the task
-seed, the partitioner and fig. 3's set-up are the reference's.
-``bench_methods`` takes only the knobs fig. 3 sets; the others are fixed
-at the reference's defaults, but for ``use_pallas``, on here so that the
-runs go through the port's kernels.
+seed, the partitioners and each figure's set-up are the reference's.
+``bench_methods`` takes the knobs the ported drivers set, each at the
+reference's default; the others are fixed at the reference's defaults,
+but for ``use_pallas``, on here so that the runs go through the port's
+kernels.
 """
 from __future__ import annotations
 
+import argparse
+import json
 import time
 import zlib
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, Iterable, Iterator, List, Sequence
 
 import numpy as np
 import torch
@@ -24,7 +27,7 @@ from ..configs import DPConfig, ProxyFLConfig
 from ..core.baselines import run_federated
 from ..core.engine import stream_seed
 from ..core.protocol import ModelSpec
-from ..data.partition import partition_major
+from ..data.partition import partition_dirichlet, partition_major
 from ..data.synthetic import make_classification_data
 from ..nn.vision import get_vision_model
 
@@ -54,19 +57,24 @@ def task_seed_of(dataset: str) -> int:
 
 
 def federation_data(dataset: str, n_clients: int, seed: int, *,
-                    n_train_factor: float = 1.0, device="cuda"):
+                    n_train_factor: float = 1.0, p_major=None,
+                    device="cuda"):
     """Per-client train sets and the shared 1,000-example test set on
-    ``device``, and the dataset's entry of :data:`DATASETS`. Each client
+    ``device``, and the dataset's entry of :data:`DATASETS`.
+
+    With a major-class share (``p_major``, else the dataset's), each client
     gets ``per_client · n_train_factor`` examples by ``partition_major``
-    from a pool twice the cohort's size."""
+    from a pool twice the cohort's size. The Dirichlet datasets (kvasir,
+    camelyon) assign every example of a pool of ``per_client · K`` by
+    ``partition_dirichlet``: a RAGGED cohort, each client keeping its own
+    size (every client at least one example, :func:`_ensure_nonempty`).
+    The partition and the donor draw use ``np.random.default_rng(seed)``,
+    as in the reference."""
     d = DATASETS[dataset]
-    if d["p_major"] is None:
-        raise NotImplementedError(
-            f"dataset {dataset!r} is Dirichlet-partitioned, which gives "
-            "ragged (size-skewed) cohorts; they are not ported yet "
-            "(ROADMAP.md Queue 1 item 4)")
     dev = resolve_device(device)
     per_client = int(d["per_client"] * n_train_factor)
+    pm = p_major if p_major is not None else d.get("p_major")
+    n_total = per_client * n_clients * (2 if pm is not None else 1)
     task_seed = task_seed_of(dataset)
 
     def draw(stream: int, n: int):
@@ -75,11 +83,15 @@ def federation_data(dataset: str, n_clients: int, seed: int, *,
         return make_classification_data(gen, n, d["shape"], d["n_classes"],
                                         sep=d["sep"], task_seed=task_seed)
 
-    x, y = draw(0, per_client * n_clients * 2)
+    x, y = draw(0, n_total)
     xt, yt = draw(1, 1000)
-    idxs = partition_major(np.random.default_rng(seed), y.cpu().numpy(),
-                           n_clients, per_client, d["p_major"],
-                           d["n_classes"])
+    rng = np.random.default_rng(seed)
+    if pm is not None:
+        idxs = partition_major(rng, y.cpu().numpy(), n_clients, per_client,
+                               pm, d["n_classes"])
+    else:
+        idxs = _ensure_nonempty(rng, partition_dirichlet(
+            rng, y.cpu().numpy(), n_clients, d.get("dirichlet", 0.5)))
     data = []
     for i in idxs:
         i = torch.as_tensor(i, device=dev)
@@ -87,42 +99,75 @@ def federation_data(dataset: str, n_clients: int, seed: int, *,
     return data, (xt, yt), d
 
 
-# fig. 3's training set-up, the reference bench_methods' defaults: an mlp
-# for every model, DP on every trained-and-shared model, batch 250 (cut to
-# the mean client size), DML weight 0.5, the synchronous "auto" backend
-ARCH = "mlp"
-BATCH_SIZE = 250
-ALPHA = 0.5
-SIGMA = 1.0
-CLIP = 1.0
+def _ensure_nonempty(rng: np.random.Generator, idxs):
+    """A Dirichlet draw can leave a client with no example, which no step
+    can sample from: move one index over from the largest client, again
+    until none is empty (one donor pass could itself empty a client)."""
+    idxs = [np.asarray(i) for i in idxs]
+    if sum(len(i) for i in idxs) < len(idxs):
+        raise ValueError("fewer samples than clients — cannot give every "
+                         "client at least one example")
+    while True:
+        empty = [k for k, i in enumerate(idxs) if len(i) == 0]
+        if not empty:
+            return idxs
+        donor = int(np.argmax([len(j) for j in idxs]))
+        take = rng.integers(len(idxs[donor]))
+        idxs[empty[0]] = idxs[donor][take:take + 1]
+        idxs[donor] = np.delete(idxs[donor], take)
+
+
+def method_setup(dataset: str, n_clients: int, seed: int, *, rounds: int,
+                 batch_size: int = 250, dp: bool = True, p_major=None,
+                 private_arch: str = "mlp", proxy_arch: str = "mlp",
+                 alpha: float = 0.5, sigma: float = 1.0, clip: float = 1.0,
+                 n_train_factor: float = 1.0, dropout_rate: float = 0.0,
+                 device="cuda"):
+    """One seed's run of :func:`bench_methods`: ``(client data, test set,
+    private spec, proxy spec, config)``, the config with ``use_pallas`` on
+    and the batch cut to the mean client size."""
+    client_data, test, d = federation_data(
+        dataset, n_clients, seed, n_train_factor=n_train_factor,
+        p_major=p_major, device=device)
+    priv = spec_of(private_arch, d["shape"], d["n_classes"])
+    prox = spec_of(proxy_arch, d["shape"], d["n_classes"])
+    # clamp to the MEAN client size: sampling is with replacement, so a
+    # batch above a small client's size is fine, while the smallest
+    # client's size would shrink every client's batch
+    mean_n = int(np.mean([dk[0].shape[0] for dk in client_data]))
+    cfg = ProxyFLConfig(
+        alpha=alpha, beta=alpha, n_clients=n_clients, rounds=rounds,
+        batch_size=max(1, min(batch_size, mean_n)), seed=seed,
+        dropout_rate=dropout_rate, use_pallas=True,
+        dp=DPConfig(enabled=dp, noise_multiplier=sigma, clip_norm=clip))
+    return client_data, test, priv, prox, cfg
 
 
 def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
-                  rounds: int, seeds: Sequence[int],
-                  n_train_factor: float = 1.0, device="cuda") -> List[Dict]:
+                  rounds: int, seeds: Sequence[int], device="cuda",
+                  **knobs) -> List[Dict]:
     """One row per method (and a ``-proxy`` row for ProxyFL and FML) with
     the reference's keys: the final test accuracy's mean and spread over
-    every client of every seed, the worst epsilon over clients and seeds,
-    and the method's wall-clock seconds. The DP steps and the mix run the
-    port's kernels on a CUDA device (their plain versions on the CPU)."""
+    every client of every seed, the worst epsilon over clients and seeds
+    (ragged cohorts give each client its own), and the method's wall-clock
+    seconds. ``knobs`` are :func:`method_setup`'s, the reference's, at its
+    defaults: the batch (cut to the mean client size), ``dp`` with noise
+    multiplier ``sigma`` and clip norm ``clip``, the major-class share
+    ``p_major`` (None: the dataset's), ``private_arch`` and
+    ``proxy_arch``, the DML weight ``alpha`` (= β), §3.4's per-round
+    ``dropout_rate`` and ``n_train_factor``. The DP steps and the mix run
+    the port's kernels on a CUDA device (their plain versions on the
+    CPU)."""
     rows = []
     for method in methods:
         accs, proxy_accs, eps_out = [], [], None
         t0 = time.perf_counter()
         for seed in seeds:
-            client_data, test, d = federation_data(
-                dataset, n_clients, seed, n_train_factor=n_train_factor,
-                device=device)
-            spec = spec_of(ARCH, d["shape"], d["n_classes"])
-            mean_n = int(np.mean([dk[0].shape[0] for dk in client_data]))
-            cfg = ProxyFLConfig(
-                alpha=ALPHA, beta=ALPHA, n_clients=n_clients, rounds=rounds,
-                batch_size=max(1, min(BATCH_SIZE, mean_n)), seed=seed,
-                use_pallas=True,
-                dp=DPConfig(enabled=True, noise_multiplier=SIGMA,
-                            clip_norm=CLIP))
+            client_data, test, priv, prox, cfg = method_setup(
+                dataset, n_clients, seed, rounds=rounds, device=device,
+                **knobs)
             res = run_federated(
-                method, [spec] * n_clients, spec, client_data, test, cfg,
+                method, [priv] * n_clients, prox, client_data, test, cfg,
                 seed=seed, eval_every=rounds, device=device)
             row = res["history"][-1]
             accs.extend(row["private_acc" if "private_acc" in row else "acc"])
@@ -132,7 +177,7 @@ def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
                 eps_out = max(eps) if eps_out is None else max(eps_out,
                                                                max(eps))
         common = dict(epsilon=eps_out, rounds=rounds, clients=n_clients,
-                      dp=True)
+                      dp=cfg.dp.enabled)
         rows.append(dict(dataset=dataset, method=method,
                          acc_mean=float(np.mean(accs)),
                          acc_std=float(np.std(accs)), **common,
@@ -143,3 +188,35 @@ def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
                              acc_std=float(np.std(proxy_accs)), **common,
                              seconds=0.0))
     return rows
+
+
+def iter_methods(dataset: str, methods: Sequence[str], **kw
+                 ) -> Iterator[Dict]:
+    """:func:`bench_methods` one method at a time, so that a driver prints
+    each method's rows as it finishes."""
+    for method in methods:
+        yield from bench_methods(dataset, (method,), **kw)
+
+
+def cut(default, override):
+    """A driver's configured value, or the caller's cut of it."""
+    return default if override is None else override
+
+
+def driver_main(doc: str, iter_rows: Callable[..., Iterable[Dict]],
+                argv=None) -> None:
+    """The command line of a figure driver: ``[--full] [--device D]
+    [--rounds N] [--train-factor F]``, one JSON row per line as each
+    finishes. ``--rounds`` and ``--train-factor`` cut every run of the
+    configuration (a tiny size on the CPU)."""
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
+    ap.add_argument("--full", action="store_true",
+                    help="the paper's configuration")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--rounds", type=int, help="rounds of every run")
+    ap.add_argument("--train-factor", type=float,
+                    help="share of each client's examples")
+    args = ap.parse_args(argv)
+    for row in iter_rows(args.full, args.device, rounds=args.rounds,
+                         n_train_factor=args.train_factor):
+        print(json.dumps(row), flush=True)

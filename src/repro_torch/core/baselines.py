@@ -20,6 +20,8 @@ As in the paper, the single-model methods train their one model with
 DP-SGD; ProxyFL and FML apply it to the proxies only. Every method runs
 with §3.4 dropout (``cfg.dropout_rate``) and on the ``"async"``
 stale-gossip backend (``cfg.staleness``), which refuses CWT at τ > 0.
+ProxyFL and FML take heterogeneous private architectures (fig. 5b) on the
+loop backend, and every method takes ragged (size-skewed) cohorts.
 Checkpoints, compression, the hier backend, commitments and round-blocks
 are not ported (ROADMAP.md Queue 1).
 """
@@ -34,9 +36,10 @@ import torch
 
 from .. import resolve_device
 from ..configs import ProxyFLConfig
+from ..data.ragged import pad_compatible
 from .accountant import PrivacyAccountant
 from .engine import dml_engine, single_model_engine
-from .protocol import ClientState, ModelSpec, evaluate_batched
+from .protocol import ClientState, ModelSpec, evaluate, evaluate_batched
 
 METHODS = ("proxyfl", "fml", "fedavg", "avgpush", "cwt", "regular", "joint")
 
@@ -50,6 +53,37 @@ class SingleModelClient:
     params: object
     opt: object
     accountant: Optional[PrivacyAccountant] = None
+
+
+def _resolve_backend(backend, cfg: ProxyFLConfig, client_data) -> str:
+    """``backend``, else ``cfg.backend``, else ``"auto"``, as the
+    reference resolves it: ``"auto"`` on per-client data trees that could
+    not be padded together (other structures, dtypes or trailing dims)
+    means the loop; ``"async"`` refuses them, since its stale exchange has
+    no loop fallback that would keep the delivery semantics."""
+    backend = backend or cfg.backend or "auto"
+    if backend == "auto" and not pad_compatible(client_data):
+        return "loop"
+    if backend == "async" and not pad_compatible(client_data):
+        raise ValueError(
+            "backend='async' runs on the stacked path and needs identical "
+            "or pad-compatible per-client data trees; genuinely "
+            "incompatible trees have no stale-gossip execution "
+            "(backend='loop' would silently change the exchange semantics)")
+    return backend
+
+
+def _eval_clients(engine, state, specs, role: str, xt, yt) -> List[float]:
+    """Test accuracy of every client's ``role`` model: batched over the
+    stacked params when the cohort shares one architecture, else client by
+    client."""
+    specs = (list(specs) if isinstance(specs, (list, tuple))
+             else [specs] * engine.K)
+    if all(s == specs[0] for s in specs):
+        return evaluate_batched(specs[0], engine.stacked_params(state, role),
+                                xt, yt)
+    return [evaluate(specs[k], engine.client_params(state, k, role), xt, yt)
+            for k in range(engine.K)]
 
 
 def _accountants(cfg: ProxyFLConfig, sizes: Sequence[int]
@@ -90,16 +124,22 @@ def run_federated(
     steps a round when ``cfg.local_steps`` is set, else one epoch of the
     pooled set; its one accountant samples at B / n_pooled.
 
+    ``private_specs`` may name other architectures per client (ProxyFL
+    and FML); their private accuracies are then evaluated client by
+    client. Clients may hold different numbers of examples: each takes
+    ``n_k // B`` steps a round (at least one) in epoch mode, and its
+    accountant samples at B / n_k.
+
     ``use_pallas`` overrides ``cfg.use_pallas`` (None keeps the config).
     The engine backend is ``backend``, else ``cfg.backend``, else
-    ``"auto"``; ``"async"`` delays delivery by ``cfg.staleness`` rounds and
-    is never chosen by ``"auto"``."""
+    ``"auto"`` (:func:`_resolve_backend`); ``"async"`` delays delivery by
+    ``cfg.staleness`` rounds and is never chosen by ``"auto"``."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     dev = resolve_device(device)
     if use_pallas is not None:
         cfg = dataclasses.replace(cfg, use_pallas=use_pallas)
-    backend = backend or cfg.backend or "auto"
+    backend = _resolve_backend(backend, cfg, client_data)
     K = len(client_data)
     data = [(x.to(dev), y.to(dev)) for x, y in client_data]
     xt, yt = (t.to(dev) for t in test_data)
@@ -108,7 +148,7 @@ def run_federated(
         engine = dml_engine(
             tuple(private_specs[:K]), proxy_spec, cfg, backend=backend,
             mix="pushsum" if method == "proxyfl" else "mean", device=dev)
-        roles = [("private_acc", private_specs[0], "private"),
+        roles = [("private_acc", list(private_specs[:K]), "private"),
                  ("proxy_acc", proxy_spec, "proxy")]
     else:
         if method == "joint":
@@ -130,9 +170,8 @@ def run_federated(
         done = t + 1
         if (eval_every > 0 and done % eval_every == 0) or done == cfg.rounds:
             row: Dict = {"round": done}
-            for key, spec, role in roles:
-                row[key] = evaluate_batched(
-                    spec, engine.stacked_params(state, role), xt, yt)
+            for key, specs, role in roles:
+                row[key] = _eval_clients(engine, state, specs, role, xt, yt)
             history.append(row)
     states = engine.export_states(state)
     if method in ("proxyfl", "fml"):

@@ -105,6 +105,16 @@ def active_schedule(t0: int, n_rounds: int, n_clients: int,
                      for m in masks])
 
 
+def _per_client(fns, n_clients: int) -> List:
+    """One function per client: ``fns`` itself when it is a list or tuple
+    of ``n_clients``, else ``fns`` repeated."""
+    if not isinstance(fns, (list, tuple)):
+        return [fns] * n_clients
+    if len(fns) != n_clients:
+        raise ValueError(f"{len(fns)} functions for {n_clients} clients")
+    return list(fns)
+
+
 def _refuse_unported(cfg: ProxyFLConfig, backend: str) -> None:
     if backend in _UNPORTED_BACKENDS:
         raise NotImplementedError(
@@ -123,9 +133,13 @@ def _refuse_unported(cfg: ProxyFLConfig, backend: str) -> None:
 class FederationEngine:
     """Executor of the federated round (see module docstring).
 
-    ``step_fn(state, batch, generator, noise) -> (state, metrics)`` is one
-    client's local update; ``init_fn(generator) -> state`` one client's
-    initial state (drawn on the CPU, moved to ``device``);
+    ``step_fns`` holds one client's local update ``step(state, batch,
+    generator, noise) -> (state, metrics)`` per client, or one for all;
+    ``init_fns`` one client's initial state ``init(generator) -> state``
+    (drawn on the CPU, moved to ``device``) the same way. A cohort whose
+    clients hold different step functions (heterogeneous private
+    architectures) runs on ``backend="loop"``, which ``"auto"`` picks for
+    it; ``"vmap"`` and ``"async"`` refuse it, as in the reference.
     ``sample_fn(data_k, generator, idx=None) -> batch`` draws a local batch,
     or gathers ``idx`` when the replay hook supplies it. ``mix`` is the
     exchange rule of :func:`repro_torch.core.gossip.mix_matrix`;
@@ -138,7 +152,7 @@ class FederationEngine:
     """
 
     def __init__(self, cfg: ProxyFLConfig, *, n_clients: int,
-                 step_fn: StepFn, init_fn: InitFn, sample_fn: SampleFn,
+                 step_fns, init_fns, sample_fn: SampleFn,
                  backend: str = "auto", mix: str = "pushsum", device="cuda",
                  draws: Optional[DrawsFn] = None, staleness=None):
         _refuse_unported(cfg, backend)
@@ -147,7 +161,17 @@ class FederationEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.K = n_clients
-        self.step_fn, self.init_fn, self.sample_fn = step_fn, init_fn, sample_fn
+        self.step_fns: List[StepFn] = _per_client(step_fns, n_clients)
+        self.init_fns: List[InitFn] = _per_client(init_fns, n_clients)
+        self.sample_fn = sample_fn
+        homogeneous = all(f is self.step_fns[0] for f in self.step_fns)
+        if backend == "auto":
+            backend = "vmap" if homogeneous else "loop"
+        if backend in ("vmap", "async") and not homogeneous:
+            raise ValueError(
+                f"{backend} backend requires a homogeneous cohort; "
+                "heterogeneous private architectures need backend='loop'")
+        self.backend = backend
         self.mix = mix
         self.mixing = mix != "none" and n_clients > 1
         self.staleness = 0
@@ -182,7 +206,7 @@ class FederationEngine:
         for k in range(self.K):
             gen = torch.Generator().manual_seed(stream_seed(seed, k))
             states.append(tree_map(lambda x: x.to(self.device),
-                                   self.init_fn(gen)))
+                                   self.init_fns[k](gen)))
         if not self._stale:
             return states
         proxy = states[0]["proxy"]["params"]
@@ -199,9 +223,14 @@ class FederationEngine:
         return list(self._clients_of(state))
 
     def stacked_params(self, state, role: str = "proxy"):
-        """The cohort's ``role`` params with a leading K dim."""
+        """The cohort's ``role`` params with a leading K dim (one
+        architecture across the cohort)."""
         trees = [s[role]["params"] for s in self._clients_of(state)]
         return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+
+    def client_params(self, state, k: int, role: str = "proxy"):
+        """Client k's ``role`` params."""
+        return self._clients_of(state)[k][role]["params"]
 
     def attach_accountants(self, accountants: Sequence) -> None:
         assert len(accountants) == self.K
@@ -252,7 +281,7 @@ class FederationEngine:
             for i in range(self.n_steps(data[k])):
                 gen, idx, noise = self._step_draws(seed, k, t, i)
                 batch = self.sample_fn(data[k], gen, idx)
-                s, m = self.step_fn(s, batch, gen, noise)
+                s, m = self.step_fns[k](s, batch, gen, noise)
             states[k] = s
             last[k] = m
         if self._stale:
@@ -381,18 +410,23 @@ def dml_engine(private_specs: Tuple, proxy_spec, cfg: ProxyFLConfig,
                backend: str = "auto", mix: str = "pushsum", device="cuda",
                draws: Optional[DrawsFn] = None) -> FederationEngine:
     """Engine for the two-model (private + proxy DML) family: ProxyFL
-    (mix="pushsum") and FML (mix="mean"). Homogeneous cohorts only in this
-    port."""
-    if any(s != private_specs[0] for s in private_specs):
-        raise NotImplementedError(
-            "heterogeneous private architectures are not ported yet "
-            "(ROADMAP.md Queue 1 item 4)")
+    (mix="pushsum") and FML (mix="mean"). Heterogeneous private
+    architectures (``private_specs`` not all equal) give each client its
+    own step and init functions, and ``backend="auto"`` then runs them on
+    the loop backend; the proxy is one architecture, so the exchange is
+    the same."""
+    if all(s == private_specs[0] for s in private_specs):
+        step_fns = _dml_state_step(private_specs[0], proxy_spec, cfg)
+        init_fns = _dml_state_init(private_specs[0], proxy_spec, cfg)
+    else:
+        step_fns = [_dml_state_step(s, proxy_spec, cfg)
+                    for s in private_specs]
+        init_fns = [_dml_state_init(s, proxy_spec, cfg)
+                    for s in private_specs]
     return FederationEngine(
-        cfg, n_clients=len(private_specs),
-        step_fn=_dml_state_step(private_specs[0], proxy_spec, cfg),
-        init_fn=_dml_state_init(private_specs[0], proxy_spec, cfg),
-        sample_fn=classifier_sampler(cfg.batch_size), backend=backend,
-        mix=mix, device=device, draws=draws)
+        cfg, n_clients=len(private_specs), step_fns=step_fns,
+        init_fns=init_fns, sample_fn=classifier_sampler(cfg.batch_size),
+        backend=backend, mix=mix, device=device, draws=draws)
 
 
 def _ce_state_step(spec, cfg: ProxyFLConfig, dp: bool) -> StepFn:
@@ -431,7 +465,7 @@ def single_model_engine(spec, cfg: ProxyFLConfig, dp: bool,
     ``cfg.n_clients``) is the cohort size."""
     return FederationEngine(
         cfg, n_clients=n_clients or cfg.n_clients,
-        step_fn=_ce_state_step(spec, cfg, dp),
-        init_fn=_ce_state_init(spec, cfg),
+        step_fns=_ce_state_step(spec, cfg, dp),
+        init_fns=_ce_state_init(spec, cfg),
         sample_fn=classifier_sampler(cfg.batch_size), backend=backend,
         mix=mix, device=device, draws=draws)

@@ -8,9 +8,9 @@ against the JAX package's.
 * ``repro_torch.benchmarks``: ``task_seed_of``, the dataset entries and
   ``partition_major`` equal to the reference's, ``bench_methods`` rows
   with the reference's keys and epsilons, fig. 3's two configurations
-  equal to the reference's, the Dirichlet datasets refused with the
-  ROADMAP item that ports them, the ordering's verdicts, and the command
-  line at a tiny size on the CPU.
+  equal to the reference's, the Dirichlet datasets' ragged cohorts
+  (shapes, sizes, a pool of ``per_client · K`` with no 2× over-draw), the
+  ordering's verdicts, and the command line at a tiny size on the CPU.
 """
 import json
 
@@ -97,10 +97,24 @@ def test_federation_data_shapes():
     assert all(int(y.max()) < d["n_classes"] for _, y in data)
 
 
-@pytest.mark.parametrize("dataset", ["kvasir", "camelyon"])
-def test_dirichlet_datasets_name_the_roadmap_item(dataset):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        common.federation_data(dataset, 4, 0, device="cpu")
+@pytest.mark.parametrize("dataset,n_clients", [("kvasir", 8),
+                                                ("camelyon", 4)])
+def test_dirichlet_federation_data_shapes(dataset, n_clients):
+    """Every example of a ``per_client · K`` pool goes to one client, each
+    client at least one, at the dataset's image size; the sizes are
+    ragged."""
+    data, (xt, yt), d = common.federation_data(dataset, n_clients, 0,
+                                               n_train_factor=0.1,
+                                               device="cpu")
+    per_client = int(d["per_client"] * 0.1)
+    sizes = [x.shape[0] for x, _ in data]
+    assert len(data) == n_clients and min(sizes) >= 1
+    assert sum(sizes) == per_client * n_clients and len(set(sizes)) > 1
+    assert all(tuple(x.shape[1:]) == d["shape"] and y.shape == x.shape[:1]
+               and int(y.max()) < d["n_classes"] for x, y in data)
+    assert tuple(xt.shape) == (1000,) + d["shape"] and yt.shape == (1000,)
+    labels = torch.cat([y for _, y in data]).numpy()
+    assert sorted(set(labels.tolist())) == list(range(d["n_classes"]))
 
 
 @pytest.mark.parametrize("full", [False, True])
