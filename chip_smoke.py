@@ -128,13 +128,32 @@
    Then checks that async at staleness 0 equals the sync backend bit for
    bit, and that PushSum mass (clients plus in-flight buffer) is conserved
    round by round at staleness 2 under §3.4 dropout.
-7. Breaks one warm client step, one engine round, the exchange and the
+7. Drives the compressed exchange, commitments and attacks (the
+   "exchange" phase): (a) the top-k and int8 codecs and the public-copy
+   core at [8, 199,210] (a row of planted ties) bit-equal to the CPU's,
+   ``c + (m − pub') == m − pub`` exact where nothing was sent and at the
+   reference's 1e-6 elsewhere; (b) compressed ProxyFL (top-k, int8) on the
+   main path's set-up, 2 rounds: 32 of each DP kernel a round and no mix
+   kernel, the pinned epsilon, warm public copies, a second run bit-equal
+   with each client step against the plain path's and each exchange
+   against the CPU's (public copies bit for bit), rounds/s and exchange ms
+   beside the uncompressed run's; (c) async τ = 2 int8 on fig_async's
+   protocol, 6 rounds: w-mass conserved every round, no kernel launched;
+   (d) a verified loop run bit-equal to the unverified, a bit flip of
+   client 1 in round 1 refused with ``CommitmentError``, commitments of
+   the card's proxies equal the CPU's; (e) ``mia_privacy``'s quick
+   configuration (AUCs in [0, 1], the pinned epsilon, the rows printed);
+   (f) ``fig4_comm.run(False)`` and ``scripts/check_comm_claim.py`` on
+   the JSON it writes (``chiprun_out/fig4_comm.json``).
+8. Breaks one warm client step, one engine round, the exchange and the
    evaluation of the sync path down on the host clock, and profiles one
    step with torch.profiler for the device's busy share.
-8. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
+9. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
    and their narrow loaders, and the clip pair's rows route, under their
    own keys; the DP kernels and the mix also with their launches on each
-   method's path and each figures run's, with its shape) and, last, the
+   method's path and each figures run's, with its shape, and on each
+   compressed run's, the MIA federations' and compressed async's) and,
+   last, the
    result line
    ``{"ok": true, "device": {...}}``.
 
@@ -212,6 +231,12 @@ TIMED_LAUNCHES = 200
 FULL_WIDTH_CALLS = 10        # calls timed for the LLM-width kernels
 CLOSE = dict(atol=1e-5, rtol=1e-4)   # tests/test_conformance.py "close"
 ASYNC_ROUNDS, ASYNC_TAU = 6, 2   # fig_async runs 30 rounds; cut to 6
+COMPRESS_RATIO = 0.25           # the drivers' top-k kept fraction
+# repro.core.accountant.epsilon_for(noise_multiplier=2.0, sample_rate=25 /
+# 150, steps=24, delta=1e-5) — mia_privacy's quick DP federation: 4 rounds
+# of 6 steps of B = 25 on each client's 150 members — evaluated once with
+# the JAX package's accountant and pinned here
+EPSILON_MIA_QUICK = 2.2433641537608517
 # the ops API at the full widths of models the repo has (one layer's call)
 QWEN_ATTN = dict(B=1, S=4_096, Hq=28, Hkv=4, D=128)       # configs/qwen2_7b.py
 GEMMA_LOCAL = dict(B=1, S=4_096, Hq=8, Hkv=4, D=256, window=1_024)  # gemma3_4b
@@ -2191,6 +2216,381 @@ def mass_conservation(spec, data, cfg):
           f"{theta0:.6f}), of w-mass {worst[1]:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# the compressed exchange, commitments, membership inference and fig. 4
+
+
+def codec_checks():
+    """(a) The codecs at the main path's width, [8, 199,210] f32 at ratio
+    0.25, with a row of planted equal-magnitude ties: each card result
+    bit-equal to the port's codec on the CPU over the same input (int8 with
+    the same noise block); the public-copy core's decoded delta and copy
+    too, with what of ``c + (m − pub') == m − pub`` holds exactly (dropped
+    coordinates and silent clients) and the rest at the reference's own
+    grade (tests/test_compress.py: rtol = atol = 1e-6). Returns the codec
+    times."""
+    from repro_torch.core import compress
+    gen = torch.Generator().manual_seed(22)
+    K, D = MAIN_K, MAIN_D
+    m = 0.05 * torch.randn(K, D, generator=gen)
+    pub = m + 1e-3 * torch.randn(K, D, generator=gen)
+    m[0, ::3] = 0.75
+    m[0, 1::7] = -0.75
+    pub[0] = 0.0                       # row 0's delta: ties at ±0.75
+    noise = torch.rand(K, D, generator=gen)
+    sent = torch.as_tensor(np.asarray(
+        mix_matrix_of(K, silent=5), np.float32))
+    sent.fill_diagonal_(0.0)
+    times = {}
+    for mode in ("topk", "int8"):
+        spec = compress.CompressionSpec(mode, COMPRESS_RATIO)
+        u = m - pub
+        want = compress.encode_decode(u, spec, noise)
+        got = compress.encode_decode(u.cuda(), spec, noise.cuda())
+        assert torch.equal(got.cpu(), want), f"{mode}: card codec differs"
+        if mode == "topk":
+            k = compress.topk_k(D, COMPRESS_RATIO)
+            assert int(torch.count_nonzero(got[0])) == k
+            tied = (u[0].abs() == 0.75).nonzero()[:, 0]
+            kept = got[0].cpu().nonzero()[:, 0]
+            assert torch.equal(kept, tied[:k]), "ties not lowest index first"
+        c, pub2 = compress._ef_encode(m.cuda(), pub.cuda(), sent.cuda(),
+                                      noise.cuda(), spec)
+        rc, rpub2 = compress._ef_encode(m, pub, sent, noise, spec)
+        assert torch.equal(c.cpu(), rc) and torch.equal(pub2.cpu(), rpub2)
+        c, pub2 = c.cpu(), pub2.cpu()
+        lhs, rhs = c + (m - pub2), m - pub
+        exact = (c == 0)
+        assert torch.equal(lhs[exact], rhs[exact])
+        assert torch.equal(pub2[5].view(torch.int32), pub[5].view(torch.int32))
+        torch.testing.assert_close(lhs, rhs, rtol=1e-6, atol=1e-6)
+        inexact = int((lhs != rhs).sum())
+        u_dev, noise_dev = u.cuda(), noise.cuda()
+        times[mode] = cuda_us(lambda: compress.encode_decode(
+            u_dev, spec, noise_dev), n=20)
+        print(f"exchange (a): {mode} codec at [{K}, {D:,}] on the card bit-"
+              f"equal to the CPU's, the public-copy core too; c + (m - pub') "
+              f"== m - pub exactly at the {int(exact.sum()):,} entries "
+              f"where c is 0 and at the silent client, {inexact:,} of "
+              f"{K * D:,} entries one rounding off (max "
+              f"{max_err(lhs, rhs):.3e}; rtol = atol = 1e-6); "
+              f"{times[mode]:.3f} us a call (eager, CUDA events)")
+    return times
+
+
+def mix_matrix_of(K, silent):
+    """Round 0's exponential P with client ``silent`` dropped (identity
+    column: it sends nothing)."""
+    from repro_torch.core.gossip import mix_matrix
+    act = np.ones(K, bool)
+    act[silent] = False
+    return mix_matrix("pushsum", 0, K, "exponential", act)
+
+
+class ExchangeLockstep:
+    """Within the block, every compressed exchange the engines run on the
+    card also runs on the CPU from the same inputs and the same noise
+    block: the public copies bit for bit, z' and w' at the ``close``
+    grade. A one-ulp difference in a step can flip a stochastic-rounding
+    decision or a near-tied top-k entry of a later round, so two whole
+    runs may part; each exchange may not."""
+
+    def __init__(self):
+        self.worst, self.calls = 0.0, 0
+
+    def __enter__(self):
+        from repro_torch.core import engine
+        self.engine, self.raw = engine, engine.pushsum_mix_debiased
+
+        def both(flat, w, P, **kw):
+            out = self.raw(flat, w, P, **kw)
+            if kw.get("compress") is not None:
+                cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                       for k, v in kw.items()}
+                ref = self.raw(flat.cpu(), w.cpu(), P, **cpu)
+                assert torch.equal(out[2].cpu(), ref[2]), "public copies"
+                for a, b in zip(out[:2], ref[:2]):
+                    torch.testing.assert_close(a.cpu(), b, **CLOSE)
+                    self.worst = max(self.worst, max_err(a.cpu(), b))
+                self.calls += 1
+            return out
+
+        engine.pushsum_mix_debiased = both
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.pushsum_mix_debiased = self.raw
+
+
+class PerRound:
+    """Within the block, the launch counts of each engine round: reset
+    just before the round and read just after; their sum stays in the
+    counters when the block ends."""
+
+    def __init__(self):
+        self.rounds = []
+
+    def __enter__(self):
+        from repro_torch import kernels
+        from repro_torch.core.engine import FederationEngine
+        self.cls, self.raw = FederationEngine, FederationEngine.run_round
+        raw, rounds = self.raw, self.rounds
+
+        def counted_round(eng, *args, **kwargs):
+            kernels.reset_launch_counts()
+            out = raw(eng, *args, **kwargs)
+            torch.cuda.synchronize()
+            rounds.append({**kernels.launch_counts(),
+                           **kernels.route_launch_counts()})
+            return out
+
+        self.cls.run_round = counted_round
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run_round = self.raw
+
+    def total(self):
+        return {k: sum(r[k] for r in self.rounds) for k in self.rounds[0]}
+
+
+def compressed_path(spec, data, test, cfg, card):
+    """(b) Compressed ProxyFL (top-k and int8) on the main path's set-up:
+    exact launches each round (:class:`PerRound`: the DP kernels as on
+    the main path, no mix kernel),
+    the pinned epsilon, finite losses, warm public copies; a second run
+    bit-equal, each client step against the plain path's (``Lockstep``)
+    and each exchange against the CPU's (:class:`ExchangeLockstep`);
+    rounds/s beside the uncompressed run's, the exchange's ms."""
+    from repro_torch import kernels
+    from repro_torch.core.baselines import run_federated
+    from repro_torch.core.engine import dml_engine
+    from repro_torch.nn.losses import cross_entropy
+    from repro_torch.nn.modules import tree_flatten_vector
+
+    K, (xt, yt), per_client = len(data), test, data[0][0].shape[0]
+    steps = cfg.rounds * K * (per_client // cfg.batch_size)
+    out = {}
+    for mode in ("none", "topk", "int8"):
+        ccfg = dataclasses.replace(cfg, compress=mode,
+                                   compress_ratio=COMPRESS_RATIO)
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_federated("proxyfl", [spec] * K, spec, data, test,
+                                ccfg, seed=0, eval_every=ccfg.rounds,
+                                device="cuda")
+            torch.cuda.synchronize()
+            return res, ccfg.rounds / (time.perf_counter() - t0)
+
+        kernels.reset_launch_counts()
+        with PerRound() as per_round:
+            res, rate = run()
+        counts = per_round.total()
+        eng = dml_engine((spec,) * K, spec, ccfg, device="cuda")
+        state0 = eng.init_states(0)
+        if mode == "none":
+            out[mode] = dict(rate=rate, counts=counts)
+            ms = host_ms(lambda: eng._exchange(state0, 0))
+            out[mode]["exchange_ms"] = ms
+            print(f"exchange (b): uncompressed ProxyFL {rate:.4f} rounds/s "
+                  f"(evaluation included); exchange {ms:.3f} ms on {card}")
+            continue
+        assert len(per_round.rounds) == ccfg.rounds
+        per = steps // ccfg.rounds
+        for round_counts in per_round.rounds:
+            expect(round_counts, sumsq=per, scale_accumulate=per,
+                   noise_adam_step=per,
+                   **{"sumsq/rows": per, "scale_accumulate/rows": per})
+        assert all(e == EPSILON_2_ROUNDS for e in res["epsilon"]), \
+            (mode, res["epsilon"])
+        with torch.no_grad():
+            losses = [float(cross_entropy(spec.apply(getattr(c, role), xt),
+                                          yt))
+                      for c in res["clients"]
+                      for role in ("private_params", "proxy_params")]
+        assert all(math.isfinite(v) for v in losses), (mode, losses)
+        flats = torch.stack([tree_flatten_vector(s["proxy"]["params"])
+                             for s in state0["clients"]])
+        assert torch.equal(state0["ef_state"], flats), "copies not warm"
+        assert float(state0["ef_state"].abs().sum()) > 0
+        with Lockstep() as lock, ExchangeLockstep() as xlock:
+            again, _ = run()
+        assert lock.steps == steps and xlock.calls == ccfg.rounds, \
+            (lock.steps, xlock.calls)
+        assert not lock.beyond, (mode, lock.beyond, lock.worst)
+        assert all(torch.equal(a, b) for a, b in zip(
+            all_leaves(res, "proxyfl"), all_leaves(again, "proxyfl"))), \
+            f"{mode}: a second run of the same seed differs"
+        state, _ = eng.run_rounds(state0, data, 0, ccfg.rounds, seed=0)
+        assert torch.isfinite(state["ef_state"]).all()
+        assert not torch.equal(state["ef_state"], state0["ef_state"])
+        kernels.reset_launch_counts()
+        ms = host_ms(lambda: eng._exchange(state["clients"], 0, None, state,
+                                           0))
+        assert kernels.launch_counts()["fused_pushsum_mix"] == 0
+        row = res["history"][-1]
+        priv = np.asarray(row["private_acc"])
+        print(f"exchange (b): {mode} ProxyFL acc mean {priv.mean():.4f}; "
+              f"epsilon {res['epsilon'][0]!r}; test loss mean "
+              f"{np.mean(losses):.4f}; launches sumsq/rows "
+              f"{counts['sumsq/rows']} scale_accumulate/rows "
+              f"{counts['scale_accumulate/rows']} noise_adam_step "
+              f"{counts['noise_adam_step']} fused_pushsum_mix "
+              f"{counts['fused_pushsum_mix']}; each of {lock.steps} client "
+              f"steps against the plain path's max abs diff "
+              f"{lock.worst:.3e}, each of {xlock.calls} exchanges against "
+              f"the CPU's {xlock.worst:.3e} (public copies bit-equal); a "
+              f"second run bit-equal; {rate:.4f} rounds/s against "
+              f"{out['none']['rate']:.4f} uncompressed; exchange {ms:.3f} ms "
+              f"against {out['none']['exchange_ms']:.3f} on {card}")
+        out[mode] = dict(rate=rate, counts=counts, exchange_ms=ms,
+                         step_diff=lock.worst, exchange_diff=xlock.worst)
+    return out
+
+
+def compressed_async(spec, data, cfg):
+    """(c) Async τ = 2 with int8 on fig_async's protocol, 6 rounds: the
+    w-mass of clients plus buffer conserved round by round, no kernel
+    launched (the stale mix kernel is uncompressed only; DP is off)."""
+    from repro_torch import kernels
+    from repro_torch.core.engine import dml_engine
+
+    K = len(data)
+    acfg = dataclasses.replace(async_config(cfg), compress="int8")
+    eng = dml_engine((spec,) * K, spec, acfg, backend="async",
+                     device="cuda")
+    state = eng.init_states(0)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    worst = 0.0
+    for t in range(acfg.rounds):
+        state, m = eng.run_round(state, data, t, seed=0)
+        w = torch.stack([s["w"] for s in state["clients"]]).double().sum()
+        drift = abs(float(w + state["stale_w"].double().sum()) - K) / K
+        assert drift <= 1e-6, (t, drift)
+        worst = max(worst, drift)
+    torch.cuda.synchronize()
+    rate = acfg.rounds / (time.perf_counter() - t0)
+    counts = {**kernels.launch_counts(), **kernels.route_launch_counts()}
+    expect(counts)
+    assert float(state["stale_w"].abs().sum()) > 0, "no mail in flight"
+    assert all(math.isfinite(float(v)) for v in m["proxy_loss"])
+    print(f"exchange (c): async staleness {acfg.staleness} int8, "
+          f"{acfg.rounds} rounds, {rate:.3f} engine rounds/s: w-mass of "
+          f"clients and buffer within {worst:.3e} of {K} every round; "
+          f"launches {counts} (no fused_stale_mix)")
+    return counts, rate
+
+
+def commitments_path(spec, data, test, cfg):
+    """(d) A 2-round loop run with ``verify_commitments`` bit-equal to the
+    same run without; ``bitflip_proxy(client=1, rounds=(1,))`` refused
+    with a ``CommitmentError`` naming client 1 and round 1; the final
+    proxies' commitment on the card string-equal to that of the same
+    params on the CPU."""
+    from repro_torch.core.attacks import bitflip_proxy
+    from repro_torch.core.baselines import run_federated
+    from repro_torch.core.commit import CommitmentError, client_commitment
+    from repro_torch.nn.modules import tree_map
+
+    K = len(data)
+
+    def run(verify, tamper=None):
+        vcfg = dataclasses.replace(cfg, verify_commitments=verify)
+        t0 = time.perf_counter()
+        res = run_federated("proxyfl", [spec] * K, spec, data, test, vcfg,
+                            seed=0, eval_every=vcfg.rounds, backend="loop",
+                            device="cuda", transmit_tamper=tamper)
+        torch.cuda.synchronize()
+        return res, vcfg.rounds / (time.perf_counter() - t0)
+
+    plain, plain_rate = run(False)
+    verified, rate = run(True)
+    assert all(torch.equal(a, b) for a, b in zip(
+        all_leaves(plain, "proxyfl"), all_leaves(verified, "proxyfl"))), \
+        "the verified run differs"
+    try:
+        run(True, bitflip_proxy(1, rounds=(1,)))
+    except CommitmentError as err:
+        assert (err.client, err.round) == (1, 1), (err.client, err.round)
+        assert "client 1 at round 1" in str(err), str(err)
+    else:
+        raise AssertionError("the bit-flipped proxy was not refused")
+    digests = [client_commitment(c.proxy_params)[0]
+               for c in verified["clients"]]
+    on_cpu = [client_commitment(tree_map(lambda x: x.cpu(),
+                                         c.proxy_params))[0]
+              for c in verified["clients"]]
+    assert digests == on_cpu
+    print(f"exchange (d): verified loop run bit-equal to the unverified "
+          f"({rate:.4f} against {plain_rate:.4f} rounds/s); the bit flip "
+          f"of client 1 in round 1 refused (CommitmentError, client 1, "
+          f"round 1); {K} commitments of the card's proxies equal the CPU's "
+          f"({digests[0][:16]}...)")
+    return rate, plain_rate
+
+
+def mia_path(card):
+    """(e) ``mia_privacy``'s quick configuration on the card (4 clients, 4
+    rounds, 0.3 of the data, σ = 2, C = 0.5, B = 25): every AUC in [0, 1],
+    the DP federation's epsilon the JAX accountant's, the rows printed."""
+    from repro_torch import kernels
+    from repro_torch.benchmarks import mia_privacy
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp = mia_privacy.experiment(False, "cuda")
+    rows = mia_privacy.rows_of(exp)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {**kernels.launch_counts(), **kernels.route_launch_counts()}
+    assert exp["results"][True]["epsilon"] == [EPSILON_MIA_QUICK] * 4, \
+        exp["results"][True]["epsilon"]
+    for row in rows:
+        for key in ("mia_auc_proxy_dp", "mia_auc_proxy_no_dp",
+                    "mia_auc_private_nonreleased"):
+            assert 0.0 <= row[key] <= 1.0, row
+        print(f"exchange (e): mia {json.dumps(row)}")
+    print(f"exchange (e): mia_privacy quick in {seconds:.3f} s on {card}; "
+          f"launches {counts}")
+    return counts
+
+
+def fig4_path():
+    """(f) ``fig4_comm.run(False)`` on the card, and
+    ``scripts/check_comm_claim.py`` passing on the JSON it writes."""
+    from repro_torch.benchmarks import fig4_comm
+
+    here = Path(__file__).resolve().parent
+    out = here / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    path = out / "fig4_comm.json"
+    old = os.environ.get("REPRO_BENCH_COMM_JSON")
+    os.environ["REPRO_BENCH_COMM_JSON"] = str(path)
+    try:
+        rows = fig4_comm.run(False, device="cuda")
+    finally:
+        if old is None:
+            del os.environ["REPRO_BENCH_COMM_JSON"]
+        else:
+            os.environ["REPRO_BENCH_COMM_JSON"] = old
+    gate = subprocess.run(
+        [sys.executable, str(here / "scripts" / "check_comm_claim.py"),
+         str(path), str(out / "no_fig_compress.json")],
+        capture_output=True, text=True, timeout=120)
+    print(gate.stdout.strip())
+    assert gate.returncode == 0, gate.stderr
+    paper = [r for r in rows if r["scale"].startswith("paper")
+             and r["clients"] == 8 and r["method"] == "proxyfl"]
+    print("exchange (f): fig. 4 on the card, proxyfl at K = 8: " + ", ".join(
+        f"{r['compress']} {r['bytes_per_round']:,} B/round" for r in paper)
+        + f"; {len(rows)} rows in {path.name}")
+
+
 def step_breakdown(spec, data, test, cfg):
     """Where the main path's time goes: host-clock times of synchronised
     phases of one client's local step (each warmed up, then the mean of
@@ -2326,6 +2726,12 @@ def main() -> int:
     async_counts, async_rates, _ = async_path(*setup)
     tau0_equals_sync(spec, data, cfg)
     mass_conservation(spec, data, cfg)
+    codec_us = codec_checks()
+    compressed = compressed_path(*setup, card)
+    async_compressed_counts, _ = compressed_async(spec, data, cfg)
+    commitments_path(*setup)
+    mia_counts = mia_path(card)
+    fig4_path()
     step_breakdown(*setup)
 
     # each kernel's launches on the path that runs it
@@ -2376,6 +2782,13 @@ def main() -> int:
             "library_graph_ms": None if r["library_graph_us"] is None
             else r["library_graph_us"] / 1e3,
             "shape": r["shape"], "dtype": r["dtype"]})
+        if name in key_of or name == "fused_stale_mix":
+            key = key_of.get(name, name)
+            out[-1]["launches_by_exchange"] = {
+                "proxyfl topk": compressed["topk"]["counts"][key],
+                "proxyfl int8": compressed["int8"]["counts"][key],
+                "async int8": async_compressed_counts[key],
+                "mia quick": mia_counts[key]}
         if name in by_method:
             out[-1]["launches_by_method"] = by_method[name]
             out[-1]["launches_by_figure"] = {
@@ -2454,6 +2867,13 @@ def main() -> int:
               f"{r['plain_rate']:.4f}) on {card}")
     print(f"async path engine rounds/s {async_rates[True]:.4f} (plain path "
           f"{async_rates[False]:.4f}, means of two runs each) on {card}")
+    for mode in ("none", "topk", "int8"):
+        r = compressed[mode]
+        print(f"exchange path proxyfl compress={mode} rounds/s "
+              f"{r['rate']:.4f}, exchange {r['exchange_ms']:.3f} ms"
+              + ("" if mode == "none" else
+                 f", codec {codec_us[mode]:.3f} us a call (eager)")
+              + f" on {card}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

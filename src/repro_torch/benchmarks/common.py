@@ -122,7 +122,7 @@ def method_setup(dataset: str, n_clients: int, seed: int, *, rounds: int,
                  private_arch: str = "mlp", proxy_arch: str = "mlp",
                  alpha: float = 0.5, sigma: float = 1.0, clip: float = 1.0,
                  n_train_factor: float = 1.0, dropout_rate: float = 0.0,
-                 device="cuda"):
+                 compress: str = "none", device="cuda"):
     """One seed's run of :func:`bench_methods`: ``(client data, test set,
     private spec, proxy spec, config)``, the config with ``use_pallas`` on
     and the batch cut to the mean client size."""
@@ -138,7 +138,7 @@ def method_setup(dataset: str, n_clients: int, seed: int, *, rounds: int,
     cfg = ProxyFLConfig(
         alpha=alpha, beta=alpha, n_clients=n_clients, rounds=rounds,
         batch_size=max(1, min(batch_size, mean_n)), seed=seed,
-        dropout_rate=dropout_rate, use_pallas=True,
+        dropout_rate=dropout_rate, use_pallas=True, compress=compress,
         dp=DPConfig(enabled=dp, noise_multiplier=sigma, clip_norm=clip))
     return client_data, test, priv, prox, cfg
 
@@ -155,9 +155,10 @@ def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
     multiplier ``sigma`` and clip norm ``clip``, the major-class share
     ``p_major`` (None: the dataset's), ``private_arch`` and
     ``proxy_arch``, the DML weight ``alpha`` (= β), §3.4's per-round
-    ``dropout_rate`` and ``n_train_factor``. The DP steps and the mix run
-    the port's kernels on a CUDA device (their plain versions on the
-    CPU)."""
+    ``dropout_rate``, ``n_train_factor`` and the compressed exchange
+    ``compress`` (``"none"``, ``"topk"`` or ``"int8"``, at the config's
+    ratio). The DP steps and the uncompressed mix run the port's kernels
+    on a CUDA device (their plain versions on the CPU)."""
     rows = []
     for method in methods:
         accs, proxy_accs, eps_out = [], [], None

@@ -10,9 +10,11 @@ frameworks can start a run from the same numbers:
   {"params", "opt": AdamState(m, v, t, p32)}, "proxy": …, "w"}``, the
   optimizer state given as any 4-field ``(m, v, t, p32)`` tuple, as the
   reference's ``AdamState`` NamedTuple is;
-* :func:`async_state_from_numpy` — the async backend's engine state at
-  staleness τ>0, ``{"clients": [per-client state, …], "stale_theta":
-  [τ, K, D], "stale_w": [τ, K]}``, so a run can start with mail in flight.
+* :func:`async_state_from_numpy` — the engine's wrapper state, ``{"clients":
+  [per-client state, …]}`` with the async backend's in-flight buffers
+  ``"stale_theta"`` [τ, K, D] and ``"stale_w"`` [τ, K] at staleness τ>0
+  and the compressed exchange's public copies ``"ef_state"`` [K, D], so a
+  run can start with mail in flight and copies that lag.
 """
 from __future__ import annotations
 
@@ -52,10 +54,10 @@ def state_from_numpy(state: Dict, device="cpu") -> Dict:
 
 
 def async_state_from_numpy(state: Dict, device="cpu") -> Dict:
-    """The async wrapper state: each client through :func:`state_from_numpy`
-    and both in-flight buffers in their own dtypes."""
-    return {"clients": [state_from_numpy(s, device) for s in state["clients"]],
-            "stale_theta": torch.as_tensor(np.array(state["stale_theta"]),
-                                           device=device),
-            "stale_w": torch.as_tensor(np.array(state["stale_w"]),
-                                       device=device)}
+    """The wrapper state: each client through :func:`state_from_numpy`,
+    every other entry (buffers, public copies) as a tensor in its own
+    dtype."""
+    out = {key: torch.as_tensor(np.array(value), device=device)
+           for key, value in state.items() if key != "clients"}
+    out["clients"] = [state_from_numpy(s, device) for s in state["clients"]]
+    return out

@@ -21,9 +21,11 @@ DP-SGD; ProxyFL and FML apply it to the proxies only. Every method runs
 with §3.4 dropout (``cfg.dropout_rate``) and on the ``"async"``
 stale-gossip backend (``cfg.staleness``), which refuses CWT at τ > 0.
 ProxyFL and FML take heterogeneous private architectures (fig. 5b) on the
-loop backend, and every method takes ragged (size-skewed) cohorts.
-Checkpoints, compression, the hier backend, commitments and round-blocks
-are not ported (ROADMAP.md Queue 1).
+loop backend, and every method takes ragged (size-skewed) cohorts. The
+compressed exchange (``cfg.compress``) and commitment verification
+(``cfg.verify_commitments``, with the ``transmit_tamper`` adversary) ride
+in on the config. Checkpoints, the hier backend and round-blocks are not
+ported (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -109,6 +111,7 @@ def run_federated(
     use_pallas: Optional[bool] = None,
     backend: Optional[str] = None,
     device="cuda",
+    transmit_tamper=None,
 ) -> Dict:
     """Run ``cfg.rounds`` rounds of ``method`` on ``device``; return
     ``{"history", "epsilon", "clients"}`` as the reference does.
@@ -133,7 +136,15 @@ def run_federated(
     ``use_pallas`` overrides ``cfg.use_pallas`` (None keeps the config).
     The engine backend is ``backend``, else ``cfg.backend``, else
     ``"auto"`` (:func:`_resolve_backend`); ``"async"`` delays delivery by
-    ``cfg.staleness`` rounds and is never chosen by ``"auto"``."""
+    ``cfg.staleness`` rounds and is never chosen by ``"auto"``.
+
+    ``cfg.compress`` (``"topk"`` or ``"int8"``) compresses whatever the
+    method exchanges (proxies for ProxyFL and FML, the model for the
+    others); Regular and Joint exchange nothing. ``cfg.verify_commitments``
+    checks received proxies against their senders' commitments before
+    mixing on the loop backend; ``transmit_tamper`` injects a wire
+    adversary there (``(flat [K, D] numpy, t) -> flat``, e.g.
+    :func:`repro_torch.core.attacks.bitflip_proxy`)."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     dev = resolve_device(device)
@@ -163,6 +174,7 @@ def run_federated(
         roles = [("acc", proxy_spec, "proxy")]
     accs = _accountants(cfg, [d[0].shape[0] for d in data])
     engine.attach_accountants(accs)
+    engine.transmit_tamper = transmit_tamper
     state = engine.init_states(seed)
     history: List[Dict] = []
     for t in range(cfg.rounds):

@@ -25,6 +25,32 @@ dropped client holds its own mass (identity column):
   nothing, and still merges the mail that arrives for it. At τ = 0 the
   async backend runs the synchronous exchange verbatim.
 
+Compressed exchange
+-------------------
+``cfg.compress`` ∈ {"topk", "int8"} (with ``cfg.compress_ratio`` for
+top-k) sends every exchange through :mod:`repro_torch.core.compress`, sync
+and async alike: each client transmits a compressed delta against its
+PUBLIC COPY, which every receiver holds, and receivers mix the updated
+dense copies. The copies ride in the state wrapper ``{"clients",
+"ef_state": [K, D] f32}`` (beside the in-flight buffers at τ > 0), never
+in the per-client trees a step function could drop, and warm-start at the
+initial proxies (one uncompressed broadcast at set-up). The compressed
+exchange is plain torch: no mix kernel launches, whatever
+``cfg.use_pallas`` says, as in the reference. ``"none"`` keeps every
+round as it was, unwrapped.
+
+Commitments
+-----------
+Under ``cfg.verify_commitments`` the loop backend (``backend="loop"``)
+checks each received proxy against its sender's declared commitment
+before mixing (:meth:`FederationEngine._verified_exchange`); a proxy
+tampered with in flight raises
+:class:`repro_torch.core.commit.CommitmentError` naming the client and
+round. ``transmit_tamper`` is the adversary hook the tests inject
+(:func:`repro_torch.core.attacks.bitflip_proxy`). As in the reference,
+only the loop backend verifies: ``"vmap"`` (which this port also runs
+client by client) and ``"async"`` do not.
+
 Randomness
 ----------
 The port cannot replay JAX's threefry streams, so it has one schedule of
@@ -33,10 +59,12 @@ then its DP noise from a fresh ``torch.Generator`` on the engine's device,
 seeded from ``(seed, ROUND_KEY_OFFSET + t, k, s)``; client k's initial
 params come from a CPU generator seeded from ``(seed, k)``, so they are the
 same numbers on every device. A dropped client therefore shifts no one
-else's draws. The replay hook ``draws(k, t, s) -> (batch_idx,
-flat_noise)`` replaces the generator: parity tests feed the reference's
-draws through it. The dropout masks are the reference's own numpy draws,
-seeded from ``(cfg.seed, t)``.
+else's draws. The int8 codec's U[0,1) block [K, D] of round t comes from a
+generator of its own, seeded from ``(seed, ROUND_KEY_OFFSET + t,
+COMPRESS_KEY_FOLD)``. The replay hooks ``draws(k, t, s) -> (batch_idx,
+flat_noise)`` and ``codec_draws(t) -> noise`` replace the generators:
+parity tests feed the reference's draws through them. The dropout masks
+are the reference's own numpy draws, seeded from ``(cfg.seed, t)``.
 """
 from __future__ import annotations
 
@@ -50,6 +78,8 @@ from ..configs import ProxyFLConfig
 from ..nn.modules import (tree_flatten_vector, tree_map, tree_size,
                           tree_unflatten_vector)
 from ..optim import Adam
+from .commit import CommitmentError, client_commitment
+from .compress import COMPRESS_KEY_FOLD, compress_spec
 from .gossip import (mix_matrix, pushsum_mix_debiased, stale_mix_apply,
                      stale_mix_split)
 
@@ -64,6 +94,8 @@ StepFn = Callable[..., Tuple[Dict, Dict]]
 InitFn = Callable[[torch.Generator], Dict]
 SampleFn = Callable[..., Any]
 DrawsFn = Callable[[int, int, int], Tuple[Any, Any]]
+CodecDrawsFn = Callable[[int], Any]
+TamperFn = Callable[[np.ndarray, int], np.ndarray]
 
 
 def stream_seed(*words: int) -> int:
@@ -115,19 +147,13 @@ def _per_client(fns, n_clients: int) -> List:
     return list(fns)
 
 
-def _refuse_unported(cfg: ProxyFLConfig, backend: str) -> None:
+def _refuse_unported(backend: str) -> None:
     if backend in _UNPORTED_BACKENDS:
         raise NotImplementedError(
             f"backend {backend!r} is not ported yet (ROADMAP.md Queue 1 item "
             f"{_UNPORTED_BACKENDS[backend]})")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
-    for on, what, item in ((cfg.compress != "none", "compress", 9),
-                           (cfg.verify_commitments, "verify_commitments", 8)):
-        if on:
-            raise NotImplementedError(
-                f"ProxyFLConfig.{what} is not ported yet (ROADMAP.md Queue 1 "
-                f"item {item})")
 
 
 class FederationEngine:
@@ -144,18 +170,21 @@ class FederationEngine:
     or gathers ``idx`` when the replay hook supplies it. ``mix`` is the
     exchange rule of :func:`repro_torch.core.gossip.mix_matrix`;
     ``staleness`` the async backend's delivery delay τ (None reads
-    ``cfg.staleness``; the synchronous backends ignore it).
+    ``cfg.staleness``; the synchronous backends ignore it). ``draws`` and
+    ``codec_draws`` are the replay hooks (module docstring).
 
-    The state is a list of per-client dicts, or, on the async backend at
-    τ>0, the wrapper ``{"clients": [...], "stale_theta": [τ, K, D],
-    "stale_w": [τ, K]}`` whose buffer row 0 is the next delivery.
+    The state is a list of per-client dicts, or the wrapper ``{"clients":
+    [...], ["stale_theta": [τ, K, D], "stale_w": [τ, K],] ["ef_state": [K,
+    D]]}`` on the async backend at τ>0 (buffer row 0 is the next delivery)
+    and wherever a compressed exchange runs (the public copies).
     """
 
     def __init__(self, cfg: ProxyFLConfig, *, n_clients: int,
                  step_fns, init_fns, sample_fn: SampleFn,
                  backend: str = "auto", mix: str = "pushsum", device="cuda",
-                 draws: Optional[DrawsFn] = None, staleness=None):
-        _refuse_unported(cfg, backend)
+                 draws: Optional[DrawsFn] = None, staleness=None,
+                 codec_draws: Optional[CodecDrawsFn] = None):
+        _refuse_unported(backend)
         if mix not in MIXES:
             raise ValueError(f"unknown mix {mix!r}")
         self.device = resolve_device(device)
@@ -190,34 +219,52 @@ class FederationEngine:
                     "positive diagonal (pushsum/mean)")
         # τ=0 runs the synchronous exchange verbatim on the unwrapped state
         self._stale = self.staleness > 0
+        # the compressed exchange (None: the uncompressed one, unwrapped)
+        self.compress = compress_spec(cfg)
+        self._compressed = self.compress is not None and self.mixing
+        self._wrapped = self._stale or self._compressed
         self.use_pallas = cfg.use_pallas
         self.draws = draws
+        self.codec_draws = codec_draws
+        # received proxies checked against their senders' commitments
+        # (loop backend); transmit_tamper is the wire adversary the tests
+        # inject, (flat [K, D] numpy, t) -> flat
+        self.verify_commitments = bool(cfg.verify_commitments)
+        self.transmit_tamper: Optional[TamperFn] = None
         self.accountants: List = [None] * n_clients
 
     # -- state construction / access ---------------------------------------
 
     def _clients_of(self, state) -> List[Dict]:
-        return state["clients"] if self._stale else state
+        return state["clients"] if self._wrapped else state
 
     def init_states(self, seed: int):
         """Per-client init from a CPU generator seeded from (seed, k); at
-        τ>0 also the empty in-flight buffer (nothing arrives for τ rounds)."""
+        τ>0 also the empty in-flight buffer (nothing arrives for τ rounds);
+        with compression the public copies, warm-started at the initial
+        proxies in f32."""
         states = []
         for k in range(self.K):
             gen = torch.Generator().manual_seed(stream_seed(seed, k))
             states.append(tree_map(lambda x: x.to(self.device),
                                    self.init_fns[k](gen)))
-        if not self._stale:
+        if not self._wrapped:
             return states
+        state: Dict[str, Any] = {"clients": states}
         proxy = states[0]["proxy"]["params"]
-        dtype = tree_flatten_vector(proxy).dtype
-        w_dtype = states[0]["w"].dtype
-        return {"clients": states,
-                "stale_theta": torch.zeros(
-                    (self.staleness, self.K, tree_size(proxy)), dtype=dtype,
-                    device=self.device),
-                "stale_w": torch.zeros((self.staleness, self.K),
-                                       dtype=w_dtype, device=self.device)}
+        if self._stale:
+            dtype = tree_flatten_vector(proxy).dtype
+            state["stale_theta"] = torch.zeros(
+                (self.staleness, self.K, tree_size(proxy)), dtype=dtype,
+                device=self.device)
+            state["stale_w"] = torch.zeros(
+                (self.staleness, self.K), dtype=states[0]["w"].dtype,
+                device=self.device)
+        if self._compressed:
+            state["ef_state"] = torch.stack(
+                [tree_flatten_vector(s["proxy"]["params"])
+                 for s in states]).to(torch.float32)
+        return state
 
     def export_states(self, state) -> List[Dict]:
         return list(self._clients_of(state))
@@ -284,11 +331,12 @@ class FederationEngine:
                 s, m = self.step_fns[k](s, batch, gen, noise)
             states[k] = s
             last[k] = m
-        if self._stale:
-            state = (self._exchange_stale(states, state, t, act)
-                     if self.mixing else dict(state, clients=states))
+        if not self.mixing:
+            state = dict(state, clients=states) if self._wrapped else states
+        elif self._stale:
+            state = self._exchange_stale(states, state, t, act, seed)
         else:
-            state = self._exchange(states, t, act) if self.mixing else states
+            state = self._exchange(states, t, act, state, seed)
         for k, acc in enumerate(self.accountants):
             if acc is not None and (act is None or act[k]):
                 acc.step(self.n_steps(data[k]))
@@ -323,30 +371,98 @@ class FederationEngine:
                      w=w2[k].to(s["w"].dtype))
                 for k, s in enumerate(states)]
 
-    def _exchange(self, states: List[Dict], t: int, act=None) -> List[Dict]:
-        """The de-biased PushSum mix of the stacked [K, D] proxies."""
+    def _codec_noise(self, seed: int, t: int, shape) -> Optional[torch.Tensor]:
+        """Round t's U[0,1) block for the int8 codec (None for top-k, which
+        draws nothing): from its own generator on the engine's device, or
+        the ``codec_draws`` replay hook."""
+        if self.compress.mode != "int8":
+            return None
+        if self.codec_draws is not None:
+            return torch.as_tensor(np.array(self.codec_draws(t)),
+                                   dtype=torch.float32, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(
+            stream_seed(seed, ROUND_KEY_OFFSET + t, COMPRESS_KEY_FOLD))
+        return torch.rand(tuple(shape), generator=gen, dtype=torch.float32,
+                          device=self.device)
+
+    def _exchange(self, states: List[Dict], t: int, act=None, state=None,
+                  seed: int = 0):
+        """The de-biased PushSum mix of the stacked [K, D] proxies; returns
+        the new client list, or with compression the new wrapper (``state``
+        carries the public copies, ``seed`` the codec stream's)."""
         P = mix_matrix(self.mix, t, self.K, self.cfg.topology, act)
         flat, w = self._flat_proxies(states)
-        unb, w2 = pushsum_mix_debiased(flat, w, P, use_pallas=self.use_pallas)
-        return self._with_proxies(states, unb, w2)
+        if self.backend == "loop" and (self.verify_commitments
+                                       or self.transmit_tamper is not None):
+            flat = self._verified_exchange(flat, states, t)
+        if not self._compressed:
+            unb, w2 = pushsum_mix_debiased(flat, w, P,
+                                           use_pallas=self.use_pallas)
+            return self._with_proxies(states, unb, w2)
+        unb, w2, ef_state = pushsum_mix_debiased(
+            flat, w, P, use_pallas=self.use_pallas, compress=self.compress,
+            ef_state=state["ef_state"],
+            noise=self._codec_noise(seed, t, flat.shape))
+        return dict(state, clients=self._with_proxies(states, unb, w2),
+                    ef_state=ef_state)
+
+    def _verified_exchange(self, flat: torch.Tensor, states: List[Dict],
+                           t: int) -> torch.Tensor:
+        """The loop backend's commitment-checked wire hop: each sender
+        declares the commitment of the proxy it releases, the stacked wire
+        payload passes the adversary hook (``transmit_tamper``), and every
+        received row, rebuilt into a tree, must hash to its sender's
+        declaration, else :class:`CommitmentError` names the client and
+        round before anything is mixed. The untampered payload comes back
+        bit for bit."""
+        declared = [client_commitment(s["proxy"]["params"])[0]
+                    for s in states]
+        flat_np = flat.detach().cpu().numpy()
+        if self.transmit_tamper is not None:
+            flat_np = np.asarray(self.transmit_tamper(np.array(flat_np), t))
+            assert flat_np.shape == tuple(flat.shape), (
+                "transmit_tamper must preserve the [K, D] wire shape")
+        if self.verify_commitments:
+            like = states[0]["proxy"]["params"]
+            for k in range(self.K):
+                received, _ = client_commitment(tree_unflatten_vector(
+                    torch.as_tensor(flat_np[k]), like))
+                if received != declared[k]:
+                    raise CommitmentError(
+                        f"received proxy of client {k} at round {t} does "
+                        f"not match its declared commitment (declared "
+                        f"{declared[k]!r}, recomputed {received!r}) — the "
+                        "proxy was tampered with in flight; refusing to "
+                        "mix it", round=t, client=k)
+        return torch.as_tensor(flat_np, dtype=flat.dtype, device=flat.device)
 
     def _exchange_stale(self, states: List[Dict], state: Dict, t: int,
-                        act=None) -> Dict:
+                        act=None, seed: int = 0) -> Dict:
         """The stale exchange: keep, send into the buffer, merge the
-        delivery rotating out of row 0, de-bias; returns the new wrapper."""
+        delivery rotating out of row 0, de-bias; returns the new wrapper
+        (with compression, its public copies advanced too)."""
         kept, sent = stale_mix_split(
             mix_matrix(self.mix, t, self.K, self.cfg.topology, act))
         kept = torch.as_tensor(kept, dtype=torch.float32, device=self.device)
         sent = torch.as_tensor(sent, dtype=torch.float32, device=self.device)
         flat, w = self._flat_proxies(states)
         buf_t, buf_w = state["stale_theta"], state["stale_w"]
-        unb, send_t, w2, send_w = stale_mix_apply(
-            flat, w, kept, sent, buf_t[0], buf_w[0],
-            use_pallas=self.use_pallas)
-        return {"clients": self._with_proxies(states, unb, w2),
-                "stale_theta": torch.cat([buf_t[1:], send_t[None]]),
-                "stale_w": torch.cat([buf_w[1:],
-                                      send_w[None].to(buf_w.dtype)])}
+        out = dict(state)
+        if self._compressed:
+            unb, send_t, w2, send_w, out["ef_state"] = stale_mix_apply(
+                flat, w, kept, sent, buf_t[0], buf_w[0],
+                use_pallas=self.use_pallas, compress=self.compress,
+                ef_state=state["ef_state"],
+                noise=self._codec_noise(seed, t, flat.shape))
+        else:
+            unb, send_t, w2, send_w = stale_mix_apply(
+                flat, w, kept, sent, buf_t[0], buf_w[0],
+                use_pallas=self.use_pallas)
+        out.update(clients=self._with_proxies(states, unb, w2),
+                   stale_theta=torch.cat([buf_t[1:], send_t[None]]),
+                   stale_w=torch.cat([buf_w[1:],
+                                      send_w[None].to(buf_w.dtype)]))
+        return out
 
     def run_rounds(self, state, data: Sequence, t0: int, n_rounds: int,
                    seed: int) -> Tuple[Any, Dict[str, np.ndarray]]:
@@ -408,7 +524,9 @@ def _dml_state_init(private_spec, proxy_spec, cfg: ProxyFLConfig) -> InitFn:
 
 def dml_engine(private_specs: Tuple, proxy_spec, cfg: ProxyFLConfig,
                backend: str = "auto", mix: str = "pushsum", device="cuda",
-               draws: Optional[DrawsFn] = None) -> FederationEngine:
+               draws: Optional[DrawsFn] = None,
+               codec_draws: Optional[CodecDrawsFn] = None
+               ) -> FederationEngine:
     """Engine for the two-model (private + proxy DML) family: ProxyFL
     (mix="pushsum") and FML (mix="mean"). Heterogeneous private
     architectures (``private_specs`` not all equal) give each client its
@@ -426,7 +544,8 @@ def dml_engine(private_specs: Tuple, proxy_spec, cfg: ProxyFLConfig,
     return FederationEngine(
         cfg, n_clients=len(private_specs), step_fns=step_fns,
         init_fns=init_fns, sample_fn=classifier_sampler(cfg.batch_size),
-        backend=backend, mix=mix, device=device, draws=draws)
+        backend=backend, mix=mix, device=device, draws=draws,
+        codec_draws=codec_draws)
 
 
 def _ce_state_step(spec, cfg: ProxyFLConfig, dp: bool) -> StepFn:
@@ -457,7 +576,9 @@ def _ce_state_init(spec, cfg: ProxyFLConfig) -> InitFn:
 def single_model_engine(spec, cfg: ProxyFLConfig, dp: bool,
                         mix: str = "mean", backend: str = "auto",
                         n_clients: int = 0, device="cuda",
-                        draws: Optional[DrawsFn] = None) -> FederationEngine:
+                        draws: Optional[DrawsFn] = None,
+                        codec_draws: Optional[CodecDrawsFn] = None
+                        ) -> FederationEngine:
     """Engine for the single-model baselines: FedAvg (mix="mean"), AvgPush
     ("pushsum"), CWT ("ring"), Regular and Joint ("none"). The model lives
     in the exchanged ``proxy`` slot of the state ``{"proxy": {"params",
@@ -468,4 +589,4 @@ def single_model_engine(spec, cfg: ProxyFLConfig, dp: bool,
         step_fns=_ce_state_step(spec, cfg, dp),
         init_fns=_ce_state_init(spec, cfg),
         sample_fn=classifier_sampler(cfg.batch_size), backend=backend,
-        mix=mix, device=device, draws=draws)
+        mix=mix, device=device, draws=draws, codec_draws=codec_draws)

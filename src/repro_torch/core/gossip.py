@@ -10,7 +10,9 @@ numpy oracle :func:`stale_gossip_reference`) are numpy, copied verbatim, so
 they are array-equal to the reference. The exchanges run on the stacked
 ``[K, D]`` proxies: plain torch products, or the hand-written kernels under
 ``use_pallas`` (:func:`pushsum_mix_debiased` through the mix kernel,
-:func:`stale_mix_apply` through the stale-mix kernel).
+:func:`stale_mix_apply` through the stale-mix kernel), or the compressed
+exchange of :mod:`repro_torch.core.compress` (plain torch, no kernel).
+:func:`comm_cost_per_round` is the analytic communication model of fig. 4.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ..kernels import fused_pushsum_mix, fused_stale_mix
+from .compress import compressed_pushsum_mix, compressed_stale_mix
 
 
 def exponential_offsets(n_clients: int) -> List[int]:
@@ -134,12 +137,22 @@ def pushsum_mix(thetas: torch.Tensor, weights: torch.Tensor, P, *,
 
 
 def pushsum_mix_debiased(thetas: torch.Tensor, weights: torch.Tensor, P, *,
-                         use_pallas: bool = False
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         use_pallas: bool = False, compress=None,
+                         ef_state=None, noise=None):
     """The engine's whole stacked exchange (Algorithm 1 lines 7-11):
     ``z' = (P·z) / (P·w)[:, None]``, ``w' = P·w`` — mix AND de-bias, plain
-    torch or the mix kernel with the de-bias fused (``use_pallas``). The
-    compressed exchange is not ported yet (ROADMAP.md Queue 1 item 9)."""
+    torch or the mix kernel with the de-bias fused (``use_pallas``).
+
+    ``compress`` (a :class:`repro_torch.core.compress.CompressionSpec`)
+    runs the compressed exchange instead: each sender transmits a
+    compressed delta against its public copy ``ef_state`` [K, D] (int8
+    rounds with ``noise``, U[0,1) of that shape), receivers mix the updated
+    dense copies, and the call returns ``(z', w', ef_state')``. It is plain
+    torch and ignores ``use_pallas``: the mix kernel implements the
+    uncompressed chain only."""
+    if compress is not None:
+        return compressed_pushsum_mix(thetas, weights, P, ef_state, noise,
+                                      compress)
     if use_pallas:
         return fused_pushsum_mix(thetas, weights, P, debias=True)
     mixed = _as_matrix(P, thetas) @ thetas
@@ -149,9 +162,8 @@ def pushsum_mix_debiased(thetas: torch.Tensor, weights: torch.Tensor, P, *,
 
 def stale_mix_apply(flat: torch.Tensor, w: torch.Tensor, kept, sent,
                     buf_t0: torch.Tensor, buf_w0: torch.Tensor, *,
-                    use_pallas: bool = False, compress=None
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                               torch.Tensor]:
+                    use_pallas: bool = False, compress=None, ef_state=None,
+                    noise=None):
     """One stale (async τ>0) exchange on the stacked proxies — the
     delayed-delivery counterpart of :func:`pushsum_mix_debiased` and the
     on-device application of :func:`stale_gossip_reference`'s round body:
@@ -160,12 +172,16 @@ def stale_mix_apply(flat: torch.Tensor, w: torch.Tensor, kept, sent,
     de-bias by the identically-delayed weights. Returns ``(z', send_t,
     w', send_w)``; the caller owns the buffer rotation. ``use_pallas``
     fuses the whole chain into one pass of the stale-mix kernel
-    (:func:`repro_torch.kernels.fused_stale_mix`). The compressed exchange
-    is not ported yet (ROADMAP.md Queue 1 item 9)."""
+    (:func:`repro_torch.kernels.fused_stale_mix`).
+
+    ``compress``/``ef_state``/``noise`` send the in-flight transmission
+    (delta coding of the numerator θ against its public copy) through the
+    codec as in :func:`pushsum_mix_debiased`: the return grows a trailing
+    ``ef_state'`` and ``use_pallas`` is ignored (the stale-mix kernel is
+    uncompressed only)."""
     if compress is not None:
-        raise NotImplementedError(
-            "compressed stale gossip is not ported yet (ROADMAP.md Queue 1 "
-            "item 9)")
+        return compressed_stale_mix(flat, w, kept, sent, buf_t0, buf_w0,
+                                    ef_state, noise, compress)
     if use_pallas:
         return fused_stale_mix(flat, w, kept, sent, buf_t0, buf_w0)
     theta = flat * w[:, None]                  # raw PushSum numerator
@@ -355,3 +371,28 @@ def stale_gossip_reference(z0, w0, Ps, staleness: int):
             buf_w = np.concatenate([buf_w[1:], send_w[None]])
         z = mixed / w[:, None]
     return z, w, buf_t, buf_w
+
+
+# ---------------------------------------------------------------------------
+# communication-cost model (paper Fig. 4 / Fig. 13)
+
+
+def comm_cost_per_round(method: str, n_clients: int, model_bytes: int,
+                        proxy_bytes: int, link_bandwidth: float = 50e9) -> float:
+    """Analytic wall-clock communication time of ONE round (seconds).
+
+    Centralized schemes serialize at the server: it receives K models and
+    sends K back over one link (the bottleneck the paper measures).
+    Decentralized schemes send/receive exactly one model per client in
+    parallel. CWT passes one model around but rounds are serialized."""
+    if method in ("fedavg",):
+        return 2 * n_clients * model_bytes / link_bandwidth
+    if method in ("fml",):
+        return 2 * n_clients * proxy_bytes / link_bandwidth
+    if method in ("avgpush", "cwt"):
+        return 2 * model_bytes / link_bandwidth
+    if method in ("proxyfl",):
+        return 2 * proxy_bytes / link_bandwidth
+    if method in ("regular", "joint"):
+        return 0.0
+    raise ValueError(method)

@@ -8,7 +8,8 @@ port against the JAX package.
 * ``stale_mix_apply``, plain and with ``use_pallas`` (the reference's Pallas
   kernel in interpret mode, the port's plain version on the CPU), at the
   shapes of tests/test_kernels.py and the kernel tolerances there (f32
-  rtol = atol = 2e-5, bf16 2e-2).
+  rtol = atol = 2e-5, bf16 2e-2); compressed (top-k and int8) at the
+  ``close`` grade, the public copies bit for bit.
 * Engine parity: JAX ``dml_engine(..., backend="async")`` at τ = 2 and the
   sync ``vmap`` backend, both with ``dropout_rate=0.25``, DP on,
   ``use_pallas=True``, K = 4 clients, mlp on 14x14x1, B = 8, one local
@@ -28,13 +29,16 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import DPConfig as JaxDPConfig  # noqa: E402
 from repro.configs.base import ProxyFLConfig as JaxProxyFLConfig  # noqa: E402
 from repro.core import engine as jax_engine  # noqa: E402
 from repro.core import gossip as jax_gossip  # noqa: E402
 from repro.core.accountant import PrivacyAccountant as JaxAccountant  # noqa: E402
+from repro.core.compress import CompressionSpec as JaxCompressionSpec  # noqa: E402
 from repro.core.dp import _flat_gaussian_like  # noqa: E402
 from repro.core.protocol import ModelSpec as JaxModelSpec  # noqa: E402
 from repro.data.synthetic import make_classification_data  # noqa: E402
@@ -44,6 +48,7 @@ from repro_torch.configs import DPConfig, ProxyFLConfig  # noqa: E402
 from repro_torch.core import engine, gossip  # noqa: E402
 from repro_torch.core.accountant import PrivacyAccountant  # noqa: E402
 from repro_torch.core.baselines import run_federated  # noqa: E402
+from repro_torch.core.compress import CompressionSpec  # noqa: E402
 from repro_torch.core.protocol import ModelSpec  # noqa: E402
 from repro_torch.nn.modules import tree_flatten_vector, tree_leaves  # noqa: E402
 from repro_torch.nn.vision import get_vision_model  # noqa: E402
@@ -140,10 +145,41 @@ def test_stale_mix_apply_matches_reference(K, D, dtype, use_pallas):
         np.testing.assert_allclose(_np(g), _np(w), **TOL[dtype])
 
 
-def test_stale_mix_apply_refuses_compression():
-    _, targs = _stale_args(4, 100, "float32")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        gossip.stale_mix_apply(*targs, compress="int8")
+@pytest.mark.parametrize("mode", ["topk", "int8"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("silent", [False, True])
+def test_compressed_stale_mix_apply_matches_reference(mode, use_pallas,
+                                                      silent):
+    """The compressed stale exchange (public copies of the numerator,
+    int8 noise from the same U[0,1) block) runs and matches the
+    reference's; ``use_pallas`` changes nothing on it, in either package.
+    ``silent``: client 1 sends nothing (its column of ``sent`` zero, its
+    mass kept), so its public copy stays bit for bit."""
+    jargs, targs = _stale_args(4, 100, "float32")
+    if silent:
+        kept, sent = targs[2].clone(), targs[3].clone()
+        kept[1] += sent[:, 1].sum()
+        sent[:, 1] = 0.0
+        targs[2:4] = kept, sent
+        jargs[2:4] = jnp.asarray(kept.numpy()), jnp.asarray(sent.numpy())
+    rng = np.random.default_rng(4)
+    pub = (0.9 * rng.standard_normal((4, 100))).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    noise = np.asarray(jax.random.uniform(key, (4, 100)))
+    want = jax_gossip.stale_mix_apply(
+        *jargs, use_pallas=use_pallas, interpret=True,
+        compress=JaxCompressionSpec(mode=mode), ef_state=jnp.asarray(pub),
+        key=key)
+    got = gossip.stale_mix_apply(
+        *targs, use_pallas=use_pallas,
+        compress=CompressionSpec(mode=mode), ef_state=torch.tensor(pub),
+        noise=torch.tensor(noise))
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), **CLOSE)
+    np.testing.assert_array_equal(_np(got[4]), _np(want[4]))
+    if silent:
+        np.testing.assert_array_equal(_np(got[4])[1], pub[1])
 
 
 def test_stale_mix_apply_is_one_round_of_the_oracle():

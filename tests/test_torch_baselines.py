@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -76,14 +77,14 @@ def to_torch(data):
 
 def export(eng, state):
     """The reference engine's state as numpy: a per-client list, wrapped
-    with both buffers on the stale async backend."""
+    with both buffers on the stale async backend and with the public
+    copies of a compressed exchange."""
     clients = [jax.tree_util.tree_map(np.asarray, s)
                for s in eng.export_states(state)]
-    if isinstance(state, dict) and "stale_theta" in state:
-        return {"clients": clients,
-                "stale_theta": np.asarray(state["stale_theta"]),
-                "stale_w": np.asarray(state["stale_w"])}
-    return clients
+    extra = {key: np.asarray(state[key])
+             for key in ("stale_theta", "stale_w", "ef_state")
+             if isinstance(state, dict) and key in state}
+    return {"clients": clients, **extra} if extra else clients
 
 
 def to_port(state):

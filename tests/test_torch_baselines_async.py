@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 from test_torch_baselines import (K, assert_epsilon_exact,  # noqa: E402
                                   assert_metrics_close, assert_states_close,

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 import benchmarks.common as jax_common  # noqa: E402
 import benchmarks.fig3_accuracy as jax_fig3  # noqa: E402
 

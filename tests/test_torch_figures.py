@@ -21,6 +21,7 @@ import json
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 import benchmarks.fig11_batchsize as jax_fig11  # noqa: E402
 import benchmarks.fig5_ablations as jax_fig5  # noqa: E402
 import benchmarks.fig6_kvasir as jax_fig6  # noqa: E402

@@ -1,6 +1,7 @@
 """The port stands alone: importing all of ``repro_torch`` loads neither jax
 nor the JAX package, and its entry points run on the GPU unless the caller
 asks for the CPU."""
+import dataclasses
 import os
 import subprocess
 import sys
@@ -10,6 +11,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.benchmarks.common import bench_methods  # noqa: E402
 from repro_torch.configs import ProxyFLConfig  # noqa: E402
@@ -70,8 +72,24 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for():
                       seeds=(0,), n_train_factor=0.01)
 
 
-@pytest.mark.parametrize("backend", ["shard_map", "hier"])
-def test_unported_backends_name_the_roadmap_item(backend):
+@pytest.mark.parametrize("backend,item", [("shard_map", 12), ("hier", 10)])
+def test_unported_backends_name_the_roadmap_item(backend, item):
     spec, _, cfg = _tiny()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md Queue 1 item {item}"):
         dml_engine((spec,) * 2, spec, cfg, backend=backend, device="cpu")
+
+
+@pytest.mark.parametrize("knobs", [dict(compress="topk"),
+                                   dict(compress="int8"),
+                                   dict(verify_commitments=True)])
+@pytest.mark.parametrize("backend", ["auto", "loop", "async"])
+def test_compression_and_commitments_construct_an_engine_on_the_cpu(
+        knobs, backend):
+    spec, data, cfg = _tiny()
+    cfg = dataclasses.replace(cfg, **knobs)
+    eng = dml_engine((spec,) * 2, spec, cfg, backend=backend, device="cpu")
+    assert eng.verify_commitments == cfg.verify_commitments
+    assert (eng.compress is None) == (cfg.compress == "none")
+    state, _ = eng.run_round(eng.init_states(0), data, 0, seed=0)
+    assert len(eng.export_states(state)) == 2

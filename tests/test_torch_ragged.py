@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import one_torch_thread  # noqa: E402,F401
 import benchmarks.common as jax_common  # noqa: E402
 
 from repro.core.accountant import epsilon_for as jax_epsilon_for  # noqa: E402
