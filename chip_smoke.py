@@ -148,12 +148,43 @@
 8. Breaks one warm client step, one engine round, the exchange and the
    evaluation of the sync path down on the host clock, and profiles one
    step with torch.profiler for the device's busy share.
-9. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
+9. Drives the LLM serving path (the "serve" phase) on random weights from
+   a seeded generator on the card, through the serve steps
+   (``repro_torch.launch.steps``): (a) qwen2-7b and (b) falcon-mamba-7b
+   at full depth and width, B = 4 prompts of 1,024 tokens and 16 greedy
+   tokens, (c) gemma3-4b at full width over one 5:1 pattern (6 layers), B
+   = 2 prompts of 2,048 tokens over its 1,024-token window, and
+   phi-3-vision-4.2b at full depth and width (576 image tokens before the
+   prompt; head dim 96, zero-padded to 128 by the wgmma kernel), with the
+   kernels and on the plain path: the launches of every prefill and decode
+   step exact (one rmsnorm a norm, on its vector route; one attention a
+   GQA layer, on wgmma, and one scan a mamba layer in a prefill; rmsnorm
+   alone in a decode step), prefill and decode ms and tok/s beside their
+   bounds, the peak device memory, the greedy tokens of both paths
+   (reported, not gated: a random model's logits are near ties); then
+   each layer of a prefill and a decode step from the same input with the
+   kernels and on the plain path, each with its own cache, held normwise
+   at bf16 2e-2, and every kernel launch in it held element by element to
+   the model's plain function on its own inputs (RMSNorm and attention at
+   their kernel grade, the scan's y and final state at 2e-4); the same at
+   full width and 2 layers in f32 at 2e-5 (split TF32 attention); the
+   smoke variant of every registry name (launches exact, the lockstep,
+   and in f32 with dropless MoE prefill + decode against the no-cache
+   forward at 2e-4, tests/test_models.py's check). Before it, on every
+   scan case: y bit for bit the same with and without the final state,
+   and from a random state y and the final state against the plain
+   version; with ``--parent-scan DIR`` (a checkout of a commit whose scan
+   takes no state) also this tree's scan bit for bit against that
+   commit's.
+10. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
    and their narrow loaders, and the clip pair's rows route, under their
    own keys; the DP kernels and the mix also with their launches on each
    method's path and each figures run's, with its shape, and on each
-   compressed run's, the MIA federations' and compressed async's) and,
-   last, the
+   compressed run's, the MIA federations' and compressed async's; the
+   LLM kernels with their launches on the serve path (qwen2-7b's served
+   run for rmsnorm and attention, falcon-mamba-7b's for the scan), per
+   prefill and decode step of each served model, and their serve-shape
+   rows) and, last, the
    result line
    ``{"ok": true, "device": {...}}``.
 
@@ -260,6 +291,20 @@ JAMBA = dict(B=1, S=4_096, di=16_384, ds=16)
 SCAN_DS = (1, 3, 8, 16, 17, 32, 64)
 SCAN_S = (1, 31, 33, 4_097)
 SCAN_B = (1, 3)
+# the serve phase: B = 4 prompts of 1,024 tokens and 16 greedy tokens
+# (qwen2-7b, falcon-mamba-7b at full depth and width); gemma3-4b at full
+# width, one 5:1 pattern (6 layers), B = 2 prompts of 2,048 tokens over its
+# 1,024-token window; the smoke variants at B = 2, a 7-token prompt and 5
+# decode steps (tests/test_models.py's 12 tokens, S0 = 7)
+SERVE_TOKENS, SERVE_GEN = (4, 1_024), 16
+GEMMA_TOKENS, GEMMA_LAYERS = (2, 2_048), 6
+SMOKE_SERVE = (2, 12, 7)
+DECODE_TOL = 2e-4   # tests/test_models.py:85-116, prefill + decode vs forward
+# the serve phase's kernel calls: a prefill's attention of qwen2-7b and of a
+# gemma3-4b local layer; rmsnorm's decode rows are SERVE_TOKENS[0] x RMS_D
+SERVE_ATTN = dict(B=4, S=1_024, Hq=28, Hkv=4, D=128)
+GEMMA_SERVE_ATTN = dict(B=2, S=2_048, Hq=8, Hkv=4, D=256, window=1_024)
+SERVE_SCAN = dict(B=4, S=1_024, di=8_192, ds=16)
 C_TYPES = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
            "float": ctypes.c_float}   # of the parent's entry points
 SFU_PER_CLOCK_SM, SMS = 16, 132   # H100 SXM: exponentials a clock an SM
@@ -806,17 +851,63 @@ def llm_kernel_cases(gen):
     # the special-function units (every exp on MUFU, as expf forms it; FMA
     # polynomials could take some off them), whichever takes longer
     sfu = SFU_PER_CLOCK_SM * SMS * sm_clock_hz()
-    for label, width in (("mamba_scan", MAMBA), ("mamba_scan jamba", JAMBA)):
-        B, S, di, ds = width.values()
-        args = mamba_inputs(gen, B, S, di, ds)
-        yield Case("mamba_scan", torch.float32, (B, S, di, ds),
+    for row, dt, shape, args in scan_cases(gen):
+        B, S, di, ds = shape[:4]
+        timed = dict(row=row, calls=FULL_WIDTH_CALLS, plain_calls=2,
+                     plain_graph=False, peak=sfu, ops_name="exp") \
+            if row is not None else {}
+        yield Case("mamba_scan", dt, shape,
                    lambda a=args: kernels.mamba_scan(*a),
                    lambda a=args: ref.mamba_scan_ref(*a), None,
-                   4 * (3 * B * S * di + 2 * B * S * ds + di * ds),
-                   B * S * di * ds, peak=sfu, ops_name="exp", tol=SCAN_TOL,
-                   calls=FULL_WIDTH_CALLS, plain_calls=2, plain_graph=False,
-                   row=label)
-        del args
+                   4 * (3 * B * S * di + 2 * B * S * ds + di * ds)
+                   if row else 0, B * S * di * ds if row else 0,
+                   tol=SCAN_TOL if dt == torch.float32 else None, **timed)
+
+    # the serve phase's shapes: a prefill's attention (qwen2-7b; a gemma3-4b
+    # local layer over its window), rmsnorm's decode step (its prefill call
+    # is the "rmsnorm" row's 4,096 x 3,584), the scan's prefill from the
+    # cache's state with the final state out (xc, dt, B, C in f32)
+    for label, shape in (("flash_attention serve", SERVE_ATTN),
+                         ("flash_attention serve window", GEMMA_SERVE_ATTN)):
+        q, k, v, lib = attention_inputs(gen, dtype=bf16, **shape)
+        win = shape.get("window")
+        yield Case("flash_attention", bf16, tuple(shape.values()),
+                   lambda q=q, k=k, v=v, w=win:
+                   kernels.gqa_flash_attention(q, k, v, window=w),
+                   lambda q=q, k=k, v=v, w=win:
+                   ref.gqa_flash_attention_ref(q, k, v, window=w),
+                   lib, *attention_cost(dtype=bf16, **shape),
+                   peak=BF16_OPS_PER_S, calls=FULL_WIDTH_CALLS, row=label)
+    x, g = randn(SERVE_TOKENS[0], RMS_D, dtype=bf16), randn(RMS_D, dtype=bf16)
+    yield Case("rmsnorm", bf16, (SERVE_TOKENS[0], RMS_D, 0, str(bf16)),
+               lambda: kernels.rmsnorm(x, g), lambda: ref.rmsnorm_ref(x, g),
+               lambda: torch.nn.functional.rms_norm(x, (RMS_D,), weight=g,
+                                                    eps=1e-6),
+               2 * SERVE_TOKENS[0] * RMS_D * 2 + RMS_D * 2,
+               4 * SERVE_TOKENS[0] * RMS_D, row="rmsnorm serve decode")
+    B, S, di, ds = SERVE_SCAN.values()
+    args = mamba_inputs(gen, B, S, di, ds)
+    h0 = randn(B, di, ds)
+    yield Case("mamba_scan", torch.float32, (B, S, di, ds, "h0, final state"),
+               lambda: kernels.mamba_scan(*args, h0=h0, return_state=True),
+               lambda: ref.mamba_scan_ref(*args, h0, return_state=True),
+               None, 4 * (3 * B * S * di + 2 * B * S * ds + di * ds
+                          + 2 * B * di * ds),
+               B * S * di * ds, peak=sfu, ops_name="exp", tol=SCAN_TOL,
+               calls=FULL_WIDTH_CALLS, plain_calls=2, plain_graph=False,
+               row="mamba_scan serve")
+
+
+def scan_cases(gen):
+    """The scan's checks as (timed row or None, dtype, shape, (dt, x, B, C,
+    A)): falcon-mamba-7b's and jamba-1.5-large's widths (timed), the sweep
+    of state sizes, lengths and batches in f32 and with dt, B and C in
+    bf16, then ragged widths in f32 and bf16."""
+    bf16 = torch.bfloat16
+    for label, width in (("mamba_scan", MAMBA), ("mamba_scan jamba", JAMBA)):
+        B, S, di, ds = width.values()
+        yield label, torch.float32, (B, S, di, ds), mamba_inputs(gen, B, S,
+                                                                 di, ds)
     for ds in SCAN_DS:
         for S in SCAN_S:
             for B in SCAN_B:
@@ -824,21 +915,83 @@ def llm_kernel_cases(gen):
                     dt, x, Bm, C, A = mamba_inputs(gen, B, S, 96 + ds, ds)
                     if bf:   # bf16 inputs, f32 out: dt, B and C in bf16
                         dt, Bm, C = (t.to(bf16) for t in (dt, Bm, C))
-                    args = (dt, x, Bm, C, A)
-                    yield Case("mamba_scan", torch.float32,
-                               (B, S, 96 + ds, ds, "bf16 dt B C" if bf
-                                else "f32"),
-                               lambda a=args: kernels.mamba_scan(*a),
-                               lambda a=args: ref.mamba_scan_ref(*a), None,
-                               0, 0, tol=SCAN_TOL)
+                    yield None, torch.float32, (
+                        B, S, 96 + ds, ds, "bf16 dt B C" if bf else "f32"), \
+                        (dt, x, Bm, C, A)
     for B, S, di, ds in [(2, 100, 100, 16), (1, 257, 1_024, 4),
                          (2, 33, 64, 64), (1, 1, 8, 8)]:
         for dt in (torch.float32, bf16):
-            args = mamba_inputs(gen, B, S, di, ds, dt)
-            yield Case("mamba_scan", dt, (B, S, di, ds),
-                       lambda a=args: kernels.mamba_scan(*a),
-                       lambda a=args: ref.mamba_scan_ref(*a), None, 0, 0,
-                       tol=SCAN_TOL if dt == torch.float32 else None)
+            yield None, dt, (B, S, di, ds), mamba_inputs(gen, B, S, di, ds,
+                                                         dt)
+
+
+def scan_state_checks():
+    """On every scan case: y bit for bit the same whether the final state
+    is asked for or not; from a random state h0, y and the final state
+    against the plain version's at the scan's tolerance."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n, worst = 0, 0.0
+    for _, dt, shape, args in scan_cases(gen):
+        y = kernels.mamba_scan(*args)
+        y2, _ = kernels.mamba_scan(*args, return_state=True)
+        assert torch.equal(y, y2), f"mamba_scan {shape}: y changed bits " \
+            "when the final state was asked for"
+        h0 = torch.randn((shape[0], shape[2], shape[3]), generator=gen,
+                         device="cuda")
+        worst = max(worst, check(
+            f"mamba_scan {dt} {shape} from h0", kernels.mamba_scan(
+                *args, h0=h0, return_state=True),
+            ref.mamba_scan_ref(*args, h0, return_state=True),
+            dt, SCAN_TOL if dt == torch.float32 else None))
+        n += 1
+    print(f"scan state: {n} cases, y bit-equal with and without the final "
+          f"state; from h0 y and the final state within {worst:.3e} of the "
+          "plain version")
+
+
+def parent_scan(parent: Path):
+    """This tree's scan without a state, bit for bit against the scan of
+    ``parent`` (a checkout of a commit whose scan takes no state: before
+    the serve path), built with nvcc from its csrc into a library of its
+    own, on every scan case."""
+    from repro_torch import kernels
+    from repro_torch.kernels import _build
+    src = parent / "src" / "repro_torch" / "kernels" / "csrc" / \
+        "mamba_scan.cu"
+    P, I = ctypes.c_void_p, ctypes.c_int
+    want = (P, I, P, I, P, I, P, I, P, P, I, ctypes.c_int64, I, I, P)
+    got = c_params(src, "repro_mamba_scan")
+    if got != want:
+        raise SystemExit(f"--parent-scan: repro_mamba_scan in {parent} is "
+                         f"declared with {[t.__name__ for t in got]}; this "
+                         f"comparison calls it with "
+                         f"{[t.__name__ for t in want]}")
+    out_dir = _build.BUILD_ROOT.parent / "parent_scan"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / "libparent_scan.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-cudart", "shared",
+                    "-shared", str(src), "-o", str(lib_path)], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(str(lib_path)).repro_mamba_scan
+    fn.argtypes = got
+    codes = _build.DTYPE_CODES
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n = 0
+    for _, _, shape, (dt, x, Bm, C, A) in scan_cases(gen):
+        y = torch.empty_like(x)
+        err = fn(dt.data_ptr(), codes[dt.dtype], x.data_ptr(),
+                 codes[x.dtype], Bm.data_ptr(), codes[Bm.dtype], C.data_ptr(),
+                 codes[C.dtype], A.data_ptr(), y.data_ptr(), x.shape[0],
+                 x.shape[1], x.shape[2], A.shape[1],
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+        assert torch.equal(kernels.mamba_scan(dt, x, Bm, C, A), y), \
+            f"mamba_scan {shape}: differs from the parent's scan"
+        n += 1
+    print(f"before/after mamba_scan: bit-equal to the parent's scan on all "
+          f"{n} scan cases")
 
 
 SOURCES = {
@@ -2685,8 +2838,384 @@ def step_breakdown(spec, data, test, cfg):
               f"launch over {len(ts)} launches")
 
 
+# ---------------------------------------------------------------------------
+# the serve phase: the LLM serving path at full width
+
+
+def serve_launches(cfg):
+    """Exact kernel launches of one prefill (S > 1 from position 0) and of
+    one decode step of ``cfg`` with the kernels on, by kernel and route:
+    every layer's norm1, norm2 where it has an FFN, MLA's two latent norms,
+    the final norm; one attention launch a GQA layer and one scan a mamba
+    layer in the prefill, neither in a decode step."""
+    from repro_torch.kernels.flash_attention import TENSOR_CORE_ROUTE
+    from repro_torch.nn.model import layer_plan
+    from repro_torch.nn.modules import torch_dtype
+    rms, attn, scan = 1, 0, 0
+    for spec, *_ in layer_plan(cfg):
+        rms += 1 + (spec.ffn != "none")
+        if spec.kind == "mamba":
+            scan += 1
+        elif cfg.attn_impl == "mla":
+            rms += 2
+        else:
+            attn += 1
+    route = TENSOR_CORE_ROUTE[torch_dtype(cfg.dtype)]
+    decode = {"rmsnorm": rms, "rmsnorm/vector": rms}
+    prefill = dict(decode, flash_attention=attn,
+                   **{f"flash_attention/{route}": attn}, mamba_scan=scan)
+    return prefill, decode
+
+
+def serve_run(params, cfg, tokens, gen_steps, use_pallas, img=None,
+              counts=True):
+    """Prefill ``tokens`` [B, S] (after a warm-up prefill), then
+    ``gen_steps`` greedy decode steps, through the serve steps; each call's
+    launches counted and held to :func:`serve_launches` where ``counts``.
+    Returns the greedy tokens, prefill ms, decode ms a step and the peak
+    device memory."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.nn.model import init_cache
+    B, S = tokens.shape[:2]
+    n_img = cfg.n_image_tokens if cfg.modality == "vlm" else 0
+    prefill = make_prefill_step(cfg, use_pallas=use_pallas)
+    decode = make_decode_step(cfg, use_pallas=use_pallas)
+    want_prefill, want_decode = serve_launches(cfg)
+    batch = {"tokens": tokens, "img": img}
+
+    def fresh():
+        return {"params": params, "cache": init_cache(
+            cfg, B, S + n_img + gen_steps)}
+    with torch.inference_mode():
+        prefill(fresh(), batch)   # warm-up: library heuristics, allocator
+        state = fresh()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (state, logits), got = counted(lambda: prefill(state, batch))
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        if counts and use_pallas:
+            expect(got, **want_prefill)
+        out = [torch.argmax(logits, dim=-1)]
+        t0 = time.perf_counter()
+        for i in range(gen_steps):
+            tok = out[-1][:, None, :] if cfg.modality == "audio" \
+                else out[-1][:, None]
+            (state, logits), got = counted(lambda: decode(state, {
+                "tokens": tok, "pos": S + n_img + i}))
+            if counts and use_pallas:
+                expect(got, **want_decode)
+            out.append(torch.argmax(logits, dim=-1))
+        decode_ms = (time.perf_counter() - t0) * 1e3 / max(gen_steps, 1)
+    return (torch.stack(out, dim=1), prefill_ms, decode_ms,
+            torch.cuda.max_memory_allocated())
+
+
+def rel_err(got, want) -> float:
+    """Normwise relative error ‖got − want‖₂ / ‖want‖₂ (in f64)."""
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / max(float(torch.linalg.vector_norm(want)), 1e-30))
+
+
+class OnPath:
+    """While active, every launch of the three LLM kernels from the model
+    is also held, on the same inputs, against the model's own plain
+    function: RMSNorm against the model's ``rmsnorm`` (they differ by up to
+    one rounding: the kernel applies the gain in f32), attention against
+    ``attend`` over the same fresh keys, the scan (y and the final state)
+    against the model's chunked scan from the same state. Each at its
+    kernel grade (``TOL`` of its dtype, the scan's 2e-4), element by
+    element; the worst error of each and the launches checked are kept."""
+
+    def __init__(self):
+        self.worst = {"rmsnorm": 0.0, "flash_attention": 0.0,
+                      "mamba_scan": 0.0}
+        self.checked = dict.fromkeys(self.worst, 0)
+
+    def __enter__(self):
+        # the names the model's modules call (the kernels' own modules
+        # count launches through their global names, left as they are)
+        from repro_torch.nn import attention, blocks, mamba, mla, modules
+        norm, attn, scan = (modules.rmsnorm, attention.gqa_flash_attention,
+                            mamba.mamba_scan)
+
+        def note(name, got, want, dtype, tol=None):
+            self.worst[name] = max(self.worst[name], check(
+                f"{name} on the model path", got, want, dtype, tol))
+            self.checked[name] += 1
+
+        def rmsnorm(p, x, eps=1e-6, use_pallas=True):
+            out = norm(p, x, eps, use_pallas=use_pallas)
+            if use_pallas:
+                note("rmsnorm", out, norm(p, x, eps, use_pallas=False),
+                     x.dtype)
+            return out
+
+        def gqa_flash_attention(q, k, v, *, causal=True, window=None,
+                                **kw):
+            out = attn(q, k, v, causal=causal, window=window, **kw)
+            pos = attention.positions(0, q.shape[1], q.device)
+            assert causal
+            note("flash_attention", out, attention.attend(
+                q, k, v, q_pos=pos, kv_pos=pos, window=window), q.dtype)
+            return out
+
+        def mamba_scan(dt, x, B_in, C_in, A, *, h0=None,
+                       return_state=False, **kw):
+            out = scan(dt, x, B_in, C_in, A, h0=h0,
+                       return_state=return_state, **kw)
+            start = h0 if h0 is not None else torch.zeros(
+                (x.shape[0], x.shape[2], A.shape[1]), device=x.device)
+            y, h_last = mamba.selective_scan(start, dt, A, B_in, C_in, x,
+                                             dt.shape[1])
+            note("mamba_scan", out, (y, h_last) if return_state else y,
+                 torch.float32, SCAN_TOL)
+            return out
+
+        patches = [(blocks, "rmsnorm", rmsnorm), (mla, "rmsnorm", rmsnorm),
+                   (attention, "gqa_flash_attention", gqa_flash_attention),
+                   (mamba, "mamba_scan", mamba_scan)]
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name, _ in patches]
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def serve_lockstep(params, cfg, tokens, decode_steps, tol, img=None):
+    """Every layer of a prefill of ``tokens`` and of ``decode_steps``
+    decode steps after it, with the kernels and on the plain path from the
+    same input (the kernel path's activation), each path with its own
+    cache; then the final norm and logits. Each output and cache is held
+    to the plain path's at ``tol`` normwise (‖Δ‖ / ‖plain‖): element by
+    element the two differ by more, since a normed layer carries the bf16
+    attention's rounding (its P is rounded to bf16) through d_ff-wide
+    products (at qwen2-7b's full width some elements of its layers part
+    by more than 2e-2 elementwise; the run prints the largest). Each
+    kernel launch of the
+    kernel path is held, element by element, to the model's plain
+    function on its own inputs (:class:`OnPath`). Returns the largest
+    errors: layers and logits normwise, the kernels elementwise."""
+    from repro_torch.nn import model
+    from repro_torch.nn.blocks import apply_layer
+    from repro_torch.nn.modules import rmsnorm, tree_leaves
+    B, S = tokens.shape[:2]
+    n_img = cfg.n_image_tokens if cfg.modality == "vlm" else 0
+    caches = [model.init_cache(cfg, B, S + n_img + decode_steps)
+              for _ in range(2)]
+    plan = model.layer_plan(cfg)
+    worst = {"layers": 0.0, "logits": 0.0, "layers_elementwise": 0.0}
+    calls = [(tokens, img, 0)] + [(tokens[:, i:i + 1], None, S + n_img + i)
+                                  for i in range(decode_steps)]
+
+    def held(what, got, want):
+        err = rel_err(got, want)
+        assert err <= tol, f"{what}: normwise {err:.3e} > {tol}"
+        return err
+
+    with torch.inference_mode(), OnPath() as on_path:
+        for c, (t, im, pos) in enumerate(calls):
+            x = model._embed_inputs(params, cfg, t, im)
+            for n, (spec, group, i, r) in enumerate(plan):
+                p = model.layer_of(params, group, i, r)
+                layer_caches = [model.layer_of(cache, group, i, r)
+                                for cache in caches]
+                (yk, _, ak), (yp, _, ap) = (
+                    apply_layer(p, cfg, spec, x, pos_offset=pos,
+                                cache=lc, use_pallas=k)
+                    for k, lc in zip((True, False), layer_caches))
+                what = f"{cfg.name} call {c} layer {n}"
+                worst["layers"] = max(
+                    worst["layers"], held(what, yk, yp),
+                    held(what + " aux", ak, ap) if float(ap) else 0.0, *(
+                        held(f"{what} cache", a, b)
+                        for a, b in zip(*map(tree_leaves, layer_caches))))
+                worst["layers_elementwise"] = max(
+                    worst["layers_elementwise"], max_err(yk, yp))
+                x = yk
+            logits = [model._logits(params, cfg, rmsnorm(
+                params["norm_f"], x, use_pallas=k)) for k in (True, False)]
+            worst["logits"] = max(worst["logits"], held(
+                f"{cfg.name} call {c} logits", *logits))
+    worst["kernels"] = on_path.worst
+    worst["kernels_checked"] = on_path.checked
+    return worst
+
+
+def lockstep_line(worst) -> str:
+    k = worst["kernels"]
+    return (f"lockstep: layers normwise {worst['layers']:.3e} (elementwise "
+            f"{worst['layers_elementwise']:.3e}), logits normwise "
+            f"{worst['logits']:.3e}; kernels on the model path elementwise: "
+            + ", ".join(f"{name} {k[name]:.3e} ({n} launches)"
+                        for name, n in worst["kernels_checked"].items()))
+
+
+def serve_full(card, arch, tokens_shape, gen_steps, n_layers=None):
+    """One registry model at full width (``n_layers`` cuts the depth):
+    random weights from a seeded generator on the card, greedy serving with
+    the kernels (launches exact on every call) and on the plain path, and
+    the layer-by-layer lockstep of a prefill and one decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn.model import init_model
+    from repro_torch.nn.modules import tree_bytes, tree_size
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.with_(n_layers=n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_model(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.randint(0, cfg.vocab_size, tokens_shape, generator=gen,
+                           device="cuda")
+    img = torch.randn((tokens_shape[0], cfg.n_image_tokens,
+                       cfg.frontend_dim), generator=gen, device="cuda").to(
+        torch.bfloat16) if cfg.modality == "vlm" else None
+    runs = {k: serve_run(params, cfg, tokens, gen_steps - 1, k, img)
+            for k in (True, False)}
+    worst = serve_lockstep(params, cfg, tokens, 1, TOL[torch.bfloat16], img)
+    (toks, pre_ms, dec_ms, peak), (ptoks, ppre_ms, pdec_ms, _) = \
+        runs[True], runs[False]
+    B = tokens_shape[0]
+    S = tokens_shape[1] + (cfg.n_image_tokens if img is not None else 0)
+    n, weight_bytes = tree_size(params), tree_bytes(params)
+    r = dict(arch=arch, layers=cfg.n_layers, B=B, S=S, gen=gen_steps,
+             params=n, weight_bytes=weight_bytes, init_s=init_s,
+             prefill_ms=pre_ms, decode_ms=dec_ms,
+             prefill_tok_s=B * S / (pre_ms / 1e3),
+             decode_tok_s=B / (dec_ms / 1e3), peak_bytes=peak,
+             plain_prefill_ms=ppre_ms, plain_decode_ms=pdec_ms,
+             prefill_bound_ms=2 * n * B * S / BF16_OPS_PER_S * 1e3,
+             decode_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+             launches=serve_launches(cfg), lockstep=worst,
+             tokens_agree=int((toks == ptoks).sum()),
+             tokens=toks[0].tolist(), plain_tokens=ptoks[0].tolist())
+    print(f"serve {arch} ({cfg.n_layers} layers, {n:,} params, "
+          f"{weight_bytes / 1e9:.3f} GB): B={B} S={S} prefill "
+          f"{pre_ms:.3f} ms ({r['prefill_tok_s']:.1f} tok/s; bound "
+          f"{r['prefill_bound_ms']:.3f} ms), decode {dec_ms:.3f} ms a step "
+          f"({r['decode_tok_s']:.1f} tok/s; bound {r['decode_bound_ms']:.3f} "
+          f"ms), peak {peak / 1e9:.3f} GB; plain path prefill "
+          f"{ppre_ms:.3f} ms, decode {pdec_ms:.3f} ms a step; "
+          f"{lockstep_line(worst)}; greedy tokens equal {r['tokens_agree']} of "
+          f"{toks.numel()}; init {init_s:.3f} s; on {card}")
+    print(f"serve {arch} tokens: kernels {r['tokens']}, plain "
+          f"{r['plain_tokens']}")
+    del params, runs
+    torch.cuda.empty_cache()
+    return r
+
+
+def serve_f32(card):
+    """qwen2-7b at full width and 2 layers in f32 (the split-TF32 attention
+    route): the layer-by-layer lockstep at the f32 grade, and the launches
+    of a served prefill and decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn.model import init_model
+    cfg = get_config("qwen2-7b").with_(n_layers=2, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_model(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, SERVE_TOKENS, generator=gen,
+                           device="cuda")
+    serve_run(params, cfg, tokens, 1, True)
+    worst = serve_lockstep(params, cfg, tokens, 1, TOL[torch.float32])
+    print(f"serve qwen2-7b f32, 2 layers: {lockstep_line(worst)} "
+          f"(tolerance {TOL[torch.float32]}) on {card}")
+    del params
+    torch.cuda.empty_cache()
+    return worst
+
+
+def serve_smoke(card):
+    """The smoke variant of every registry name on the card: greedy serving
+    with exact launches on every call, the lockstep against the plain
+    path (bf16), and prefill + decode against the no-cache forward in f32
+    with dropless MoE (tests/test_models.py:85-116's check, kernels on)."""
+    from repro_torch.configs import get_config, list_archs, smoke_variant
+    from repro_torch.nn.model import forward, init_cache, init_model
+    B, S, S0 = SMOKE_SERVE
+    out = {}
+    for arch in list_archs():
+        cfg = smoke_variant(get_config(arch))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init_model(gen, cfg)
+        shape = (B, S, cfg.n_codebooks) if cfg.modality == "audio" else (B, S)
+        tokens = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                               device="cuda")
+        img = torch.randn((B, cfg.n_image_tokens, cfg.frontend_dim),
+                          generator=gen, device="cuda").to(torch.bfloat16) \
+            if cfg.modality == "vlm" else None
+        toks = serve_run(params, cfg, tokens[:, :S0], S - S0, True, img)[0]
+        worst = serve_lockstep(params, cfg, tokens[:, :S0], S - S0,
+                               TOL[torch.bfloat16], img)
+        # decode against forward: f32, dropless MoE
+        cfg32 = cfg.with_(dtype="float32")
+        if cfg32.moe is not None:
+            cfg32 = cfg32.with_(moe=dataclasses.replace(
+                cfg32.moe, capacity_factor=float(cfg32.moe.n_experts)))
+        params32 = init_model(gen, cfg32)
+        img32 = None if img is None else img.float()
+        n_img = cfg.n_image_tokens if cfg.modality == "vlm" else 0
+        with torch.inference_mode():
+            full, _, _ = forward(params32, cfg32, tokens, img32)
+            cache = init_cache(cfg32, B, S + n_img)
+            logits, cache, _ = forward(params32, cfg32, tokens[:, :S0], img32,
+                                       cache=cache)
+            errs = [check(f"{arch} prefill against forward", logits,
+                          full[:, :S0 + n_img], torch.float32, DECODE_TOL)]
+            for i in range(S0, S):
+                logits, cache, _ = forward(params32, cfg32,
+                                           tokens[:, i:i + 1], cache=cache,
+                                           pos_offset=i + n_img)
+                errs.append(check(f"{arch} decode {i} against forward",
+                                  logits[:, 0], full[:, n_img + i],
+                                  torch.float32, DECODE_TOL))
+        out[arch] = dict(lockstep=worst, decode_vs_forward=max(errs),
+                         launches=serve_launches(cfg))
+        print(f"serve smoke {arch}: launches a prefill {serve_launches(cfg)[0]}"
+              f", a decode step {serve_launches(cfg)[1]}; "
+              f"{lockstep_line(worst)}; "
+              f"f32 decode against forward {max(errs):.3e} (tolerance "
+              f"{DECODE_TOL}); tokens {toks[0].reshape(-1).tolist()[:12]}")
+        del params, params32
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_path(card):
+    """The serve phase: (a) qwen2-7b and (b) falcon-mamba-7b at full depth
+    and width, B = 4, a 1,024-token prompt, 16 greedy tokens; (c)
+    gemma3-4b at full width and one 5:1 pattern (6 layers), B = 2, a
+    2,048-token prompt over its 1,024-token window; phi-3-vision-4.2b at
+    full depth and width (its 576 image tokens before the prompt; head dim
+    96 on the 128-wide wgmma instantiation); qwen2-7b in f32 at 2 layers;
+    the smoke variant of every registry name."""
+    t0 = time.perf_counter()
+    res = {"qwen2-7b": serve_full(card, "qwen2-7b", SERVE_TOKENS, SERVE_GEN),
+           "falcon-mamba-7b": serve_full(card, "falcon-mamba-7b",
+                                         SERVE_TOKENS, SERVE_GEN),
+           "gemma3-4b": serve_full(card, "gemma3-4b", GEMMA_TOKENS,
+                                   SERVE_GEN, n_layers=GEMMA_LAYERS),
+           "phi-3-vision-4.2b": serve_full(card, "phi-3-vision-4.2b",
+                                           SERVE_TOKENS, SERVE_GEN)}
+    res["qwen2-7b f32"] = serve_f32(card)
+    res["smoke"] = serve_smoke(card)
+    print(f"serve phase: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-scan", type=Path, default=None,
+                    help="a checkout of a commit whose mamba scan takes no "
+                    "state (before the serve path): hold this tree's scan, "
+                    "without a state, bit for bit against its scan on every "
+                    "scan case")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of the commit before the narrow "
                     "attention loaders and the one-launch SGD step: time its "
@@ -2712,6 +3241,9 @@ def main() -> int:
 
     ptxas_lines()
     rows = check_kernels()
+    scan_state_checks()
+    if args.parent_scan:
+        parent_scan(args.parent_scan)
     before_after = parent_kernels(args.parent) if args.parent else None
     narrow_launches = attention_routes()
     ops_counts, route_windows = ops_api()
@@ -2733,6 +3265,7 @@ def main() -> int:
     mia_counts = mia_path(card)
     fig4_path()
     step_breakdown(*setup)
+    serve = serve_path(card)
 
     # each kernel's launches on the path that runs it
     # the clip pair: its rows route on the main path, its 1-D route in the
@@ -2742,9 +3275,19 @@ def main() -> int:
                   clip_accumulate_rows=counts["scale_accumulate/rows"],
                   sumsq=ops_counts["sumsq/vector"],
                   scale_accumulate=ops_counts["scale_accumulate/vector"])
-    for name in ("noise_sgd_step", "rmsnorm", "flash_attention",
-                 "mamba_scan"):
-        counts[name] = ops_counts[name]
+    counts["noise_sgd_step"] = ops_counts["noise_sgd_step"]
+    # the LLM kernels: their launches on the serve path (qwen2-7b's served
+    # prefill and 15 decode steps; falcon-mamba-7b's for the scan)
+    serve_launches_of = {
+        arch: {"prefill": serve[arch]["launches"][0],
+               "decode_step": serve[arch]["launches"][1]}
+        for arch in ("qwen2-7b", "falcon-mamba-7b", "gemma3-4b",
+                     "phi-3-vision-4.2b")}
+    for name, arch in (("rmsnorm", "qwen2-7b"), ("flash_attention",
+                                                 "qwen2-7b"),
+                       ("mamba_scan", "falcon-mamba-7b")):
+        pre, dec = serve[arch]["launches"]
+        counts[name] = pre[name] + (SERVE_GEN - 1) * dec.get(name, 0)
     counts.update(route_windows,
                   flash_attention_narrow=narrow_launches[torch.bfloat16],
                   flash_attention_tf32x3_narrow=narrow_launches[
@@ -2811,6 +3354,18 @@ def main() -> int:
             out[-1]["scalar_row"] = rows["rmsnorm scalar"]
         if name == "mamba_scan":
             out[-1]["jamba_row"] = rows["mamba_scan jamba"]
+        if name in ("rmsnorm", "flash_attention", "mamba_scan"):
+            out[-1]["launches_ops_window"] = ops_counts[name]
+            out[-1]["launches_serve"] = {
+                arch: {k: v.get(name, 0) for k, v in per.items()}
+                for arch, per in serve_launches_of.items()}
+            # rmsnorm's prefill call is its main row's shape
+            out[-1]["serve_rows"] = {
+                "rmsnorm": {"decode": rows["rmsnorm serve decode"]},
+                "flash_attention": {
+                    "prefill": rows["flash_attention serve"],
+                    "prefill window": rows["flash_attention serve window"]},
+                "mamba_scan": {"prefill": rows["mamba_scan serve"]}}[name]
         if name == "noise_adam_step":
             out[-1]["cold_us"] = r["kernel_cold_us"]
             out[-1]["device_kernels_per_call"] = step_kernels[name]
@@ -2874,6 +3429,13 @@ def main() -> int:
               + ("" if mode == "none" else
                  f", codec {codec_us[mode]:.3f} us a call (eager)")
               + f" on {card}")
+    for arch in ("qwen2-7b", "falcon-mamba-7b", "gemma3-4b",
+                 "phi-3-vision-4.2b"):
+        r = serve[arch]
+        print(f"serve path {arch}: prefill {r['prefill_tok_s']:.1f} tok/s "
+              f"({r['prefill_ms']:.3f} ms), decode {r['decode_tok_s']:.1f} "
+              f"tok/s ({r['decode_ms']:.3f} ms a step), peak "
+              f"{r['peak_bytes'] / 1e9:.3f} GB on {card}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,9 @@ Every registered architecture is a ``ModelConfig``. Layer heterogeneity
 layers) is expressed with ``LayerSpec`` patterns: the stack is ``prefix``
 followed by ``pattern`` repeated until ``n_layers`` (a trailing partial
 pattern is allowed). ``param_counts`` is the analytic count fig. 4 reports
-for the LLM-scale rows; the LLM stack itself is not ported yet (ROADMAP.md
-Queue 1 item 13).
+for the LLM-scale rows; the LLM stack that runs these configurations is
+``repro_torch.nn.model`` (serving; its training is ROADMAP.md Queue 1
+item 13).
 
 In this port ``ProxyFLConfig.use_pallas=True`` runs the hand-written
 kernels of :mod:`repro_torch.kernels` on a CUDA device and their plain

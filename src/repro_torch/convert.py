@@ -14,7 +14,11 @@ frameworks can start a run from the same numbers:
   [per-client state, …]}`` with the async backend's in-flight buffers
   ``"stale_theta"`` [τ, K, D] and ``"stale_w"`` [τ, K] at staleness τ>0
   and the compressed exchange's public copies ``"ef_state"`` [K, D], so a
-  run can start with mail in flight and copies that lag.
+  run can start with mail in flight and copies that lag;
+* :func:`model_params_from_numpy` and :func:`cache_from_numpy` — an LLM's
+  params and KV/SSM caches (``init_model`` / ``init_cache`` trees: dicts
+  and tuples, stacked ``[R, …]`` leaves), bf16 leaves included (numpy's
+  ``ml_dtypes`` bfloat16 carried bit for bit).
 """
 from __future__ import annotations
 
@@ -27,9 +31,23 @@ from .nn.modules import tree_map
 from .optim import AdamState
 
 
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """One array as a tensor of its own dtype; a bfloat16 array (numpy has
+    none of its own: ``ml_dtypes``) moves by its bits."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(a, device=device)
+
+
 def params_from_numpy(tree, device="cpu") -> Dict:
-    return tree_map(lambda a: torch.as_tensor(np.array(a), device=device),
-                    tree)
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree)
+
+
+# an LLM's param tree and KV/SSM caches (nn.model's init_model and
+# init_cache layouts: dicts and tuples, stacked [R, ...] leaves)
+model_params_from_numpy = cache_from_numpy = params_from_numpy
 
 
 def _adam_from_numpy(opt, device) -> AdamState:
@@ -61,3 +79,4 @@ def async_state_from_numpy(state: Dict, device="cpu") -> Dict:
            for key, value in state.items() if key != "clients"}
     out["clients"] = [state_from_numpy(s, device) for s in state["clients"]]
     return out
+

@@ -29,8 +29,17 @@ The round hot path (``ProxyFLConfig.use_pallas``):
   staleness τ>0: re-bias, send, merge the delayed delivery, de-bias
   (``repro_torch.core.gossip.stale_mix_apply``).
 
-The ops API (:mod:`.ops`; no training or serving path calls these, in the
-port as in the reference):
+The LLM serving path (``repro_torch.nn.model`` with ``use_pallas``, where
+the reference's model calls no kernel):
+
+- :func:`rmsnorm` — every RMSNorm of the model (each layer's two, MLA's
+  latent norms, the final norm), in prefill and decode.
+- :func:`gqa_flash_attention` — GQA/MHA attention of a block of fresh
+  tokens at position 0 (the no-cache forward and a prefill).
+- :func:`mamba_scan` — the selective scan of a mamba block of more than
+  one token, from the cache's state, with its final state out.
+
+The ops API (:mod:`.ops`; no training path calls these):
 
 - :func:`noise_sgd_step` — noise add, clipped mean, weight decay and SGD
   in one pass.
@@ -38,8 +47,7 @@ port as in the reference):
   and accumulate on a flat vector or a parameter tree (``sumsq`` then
   ``scale_accumulate``; no kernel of their own).
 - :func:`rmsnorm`, :func:`flash_attention` / :func:`gqa_flash_attention`
-  and :func:`mamba_scan` — the LLM forward hot spots (norm, prefill
-  attention, selective scan) as standalone kernels. Attention has two,
+  and :func:`mamba_scan` as standalone kernels. Attention has two,
   both on the tensor cores at every head dim ≤ 256: bf16 on wgmma and f32
   on mma.sync in split TF32 (compiled at D ∈ {64, 128, 256}, the
   split-TF32 kernel also at 96, and zero-padded up to the next of them);

@@ -67,8 +67,10 @@ _SIGNATURES = {
     # the narrow loaders take the bytes a copy last
     "repro_flash_attention_sm90_narrow": (*_FLASH, ctypes.c_int, _P),
     "repro_flash_attention_tf32x3_narrow": (*_FLASH, ctypes.c_int, _P),
+    # dt, x, B, C (each with its dtype code), A, y, h0, hlast (NULL: from
+    # zero, no final state), B, S, di, ds
     "repro_mamba_scan": (_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
-                         _P, ctypes.c_int, _P, _P, ctypes.c_int,
+                         _P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int,
                          ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P),
 }
 

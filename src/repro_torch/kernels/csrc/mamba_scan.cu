@@ -5,8 +5,12 @@
 // (_scan_kernel):
 //   h_t = exp(dt_t * A) (.) h_{t-1} + (dt_t * x_t) B_t,   y_t = C_t . h_t
 // per batch row and channel, over dt, x [B, S, di], B, C [B, S, ds] (each
-// f32 or bf16) and A [di, ds] f32, with the state h [ds] in f32 from zero;
-// y [B, S, di] in x's dtype.
+// f32 or bf16) and A [di, ds] f32, with the state h [ds] in f32 from zero
+// (or from h0 [B, di, ds] f32 where given); y [B, S, di] in x's dtype, and
+// where asked for the final state h_S into hlast [B, di, ds] f32 (what a
+// model's prefill leaves in its SSM cache for the decode that follows).
+// Without h0 and hlast a call computes what it did before they existed,
+// bit for bit: the state starts at zero and the loop is unchanged.
 //   Bound: the bytes of dt, x and y (and the small B, C, A) over 3.35 TB/s:
 //   403 MB for falcon-mamba-7b's di = 8,192, ds = 16 at S = 4,096 f32, about
 //   120 us; and the exponentials, one per state and step: 5.37e8 there, at
@@ -201,8 +205,9 @@ template <int L, int NS>
 __global__ void __launch_bounds__(kChannels * L, 16 / L)
 selective_scan(const void* __restrict__ dt, const void* __restrict__ x,
                const void* __restrict__ Bm, const void* __restrict__ Cm,
-               const float* __restrict__ A, void* __restrict__ y, int64_t S,
-               int di, int ds, int codes, int modes) {
+               const float* __restrict__ A, void* __restrict__ y,
+               const float* __restrict__ h0, float* __restrict__ hlast,
+               int64_t S, int di, int ds, int codes, int modes) {
   extern __shared__ __align__(16) float smem[];
   constexpr int nthr = kChannels * L;
   const int tile = kChunk * kChannels, rows = kChunk * ds;
@@ -221,8 +226,9 @@ selective_scan(const void* __restrict__ dt, const void* __restrict__ x,
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
     const int s = j * NS + k;
-    const float av = ch < di && s < ds ? A[(int64_t)ch * ds + s] : 0.f;
-    h[k] = 0.f;
+    const bool in = ch < di && s < ds;
+    const float av = in ? A[(int64_t)ch * ds + s] : 0.f;
+    h[k] = h0 != nullptr && in ? h0[(b * di + ch) * ds + s] : 0.f;
     a[k] = av;
   }
 
@@ -269,6 +275,14 @@ selective_scan(const void* __restrict__ dt, const void* __restrict__ x,
         store_f32(y, y_code, (b * S + t) * di + ch0 + cc, ys[i]);
     }
   }
+  // the steps past S left h as it was: this is the state after step S - 1
+  if (hlast != nullptr && ch < di) {
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      const int s = j * NS + k;
+      if (s < ds) hlast[(b * di + ch) * ds + s] = h[k];
+    }
+  }
 }
 
 // lanes a channel at ds; states a lane are the rest, rounded up to a power
@@ -285,8 +299,9 @@ int states_for(int ds) {
 
 template <int L, int NS>
 int launch_scan(const void* dt, const void* x, const void* Bm, const void* Cm,
-                const float* A, void* y, int B, int64_t S, int di, int ds,
-                int codes, int modes, cudaStream_t st) {
+                const float* A, void* y, const float* h0, float* hlast,
+                int B, int64_t S, int di, int ds, int codes, int modes,
+                cudaStream_t st) {
   const size_t bytes = sizeof(float) * smem_floats(ds);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -296,7 +311,7 @@ int launch_scan(const void* dt, const void* x, const void* Bm, const void* Cm,
   }
   const dim3 grid((di + kChannels - 1) / kChannels, B);
   selective_scan<L, NS><<<grid, kChannels * L, bytes, st>>>(
-      dt, x, Bm, Cm, A, y, S, di, ds, codes, modes);
+      dt, x, Bm, Cm, A, y, h0, hlast, S, di, ds, codes, modes);
   return (int)cudaGetLastError();
 }
 
@@ -317,7 +332,8 @@ using namespace repro;
 extern "C" int repro_mamba_scan(const void* dt, int dt_code, const void* x,
                                 int x_code, const void* Bm, int b_code,
                                 const void* Cm, int c_code, const float* A,
-                                void* y, int B, int64_t S, int di, int ds,
+                                void* y, const float* h0, float* hlast,
+                                int B, int64_t S, int di, int ds,
                                 void* stream) {
   if (B < 1 || B > 65535 || S < 1 || di < 1 || ds < 1 || ds > 64 ||
       !valid_code(dt_code) || !valid_code(x_code) || !valid_code(b_code) ||
@@ -329,27 +345,25 @@ extern "C" int repro_mamba_scan(const void* dt, int dt_code, const void* x,
                     stage_mode(Bm, b_code, ds) << 4 |
                     stage_mode(Cm, c_code, ds) << 6;
   cudaStream_t st = (cudaStream_t)stream;
+#define REPRO_SCAN(L, NS)                                                   \
+  launch_scan<L, NS>(dt, x, Bm, Cm, A, y, h0, hlast, B, S, di, ds, codes, \
+                     modes, st)
   switch (lanes_for(ds)) {
     case 2:
       switch (states_for(ds)) {
         case 1:
-          return launch_scan<2, 1>(dt, x, Bm, Cm, A, y, B, S, di, ds, codes,
-                                   modes, st);
+          return REPRO_SCAN(2, 1);
         case 2:
-          return launch_scan<2, 2>(dt, x, Bm, Cm, A, y, B, S, di, ds, codes,
-                                   modes, st);
+          return REPRO_SCAN(2, 2);
         default:
-          return launch_scan<2, 4>(dt, x, Bm, Cm, A, y, B, S, di, ds, codes,
-                                   modes, st);
+          return REPRO_SCAN(2, 4);
       }
     case 4:
-      return launch_scan<4, 4>(dt, x, Bm, Cm, A, y, B, S, di, ds, codes,
-                               modes, st);
+      return REPRO_SCAN(4, 4);
     case 8:
-      return launch_scan<8, 4>(dt, x, Bm, Cm, A, y, B, S, di, ds, codes,
-                               modes, st);
+      return REPRO_SCAN(8, 4);
     default:
-      return launch_scan<16, 4>(dt, x, Bm, Cm, A, y, B, S, di, ds, codes,
-                                modes, st);
+      return REPRO_SCAN(16, 4);
   }
+#undef REPRO_SCAN
 }

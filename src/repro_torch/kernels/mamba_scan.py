@@ -2,7 +2,9 @@
 and the gate).
 
 :func:`mamba_scan` computes ``h_t = exp(dt_t·A)⊙h_{t-1} + (dt_t·x_t)·B_t``,
-``y_t = C_t·h_t`` with an f32 state from zero. On a CUDA tensor it launches
+``y_t = C_t·h_t`` with an f32 state from zero (or from ``h0``), and
+returns the final state too where asked (``return_state``: what a model's
+prefill leaves in its SSM cache). On a CUDA tensor it launches
 the kernel of ``csrc/mamba_scan.cu`` (replacing
 ``src/repro/kernels/mamba_scan.py``'s ``mamba_scan``); on a CPU tensor it
 runs the plain version in :mod:`.ref`. The kernel spreads a channel's
@@ -10,6 +12,8 @@ states over :func:`scan_lanes` lanes of a warp, :func:`scan_states` states
 a lane.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -38,12 +42,14 @@ def scan_states(ds: int) -> int:
 
 def mamba_scan(dt: torch.Tensor, x: torch.Tensor, B_in: torch.Tensor,
                C_in: torch.Tensor, A: torch.Tensor, *, chunk: int = 128,
-               block_d: int = 512) -> torch.Tensor:
+               block_d: int = 512, h0: Optional[torch.Tensor] = None,
+               return_state: bool = False):
     """dt, x [B, S, di]; B_in, C_in [B, S, ds]; A [di, ds]; each f32 or
-    bf16, ds ≤ 64. Returns y [B, S, di] in x's dtype. ``chunk`` and
-    ``block_d`` are the reference's tiling, accepted for its signature with
-    its contract ``di % min(block_d, di) == 0``; the CUDA kernel tiles on
-    its own."""
+    bf16, ds ≤ 64; ``h0`` None (a zero state) or [B, di, ds] f32. Returns
+    y [B, S, di] in x's dtype, or (y, the final state [B, di, ds] f32) with
+    ``return_state``. ``chunk`` and ``block_d`` are the reference's tiling,
+    accepted for its signature with its contract ``di % min(block_d, di)
+    == 0``; the CUDA kernel tiles on its own."""
     if x.dim() != 3 or x.numel() == 0:
         raise ValueError(f"mamba_scan: x must be a non-empty [B, S, di], got "
                          f"{tuple(x.shape)}")
@@ -62,20 +68,30 @@ def mamba_scan(dt: torch.Tensor, x: torch.Tensor, B_in: torch.Tensor,
         raise ValueError(f"mamba_scan: need chunk, block_d >= 1 and di % "
                          f"min(block_d, di) == 0, got chunk {chunk}, "
                          f"block_d {block_d}, di {di}")
+    if h0 is not None and (tuple(h0.shape) != (Bsz, di, ds)
+                           or h0.dtype != torch.float32):
+        raise ValueError(f"mamba_scan: h0 must be [B, di, ds] float32 "
+                         f"{(Bsz, di, ds)}, got {tuple(h0.shape)} {h0.dtype}")
     if x.device.type == "cpu":
-        return mamba_scan_ref(dt, x, B_in, C_in, A)
-    _build.check_cuda("mamba_scan", dt, x, B_in, C_in, A)
+        return mamba_scan_ref(dt, x, B_in, C_in, A, h0, return_state)
+    _build.check_cuda("mamba_scan", dt, x, B_in, C_in, A,
+                      *(() if h0 is None else (h0,)))
     if Bsz > 65535:
         raise ValueError(f"mamba_scan: batch {Bsz} > 65535")
     Af = A.to(torch.float32)
     y = torch.empty_like(x)
+    h_last = torch.empty((Bsz, di, ds), dtype=torch.float32,
+                         device=x.device) if return_state else None
     codes = _build.DTYPE_CODES
     _build.launch("repro_mamba_scan", dt.data_ptr(), codes[dt.dtype],
                   x.data_ptr(), codes[x.dtype], B_in.data_ptr(),
                   codes[B_in.dtype], C_in.data_ptr(), codes[C_in.dtype],
-                  Af.data_ptr(), y.data_ptr(), Bsz, S, di, ds)
+                  Af.data_ptr(), y.data_ptr(),
+                  None if h0 is None else h0.data_ptr(),
+                  None if h_last is None else h_last.data_ptr(),
+                  Bsz, S, di, ds)
     mamba_scan.launches += 1
-    return y
+    return (y, h_last) if return_state else y
 
 
 mamba_scan.launches = 0

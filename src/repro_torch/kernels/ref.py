@@ -133,15 +133,18 @@ def gqa_flash_attention_ref(q, k, v, *, causal: bool = True,
     return out.transpose(1, 2)
 
 
-def mamba_scan_ref(dt, x, B_in, C_in, A) -> torch.Tensor:
-    """Sequential selective scan. dt/x: [B,S,di]; B/C: [B,S,ds]; A: [di,ds]."""
+def mamba_scan_ref(dt, x, B_in, C_in, A, h0=None, return_state=False):
+    """Sequential selective scan. dt/x: [B,S,di]; B/C: [B,S,ds]; A: [di,ds];
+    the state from ``h0`` [B,di,ds] f32 (zero when None). Returns y, or
+    (y, the final state [B,di,ds] f32) with ``return_state``."""
     Bsz, S, di = x.shape
     h = torch.zeros((Bsz, di, A.shape[1]), dtype=torch.float32,
-                    device=x.device)
+                    device=x.device) if h0 is None else h0.to(torch.float32)
     dtf, xf, bf, cf = (t.to(torch.float32) for t in (dt, x, B_in, C_in))
     ys = []
     for t in range(S):
         a = torch.exp(dtf[:, t, :, None] * A)  # [B, di, ds]
         h = a * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
         ys.append(torch.einsum("bds,bs->bd", h, cf[:, t]))
-    return torch.stack(ys, dim=1).to(x.dtype)
+    y = torch.stack(ys, dim=1).to(x.dtype)
+    return (y, h) if return_state else y

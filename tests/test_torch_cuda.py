@@ -6,13 +6,14 @@ unaligned head dims and on misaligned views; the sync mix at its register
 bucket edges; both rmsnorm
 instantiations; the DP clip pair's rows route bit
 for bit against its 1-D route; the scan at falcon-mamba-7b's and
-jamba-1.5-large's widths and over a sweep of state sizes and lengths;
-noise_adam_step and noise_sgd_step bit for bit and as one device kernel a
-call), the
-wrappers' refusals, and small
-federations (ProxyFL sync, and async at staleness 2 with dropout; each of
-the six other fig. 3 methods) through the kernels against the plain path
-on the same seed.
+jamba-1.5-large's widths and over a sweep of state sizes and lengths, and
+from a state with its final state out; noise_adam_step and noise_sgd_step
+bit for bit and as one device kernel a call), the wrappers' refusals,
+small federations (ProxyFL sync, and async at staleness 2 with dropout;
+each of the six other fig. 3 methods) through the kernels against the
+plain path on the same seed, and the smoke variant of every registered
+LLM served (prefill and decode) through the kernels against the plain
+path.
 
 Every test here needs a CUDA device and skips without one. The file
 imports torch and ``repro_torch`` only (no jax), so on a GPU machine
@@ -718,3 +719,71 @@ def test_small_federation_of_each_other_method(gen, method):
                             tree_leaves(getattr(b, role))):
                 torch.testing.assert_close(x, y, atol=1e-5, rtol=1e-4)
     assert fused["epsilon"] == plain["epsilon"]
+
+
+@pytest.mark.parametrize("B,S", [(2, 300), (4, 1_024)])
+def test_scan_final_state_matches_plain(gen, B, S):
+    """The scan as a mamba prefill runs it: from the cache's state h0 with
+    the final state out (falcon-mamba-7b's di 8,192, ds 16, f32), y and
+    the state within the scan's tolerance of the plain version; y bit for
+    bit the same whether or not the state is asked for, from zero."""
+    dt, x, Bm, C, A = _scan_inputs(gen, B, S, 8_192, 16)
+    h0 = torch.randn((B, 8_192, 16), generator=gen, device="cuda")
+    kernels.reset_launch_counts()
+    got = kernels.mamba_scan(dt, x, Bm, C, A, h0=h0, return_state=True)
+    assert kernels.launch_counts()["mamba_scan"] == 1
+    want = ref.mamba_scan_ref(dt, x, Bm, C, A, h0, return_state=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **SCAN)
+    y, h = kernels.mamba_scan(dt, x, Bm, C, A, return_state=True)
+    assert torch.equal(y, kernels.mamba_scan(dt, x, Bm, C, A))
+    torch.testing.assert_close(h, ref.mamba_scan_ref(
+        dt, x, Bm, C, A, return_state=True)[1], **SCAN)
+
+
+@pytest.mark.parametrize("arch", [
+    "arctic-480b", "deepseek-v2-236b", "falcon-mamba-7b", "gemma3-4b",
+    "jamba-1.5-large-398b", "musicgen-medium", "phi-3-vision-4.2b",
+    "qwen1.5-110b", "qwen1.5-4b", "qwen2-7b", "qwen2-7b-swa"])
+def test_smoke_model_serves_through_the_kernels(gen, arch):
+    """The smoke variant in f32 (dropless MoE): a prefill and two decode
+    steps with the kernels launch RMSNorm, attention and the scan where
+    the model has them, and give the plain path's logits and caches at
+    the f32 kernel grade."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.nn.model import forward, init_cache, init_model
+    cfg = smoke_variant(get_config(arch)).with_(dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.with_(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    params = init_model(gen, cfg)
+    shape = (2, 9, cfg.n_codebooks) if cfg.modality == "audio" else (2, 9)
+    tokens = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                           device="cuda")
+    img = torch.randn((2, cfg.n_image_tokens, cfg.frontend_dim),
+                      generator=gen, device="cuda") \
+        if cfg.modality == "vlm" else None
+    n_img = cfg.n_image_tokens if cfg.modality == "vlm" else 0
+    runs = []
+    for use_pallas in (True, False):
+        kernels.reset_launch_counts()
+        cache = init_cache(cfg, 2, 9 + n_img)
+        logits = [forward(params, cfg, tokens[:, :7], img, cache=cache,
+                          use_pallas=use_pallas)[0]]
+        for i in (7, 8):
+            logits.append(forward(params, cfg, tokens[:, i:i + 1],
+                                  cache=cache, pos_offset=i + n_img,
+                                  use_pallas=use_pallas)[0])
+        runs.append((logits, tree_leaves(cache),
+                     dict(kernels.launch_counts())))
+    (got, got_cache, counts), (want, want_cache, plain_counts) = runs
+    assert sum(plain_counts.values()) == 0
+    assert counts["rmsnorm"] > 0
+    kinds = {s.kind for s in cfg.layout()}
+    assert (counts["mamba_scan"] > 0) == ("mamba" in kinds)
+    assert (counts["flash_attention"] > 0) == (
+        "attn" in kinds and cfg.attn_impl != "mla")
+    for g, w in zip(got + got_cache, want + want_cache):
+        torch.testing.assert_close(g, w, **F32)
