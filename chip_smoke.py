@@ -176,7 +176,27 @@
    version; with ``--parent-scan DIR`` (a checkout of a commit whose scan
    takes no state) also this tree's scan bit for bit against that
    commit's.
-10. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
+10. Drives the LLM ProxyFL training path (the "train" phase) through
+   ``repro_torch.launch.train``'s set-up and the engine: (a) its default
+   ``--preset 100m`` at full width (private 12 layers of d 768, vocab
+   8,192; proxy 4 layers of d 256, D = 6,293,760), K = 4, 2 rounds of 3
+   steps, B = 8, S = 128, DP sigma 1, C 1, the vmap backend, with the
+   kernels and on the plain path: launches exact (per client step one
+   forward of each peer without a gradient, rmsnorm and split-TF32
+   attention; one evaluation a round; one mix a round; none in the 48
+   differentiated forwards, counted), each client step against the plain
+   path's from the same state (moments and losses at ``close``; each
+   leaf's gradient, from the moments, normwise within 1e-4; params at
+   ``close`` but for a first Adam step's coordinates at |g| < 100 eps,
+   masked by that rule and counted), a second run bit-equal, epsilon the JAX package's, rounds/s, peak
+   memory, a step's breakdown and its device busy share; (b) the preset
+   on ``--backend async --staleness 2``, 3 rounds: one stale mix a round
+   at [4, 6,293,760], launches exact; (c) the smoke variant of every
+   registry name, K = 2, one round of one step: launches exact, the bf16
+   runs' f32 master copies moved. The kernel table also times the mix and
+   the stale mix at [4, 6,293,760] and the peers' rmsnorm and attention
+   at the preset's shapes.
+11. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
    and their narrow loaders, and the clip pair's rows route, under their
    own keys; the DP kernels and the mix also with their launches on each
    method's path and each figures run's, with its shape, and on each
@@ -184,7 +204,8 @@
    LLM kernels with their launches on the serve path (qwen2-7b's served
    run for rmsnorm and attention, falcon-mamba-7b's for the scan), per
    prefill and decode step of each served model, and their serve-shape
-   rows) and, last, the
+   rows; the mixes, rmsnorm, attention and the scan with their launches
+   on the train path and their train-shape rows) and, last, the
    result line
    ``{"ok": true, "device": {...}}``.
 
@@ -297,6 +318,34 @@ SCAN_B = (1, 3)
 # 1,024-token window; the smoke variants at B = 2, a 7-token prompt and 5
 # decode steps (tests/test_models.py's 12 tokens, S0 = 7)
 SERVE_TOKENS, SERVE_GEN = (4, 1_024), 16
+# the train phase: python -m repro_torch.launch.train's --preset 100m (12
+# layers, d 768, vocab 8,192; its proxy 4 layers of d 256, 8 heads of 32)
+# at K = 4, B = 8, S = 128, DP sigma = 1, C = 1, the kernels on
+TRAIN_ARGS = ["--preset", "100m", "--clients", "4", "--steps-per-round",
+              "3", "--batch", "8", "--seq", "128", "--use-pallas"]
+TRAIN_ROUNDS, TRAIN_ASYNC_ROUNDS, TRAIN_TAU = 2, 3, 2
+TRAIN_SMOKE_ARGS = ["--smoke", "--clients", "2", "--rounds", "1",
+                    "--steps-per-round", "1", "--batch", "2", "--seq", "32",
+                    "--use-pallas"]
+# the preset's flat proxy (6,291,456 params and 9 RMSNorm gains of 256),
+# and its peers' and evaluation's rows: B x S tokens of d 256 / 768;
+# attention [B, S, H, D] f32 (split TF32): proxy 8 heads of 32, private 12
+# of 64
+TRAIN_D, TRAIN_K = 6_293_760, 4
+TRAIN_ATTN = {"proxy": dict(B=8, S=128, Hq=8, Hkv=8, D=32),
+              "private": dict(B=8, S=128, Hq=12, Hkv=12, D=64)}
+TRAIN_RMS = {"proxy": (1_024, 256), "private": (1_024, 768)}
+# the train lockstep's grade on each leaf's gradient, kernel path against
+# plain, normwise: only the peers' logits differ between the two, whose
+# kernels agree with their plain versions to about 1e-6
+TRAIN_GRAD_NORMWISE = 1e-4
+# repro.core.accountant.epsilon_for(noise_multiplier=1.0, sample_rate=8 /
+# 64, steps=6 and 9, delta=1e-5): the preset's 2 rounds x 3 steps, and the
+# async run's 3 rounds x 3; (sample_rate=2 / 64, steps=1): a smoke run's
+# one step; from the JAX package's accountant, pinned here
+EPSILON_TRAIN = 3.666989208094371
+EPSILON_TRAIN_ASYNC = 3.9927285274659177
+EPSILON_TRAIN_SMOKE = 1.3620407962879644
 GEMMA_TOKENS, GEMMA_LAYERS = (2, 2_048), 6
 SMOKE_SERVE = (2, 12, 7)
 DECODE_TOL = 2e-4   # tests/test_models.py:85-116, prefill + decode vs forward
@@ -896,6 +945,58 @@ def llm_kernel_cases(gen):
                B * S * di * ds, peak=sfu, ops_name="exp", tol=SCAN_TOL,
                calls=FULL_WIDTH_CALLS, plain_calls=2, plain_graph=False,
                row="mamba_scan serve")
+    yield from train_kernel_cases(gen)
+
+
+def train_kernel_cases(gen):
+    """The train phase's shapes: the sync and the stale mix of the
+    preset's four proxies [4, 6,293,760] f32 (P column-stochastic, as the
+    exponential graph's), and the peers' and evaluation's RMSNorm and
+    attention (f32, the split-TF32 route) at B = 8, S = 128."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    K, D = TRAIN_K, TRAIN_D
+    P = torch.rand((K, K), generator=gen, device=dev) * 0.9 + 0.1
+    P = P / P.sum(0, keepdim=True)
+    w = torch.rand((K,), generator=gen, device=dev) + 0.5
+    flat = randn(K, D)
+    yield Case("fused_pushsum_mix", torch.float32, (K, D, True),
+               lambda: kernels.fused_pushsum_mix(flat, w, P),
+               lambda: ref.fused_pushsum_mix_ref(flat, w, P),
+               lambda: torch.matmul(P, flat),
+               2 * K * D * 4 + 4 * K * K + 4 * K, 2 * K * K * D,
+               row="fused_pushsum_mix train")
+    kept = torch.diagonal(P).contiguous()
+    sent = P - torch.diag(kept)
+    args = (flat, w, kept, sent, 0.1 * randn(K, D),
+            torch.rand((K,), generator=gen, device=dev) * 0.5)
+    yield Case("fused_stale_mix", torch.float32, (K, D),
+               lambda: kernels.fused_stale_mix(*args),
+               lambda: ref.fused_stale_mix_ref(*args),
+               lambda: torch.matmul(sent, flat),
+               4 * K * D * 4 + 4 * K * K + 5 * K * 4 + 8 * K,
+               2 * K * K * D + 4 * K * D, row="fused_stale_mix train")
+    for model, shape in TRAIN_ATTN.items():
+        q, k, v, lib = attention_inputs(gen, dtype=torch.float32, **shape)
+        yield Case("flash_attention", torch.float32, tuple(shape.values()),
+                   lambda q=q, k=k, v=v: kernels.gqa_flash_attention(q, k, v),
+                   lambda q=q, k=k, v=v: ref.gqa_flash_attention_ref(q, k, v),
+                   lib, *attention_cost(dtype=torch.float32, **shape),
+                   peak=TF32X3_OPS_PER_S, row=f"flash_attention train {model}")
+    for model, (rows, d) in TRAIN_RMS.items():
+        x, g = randn(rows, d), randn(d)
+        yield Case("rmsnorm", torch.float32, (rows, d, 0, str(torch.float32)),
+                   lambda x=x, g=g: kernels.rmsnorm(x, g),
+                   lambda x=x, g=g: ref.rmsnorm_ref(x, g),
+                   lambda x=x, g=g, d=d: torch.nn.functional.rms_norm(
+                       x, (d,), weight=g, eps=1e-6),
+                   2 * rows * d * 4 + d * 4, 4 * rows * d,
+                   row=f"rmsnorm train {model}")
 
 
 def scan_cases(gen):
@@ -3208,6 +3309,410 @@ def serve_path(card):
     print(f"serve phase: {time.perf_counter() - t0:.1f} s")
     return res
 
+# ---------------------------------------------------------------------------
+# the train phase: the LLM ProxyFL training path
+
+
+def add_counts(*pairs):
+    """Σ n · counts over (n, counts) pairs, key by key."""
+    out = {}
+    for n, counts in pairs:
+        for key, v in counts.items():
+            out[key] = out.get(key, 0) + n * v
+    return out
+
+
+def train_launches(run, steps: int, evals: int, mixes: int, stale: bool):
+    """Exact launches of a training run with the kernels on: each client
+    step runs the proxy peer's forward once (one microbatch) and the
+    private peer's once (one DP chunk of the batch), each a forward
+    without a cache (:func:`serve_launches`' prefill counts); each
+    evaluation the private model's over the test set in batches of 8; each
+    exchange one mix (the stale one under async τ > 0). The differentiated
+    forwards run the plain path: none."""
+    test_batches = -(-run.test.shape[0] // 8)
+    want = add_counts((steps, serve_launches(run.proxy)[0]),
+                      (steps, serve_launches(run.cfg)[0]),
+                      (evals * test_batches, serve_launches(run.cfg)[0]))
+    want["fused_stale_mix" if stale else "fused_pushsum_mix"] = mixes
+    return {k: v for k, v in want.items() if v}
+
+
+def train_engine(run, args, use_pallas: bool):
+    """A fresh driver engine over ``run``'s configuration and corpora
+    (kernels on or the plain path), with fresh accountants."""
+    from repro_torch.launch import train
+    return train.make_engine(run.cfg, run.proxy, dataclasses.replace(
+        run.fl, use_pallas=use_pallas), args, run.n_seqs, "cuda")
+
+
+def clone(tree):
+    from repro_torch.nn.modules import tree_map
+    return tree_map(lambda x: x.clone(), tree)
+
+
+def train_drive(eng, run, args):
+    """The driver's loop (``launch/train.py::main``) from a copy of the
+    run's initial state: blocks of rounds, the client-0 private model's
+    test perplexity at each block edge. Returns (state, metrics rows,
+    perplexities, wall s)."""
+    from repro_torch.core.engine import block_spans
+    from repro_torch.launch.train import evaluate_ppl
+    state = clone(run.state)
+    rows, ppls = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t, n in block_spans(0, args.rounds, args.rounds_per_block):
+        state, m = eng.run_rounds(state, run.data, t, n, args.seed)
+        rows.append(m)
+        ppls.append(evaluate_ppl(eng.client_params(state, 0, "private"),
+                                 run.cfg, run.test,
+                                 use_pallas=eng.use_pallas))
+    torch.cuda.synchronize()
+    return state, rows, ppls, time.perf_counter() - t0
+
+
+class TrainLockstep:
+    """While active, every client step of the engine's kernel path also
+    runs on the plain path (``use_pallas=False``) from the same state and
+    draws (a twin of the step's generator), and the two are compared: the
+    losses and the Adam moments at ``close``; each leaf's gradient, g =
+    (m' − b1·m) / (1 − b1) from the moments both steps start from,
+    normwise within ``TRAIN_GRAD_NORMWISE`` (``close``'s atol is about a
+    coordinate's size here, so elementwise it holds little); the params at
+    ``close``, but for the coordinates that a model's first Adam step
+    takes in its ε regime, |g| < 100·ε on the plain path, where lr·g/(|g|
+    + ε) turns a last-bit gradient difference into a step difference past
+    ``close``: those are masked by that rule and counted. The kernel
+    path's state goes on."""
+
+    def __init__(self, eng, plain_step, adam):
+        self.eng, self.plain, self.adam = eng, plain_step, adam
+        self.worst, self.beyond, self.steps = 0.0, 0, 0
+        self.grad_worst, self.grad_beyond = 0.0, 0
+        self.eps_masked, self.eps_past = 0, 0
+
+    def __enter__(self):
+        self.raw = self.eng.step_fns
+        self.eng.step_fns = [self.both(f) for f in self.raw]
+        return self
+
+    def __exit__(self, *exc):
+        self.eng.step_fns = self.raw
+
+    def both(self, kernel_step):
+        def step(state, batch, generator, noise=None):
+            twin = torch.Generator(device=generator.device)
+            twin.set_state(generator.get_state())
+            out = kernel_step(state, batch, generator, noise)
+            ref = self.plain(state, batch, twin, noise)
+            for key in ("private_loss", "proxy_loss"):
+                self.beyond += int(self.close(out[1][key],
+                                              ref[1][key]).sum())
+            for role in ("private", "proxy"):
+                self.compare(out[0][role], ref[0][role],
+                             state[role]["opt"].m)
+            self.steps += 1
+            return out
+        return step
+
+    def close(self, a, b):
+        beyond = (a - b).abs() > CLOSE["atol"] + CLOSE["rtol"] * b.abs()
+        self.worst = max(self.worst, max_err(a, b))
+        return beyond
+
+    def compare(self, got, want, m_before):
+        from repro_torch.nn.modules import tree_leaves
+        oa, ob = got["opt"], want["opt"]
+        # f32 models (the preset): no master copy
+        assert torch.equal(oa.t, ob.t) and oa.p32 is None
+        b1, first = self.adam.b1, int(oa.t) == 1
+        for pa, pb, ma, mb, m0, va, vb in zip(
+                tree_leaves(got["params"]), tree_leaves(want["params"]),
+                *(tree_leaves(x) for x in (oa.m, ob.m, m_before, oa.v,
+                                           ob.v))):
+            self.beyond += int(self.close(ma, mb).sum()
+                               + self.close(va, vb).sum())
+            ga, gb = ((m - b1 * m0) / (1 - b1) for m in (ma, mb))
+            rel = float(torch.linalg.vector_norm(ga - gb)
+                        / torch.linalg.vector_norm(gb).clamp_min(1e-30))
+            self.grad_worst = max(self.grad_worst, rel)
+            self.grad_beyond += int(rel > TRAIN_GRAD_NORMWISE)
+            off = self.close(pa, pb)
+            if first:
+                masked = gb.abs() < 100 * self.adam.eps
+                self.eps_masked += int(masked.sum())
+                self.eps_past += int((off & masked).sum())
+                off = off & ~masked
+            self.beyond += int(off.sum())
+
+
+def train_breakdown(run, args, card):
+    """One warm client step of the preset and its parts on the host
+    clock (each timed in place: the synchronised wall of the private
+    update's gradient, of the proxy's DP gradient and, of it, the
+    per-example gradients; Adam's two updates and the rest are the step
+    less these), the exchange of the four proxies, one evaluation, and one
+    step under torch.profiler for the device's busy share."""
+    from repro_torch.core import dp
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import evaluate_ppl
+
+    eng = train_engine(run, args, use_pallas=True)
+    states = clone(run.state)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = eng.sample_fn(run.data[0], gen)
+    spent = {"private": 0.0, "proxy": 0.0, "per_example": 0.0}
+
+    def timed_call(key, fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def per_example_vmap(f, *a, **kw):
+        return timed_call("per_example", dp_vmap(f, *a, **kw))
+
+    dp_vmap = dp.vmap
+    n = 3
+    step = eng.step_fns[0]
+    step(states[0], batch, gen)   # warm-up
+    saved = (steps.non_dp_gradient, steps.dp_gradient_chunked, dp.vmap)
+    steps.non_dp_gradient = timed_call("private", steps.non_dp_gradient)
+    steps.dp_gradient_chunked = timed_call("proxy", steps.dp_gradient_chunked)
+    dp.vmap = per_example_vmap
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(states[0], batch, gen)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / n * 1e3
+    finally:
+        steps.non_dp_gradient, steps.dp_gradient_chunked, dp.vmap = saved
+    private_ms, proxy_ms, pe_ms = (spent[k] / n * 1e3 for k in
+                                   ("private", "proxy", "per_example"))
+
+    def timed(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    exchange_ms = timed(lambda: eng._exchange(states, 0))
+    eval_ms = timed(lambda: evaluate_ppl(states[0]["private"]["params"],
+                                         run.cfg, run.test))
+    rest_ms = step_ms - private_ms - proxy_ms
+    print(f"train breakdown: one client step of the preset {step_ms:.3f} ms "
+          f"(B = {args.batch}, S = {args.seq}; each part timed in place, "
+          f"synchronised): private update's gradient {private_ms:.3f} ms "
+          f"(with the proxy peer's forward), proxy DP gradient "
+          f"{proxy_ms:.3f} ms (with the private peer's forward; of it "
+          f"per-example gradients {pe_ms:.3f} ms), Adam's two updates and "
+          f"the rest {rest_ms:.3f} ms; exchange of {args.clients} proxies "
+          f"{exchange_ms:.3f} ms; one evaluation of {run.test.shape[0]} "
+          f"sequences {eval_ms:.3f} ms on {card}")
+    wall_ms, on_device = device_profile(lambda: step(states[0], batch, gen))
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    print(f"train profile: one client step under the profiler: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.2f}%), {len(on_device)} device "
+          "kernels and copies")
+    busy = {}
+    for e in on_device:
+        key = kernel_key(e.name)
+        busy[key] = busy.get(key, 0.0) + e.self_device_time_total
+    print("train profile: device us by kernel in the step: " + ", ".join(
+        f"{k} {t:.3f}" for k, t in sorted(busy.items(),
+                                          key=lambda kv: -kv[1])[:10]))
+    return dict(step_ms=step_ms, private_ms=private_ms, proxy_ms=proxy_ms,
+                per_example_ms=pe_ms, rest_ms=rest_ms,
+                exchange_ms=exchange_ms, eval_ms=eval_ms, wall_ms=wall_ms,
+                busy_ms=busy_ms)
+
+
+def train_preset(card):
+    """(a) the preset, 2 rounds of 3 steps on the vmap backend, with the
+    kernels and on the plain path: launches exact (none inside the
+    differentiated forwards), each client step against the plain path's
+    from the same state (:class:`TrainLockstep`), a second run bit-equal,
+    epsilon the JAX package's; rounds/s, peak memory, the breakdown."""
+    from repro_torch import kernels
+    from repro_torch.launch import steps, train
+    from repro_torch.nn.modules import tree_leaves
+    from repro_torch.optim import Adam
+
+    args = train.parse_args(TRAIN_ARGS + ["--rounds", str(TRAIN_ROUNDS)])
+    t0 = time.perf_counter()
+    run = train.setup(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    K, steps_per_client = args.clients, args.steps_per_round * args.rounds
+    print(f"train phase (a): {run.cfg.name} {train.tree_size_of(run.cfg)} "
+          f"({sum(x.numel() for x in tree_leaves(run.state[0]['private']['params'])):,} "
+          f"params) around {run.proxy.name} (D = "
+          f"{sum(x.numel() for x in tree_leaves(run.state[0]['proxy']['params'])):,}), "
+          f"K = {K}; set-up (corpora, {K} clients' initial states drawn on "
+          f"the CPU, moved) {setup_s:.3f} s")
+
+    # launches inside the differentiated forwards: every forward that a
+    # gradient passes through, its launches counted
+    inside = {"calls": 0, "launches": 0}
+    raw_fwd = steps._forward_logits
+
+    def fwd(params, cfg, batch, opts, *, use_pallas):
+        if torch.is_grad_enabled():
+            before = sum(kernels.launch_counts().values())
+            out = raw_fwd(params, cfg, batch, opts, use_pallas=use_pallas)
+            inside["calls"] += 1
+            inside["launches"] += sum(kernels.launch_counts().values()) \
+                - before
+            return out
+        return raw_fwd(params, cfg, batch, opts, use_pallas=use_pallas)
+
+    eng = train_engine(run, args, use_pallas=True)
+    torch.cuda.reset_peak_memory_stats()
+    steps._forward_logits = fwd
+    try:
+        (state, rows, ppls, wall), got = counted(
+            lambda: train_drive(eng, run, args))
+    finally:
+        steps._forward_logits = raw_fwd
+    peak = torch.cuda.max_memory_allocated()
+    want = train_launches(run, K * steps_per_client, args.rounds,
+                          args.rounds, stale=False)
+    expect(got, **want)
+    # per client step: the private loss's forward and the proxy's
+    # per-example forward (one call under vmap for the DP chunk)
+    assert inside["launches"] == 0 and inside["calls"] == \
+        K * steps_per_client * 2, inside
+    eps = [a.epsilon() for a in eng.accountants]
+    assert all(e == EPSILON_TRAIN for e in eps), eps
+    for m in rows:
+        for key in ("private_loss", "proxy_loss"):
+            assert np.isfinite(m[key]).all(), (key, m[key])
+    assert all(np.isfinite(p) for p in ppls), ppls
+    # the rate of the second run: the first pays the process's first
+    # calls at these shapes (library heuristics, the allocator's growth)
+    second, _, _, warm = train_drive(train_engine(run, args,
+                                                  use_pallas=True), run, args)
+    for a, b in zip(tree_leaves(state), tree_leaves(second)):
+        assert torch.equal(a, b), "a second run of the seed differs"
+    rate = args.rounds / warm
+    print(f"train phase (a): launches {got_nonzero(got)} in {args.rounds} "
+          f"rounds (per client step: {serve_launches(run.proxy)[0]['rmsnorm']} "
+          f"rmsnorm and {serve_launches(run.proxy)[0]['flash_attention']} "
+          f"attention in the proxy peer, "
+          f"{serve_launches(run.cfg)[0]['rmsnorm']} and "
+          f"{serve_launches(run.cfg)[0]['flash_attention']} in the private "
+          f"peer); {inside['calls']} differentiated forwards, "
+          f"{inside['launches']} launches in them; eps {eps[0]!r}; "
+          f"client-0 test ppl {['%.3f' % p for p in ppls]}; "
+          f"{rate:.4f} rounds/s ({warm:.3f} s for {args.rounds} rounds, "
+          f"evaluation included; the process's first run {wall:.3f} s), "
+          f"peak {peak / 1e9:.3f} GB on {card}")
+
+    plain_eng = train_engine(run, args, use_pallas=False)
+    plain_wall = train_drive(plain_eng, run, args)[3]
+    lock_eng = train_engine(run, args, use_pallas=True)
+    with TrainLockstep(lock_eng, plain_eng.step_fns[0],
+                       Adam(lr=args.lr, weight_decay=args.weight_decay)) \
+            as lock:
+        train_drive(lock_eng, run, args)
+    assert lock.steps == K * steps_per_client and lock.beyond == 0 \
+        and lock.grad_beyond == 0, (lock.steps, lock.beyond,
+                                    lock.grad_beyond, lock.grad_worst)
+    print(f"train phase (a): a second run bit-equal; each of {lock.steps} "
+          f"client steps against the plain path's from the same state: "
+          f"losses, moments and params at close, worst {lock.worst:.3e}; "
+          f"each leaf's gradient normwise, worst {lock.grad_worst:.3e} "
+          f"(grade {TRAIN_GRAD_NORMWISE:g}); in first Adam steps "
+          f"{lock.eps_masked} param coordinates at |g| < 100 eps masked "
+          f"by rule, {lock.eps_past} of them past close; plain path "
+          f"{args.rounds / plain_wall:.4f} rounds/s on {card}")
+    breakdown = train_breakdown(run, args, card)
+    return dict(counts=got, rate=rate, plain_rate=args.rounds / plain_wall,
+                peak=peak, breakdown=breakdown, lock_worst=lock.worst,
+                grad_worst=lock.grad_worst, eps_masked=lock.eps_masked,
+                eps_past=lock.eps_past, ppl=ppls)
+
+
+def got_nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def train_async(card):
+    """(b) the preset on ``--backend async --staleness 2``, 3 rounds: one
+    stale mix a round at [4, 6,293,760], launches exact, epsilon."""
+    from repro_torch.launch import train
+    args = train.parse_args(TRAIN_ARGS + [
+        "--rounds", str(TRAIN_ASYNC_ROUNDS), "--backend", "async",
+        "--staleness", str(TRAIN_TAU)])
+    run = train.setup(args)
+    eng = train_engine(run, args, use_pallas=True)
+    (state, rows, ppls, wall), got = counted(
+        lambda: train_drive(eng, run, args))
+    K = args.clients
+    expect(got, **train_launches(
+        run, K * args.steps_per_round * args.rounds, args.rounds,
+        args.rounds, stale=True))
+    assert tuple(state["stale_theta"].shape) == (TRAIN_TAU, K, TRAIN_D)
+    assert all(a.epsilon() == EPSILON_TRAIN_ASYNC for a in eng.accountants)
+    assert all(np.isfinite(m["proxy_loss"]).all() for m in rows)
+    print(f"train phase (b): async tau = {TRAIN_TAU}, {args.rounds} rounds: "
+          f"launches {got_nonzero(got)}; {args.rounds / wall:.4f} rounds/s "
+          f"on {card}")
+    return dict(counts=got, rate=args.rounds / wall)
+
+
+def train_smoke(card):
+    """(c) the smoke variant of every registry name, K = 2, 1 round of one
+    step (B = 2, S = 32) with the kernels on: launches exact, epsilon, the
+    bf16 runs' master copies moved."""
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import train
+    from repro_torch.nn.modules import tree_leaves
+    counts = {}
+    for arch in list_archs():
+        args = train.parse_args(["--arch", arch] + TRAIN_SMOKE_ARGS)
+        run = train.setup(args)
+        eng = train_engine(run, args, use_pallas=True)
+        (state, rows, ppls, _), got = counted(
+            lambda: train_drive(eng, run, args))
+        expect(got, **train_launches(run, args.clients, 1, 1, stale=False))
+        assert all(a.epsilon() == EPSILON_TRAIN_SMOKE
+                   for a in eng.accountants)
+        assert np.isfinite(rows[0]["private_loss"]).all()
+        p32 = state[0]["private"]["opt"].p32
+        assert (p32 is None) == (run.cfg.dtype == "float32")
+        if p32 is not None:
+            before = run.state[0]["private"]["opt"].p32
+            assert not all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(p32), tree_leaves(before))), arch
+            assert not torch.equal(p32["norm_f"]["g"],
+                                   before["norm_f"]["g"]), arch
+        counts[arch] = got_nonzero(got)
+        print(f"train phase (c): {arch} smoke ({run.cfg.dtype}): launches "
+              f"{counts[arch]}" + ("" if p32 is None else
+                                   ", the master copy moved"))
+    return counts
+
+
+def train_path(card):
+    """The train phase (module docstring, 11)."""
+    t0 = time.perf_counter()
+    res = {"preset": train_preset(card), "async": train_async(card),
+           "smoke": train_smoke(card)}
+    print(f"train phase: {time.perf_counter() - t0:.1f} s")
+    return res
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3266,6 +3771,7 @@ def main() -> int:
     fig4_path()
     step_breakdown(*setup)
     serve = serve_path(card)
+    trained = train_path(card)
 
     # each kernel's launches on the path that runs it
     # the clip pair: its rows route on the main path, its 1-D route in the
@@ -3366,6 +3872,19 @@ def main() -> int:
                     "prefill": rows["flash_attention serve"],
                     "prefill window": rows["flash_attention serve window"]},
                 "mamba_scan": {"prefill": rows["mamba_scan serve"]}}[name]
+        if name in ("fused_pushsum_mix", "fused_stale_mix", "rmsnorm",
+                    "flash_attention", "mamba_scan"):
+            # the train path: the preset's 2 rounds (the stale mix: its
+            # async run's 3), each registry name's smoke round
+            key = "async" if name == "fused_stale_mix" else "preset"
+            out[-1]["launches_train"] = {
+                "preset 100m" + (" async" if key == "async" else ""):
+                trained[key]["counts"].get(name, 0),
+                **{f"{arch} smoke": c.get(name, 0)
+                   for arch, c in trained["smoke"].items()}}
+            out[-1]["train_rows"] = {
+                label: rows[label] for label in rows
+                if label.startswith(f"{name} train")}
         if name == "noise_adam_step":
             out[-1]["cold_us"] = r["kernel_cold_us"]
             out[-1]["device_kernels_per_call"] = step_kernels[name]
@@ -3436,6 +3955,17 @@ def main() -> int:
               f"({r['prefill_ms']:.3f} ms), decode {r['decode_tok_s']:.1f} "
               f"tok/s ({r['decode_ms']:.3f} ms a step), peak "
               f"{r['peak_bytes'] / 1e9:.3f} GB on {card}")
+    pre = trained["preset"]
+    b = pre["breakdown"]
+    print(f"train path preset 100m: {pre['rate']:.4f} rounds/s (plain path "
+          f"{pre['plain_rate']:.4f}), async tau = {TRAIN_TAU} "
+          f"{trained['async']['rate']:.4f} rounds/s; a client step "
+          f"{b['step_ms']:.3f} ms (private update {b['private_ms']:.3f}, "
+          f"proxy DP update {b['proxy_ms']:.3f} of it per-example grads "
+          f"{b['per_example_ms']:.3f}, the rest {b['rest_ms']:.3f}), exchange "
+          f"{b['exchange_ms']:.3f} ms, evaluation {b['eval_ms']:.3f} ms; "
+          f"device busy {100 * b['busy_ms'] / b['wall_ms']:.2f}% of a "
+          f"profiled step; peak {pre['peak'] / 1e9:.3f} GB on {card}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,11 @@ frameworks can start a run from the same numbers:
 
 * :func:`params_from_numpy` — a nested dict of arrays (one param tree);
 * :func:`state_from_numpy` — one client's engine state ``{"private":
-  {"params", "opt": AdamState(m, v, t, p32)}, "proxy": …, "w"}``, the
-  optimizer state given as any 4-field ``(m, v, t, p32)`` tuple, as the
-  reference's ``AdamState`` NamedTuple is;
+  {"params", "opt": AdamState(m, v, t, p32)}, "proxy": …, "w"[, "t"]}``,
+  the optimizer state given as any 4-field ``(m, v, t, p32)`` tuple, as
+  the reference's ``AdamState`` NamedTuple is (``p32``, the f32 master
+  copy of sub-f32 params, when present; ``"t"``, the LLM train state's
+  step count, when present);
 * :func:`async_state_from_numpy` — the engine's wrapper state, ``{"clients":
   [per-client state, …]}`` with the async backend's in-flight buffers
   ``"stale_theta"`` [τ, K, D] and ``"stale_w"`` [τ, K] at staleness τ>0
@@ -52,12 +54,9 @@ model_params_from_numpy = cache_from_numpy = params_from_numpy
 
 def _adam_from_numpy(opt, device) -> AdamState:
     m, v, t, p32 = opt
-    if p32 is not None:
-        raise NotImplementedError("AdamState.p32 (f32 master copy) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 6)")
     return AdamState(params_from_numpy(m, device), params_from_numpy(v, device),
                      torch.as_tensor(np.array(t, np.int32), device=device),
-                     None)
+                     None if p32 is None else params_from_numpy(p32, device))
 
 
 def state_from_numpy(state: Dict, device="cpu") -> Dict:
@@ -68,6 +67,9 @@ def state_from_numpy(state: Dict, device="cpu") -> Dict:
         for role in ("private", "proxy") if role in state}
     out["w"] = torch.as_tensor(np.array(state["w"], np.float32),
                                device=device)
+    if "t" in state:
+        out["t"] = torch.as_tensor(np.array(state["t"], np.int32),
+                                   device=device)
     return out
 
 

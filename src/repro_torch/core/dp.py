@@ -18,6 +18,11 @@ for the clipped sum, in example order and bit-equal to a per-example loop
 of ``sumsq`` and ``scale_accumulate``. :func:`dp_adam_update` adds the
 fused noise + Adam tail (``noise_adam_step``). Nothing on these paths
 reads a device value on the host.
+
+:func:`dp_gradient_chunked` is the LLM step's DP gradient (plain torch, a
+batch tree in chunks, a hook for the peer logits once per chunk);
+:func:`non_dp_gradient` takes the plain mean gradient, over ``accum``
+microbatches when asked.
 """
 from __future__ import annotations
 
@@ -200,8 +205,99 @@ def dp_adam_update(
     return tree_unflatten_vector(p2, params), opt2, metrics
 
 
-def non_dp_gradient(loss_fn: LossFn, params: Params, batch: Any
+def _batch_size(batch: Any) -> int:
+    return tree_leaves(batch)[0].shape[0]
+
+
+def _rows(batch: Any, start: int, n: int) -> Any:
+    """Rows ``start .. start+n-1`` of every leaf of a batch tree."""
+    return tree_map(lambda x: x[start:start + n], batch)
+
+
+def dp_gradient_chunked(
+    loss_fn: LossFn,
+    params: Params,
+    batch: Any,
+    *,
+    clip_norm: float,
+    noise_multiplier: float,
+    chunk: int = 8,
+    prepare_chunk: Callable[[Any], Any] = lambda b: b,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[Params, Dict]:
+    """Per-example DP-SGD gradient (Eq. 7) chunk by chunk: a loop over
+    B/chunk chunks, the per-example gradients of a chunk from one
+    ``torch.func.vmap(grad)``, each clipped to C, the clipped sum
+    accumulated in f32; noise N(0, (σC)²) once, then the mean over B. The
+    same function as :func:`dp_gradient`; ``chunk`` trades peak gradient
+    memory (chunk × |θ|) against the number of chunks. ``batch`` is a tree
+    (a dict of tensors) whose leaves share the leading B.
+
+    ``prepare_chunk`` runs once per chunk, outside the per-example
+    transform and without a gradient: the LLM step computes the private
+    peer's logits there with one batched forward (kernels allowed), never
+    once per example. The plain torch path, as the reference keeps this
+    function on plain XLA: no clip kernel."""
+    B = _batch_size(batch)
+    if B % chunk:
+        raise ValueError(f"batch {B} is not a multiple of chunk {chunk}")
+
+    def unit_loss(p, ex):
+        return loss_fn(p, tree_map(lambda x: x[None], ex))
+
+    per_example = vmap(grad_and_value(unit_loss), in_dims=(None, 0))
+    acc = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                         device=x.device), params)
+    like = tree_leaves(params)[0]
+    loss_sum = torch.zeros((), dtype=torch.float32, device=like.device)
+    norm_sum = torch.zeros((), dtype=torch.float32, device=like.device)
+    for i in range(B // chunk):
+        with torch.no_grad():
+            cb = prepare_chunk(_rows(batch, i * chunk, chunk))
+        grads, losses = per_example(params, cb)
+        norms = torch.sqrt(sum(
+            torch.sum(torch.square(g.to(torch.float32)).reshape(chunk, -1),
+                      dim=1) for g in tree_leaves(grads)))
+        scales = (1.0 / torch.clamp(norms / clip_norm, min=1.0)).to(
+            torch.float32)
+        acc = tree_map(lambda a, g: a + torch.einsum(
+            "b...,b->...", g.to(torch.float32), scales), acc, grads)
+        loss_sum = loss_sum + torch.sum(losses)
+        norm_sum = norm_sum + torch.sum(norms)
+    noise = _draw_noise(params, noise, generator)
+    noisy = add_gaussian_noise(acc, noise, noise_multiplier * clip_norm)
+    grad = tree_map(lambda x: x / B, noisy)
+    return grad, {"loss": loss_sum / B, "mean_grad_norm": norm_sum / B}
+
+
+def non_dp_gradient(loss_fn: LossFn, params: Params, batch: Any, *,
+                    accum: int = 1,
+                    prepare: Callable[[Any], Any] = lambda b: b
                     ) -> Tuple[Params, Dict]:
-    """Plain mean gradient of ``loss_fn`` over the batch."""
-    g, loss = grad_and_value(loss_fn)(params, batch)
-    return g, {"loss": loss}
+    """Plain mean gradient of ``loss_fn`` over the batch; with ``accum`` >
+    1 accumulated over that many microbatch slices of a batch tree (the
+    reference's scan), in f32: Σ g_i / accum. ``prepare`` runs on each
+    microbatch before the loss, without a gradient (the LLM step's peer
+    logits)."""
+    def grad_of(b):
+        with torch.no_grad():
+            b = prepare(b)
+        return grad_and_value(loss_fn)(params, b)
+
+    if accum <= 1:
+        g, loss = grad_of(batch)
+        return g, {"loss": loss}
+    B = _batch_size(batch)
+    if B % accum:
+        raise ValueError(f"batch {B} is not a multiple of accum {accum}")
+    mb = B // accum
+    acc = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                         device=x.device), params)
+    loss_sum = torch.zeros((), dtype=torch.float32,
+                           device=tree_leaves(params)[0].device)
+    for i in range(accum):
+        g, loss = grad_of(_rows(batch, i * mb, mb))
+        acc = tree_map(lambda a, x: a + x.to(torch.float32) / accum, acc, g)
+        loss_sum = loss_sum + loss / accum
+    return acc, {"loss": loss_sum}

@@ -75,8 +75,8 @@ import torch
 
 from .. import resolve_device
 from ..configs import ProxyFLConfig
-from ..nn.modules import (tree_flatten_vector, tree_map, tree_size,
-                          tree_unflatten_vector)
+from ..nn.modules import (tree_flatten_vector, tree_leaves, tree_map,
+                          tree_size, tree_unflatten_vector)
 from ..optim import Adam
 from .commit import CommitmentError, client_commitment
 from .compress import COMPRESS_KEY_FOLD, compress_spec
@@ -120,6 +120,25 @@ def active_mask(t: int, n_clients: int, cfg: ProxyFLConfig
     if act.sum() < floor:
         act[rng.choice(n_clients, size=floor, replace=False)] = True
     return act
+
+
+def block_spans(start: int, rounds: int, rounds_per_block: int, *cadences):
+    """Yield ``(t0, n)`` round-block spans covering ``[start, rounds)``:
+    blocks of at most ``rounds_per_block`` rounds, cut so that every
+    multiple of each nonzero cadence (checkpoint_every, eval_every, ...)
+    is a block edge, the one place a driver observes the federation. The
+    reference's rule; its engine runs a block as one program, this port's
+    :meth:`FederationEngine.run_rounds` runs the block's rounds one by
+    one."""
+    B = max(1, int(rounds_per_block or 1))
+    t = start
+    while t < rounds:
+        n = min(B, rounds - t)
+        for c in cadences:
+            if c and c > 0:
+                n = min(n, c - t % c)
+        yield t, n
+        t += n
 
 
 def active_schedule(t0: int, n_rounds: int, n_clients: int,
@@ -286,9 +305,13 @@ class FederationEngine:
     # -- round execution ----------------------------------------------------
 
     def n_steps(self, data_k) -> int:
+        """Local steps of a client a round: ``cfg.local_steps``, or one
+        epoch, n_k // B, with n_k the leading dim of the first leaf of its
+        data (an ``(x, y)`` pair, a dict, or a bare token tensor)."""
         if self.cfg.local_steps:
             return self.cfg.local_steps
-        return max(1, data_k[0].shape[0] // self.cfg.batch_size)
+        n = tree_leaves(data_k)[0].shape[0]
+        return max(1, n // self.cfg.batch_size)
 
     def _step_draws(self, seed: int, k: int, t: int, s: int):
         """(generator, batch_idx, noise) of client k's step s in round t:

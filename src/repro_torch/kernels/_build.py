@@ -176,6 +176,21 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} failed to launch: cudaError {err}")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad (also inside
+    a ``torch.func`` transform): a kernel's output carries no autograd
+    history, so the gradient through it would be cut without a word. A
+    differentiated forward runs the model's plain path instead. Checked
+    before the dispatch, on the CPU's plain versions too."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad; the kernel has no backward "
+            "and would cut the gradient. Differentiate the plain path "
+            "(use_pallas=False), or call the kernel under torch.no_grad()")
+
+
 def check_cuda(name: str, *tensors: torch.Tensor,
                contiguous: bool = True) -> None:
     """Every tensor on the current CUDA device and, unless the caller

@@ -45,6 +45,7 @@ def _check_vector(name: str, x: torch.Tensor, what: str) -> None:
 def sumsq(x: torch.Tensor) -> torch.Tensor:
     """Sum of squares of a 1-D f32/bf16 vector, accumulated in f32 (0-d)."""
     _check_vector("sumsq", x, "x")
+    _build.refuse_grad("sumsq", x)
     if x.device.type == "cpu":
         return sumsq_ref(x)
     _build.check_cuda("sumsq", x)
@@ -73,6 +74,7 @@ def scale_accumulate(acc: torch.Tensor, g: torch.Tensor,
             or scale.dtype != torch.float32:
         raise TypeError("scale_accumulate: scale must be a one-element f32 "
                         "tensor")
+    _build.refuse_grad("scale_accumulate", acc, g, scale)
     if acc.device.type == "cpu":
         return scale_accumulate_ref(acc, g, scale.reshape(()))
     _build.check_cuda("scale_accumulate", acc, g, scale)
@@ -105,6 +107,7 @@ def sumsq_rows(x: torch.Tensor) -> torch.Tensor:
     """Each row's sum of squares of a [B, D] f32/bf16 matrix, accumulated
     in f32: [B]. Row i is bit-equal to ``sumsq(x[i])``."""
     _check_rows("sumsq_rows", x, "x")
+    _build.refuse_grad("sumsq_rows", x)
     if x.device.type == "cpu":
         return sumsq_rows_ref(x)
     _build.check_cuda("sumsq_rows", x, contiguous=False)
@@ -138,6 +141,7 @@ def clip_accumulate_rows(g: torch.Tensor,
         raise ValueError(f"clip_accumulate_rows: scales must be [{g.shape[0]}]"
                          f" f32 on {g.device}, got {scales.dtype} "
                          f"{tuple(scales.shape)} on {scales.device}")
+    _build.refuse_grad("clip_accumulate_rows", g, scales)
     if g.device.type == "cpu":
         return clip_accumulate_rows_ref(g, scales)
     _build.check_cuda("clip_accumulate_rows", g, scales,

@@ -39,6 +39,7 @@ def noise_sgd_step(acc: torch.Tensor, noise: torch.Tensor, p: torch.Tensor,
     if p.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"noise_sgd_step: p dtype {p.dtype} not supported "
                         "(float32 or bfloat16)")
+    _build.refuse_grad("noise_sgd_step", acc, noise, p)
     if acc.device.type == "cpu":
         return noise_sgd_step_ref(acc, noise, p, stddev=stddev,
                                   n_units=n_units, lr=lr,
@@ -71,6 +72,7 @@ def noise_adam_step(acc: torch.Tensor, noise: torch.Tensor, p: torch.Tensor,
     if any(c.numel() != 1 or c.dtype != torch.float32 for c in (c1, c2)):
         raise TypeError("noise_adam_step: c1/c2 must be one-element f32 "
                         "tensors")
+    _build.refuse_grad("noise_adam_step", *vecs, c1, c2)
     if acc.device.type == "cpu":
         return noise_adam_step_ref(
             acc, noise, p, m, v, stddev=stddev, n_units=n_units, lr=lr,

@@ -181,6 +181,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if block_q < 1 or block_k < 1:
         raise ValueError("flash_attention: block sizes must be >= 1")
     scale = float(scale if scale is not None else q.shape[3] ** -0.5)
+    _build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)

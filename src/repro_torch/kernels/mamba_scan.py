@@ -72,6 +72,7 @@ def mamba_scan(dt: torch.Tensor, x: torch.Tensor, B_in: torch.Tensor,
                            or h0.dtype != torch.float32):
         raise ValueError(f"mamba_scan: h0 must be [B, di, ds] float32 "
                          f"{(Bsz, di, ds)}, got {tuple(h0.shape)} {h0.dtype}")
+    _build.refuse_grad("mamba_scan", dt, x, B_in, C_in, A, h0)
     if x.device.type == "cpu":
         return mamba_scan_ref(dt, x, B_in, C_in, A, h0, return_state)
     _build.check_cuda("mamba_scan", dt, x, B_in, C_in, A,

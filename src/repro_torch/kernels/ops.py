@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..nn.modules import tree_flatten_vector, tree_unflatten_vector
+from . import _build
 from .dp_clip import clip_accumulate, scale_accumulate, sumsq
 from .flash_attention import check_attention, flash_attention, launch_flash
 from .mamba_scan import mamba_scan
@@ -23,6 +24,7 @@ def gqa_flash_attention(q, k, v, *, causal=True, window=None, scale=None,
     if block_q < 1 or block_k < 1:
         raise ValueError("gqa_flash_attention: block sizes must be >= 1")
     scale = float(scale if scale is not None else q.shape[3] ** -0.5)
+    _build.refuse_grad("gqa_flash_attention", q, k, v)
     if q.device.type == "cpu":
         return gqa_flash_attention_ref(q, k, v, causal=causal,
                                        window=window, scale=scale)

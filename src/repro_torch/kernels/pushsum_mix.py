@@ -39,6 +39,7 @@ def fused_pushsum_mix(flat: torch.Tensor, w: torch.Tensor, P, *,
     if tuple(w.shape) != (K,) or tuple(P.shape) != (K, K):
         raise ValueError(f"fused_pushsum_mix: need w [{K}] and P [{K}, {K}], "
                          f"got {tuple(w.shape)} and {tuple(P.shape)}")
+    _build.refuse_grad("fused_pushsum_mix", flat, w, P)
     if flat.device.type == "cpu":
         return fused_pushsum_mix_ref(flat, w, P, debias=debias)
     Pf = torch.as_tensor(P, dtype=torch.float32,
@@ -81,6 +82,8 @@ def fused_stale_mix(flat: torch.Tensor, w: torch.Tensor, kept, sent,
     if shapes != [(K,), (K,), (K,), (K, K)]:
         raise ValueError(f"fused_stale_mix: need w, kept, buf_w0 [{K}] and "
                          f"sent [{K}, {K}], got {shapes}")
+    _build.refuse_grad("fused_stale_mix", flat, w, kept, sent, buf_t0,
+                       buf_w0)
     if flat.device.type == "cpu":
         return fused_stale_mix_ref(flat, w, kept, sent, buf_t0, buf_w0)
 

@@ -42,6 +42,7 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, *, eps: float = 1e-6,
                         "(float32 or bfloat16)")
     if block_rows < 1:
         raise ValueError(f"rmsnorm: block_rows must be >= 1, got {block_rows}")
+    _build.refuse_grad("rmsnorm", x, g)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, g, eps)
     _build.check_cuda("rmsnorm", x, g)

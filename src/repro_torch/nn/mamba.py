@@ -98,14 +98,17 @@ def associative_scan(fn: Callable, elems: Sequence[torch.Tensor]
     else:
         even = fn(odd, [e[:, 2::2] for e in elems])
     even = [torch.cat([e[:, :1], r], dim=1) for e, r in zip(elems, even)]
-    out = []
-    for e, o in zip(even, odd):
-        t = torch.empty((e.shape[0], n) + e.shape[2:], dtype=e.dtype,
-                        device=e.device)
-        t[:, 0::2] = e
-        t[:, 1::2] = o
-        out.append(t)
-    return out
+    return [_interleave(e, o) for e, o in zip(even, odd)]
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """Positions 0, 2, 4, … from ``even`` and 1, 3, … from ``odd`` along
+    axis 1 (``even`` one longer when the length is odd), out of place, as
+    ``torch.func.vmap`` needs."""
+    n_odd = odd.shape[1]
+    pairs = torch.stack([even[:, :n_odd], odd], dim=2).flatten(1, 2)
+    return pairs if even.shape[1] == n_odd else torch.cat(
+        [pairs, even[:, n_odd:]], dim=1)
 
 
 def _combine(left, right):

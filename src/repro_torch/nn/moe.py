@@ -9,9 +9,12 @@ probabilities, as ``lax.top_k`` does (a stable descending sort, since
 ``torch.topk`` promises no order among ties). DeepSeek-style shared experts
 and Arctic-style dense residual MLPs add to the routed output.
 
-The combine adds each token's k expert outputs with ``index_add_``: on the
+The combine adds each token's k expert outputs with ``index_add``: on the
 CPU in order, on CUDA by atomics in any order, so a bf16 run there is not
-bit-reproducible from run to run.
+bit-reproducible from run to run. Every op is out of place and reads no
+value on the host, so ``torch.func.vmap`` batches the layer per example
+(the capacity then comes from one example's tokens, as under the
+reference's ``vmap``).
 """
 from __future__ import annotations
 
@@ -67,9 +70,12 @@ def apply_moe(p: Params, cfg: ModelConfig,
     topw, topi = top_k(probs, K)   # [T, K]
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
 
-    # load-balance auxiliary loss (Switch-style)
+    # load-balance auxiliary loss (Switch-style); one-hot rows by
+    # comparison (F.one_hot reads its input's range on the host, which
+    # torch.func.vmap cannot batch)
+    experts = torch.arange(E, device=dev)
     frac_tokens = torch.mean(
-        F.one_hot(topi, E).to(torch.float32).sum(1), dim=0) / K
+        (topi[..., None] == experts).to(torch.float32).sum(1), dim=0) / K
     frac_probs = torch.mean(probs, dim=0)
     aux = mo.router_aux_loss_coef * E * torch.sum(frac_tokens * frac_probs)
 
@@ -79,22 +85,22 @@ def apply_moe(p: Params, cfg: ModelConfig,
     flat_w = topw.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
     se, st, sw = flat_e[order], flat_t[order], flat_w[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = (flat_e[:, None] == experts).sum(0)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * K, device=dev) - starts[se]
     keep = pos < C
 
     slot_c = torch.where(keep, pos, 0)
     src = xf[st] * keep[:, None].to(x.dtype)
-    be = torch.zeros((E, C, d), dtype=x.dtype, device=dev)
-    be.index_put_((se, slot_c), src, accumulate=True)
+    be = torch.zeros((E, C, d), dtype=x.dtype, device=dev).index_put(
+        (se, slot_c), src, accumulate=True)
     h = F.silu(torch.einsum("ecd,edf->ecf", be, p["gate"])) * torch.einsum(
         "ecd,edf->ecf", be, p["up"])
     ye = torch.einsum("ecf,efd->ecd", h, p["down"])
 
     w = (sw * keep).to(x.dtype)
-    yf = torch.zeros((T, d), dtype=x.dtype, device=dev)
-    yf.index_add_(0, st, ye[se, slot_c] * w[:, None])
+    yf = torch.zeros((T, d), dtype=x.dtype, device=dev).index_add(
+        0, st, ye[se, slot_c] * w[:, None])
 
     y = yf.reshape(B, S, d)
     if "shared" in p:

@@ -1,4 +1,4 @@
 """Functional optimizers of the port (``repro.optim`` counterpart)."""
-from .optimizers import Adam, AdamState
+from .optimizers import SGD, Adam, AdamState
 
-__all__ = ["Adam", "AdamState"]
+__all__ = ["Adam", "AdamState", "SGD"]
