@@ -196,7 +196,36 @@
    runs' f32 master copies moved. The kernel table also times the mix and
    the stale mix at [4, 6,293,760] and the peers' rmsnorm and attention
    at the preset's shapes.
-11. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
+11. Drives checkpoints and resume (the "resume" phase), every run on
+   ``cuda`` with the kernels on and the counters reset around it: times
+   one main-path snapshot's save, chain verification and restore; (a) the
+   main path through ``run_federated`` on the vmap and the loop backends,
+   3 rounds straight and killed after round 2 (a snapshot every round)
+   then resumed for round 3 under ``verify_commitments``: every leaf and
+   w bit-equal, epsilon exact (the JAX package's), the resumed round's
+   launches exactly 32 ``sumsq_rows``, 32 ``clip_accumulate_rows``, 32
+   ``noise_adam_step`` and 1 mix; one mantissa bit of a committed proxy
+   leaf of the newest snapshot flipped and the next resume refused with
+   ``CommitmentError`` naming round 3, client 1 and the leaf; (b) async
+   τ = 2 on fig_async's protocol, 6 rounds killed after round 3: the
+   in-flight buffer restored bit for bit, the resumed rounds bit-equal,
+   one stale mix each; (c) compressed int8 on the main set-up killed after
+   round 1 of 2: the public copies restored, the result bit-equal, a
+   top-k resume refused by the fingerprint; (d) the train driver at
+   ``--preset 100m``, full width, K = 2, B = 8, S = 128, 2 rounds of 1
+   step, killed after round 1 and resumed through ``main([...,
+   "--checkpoint-dir", d, "--resume"])``: its round-2 snapshot equal leaf
+   for leaf to the straight run's final state, its launches one round's,
+   the snapshot's bytes and its save, verify and restore seconds printed
+   and the directory removed; (e) ``dp_adam_update`` on bf16 params at
+   the mlp proxy's width, with f32 and with bf16 moments (the rows
+   kernels on the widened gradients, the 1-D ``scale_accumulate``),
+   Adam's second step against its plain version: every leaf at bf16
+   2e-2, p32' − p32, m and v normwise at 1e-5 (f32 moments) or 2^-8
+   (bf16), and a plain version with the noise dropped or the clip off
+   shown to fail that grade; ``gossip_proxies`` against the plain mix at
+   f32 2e-5; launches pinned.
+12. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
    and their narrow loaders, and the clip pair's rows route, under their
    own keys; the DP kernels and the mix also with their launches on each
    method's path and each figures run's, with its shape, and on each
@@ -205,8 +234,9 @@
    run for rmsnorm and attention, falcon-mamba-7b's for the scan), per
    prefill and decode step of each served model, and their serve-shape
    rows; the mixes, rmsnorm, attention and the scan with their launches
-   on the train path and their train-shape rows) and, last, the
-   result line
+   on the train path and their train-shape rows; every kernel with its
+   launches in the resume phase's resumed runs and (e)'s calls) and,
+   last, the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits nonzero. The script needs a CUDA device and
@@ -221,8 +251,11 @@ import json
 import math
 import os
 import re
+import contextlib
+import io
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Callable, NamedTuple, Optional
@@ -346,6 +379,18 @@ TRAIN_GRAD_NORMWISE = 1e-4
 EPSILON_TRAIN = 3.666989208094371
 EPSILON_TRAIN_ASYNC = 3.9927285274659177
 EPSILON_TRAIN_SMOKE = 1.3620407962879644
+# the resume phase: the main path killed after round 2 of 3 and resumed
+# (epsilon_for(noise_multiplier=1.0, sample_rate=0.25, steps=12,
+# delta=1e-5), 3 rounds x 4 steps, from the JAX package's accountant); the
+# compressed run after round 1 of 2; async after round 3 of 6; the
+# preset at K = 2, B = 8, S = 128, 2 rounds of 1 step after round 1
+# (epsilon_for(1.0, 8 / 64, 2, 1e-5) pinned the same way)
+RESUME_ROUNDS, RESUME_KILL = 3, 2
+EPSILON_3_ROUNDS = 7.391781649014032
+RESUME_TRAIN_ARGS = ["--preset", "100m", "--clients", "2",
+                     "--steps-per-round", "1", "--batch", "8", "--seq",
+                     "128", "--use-pallas"]
+EPSILON_RESUME_TRAIN = 2.7241486272446718
 GEMMA_TOKENS, GEMMA_LAYERS = (2, 2_048), 6
 SMOKE_SERVE = (2, 12, 7)
 DECODE_TOL = 2e-4   # tests/test_models.py:85-116, prefill + decode vs forward
@@ -3706,11 +3751,487 @@ def train_smoke(card):
 
 
 def train_path(card):
-    """The train phase (module docstring, 11)."""
+    """The train phase (module docstring, 10)."""
     t0 = time.perf_counter()
     res = {"preset": train_preset(card), "async": train_async(card),
            "smoke": train_smoke(card)}
     print(f"train phase: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the resume phase: checkpoints and kill / resume on the card
+
+
+def launch_key(name: str) -> str:
+    """The counter of a kernel-line name: the clip pair's rows route and
+    1-D route, attention by its route, the rest by name."""
+    return {"sumsq_rows": "sumsq/rows",
+            "clip_accumulate_rows": "scale_accumulate/rows",
+            "sumsq": "sumsq/vector",
+            "scale_accumulate": "scale_accumulate/vector",
+            "flash_attention": "flash_attention/wgmma",
+            "flash_attention_tf32x3": "flash_attention/tf32x3",
+            "flash_attention_narrow": "flash_attention/wgmma/narrow",
+            "flash_attention_tf32x3_narrow":
+            "flash_attention/tf32x3/narrow"}.get(name, name)
+
+
+def flip_mantissa_bit(npz_path: str, key_part: str) -> str:
+    """Flip the lowest mantissa bit of the first entry of the first leaf
+    whose key holds ``key_part`` in a snapshot; returns that key."""
+    with np.load(npz_path) as z:
+        arrays = {k: z[k] for k in z.files}
+    key = next(k for k in arrays if key_part in k)
+    a = arrays[key].copy()
+    a.reshape(-1).view(np.uint32)[0] ^= 1
+    arrays[key] = a
+    np.savez(npz_path, **arrays)
+    return key
+
+
+def snapshot_timings(spec, cfg):
+    """Bytes of one main-path snapshot (K clients' private and proxy
+    models with their Adam moments) and the ms to save it, verify its
+    commitment chain and restore it (the verify included) on the card."""
+    from repro_torch.checkpoint import FederationCheckpointer
+    from repro_torch.core.engine import dml_engine
+
+    eng = dml_engine((spec,) * MAIN_K, spec, cfg, device="cuda")
+    state = eng.init_states(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        ck = FederationCheckpointer(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(eng, state, 0, seed=0)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        n_bytes = os.path.getsize(os.path.join(d, "round_000001.npz"))
+        t0 = time.perf_counter()
+        ck.verify_chain(1)
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        restored, _ = ck.restore(eng, like=state, seed=0)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    assert states_equal(state, restored), "the restored snapshot differs"
+    return dict(bytes=n_bytes, save_ms=save_ms, verify_ms=verify_ms,
+                restore_ms=restore_ms)
+
+
+def resume_main(spec, data, test, cfg):
+    """(a) The main path through ``run_federated`` on the vmap and the
+    loop backends: an uninterrupted 3-round run, the same run killed after
+    round 2 (a snapshot every round), its resume for round 3 under
+    ``verify_commitments``: every leaf bit-equal, epsilon exact, the
+    resumed part's launches those of one round; then one mantissa bit of
+    a committed proxy leaf of the newest snapshot flipped, and the next
+    resume refused naming the round and the leaf."""
+    from repro_torch.core.baselines import run_federated
+    from repro_torch.core.commit import CommitmentError
+
+    K, per_client = len(data), data[0][0].shape[0]
+    steps = K * (per_client // cfg.batch_size)
+    rcfg = dataclasses.replace(cfg, rounds=RESUME_ROUNDS)
+    out = {}
+    for backend in ("vmap", "loop"):
+        def run(c, **kw):
+            return run_federated("proxyfl", [spec] * K, spec, data, test, c,
+                                 seed=0, eval_every=c.rounds,
+                                 backend=backend, device="cuda", **kw)
+
+        full = run(rcfg)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as d:
+            run(dataclasses.replace(rcfg, rounds=RESUME_KILL),
+                checkpoint_dir=d, checkpoint_every=1)
+            resumed, counts = counted(lambda: run(
+                dataclasses.replace(rcfg, verify_commitments=True),
+                checkpoint_dir=d, checkpoint_every=1, resume=True))
+            expect(counts, sumsq=steps, scale_accumulate=steps,
+                   noise_adam_step=steps, fused_pushsum_mix=1,
+                   **{"sumsq/rows": steps, "scale_accumulate/rows": steps})
+            assert all(torch.equal(a, b) for a, b in zip(
+                all_leaves(full, "proxyfl"), all_leaves(resumed, "proxyfl"))
+            ), f"{backend}: the resumed run differs"
+            assert [c.w for c in full["clients"]] == [
+                c.w for c in resumed["clients"]]
+            assert full["epsilon"] == resumed["epsilon"] == \
+                [EPSILON_3_ROUNDS] * K, (full["epsilon"], resumed["epsilon"])
+            assert [h["round"] for h in resumed["history"]] == [3]
+            newest = os.path.join(d, "proxyfl_s0", "round_000003.npz")
+            key = flip_mantissa_bit(newest, "c0001/proxy/params/")
+            leaf = key.split("c0001/", 1)[1]
+            try:
+                run(dataclasses.replace(rcfg, verify_commitments=True),
+                    checkpoint_dir=d, resume=True)
+            except CommitmentError as err:
+                assert (err.round, err.client, err.leaf) == (3, 1, leaf), \
+                    (err.round, err.client, err.leaf)
+            else:
+                raise AssertionError("the tampered snapshot was resumed")
+        print(f"resume phase (a): proxyfl on {backend}, killed after round "
+              f"{RESUME_KILL} of {RESUME_ROUNDS} and resumed with "
+              f"verify_commitments: every leaf and w bit-equal, epsilon "
+              f"{resumed['epsilon'][0]!r}; the resumed round's launches "
+              f"{got_nonzero(counts)}; a flipped bit of {leaf} of client 1 "
+              f"refused (CommitmentError, round 3)")
+        out[backend] = counts
+    return out
+
+
+def engine_kill_and_resume(make, data, rounds: int, kill_after: int,
+                           directory: str):
+    """Engine-level kill and resume on the card: the uninterrupted run
+    (its state after ``kill_after`` rounds kept), the killed run with a
+    snapshot every round into ``directory``, and the resume, its rounds
+    counted. Returns (state at the kill, final state, restored state,
+    resumed final state, the resumed rounds' launches, the
+    checkpointer)."""
+    from repro_torch.checkpoint import FederationCheckpointer
+
+    eng = make()
+    state = eng.init_states(0)
+    mid = None
+    for t in range(rounds):
+        state, _ = eng.run_round(state, data, t, 0)
+        if t + 1 == kill_after:
+            mid = clone(state)
+    ck = FederationCheckpointer(directory)
+    killed = make()
+    st = killed.init_states(0)
+    for t in range(kill_after):
+        st, _ = killed.run_round(st, data, t, 0)
+        ck.maybe_save(killed, st, t, seed=0)
+    res = make()
+    restored, start = ck.restore_latest(res, like=res.init_states(0), seed=0)
+    assert start == kill_after
+    restored = clone(restored)
+
+    def finish():
+        s = restored
+        for t in range(start, rounds):
+            s, _ = res.run_round(s, data, t, 0)
+        return s
+
+    final, counts = counted(finish)
+    return mid, state, restored, final, counts, ck
+
+
+def states_equal(a, b) -> bool:
+    from repro_torch.nn.modules import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def resume_async(spec, data, cfg):
+    """(b) Async τ = 2 on fig_async's protocol, 6 rounds, killed after
+    round 3: the in-flight buffer restored bit for bit, the resumed rounds
+    bit-equal, one stale mix a resumed round and nothing else."""
+    from repro_torch.core.engine import dml_engine
+
+    acfg = async_config(cfg)
+    kill = acfg.rounds // 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as d:
+        mid, full, restored, final, counts, _ = engine_kill_and_resume(
+            lambda: dml_engine((spec,) * len(data), spec, acfg,
+                               backend="async", device="cuda"),
+            data, acfg.rounds, kill, d)
+    for key in ("stale_theta", "stale_w"):
+        assert torch.equal(restored[key], mid[key]), key
+    assert float(restored["stale_w"].abs().sum()) > 0, "nothing in flight"
+    assert states_equal(full, final), "the resumed async run differs"
+    expect(counts, fused_stale_mix=acfg.rounds - kill)
+    print(f"resume phase (b): async tau = {acfg.staleness}, killed after "
+          f"round {kill} of {acfg.rounds}: the in-flight buffer "
+          f"{tuple(restored['stale_theta'].shape)} restored bit for bit, "
+          f"the resumed rounds bit-equal; launches {got_nonzero(counts)}")
+    return counts
+
+
+def resume_compressed(spec, data, cfg):
+    """(c) Compressed int8 on the main set-up, 2 rounds, killed after
+    round 1: the public copies restored bit for bit, the result bit-equal,
+    the resumed round's DP launches and no mix; a resume under top-k
+    refused by the fingerprint."""
+    from repro_torch.core.accountant import PrivacyAccountant
+    from repro_torch.core.engine import dml_engine
+
+    K, per_client = len(data), data[0][0].shape[0]
+    steps = K * (per_client // cfg.batch_size)
+    ccfg = dataclasses.replace(cfg, compress="int8")
+
+    def make(c=ccfg):
+        eng = dml_engine((spec,) * K, spec, c, device="cuda")
+        eng.attach_accountants([PrivacyAccountant(
+            1.0, cfg.batch_size / per_client, 1e-5) for _ in range(K)])
+        return eng
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as d:
+        mid, full, restored, final, counts, ck = engine_kill_and_resume(
+            make, data, 2, 1, d)
+        assert torch.equal(restored["ef_state"], mid["ef_state"])
+        assert states_equal(full, final), "the resumed int8 run differs"
+        expect(counts, sumsq=steps, scale_accumulate=steps,
+               noise_adam_step=steps,
+               **{"sumsq/rows": steps, "scale_accumulate/rows": steps})
+        topk = make(dataclasses.replace(ccfg, compress="topk"))
+        try:
+            ck.restore_latest(topk, like=topk.init_states(0), seed=0)
+        except ValueError as err:
+            assert "fingerprint" in str(err), str(err)
+        else:
+            raise AssertionError("a top-k resume of an int8 run was taken")
+    print(f"resume phase (c): int8, killed after round 1 of 2: the public "
+          f"copies {tuple(restored['ef_state'].shape)} restored bit for "
+          f"bit, the result bit-equal; launches {got_nonzero(counts)}; a "
+          f"top-k resume refused by the fingerprint")
+    return counts
+
+
+def driver_lines(argv):
+    """``launch/train.py``'s ``main(argv)``, its output kept and echoed."""
+    from repro_torch.launch import train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert train.main(argv) == 0
+    text = buf.getvalue()
+    print(text, end="")
+    return text.splitlines()
+
+
+def resume_train(card):
+    """(d) The train driver at ``--preset 100m`` full width, K = 2, B = 8,
+    S = 128, 2 rounds of 1 step: straight through, and killed after round
+    1 then resumed through ``main([..., "--checkpoint-dir", d,
+    "--resume"])``; the resumed run's round-2 snapshot equal leaf for leaf
+    to the straight run's final state, its round line and epsilon equal,
+    its launches one round's. Prints the snapshot's bytes and its save,
+    verify and restore seconds; the directory goes at the end."""
+    from repro_torch.checkpoint import FederationCheckpointer
+    from repro_torch.checkpoint.ckpt import flatten_with_paths, host_array
+    from repro_torch.launch import train
+
+    argv = RESUME_TRAIN_ARGS + ["--rounds", "2"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run, full = train.train(train.parse_args(argv))
+    print(buf.getvalue(), end="")
+    straight = buf.getvalue().splitlines()
+    round_line = next(l for l in straight if l.startswith("[round 2/2]"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        t0 = time.perf_counter()
+        killed = driver_lines(RESUME_TRAIN_ARGS + [
+            "--rounds", "1", "--checkpoint-dir", d])
+        killed_s = time.perf_counter() - t0
+        lines, counts = counted(lambda: driver_lines(argv + [
+            "--checkpoint-dir", d, "--resume"]))
+        expect(counts, **train_launches(run, steps=run.engine.K, evals=1,
+                                        mixes=1, stale=False))
+        resumed_line = next(l for l in lines if l.startswith("[round 2/2]"))
+        assert resumed_line.rsplit("(", 1)[0] == round_line.rsplit("(", 1)[0], \
+            (resumed_line, round_line)
+        assert f"eps={EPSILON_RESUME_TRAIN:.3f}" in resumed_line
+        save_s = [float(re.search(r"in ([0-9.]+) s", l).group(1))
+                  for l in killed + lines if l.startswith("[train] saved")]
+        restore_s = float(re.search(
+            r"restored in ([0-9.]+) s",
+            next(l for l in lines if "resumed from" in l)).group(1))
+        ck = FederationCheckpointer(d)
+        assert ck.saved_rounds() == [1, 2]
+        t0 = time.perf_counter()
+        ck.verify_chain(2)
+        verify_s = time.perf_counter() - t0
+        n_bytes = os.path.getsize(os.path.join(d, "round_000002.npz"))
+        want = flatten_with_paths(run.engine._ckpt_payload(full, 1, 0))
+        with np.load(os.path.join(d, "round_000002.npz")) as z:
+            assert sorted(z.files) == sorted(want), "snapshot keys differ"
+            for key, leaf in want.items():
+                a = host_array(leaf)
+                b = z[key]
+                assert a.dtype == b.dtype and a.shape == b.shape and \
+                    a.tobytes() == b.tobytes(), key
+    print(f"resume phase (d): {run.cfg.name} preset, K = {run.engine.K}, "
+          f"killed after round 1 of 2 ({killed_s:.1f} s) and resumed "
+          f"through main(--checkpoint-dir, --resume): the final state "
+          f"bit-equal leaf for leaf, {resumed_line.split('] ')[1]}; "
+          f"launches {got_nonzero(counts)}")
+    print(f"resume phase (d): one snapshot {n_bytes:,} bytes "
+          f"({n_bytes / 1e9:.3f} GB); save {' / '.join(f'{x:.3f}' for x in save_s)} "
+          f"s, verify (chain + proxy digests) {verify_s:.3f} s, restore "
+          f"(verify included) {restore_s:.3f} s on {card}")
+    return dict(counts=counts, bytes=n_bytes, save_s=save_s,
+                verify_s=verify_s, restore_s=restore_s)
+
+
+def rel_norm_err(got, want) -> float:
+    """||got − want|| / ||want|| over lists of tensors, in f64."""
+    num = sum(float(((a.double() - b.double()) ** 2).sum())
+              for a, b in zip(got, want))
+    return (num / sum(float((b.double() ** 2).sum()) for b in want)) ** 0.5
+
+
+# normwise grades of (e)'s f32 quantities: f32 accumulation in another
+# order; bf16 moments: near-equal values rounded apart by one ulp at most
+FALLBACK_NORM_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+
+
+def dp_adam_fallback_check(spec, x, y, device="cuda"):
+    """(e)'s first half: ``dp_adam_update`` on bf16 params (f32 master
+    copy) with f32 and with bf16 moments, the fallback route (the rows
+    kernels on the per-example gradients widened to f32, the noise add on
+    ``scale_accumulate``'s 1-D route, then ``Adam.update``), from the same
+    state and draws as two plain versions.
+
+    The checked step is Adam's second, from a first step shared by all,
+    so that the update is smooth in the gradient (a first step moves each
+    coordinate by lr·sign(g)). Every leaf is held at bf16 2e-2 against
+    the reference's plain path (``use_pallas=False``, which rounds each
+    clipped gradient to the leaf's bf16). The f32 work of the kernels,
+    p32' − p32 and the moments m and v, is held normwise at
+    ``FALLBACK_NORM_TOL`` against the plain path that does the same
+    arithmetic in f32 (``vectorized=True``: widened gradients, f32 scales,
+    one contraction, no kernel). Two faulted versions of the latter, the
+    noise dropped and the clip turned off (σC kept), must fail that
+    grade: this is what the check can see. Returns, by moment dtype,
+    (the launch counts, the worst bf16-grade abs error, the normwise
+    errors of step, m and v, the faults' worst normwise errors)."""
+    from repro_torch.core import dp
+    from repro_torch.nn.losses import cross_entropy
+    from repro_torch.nn.modules import tree_leaves, tree_map
+    from repro_torch.optim import Adam
+
+    params = tree_map(lambda a: a.to(torch.bfloat16).to(device),
+                      spec.init(torch.Generator().manual_seed(5)))
+    D = sum(a.numel() for a in tree_leaves(params))
+    gen = torch.Generator(device=device).manual_seed(6)
+    noise1, noise2 = (torch.randn((D,), generator=gen, device=device)
+                      for _ in range(2))
+    C, sigma, huge = 1.0, 1.0, 1e9
+
+    def loss(p, b):
+        return cross_entropy(spec.apply(tree_map(lambda a: a.float(), p),
+                                        b[0]), b[1])
+
+    def quantities(s, s1):
+        return ([a - b for a, b in zip(tree_leaves(s.p32),
+                                       tree_leaves(s1.p32))],
+                tree_leaves(s.m), tree_leaves(s.v))
+
+    out = {}
+    for moments in ("float32", "bfloat16"):
+        opt = Adam(lr=1e-3, weight_decay=1e-4, moment_dtype=moments)
+        g1, _ = dp.dp_gradient(loss, params, (x, y), clip_norm=C,
+                               noise_multiplier=sigma, noise=noise1)
+        p1, s1 = opt.update(g1, opt.init(params), params)
+
+        def plain(vectorized=True, **kw):
+            g, _ = dp.dp_gradient(loss, p1, (x, y), use_pallas=False,
+                                  vectorized=vectorized, **kw)
+            return opt.update(g, s1, p1)
+
+        kw = dict(clip_norm=C, noise_multiplier=sigma, noise=noise2)
+        (p2, s2, _), counts = counted(lambda: dp.dp_adam_update(
+            loss, p1, s1, (x, y), opt=opt, **kw))
+        expect(counts, sumsq=1, scale_accumulate=2,
+               **{"sumsq/rows": 1, "scale_accumulate/rows": 1,
+                  "scale_accumulate/vector": 1})
+        want_p, want_s = plain(vectorized=False, **kw)
+        worst = 0.0
+        for a, b in zip(tree_leaves((p2, s2)),
+                        tree_leaves((want_p, want_s))):
+            assert a.dtype == b.dtype
+            worst = max(worst, check(f"dp_adam_update bf16/{moments}",
+                                     a.float(), b.float(), torch.bfloat16))
+        want_q = quantities(plain(**kw)[1], s1)
+        errs = [rel_norm_err(g, w) for g, w in zip(quantities(s2, s1),
+                                                    want_q)]
+        tol = FALLBACK_NORM_TOL[moments]
+        assert max(errs) <= tol, (moments, errs, tol)
+        faults = {
+            "noise dropped": plain(clip_norm=C, noise_multiplier=sigma,
+                                   noise=torch.zeros_like(noise2)),
+            "clip off": plain(clip_norm=huge, noise_multiplier=sigma * C
+                              / huge, noise=noise2)}
+        fault_errs = {}
+        for name, (_, fs) in faults.items():
+            fault_errs[name] = max(rel_norm_err(g, w) for g, w in zip(
+                quantities(fs, s1), want_q))
+            assert fault_errs[name] > tol, (moments, name, fault_errs)
+        out[moments] = (counts, worst, errs, fault_errs)
+    return out
+
+
+def resume_kernels(spec, data, cfg):
+    """(e) ``dp_adam_update`` on bf16 params at the mlp proxy's width
+    (:func:`dp_adam_fallback_check`), launches pinned; ``gossip_proxies``
+    of the main cohort against the plain mix at f32 2e-5, one mix
+    launch."""
+    from repro_torch.core import protocol
+    from repro_torch.core.engine import dml_engine
+    from repro_torch.nn.modules import tree_leaves
+
+    x, y = data[0][0][:MAIN_B], data[0][1][:MAIN_B]
+    checked = dp_adam_fallback_check(spec, x, y)
+    counts = {}
+    for moments, (c, worst, errs, fault_errs) in checked.items():
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        print(f"resume phase (e): dp_adam_update on bf16 params (D = "
+              f"{MAIN_D:,}, B = {MAIN_B}, f32 master copy, {moments} "
+              f"moments), Adam's 2nd step against its plain version: max "
+              f"abs err {worst:.3e} (bf16 2e-2); normwise p32 step / m / v "
+              f"{' / '.join(f'{e:.3e}' for e in errs)} (grade "
+              f"{FALLBACK_NORM_TOL[moments]:.3e}); faulted plain versions "
+              + ", ".join(f"{k} {v:.3e}" for k, v in fault_errs.items())
+              + f" (must exceed the grade); launches {got_nonzero(c)}")
+
+    # gossip_proxies over the main cohort's initial clients, w not all 1
+    eng = dml_engine((spec,) * MAIN_K, spec, cfg, device="cuda")
+
+    def cohort():
+        return [protocol.ClientState(
+            s["private"]["params"], s["private"]["opt"],
+            s["proxy"]["params"], s["proxy"]["opt"], 1.0 + 0.125 * k)
+            for k, s in enumerate(eng.init_states(0))]
+
+    kernel_clients, plain_clients = cohort(), cohort()
+    _, mix_counts = counted(lambda: protocol.gossip_proxies(
+        kernel_clients, 1, cfg))
+    expect(mix_counts, fused_pushsum_mix=1)
+    protocol.gossip_proxies(plain_clients, 1,
+                            dataclasses.replace(cfg, use_pallas=False))
+    worst_mix = 0.0
+    for a, b in zip(kernel_clients, plain_clients):
+        for u, v in zip(tree_leaves(a.proxy_params),
+                        tree_leaves(b.proxy_params)):
+            worst_mix = max(worst_mix, check("gossip_proxies", u, v,
+                                             torch.float32))
+        assert abs(a.w - b.w) <= 2e-5 * (1 + abs(b.w)), (a.w, b.w)
+    print(f"resume phase (e): gossip_proxies of {MAIN_K} proxies (D = "
+          f"{MAIN_D:,}) against the plain mix: max abs err "
+          f"{worst_mix:.3e} (f32 2e-5); launches {got_nonzero(mix_counts)}")
+    return {"bf16 dp_adam_update": counts, "gossip_proxies": mix_counts}
+
+
+def resume_path(setup, card):
+    """The resume phase (module docstring, 11)."""
+    spec, data, test, cfg = setup
+    t0 = time.perf_counter()
+    timings = snapshot_timings(spec, cfg)
+    print(f"resume phase: one main-path snapshot ({MAIN_K} clients, "
+          f"private and proxy mlp with Adam moments) {timings['bytes']:,} "
+          f"bytes ({timings['bytes'] / 1e6:.3f} MB): save "
+          f"{timings['save_ms']:.3f} ms, verify {timings['verify_ms']:.3f} "
+          f"ms, restore (verify included) {timings['restore_ms']:.3f} ms on "
+          f"{card}")
+    main_counts = resume_main(spec, data, test, cfg)
+    res = {"vmap resume": main_counts["vmap"],
+           "loop resume": main_counts["loop"],
+           "async resume": resume_async(spec, data, cfg),
+           "int8 resume": resume_compressed(spec, data, cfg)}
+    trained = resume_train(card)
+    res["preset resume"] = trained["counts"]
+    res.update(resume_kernels(spec, data, cfg))
+    print(f"resume phase: {time.perf_counter() - t0:.1f} s")
     return res
 
 
@@ -3772,6 +4293,7 @@ def main() -> int:
     step_breakdown(*setup)
     serve = serve_path(card)
     trained = train_path(card)
+    resumed = resume_path(setup, card)
 
     # each kernel's launches on the path that runs it
     # the clip pair: its rows route on the main path, its 1-D route in the
@@ -3890,6 +4412,10 @@ def main() -> int:
             out[-1]["device_kernels_per_call"] = step_kernels[name]
         if name == "noise_sgd_step":
             out[-1]["device_kernels_per_call"] = step_kernels[name]
+        # the resume phase's runs: each kernel's launches in the resumed
+        # part of each killed run, and in (e)'s two calls
+        out[-1]["launches_resume"] = {
+            run: c.get(launch_key(name), 0) for run, c in resumed.items()}
         if before_after and row_of.get(name, name) in before_after:
             out[-1]["before_after"] = before_after[row_of.get(name, name)]
     for row, r in rows.items():

@@ -9,15 +9,19 @@ seed, the partitioners and each figure's set-up are the reference's.
 ``bench_methods`` takes the knobs the ported drivers set, each at the
 reference's default; the others are fixed at the reference's defaults,
 but for ``use_pallas``, on here so that the runs go through the port's
-kernels.
+kernels. The checkpoint knobs and their environment variables
+(``REPRO_BENCH_CKPT_DIR``, ``REPRO_BENCH_CKPT_EVERY``,
+``REPRO_BENCH_RESUME``) are the reference's.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 import zlib
-from typing import Callable, Dict, Iterable, Iterator, List, Sequence
+from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence)
 
 import numpy as np
 import torch
@@ -43,6 +47,19 @@ DATASETS = {
     "camelyon": dict(shape=(32, 32, 3), n_classes=2, per_client=700,
                      p_major=None, dirichlet=1.0, sep=0.4),
 }
+
+
+def _env_int(name: str) -> int:
+    raw = os.environ.get(name, "").strip()
+    try:
+        return int(raw) if raw else 0
+    except ValueError:
+        raise SystemExit(f"{name} must be an integer, got {raw!r}")
+
+
+def _env_flag(name: str) -> bool:
+    return os.environ.get(name, "").strip().lower() in ("1", "true", "yes",
+                                                        "on")
 
 
 def spec_of(name: str, shape, n_classes) -> ModelSpec:
@@ -145,6 +162,8 @@ def method_setup(dataset: str, n_clients: int, seed: int, *, rounds: int,
 
 def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
                   rounds: int, seeds: Sequence[int], device="cuda",
+                  checkpoint_dir: Optional[str] = None,
+                  checkpoint_every: int = 0, resume: Optional[bool] = None,
                   **knobs) -> List[Dict]:
     """One row per method (and a ``-proxy`` row for ProxyFL and FML) with
     the reference's keys: the final test accuracy's mean and spread over
@@ -158,7 +177,19 @@ def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
     ``dropout_rate``, ``n_train_factor`` and the compressed exchange
     ``compress`` (``"none"``, ``"topk"`` or ``"int8"``, at the config's
     ratio). The DP steps and the uncompressed mix run the port's kernels
-    on a CUDA device (their plain versions on the CPU)."""
+    on a CUDA device (their plain versions on the CPU).
+
+    ``checkpoint_dir`` makes every (method, seed) run snapshot its complete
+    federation every ``checkpoint_every`` rounds (0: every round) under
+    ``<dir>/<dataset>/<method>_s<seed>``; with ``resume`` a preempted
+    benchmark restarts mid-run and finishes bit-identically to an
+    uninterrupted one. Unset, each reads its environment variable:
+    ``REPRO_BENCH_CKPT_DIR``, ``REPRO_BENCH_CKPT_EVERY``,
+    ``REPRO_BENCH_RESUME`` (``1``, ``true``, ``yes`` or ``on``)."""
+    checkpoint_dir = checkpoint_dir or os.environ.get("REPRO_BENCH_CKPT_DIR")
+    checkpoint_every = checkpoint_every or _env_int("REPRO_BENCH_CKPT_EVERY")
+    if resume is None:
+        resume = _env_flag("REPRO_BENCH_RESUME")
     rows = []
     for method in methods:
         accs, proxy_accs, eps_out = [], [], None
@@ -169,7 +200,10 @@ def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
                 **knobs)
             res = run_federated(
                 method, [priv] * n_clients, prox, client_data, test, cfg,
-                seed=seed, eval_every=rounds, device=device)
+                seed=seed, eval_every=rounds, device=device,
+                checkpoint_dir=(os.path.join(checkpoint_dir, dataset)
+                                if checkpoint_dir else None),
+                checkpoint_every=checkpoint_every, resume=resume)
             row = res["history"][-1]
             accs.extend(row["private_acc" if "private_acc" in row else "acc"])
             proxy_accs.extend(row.get("proxy_acc", []))

@@ -225,7 +225,8 @@ class DPConfig:
     noise_multiplier: float = 1.0  # sigma
     delta: float = 1e-5
     sample_rate: float = 0.0  # q; 0 -> batch/dataset size at runtime
-    vectorized: bool = False  # vmap-over-the-batch mode (not ported yet)
+    vectorized: bool = False  # all units clipped in one contraction (same
+    # result; plain torch, it launches no kernel: core/dp.py)
 
 
 @dataclass(frozen=True)

@@ -24,12 +24,16 @@ ProxyFL and FML take heterogeneous private architectures (fig. 5b) on the
 loop backend, and every method takes ragged (size-skewed) cohorts. The
 compressed exchange (``cfg.compress``) and commitment verification
 (``cfg.verify_commitments``, with the ``transmit_tamper`` adversary) ride
-in on the config. Checkpoints, the hier backend and round-blocks are not
-ported (ROADMAP.md Queue 1).
+in on the config. ``checkpoint_dir`` snapshots the federation and
+``resume`` continues it bit for bit (:mod:`repro_torch.checkpoint`, the
+reference's files). Round-blocks (``rounds_per_block``) come with the
+fused blocks of ROADMAP.md Queue 1 item 5, and the hier backend with
+item 10.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..checkpoint.federation import FederationCheckpointer, config_fingerprint
 from ..configs import ProxyFLConfig
 from ..data.ragged import pad_compatible
 from .accountant import PrivacyAccountant
@@ -98,6 +103,33 @@ def _accountants(cfg: ProxyFLConfig, sizes: Sequence[int]
         cfg.dp.delta) for n in sizes]
 
 
+def _checkpointer(checkpoint_dir, checkpoint_every, method: str,
+                  cfg: ProxyFLConfig, seed: int,
+                  private_specs: Sequence[ModelSpec], proxy_spec: ModelSpec,
+                  K: int) -> Optional[FederationCheckpointer]:
+    """Per-(method, seed) checkpoint directory under ``checkpoint_dir``,
+    fingerprinted (config + model identities, the reference's extras) so
+    a resume under a different configuration or architecture refuses."""
+    if not checkpoint_dir:
+        return None
+    fp = config_fingerprint(cfg, method=method, seed=seed, n_clients=K,
+                            private=[s.name for s in private_specs[:K]],
+                            proxy=proxy_spec.name)
+    return FederationCheckpointer(
+        os.path.join(checkpoint_dir, f"{method}_s{seed}"),
+        every=checkpoint_every or 1, fingerprint=fp,
+        verify=cfg.verify_commitments)
+
+
+def _eval_row(engine, state, round_no: int, roles, xt, yt) -> Dict:
+    """One history row: ``roles`` is a list of (history key, spec(s),
+    engine role) triples."""
+    row: Dict = {"round": round_no}
+    for key, specs, role in roles:
+        row[key] = _eval_clients(engine, state, specs, role, xt, yt)
+    return row
+
+
 def run_federated(
     method: str,
     private_specs: Sequence[ModelSpec],
@@ -110,6 +142,9 @@ def run_federated(
     eval_every: int = 1,
     use_pallas: Optional[bool] = None,
     backend: Optional[str] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
     device="cuda",
     transmit_tamper=None,
 ) -> Dict:
@@ -144,7 +179,15 @@ def run_federated(
     checks received proxies against their senders' commitments before
     mixing on the loop backend; ``transmit_tamper`` injects a wire
     adversary there (``(flat [K, D] numpy, t) -> flat``, e.g.
-    :func:`repro_torch.core.attacks.bitflip_proxy`)."""
+    :func:`repro_torch.core.attacks.bitflip_proxy`).
+
+    ``checkpoint_dir`` snapshots the
+    complete federation every ``checkpoint_every`` rounds (0: every round)
+    under ``<dir>/<method>_s<seed>``, in the reference's files;
+    ``resume=True`` restarts from the newest snapshot there and replays the
+    remaining rounds bit-identically to an uninterrupted run (``history``
+    then covers the resumed rounds only, or holds one final row when the
+    snapshot is already at the horizon)."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     dev = resolve_device(device)
@@ -152,6 +195,8 @@ def run_federated(
         cfg = dataclasses.replace(cfg, use_pallas=use_pallas)
     backend = _resolve_backend(backend, cfg, client_data)
     K = len(client_data)
+    ckpt = _checkpointer(checkpoint_dir, checkpoint_every, method, cfg,
+                         seed, private_specs, proxy_spec, K)
     data = [(x.to(dev), y.to(dev)) for x, y in client_data]
     xt, yt = (t.to(dev) for t in test_data)
 
@@ -174,17 +219,27 @@ def run_federated(
         roles = [("acc", proxy_spec, "proxy")]
     accs = _accountants(cfg, [d[0].shape[0] for d in data])
     engine.attach_accountants(accs)
+    # assigned unconditionally, so that no earlier run's adversary can
+    # reach this run's exchange
     engine.transmit_tamper = transmit_tamper
     state = engine.init_states(seed)
+    start = 0
+    if ckpt is not None and resume:
+        restored = ckpt.restore_latest(engine, like=state, seed=seed)
+        if restored is not None:
+            state, start = restored
     history: List[Dict] = []
-    for t in range(cfg.rounds):
+    for t in range(start, cfg.rounds):
         state, _ = engine.run_round(state, data, t, seed)
+        if ckpt is not None:
+            ckpt.maybe_save(engine, state, t, seed=seed)
         done = t + 1
         if (eval_every > 0 and done % eval_every == 0) or done == cfg.rounds:
-            row: Dict = {"round": done}
-            for key, specs, role in roles:
-                row[key] = _eval_clients(engine, state, specs, role, xt, yt)
-            history.append(row)
+            history.append(_eval_row(engine, state, done, roles, xt, yt))
+    if not history:
+        # a resume landed at (or past) the horizon: no round ran, but
+        # callers still expect a final evaluation row
+        history.append(_eval_row(engine, state, start, roles, xt, yt))
     states = engine.export_states(state)
     if method in ("proxyfl", "fml"):
         clients: List = [

@@ -15,12 +15,17 @@ Everything is host-side ``hashlib`` and ``numpy`` over canonical bytes, so
 identical params give string-equal digests in this package and in the
 reference: a torch leaf goes ``.detach().cpu()``, bf16 widened to f32,
 then to a contiguous numpy array; the leaf paths are the reference's
-'/'-joined key paths (:func:`flatten_with_paths`). The engine's loop
+'/'-joined key paths
+(:func:`repro_torch.checkpoint.ckpt.flatten_with_paths`). The engine's loop
 backend verifies received proxies against their senders' declared
 commitments under ``cfg.verify_commitments``
 (:meth:`repro_torch.core.engine.FederationEngine._verified_exchange`).
-The checkpointer that stamps the chain into snapshots is not ported yet
-(ROADMAP.md Queue 1 item 7).
+:class:`repro_torch.checkpoint.FederationCheckpointer` stamps
+``commitment``/``prev_commitment`` into every snapshot's ``.meta.json``,
+appends one entry per snapshot (client commitments and leaf digests,
+:func:`snapshot_client_digests` over the npz it wrote) to
+``audit.jsonl`` with :func:`chain_step`, and replays the chain and
+recomputes the restored round's digests before a restore.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ import json
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
-import torch
+
+from ..checkpoint.ckpt import flatten_with_paths, host_array
 
 # the chain's anchor: h_0's predecessor, a fixed public constant
 GENESIS = "0" * 64
@@ -60,53 +66,13 @@ class CommitmentError(ValueError):
         self.client = client
 
 
-def _path_items(tree, prefix: Tuple[str, ...] = ()):
-    """(path, leaf) pairs in the reference's flatten order: dict keys
-    sorted, sequences by ``[index]``, NamedTuples by field name; None is an
-    empty subtree."""
-    if tree is None:
-        return
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _path_items(tree[k], prefix + (str(k),))
-    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        for name, v in zip(tree._fields, tree):
-            yield from _path_items(v, prefix + (name,))
-    elif isinstance(tree, (tuple, list)):
-        for i, v in enumerate(tree):
-            yield from _path_items(v, prefix + (f"[{i}]",))
-    else:
-        yield "/".join(prefix), tree
-
-
-def flatten_with_paths(tree) -> Dict[str, Any]:
-    """Leaf dict keyed by '/'-joined path, the reference checkpoint's key
-    convention (``src/repro/checkpoint/ckpt.py::_flatten_with_paths``);
-    refuses colliding paths, which would drop a leaf."""
-    flat: Dict[str, Any] = {}
-    for key, leaf in _path_items(tree):
-        if key in flat:
-            raise ValueError(
-                f"pytree produces duplicate checkpoint key path {key!r}; "
-                "rename the colliding nodes before checkpointing")
-        flat[key] = leaf
-    return flat
-
-
 def canon_array(v) -> np.ndarray:
-    """The canonical array a leaf is committed to: a torch leaf detached
-    and on the host, bf16 and other exotic dtypes widened to f32,
+    """The canonical array a leaf is committed to: what
+    :func:`repro_torch.checkpoint.ckpt.save_checkpoint` stores (a torch
+    leaf on the host, bf16 and other exotic dtypes widened to f32),
     contiguous; byte-identical to the reference's canonical array of the
-    same values."""
-    if isinstance(v, torch.Tensor):
-        v = v.detach().cpu()
-        if v.dtype == torch.bfloat16:
-            v = v.to(torch.float32)
-        v = v.numpy()
-    a = np.asarray(v)
-    if a.dtype.kind not in "fiub" or str(a.dtype) == "bfloat16":
-        a = a.astype(np.float32)
-    return np.ascontiguousarray(a)
+    same values, so live-state and npz-recomputed commitments agree."""
+    return np.ascontiguousarray(host_array(v))
 
 
 def leaf_digest(arr, chunk_bytes: int = CHUNK_BYTES) -> str:

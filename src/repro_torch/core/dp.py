@@ -4,7 +4,11 @@ Per-example gradients come from ``torch.func.vmap(grad)`` over the batch.
 Each one is clipped to L2 norm C in example order — the order of the
 reference's ``lax.scan``, so the clipped sums round alike — the clipped
 gradients are summed, and Gaussian noise N(0, σ²C²) is added once to the
-sum before dividing by B.
+sum before dividing by B. ``microbatch`` > 1 makes a DP unit of that many
+examples (the mean loss over the group, its gradient clipped as one; the
+guarantee is then per group) and divides by the ``B // microbatch``
+units. ``vectorized=True`` clips and sums the units in one contraction
+(the reference's vmap mode; plain torch, whatever ``use_pallas`` says).
 
 The noise is an argument: a flat ``[D]`` vector of N(0, 1) draws in
 :func:`repro_torch.nn.modules.tree_flatten_vector` order. When it is
@@ -21,12 +25,13 @@ reads a device value on the host.
 
 :func:`dp_gradient_chunked` is the LLM step's DP gradient (plain torch, a
 batch tree in chunks, a hook for the peer logits once per chunk);
-:func:`non_dp_gradient` takes the plain mean gradient, over ``accum``
-microbatches when asked.
+:func:`dp_gradient_poisson` is Eq. (7) under exact Poisson subsampling
+(a masked padded batch, the mean over the EXPECTED batch size; plain
+torch, as the reference's); :func:`non_dp_gradient` takes the plain mean
+gradient, over ``accum`` microbatches when asked.
 """
 from __future__ import annotations
 
-from functools import reduce
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -80,31 +85,44 @@ def add_gaussian_noise(tree: Params, noise: torch.Tensor,
         tree, draws)
 
 
-def _per_example(loss_fn: LossFn, params: Params, batch: Any):
-    """(losses [B], grads with a leading B dim): each example's gradient of
-    ``loss_fn`` on a batch of one, as the reference's scan takes it."""
-    def unit_loss(p, ex):
-        return loss_fn(p, tuple(t[None] for t in ex))
-
-    grads, losses = vmap(grad_and_value(unit_loss), in_dims=(None, 0))(
-        params, tuple(batch))
+def _per_example(loss_fn: LossFn, params: Params, batch: Any,
+                 microbatch: int = 1):
+    """(losses [n_units], grads with a leading n_units dim): each unit's
+    gradient of ``loss_fn`` on its ``microbatch`` consecutive examples, as
+    the reference's scan takes them (one example a unit by default)."""
+    B = _batch_size(batch)
+    if B % microbatch:
+        raise ValueError(f"batch {B} is not a multiple of microbatch "
+                         f"{microbatch}")
+    units = tree_map(lambda x: x.reshape((B // microbatch, microbatch)
+                                         + tuple(x.shape[1:])), batch)
+    grads, losses = vmap(grad_and_value(loss_fn), in_dims=(None, 0))(
+        params, units)
     return losses, grads
+
+
+def _unit_norms(grads, n: int) -> torch.Tensor:
+    """[n] f32 global L2 norms of the per-unit gradients."""
+    return torch.sqrt(sum(
+        torch.sum(torch.square(g.to(torch.float32)).reshape(n, -1), dim=1)
+        for g in tree_leaves(grads)))
 
 
 def _flat_clip_accumulate(losses, grads, clip_norm: float, D: int,
                           device) -> Tuple[torch.Tensor, Dict]:
     """The kernel path's clip and accumulate, the reference's per-unit scan
-    in two launches: the flat per-example gradients as one [B, D] matrix
-    (row stride padded to whole 128-byte cache lines, so the kernels read
-    each row in whole lines), every row's norm, the clip scales formed on
-    the device, then the clipped sum over the rows in example order into
-    f32."""
+    in two launches: the flat per-unit gradients as one [B, D] f32 matrix
+    (bf16 gradients widened exactly, as the reference's kernels take them
+    in f32; row stride padded to whole 128-byte cache lines, so the
+    kernels read each row in whole lines), every row's norm, the clip
+    scales formed on the device, then the clipped sum over the rows in
+    unit order into f32."""
     leaves = tree_leaves(grads)
     B = losses.shape[0]
-    dtype = reduce(torch.promote_types, (g.dtype for g in leaves))
-    per_line = 128 // torch.empty((), dtype=dtype).element_size()
-    pad = torch.empty((B, -D % per_line), dtype=dtype, device=device)
-    flat = torch.cat([g.reshape(B, -1) for g in leaves] + [pad], dim=1)
+    f32 = torch.float32
+    pad = torch.empty((B, -D % 32), dtype=f32, device=device)
+    flat = torch.cat([g.reshape(B, -1).to(f32) for g in leaves] + [pad],
+                     dim=1)
     flat = flat[:, :D]
     norms = torch.sqrt(sumsq_rows(flat))
     scales = 1.0 / torch.clamp(norms / clip_norm, min=1.0)
@@ -122,6 +140,7 @@ def dp_gradient(
     noise_multiplier: float,
     noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    microbatch: int = 1,
     vectorized: bool = False,
     use_pallas: bool = False,
 ) -> Tuple[Params, Dict]:
@@ -129,18 +148,25 @@ def dp_gradient(
 
     ``use_pallas`` runs the clip-and-accumulate and the noise add through
     the kernels over flat vectors; the plain path clips tree-structured
-    gradients with :func:`clip_by_global_norm`. Both are allclose (the
-    difference is summation order only)."""
-    if vectorized:
-        raise NotImplementedError(
-            "dp_gradient vectorized mode is not ported yet (ROADMAP.md "
-            "Queue 1 item 6)")
-    losses, grads = _per_example(loss_fn, params, batch)
-    B = losses.shape[0]
+    gradients with :func:`clip_by_global_norm` unit by unit. Both are
+    allclose (the difference is summation order only). ``vectorized``
+    clips all units' gradients in one contraction, in plain torch (it
+    ignores ``use_pallas`` and launches no kernel, as the reference's
+    vmap mode ignores its flag)."""
+    losses, grads = _per_example(loss_fn, params, batch, microbatch)
+    n_units = losses.shape[0]
     stddev = noise_multiplier * clip_norm
     noise = _draw_noise(params, noise, generator)
     zero = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
                                           device=x.device), params)
+    if vectorized:
+        norms = _unit_norms(grads, n_units)
+        scales = 1.0 / torch.clamp(norms / clip_norm, min=1.0)
+        acc = tree_map(lambda g: torch.einsum(
+            "b...,b->...", g.to(torch.float32), scales), grads)
+        noisy = add_gaussian_noise(acc, noise, stddev)
+        return tree_map(lambda x: x / n_units, noisy), {
+            "loss": torch.mean(losses), "mean_grad_norm": torch.mean(norms)}
     if use_pallas:
         acc, metrics = _flat_clip_accumulate(
             losses, grads, clip_norm, noise.shape[0], noise.device)
@@ -148,17 +174,17 @@ def dp_gradient(
         sigma = torch.full((), stddev, dtype=torch.float32,
                            device=noise.device)
         noisy = scale_accumulate(acc, noise, sigma)
-        return tree_unflatten_vector(noisy / B, zero), metrics
+        return tree_unflatten_vector(noisy / n_units, zero), metrics
     acc, norms = zero, []
-    for i in range(B):
+    for i in range(n_units):
         g_clip, norm = clip_by_global_norm(tree_map(lambda g: g[i], grads),
                                            clip_norm)
         acc = tree_map(lambda a, x: a + x.to(torch.float32), acc, g_clip)
         norms.append(norm)
     noisy = add_gaussian_noise(acc, noise, stddev)
-    metrics = {"loss": losses.sum() / B,
-               "mean_grad_norm": torch.stack(norms).sum() / B}
-    return tree_map(lambda x: x / B, noisy), metrics
+    metrics = {"loss": losses.sum() / n_units,
+               "mean_grad_norm": torch.stack(norms).sum() / n_units}
+    return tree_map(lambda x: x / n_units, noisy), metrics
 
 
 def dp_adam_update(
@@ -172,6 +198,7 @@ def dp_adam_update(
     noise_multiplier: float,
     noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    microbatch: int = 1,
 ) -> Tuple[Params, AdamState, Dict]:
     """Fused DP-SGD + Adam step: the clip and accumulate of
     ``sumsq_rows`` / ``clip_accumulate_rows``, then ``noise_adam_step``
@@ -179,15 +206,20 @@ def dp_adam_update(
     bias-corrected step in one pass. Returns
     ``(params', opt_state', metrics)``.
 
-    The fused chain repeats Adam's f32 update only; non-f32 params or
-    moments (the reference's fallback at ``src/repro/core/dp.py:192-203``)
-    are not ported yet and raise."""
+    The fused chain repeats Adam's f32 update only, so non-f32 params, a
+    master copy (``p32``) or non-f32 moments take the reference's
+    fallback: ``dp_gradient(use_pallas=True)`` (the rows kernels on the
+    per-unit gradients widened to f32, the noise add on
+    ``scale_accumulate``'s 1-D route) and then ``opt.update``."""
     if opt.moment_dtype != "float32" or opt_state.p32 is not None or any(
             x.dtype != torch.float32 for x in tree_leaves(params)):
-        raise NotImplementedError(
-            "dp_adam_update on non-f32 params or moments is not ported yet "
-            "(ROADMAP.md Queue 1 item 6)")
-    losses, grads = _per_example(loss_fn, params, batch)
+        grad, metrics = dp_gradient(
+            loss_fn, params, batch, clip_norm=clip_norm,
+            noise_multiplier=noise_multiplier, noise=noise,
+            generator=generator, microbatch=microbatch, use_pallas=True)
+        params2, opt2 = opt.update(grad, opt_state, params)
+        return params2, opt2, metrics
+    losses, grads = _per_example(loss_fn, params, batch, microbatch)
     p_flat = tree_flatten_vector(params)
     acc, metrics = _flat_clip_accumulate(losses, grads, clip_norm,
                                          p_flat.shape[0], p_flat.device)
@@ -256,9 +288,7 @@ def dp_gradient_chunked(
         with torch.no_grad():
             cb = prepare_chunk(_rows(batch, i * chunk, chunk))
         grads, losses = per_example(params, cb)
-        norms = torch.sqrt(sum(
-            torch.sum(torch.square(g.to(torch.float32)).reshape(chunk, -1),
-                      dim=1) for g in tree_leaves(grads)))
+        norms = _unit_norms(grads, chunk)
         scales = (1.0 / torch.clamp(norms / clip_norm, min=1.0)).to(
             torch.float32)
         acc = tree_map(lambda a, g: a + torch.einsum(
@@ -269,6 +299,40 @@ def dp_gradient_chunked(
     noisy = add_gaussian_noise(acc, noise, noise_multiplier * clip_norm)
     grad = tree_map(lambda x: x / B, noisy)
     return grad, {"loss": loss_sum / B, "mean_grad_norm": norm_sum / B}
+
+
+def dp_gradient_poisson(
+    loss_fn: LossFn,
+    params: Params,
+    batch: Any,
+    mask: torch.Tensor,
+    *,
+    clip_norm: float,
+    noise_multiplier: float,
+    expected_batch: float,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[Params, Dict]:
+    """Eq. (7) under EXACT Poisson subsampling (Yu et al. 2019): the
+    clipped per-example gradients of the masked examples (``mask`` [max_B],
+    1.0 a real example, 0.0 padding; the batch from
+    :func:`repro_torch.data.loader.poisson_batch`) are summed, Gaussian
+    noise N(0, σ²C²) added once, and the sum divided by the EXPECTED batch
+    size qN, the estimator whose sensitivity the sampled-Gaussian RDP
+    accountant analyzes. Padding contributes exactly zero. Plain torch, as
+    the reference's."""
+    losses, grads = _per_example(loss_fn, params, batch)
+    norms = _unit_norms(grads, losses.shape[0])
+    mask = mask.to(torch.float32)
+    scales = mask / torch.clamp(norms / clip_norm, min=1.0)
+    acc = tree_map(lambda g: torch.einsum(
+        "b...,b->...", g.to(torch.float32), scales), grads)
+    noisy = add_gaussian_noise(acc, _draw_noise(params, noise, generator),
+                               noise_multiplier * clip_norm)
+    grad = tree_map(lambda x: x / expected_batch, noisy)
+    n_real = torch.clamp(torch.sum(mask), min=1.0)
+    return grad, {"loss": torch.sum(losses * mask) / n_real,
+                  "mean_grad_norm": torch.sum(norms * mask) / n_real}
 
 
 def non_dp_gradient(loss_fn: LossFn, params: Params, batch: Any, *,

@@ -65,6 +65,21 @@ COMPRESS_KEY_FOLD)``. The replay hooks ``draws(k, t, s) -> (batch_idx,
 flat_noise)`` and ``codec_draws(t) -> noise`` replace the generators:
 parity tests feed the reference's draws through them. The dropout masks
 are the reference's own numpy draws, seeded from ``(cfg.seed, t)``.
+
+Checkpoints
+-----------
+:meth:`FederationEngine.save_state` / :meth:`~FederationEngine.restore_state`
+write and read the reference's snapshot payload (per-client states keyed
+``c0000…``, ``rounds_done``, ``accountant_steps``, the base key's words
+and ``base_key_set``; the in-flight buffers at τ > 0 and the public copies
+under compression), so a snapshot moves between the two frameworks.
+Every draw above is seeded afresh from ``(seed, t, k, s)`` or ``(seed,
+t)``, so a resume needs no generator state and none is saved: round t of
+a resumed run draws what round t of the uninterrupted run drew. The base
+key is stored as the words of ``jax.random.PRNGKey(seed)``, ``[0, seed]``
+for 0 ≤ seed < 2³² (:func:`seed_key_words`): a JAX run and a port run
+under the same seed pass each other's key check, another seed is
+refused.
 """
 from __future__ import annotations
 
@@ -74,6 +89,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..checkpoint.ckpt import load_checkpoint, save_checkpoint
 from ..configs import ProxyFLConfig
 from ..nn.modules import (tree_flatten_vector, tree_leaves, tree_map,
                           tree_size, tree_unflatten_vector)
@@ -103,6 +119,38 @@ def stream_seed(*words: int) -> int:
     state = np.random.SeedSequence([int(w) for w in words]).generate_state(
         1, np.uint64)
     return int(state[0]) & ((1 << 63) - 1)
+
+
+def seed_key_words(seed: Optional[int]) -> np.ndarray:
+    """uint32[2] base-key words a snapshot records for a run's ``seed``:
+    those of ``jax.random.PRNGKey(seed)`` (threefry's ``[seed >> 32, seed
+    & 0xFFFFFFFF]``, i.e. ``[0, seed]`` here), zeros for None. A seed
+    outside [0, 2³²) has no such pair of words and is refused."""
+    if seed is None:
+        return np.zeros((2,), np.uint32)
+    seed = int(seed)
+    if not 0 <= seed < 1 << 32:
+        raise ValueError(
+            f"seed {seed} is outside [0, 2**32): a checkpoint records the "
+            "base key as the two uint32 words of jax.random.PRNGKey(seed)")
+    return np.asarray([0, seed], np.uint32)
+
+
+def step_draws(seed: int, k: int, t: int, s: int, device,
+               draws: Optional[DrawsFn] = None):
+    """(generator, batch_idx, noise) of client k's local step s in round
+    t: a fresh generator on ``device`` seeded from (seed, ROUND_KEY_OFFSET
+    + t, k, s), or the replay hook's draws on the device."""
+    if draws is None:
+        gen = torch.Generator(device=device).manual_seed(
+            stream_seed(seed, ROUND_KEY_OFFSET + t, k, s))
+        return gen, None, None
+    idx, noise = draws(k, t, s)
+    idx = torch.as_tensor(np.array(idx), dtype=torch.int64, device=device)
+    if noise is not None:
+        noise = torch.as_tensor(np.array(noise), dtype=torch.float32,
+                                device=device)
+    return None, idx, noise
 
 
 def active_mask(t: int, n_clients: int, cfg: ProxyFLConfig
@@ -302,6 +350,78 @@ class FederationEngine:
         assert len(accountants) == self.K
         self.accountants = list(accountants)
 
+    # -- checkpointing -------------------------------------------------------
+
+    def _ckpt_payload(self, state, t: int, seed: Optional[int]) -> Dict:
+        """The reference's snapshot tree: per-client states, the round
+        counter, per-client accountant step counts, the base key's words
+        and whether a key was recorded. The same method produces the
+        restore template, so save and restore always agree on structure."""
+        clients = {f"c{k:04d}": s
+                   for k, s in enumerate(self.export_states(state))}
+        steps = np.asarray([a.steps if a is not None else 0
+                            for a in self.accountants], np.int32)
+        payload = {"clients": clients,
+                   "rounds_done": np.asarray(t + 1, np.int32),
+                   "accountant_steps": steps,
+                   "base_key": seed_key_words(seed),
+                   # explicit flag: seed 0's key words are all zeros, so
+                   # the words alone cannot mean "no key recorded"
+                   "base_key_set": np.asarray(seed is not None, np.uint8)}
+        if self._stale:
+            # the in-flight buffer is federation state: rounds t+1..t+τ
+            # deliver sends recorded here (a τ-mismatched or sync snapshot
+            # fails the key/shape match with a descriptive error)
+            payload["stale_theta"] = state["stale_theta"]
+            payload["stale_w"] = state["stale_w"]
+        if self._compressed:
+            # the public copies too: round t+1 transmits C(m − ef_state)
+            # and receivers mix ef_state itself (a resume across a
+            # compression change is refused by the config fingerprint)
+            payload["compress_ef_state"] = state["ef_state"]
+        return payload
+
+    def save_state(self, path: str, state, t: int,
+                   seed: Optional[int] = None) -> str:
+        """Write a complete-federation snapshot after completed round ``t``
+        of a run under base ``seed`` (see
+        :mod:`repro_torch.checkpoint.federation`)."""
+        save_checkpoint(path, self._ckpt_payload(state, t, seed))
+        return path
+
+    def restore_state(self, path: str, like=None, seed: Optional[int] = None
+                      ) -> Tuple[Any, int]:
+        """Bit-exact inverse of :meth:`save_state`; returns ``(state,
+        rounds_done)`` in this engine's layout, each leaf in the
+        template's dtype and on its device. ``like`` is a template state
+        (default: a throwaway ``init_states(0)``; at LLM sizes pass the
+        run's own). Attached accountants get their step counters back;
+        ``seed`` is checked against the recorded base key."""
+        if like is None:
+            like = self.init_states(0)
+        loaded = load_checkpoint(path, self._ckpt_payload(like, 0, None))
+        clients = [loaded["clients"][f"c{k:04d}"] for k in range(self.K)]
+        state: Any = clients
+        if self._wrapped:
+            state = {"clients": clients}
+            if self._stale:
+                state["stale_theta"] = loaded["stale_theta"]
+                state["stale_w"] = loaded["stale_w"]
+            if self._compressed:
+                state["ef_state"] = loaded["compress_ef_state"]
+        rounds_done = int(loaded["rounds_done"])
+        steps = np.asarray(loaded["accountant_steps"])
+        for k, acc in enumerate(self.accountants):
+            if acc is not None:
+                acc.steps = int(steps[k])
+        saved_key = np.asarray(loaded["base_key"], np.uint32)
+        if seed is not None and bool(loaded["base_key_set"]) and \
+                not np.array_equal(saved_key, seed_key_words(seed)):
+            raise ValueError(
+                f"checkpoint {path!r} was written under a different base RNG "
+                "key; resuming would change the round key schedule")
+        return state, rounds_done
+
     # -- round execution ----------------------------------------------------
 
     def n_steps(self, data_k) -> int:
@@ -312,21 +432,6 @@ class FederationEngine:
             return self.cfg.local_steps
         n = tree_leaves(data_k)[0].shape[0]
         return max(1, n // self.cfg.batch_size)
-
-    def _step_draws(self, seed: int, k: int, t: int, s: int):
-        """(generator, batch_idx, noise) of client k's step s in round t:
-        a fresh generator, or the replay hook's draws on the device."""
-        if self.draws is None:
-            gen = torch.Generator(device=self.device).manual_seed(
-                stream_seed(seed, ROUND_KEY_OFFSET + t, k, s))
-            return gen, None, None
-        idx, noise = self.draws(k, t, s)
-        idx = torch.as_tensor(np.array(idx), dtype=torch.int64,
-                              device=self.device)
-        if noise is not None:
-            noise = torch.as_tensor(np.array(noise), dtype=torch.float32,
-                                    device=self.device)
-        return None, idx, noise
 
     def run_round(self, state, data: Sequence, t: int, seed: int,
                   active=None) -> Tuple[Any, Dict[str, np.ndarray]]:
@@ -349,7 +454,8 @@ class FederationEngine:
             s = states[k]
             m: Dict = {}
             for i in range(self.n_steps(data[k])):
-                gen, idx, noise = self._step_draws(seed, k, t, i)
+                gen, idx, noise = step_draws(seed, k, t, i, self.device,
+                                             self.draws)
                 batch = self.sample_fn(data[k], gen, idx)
                 s, m = self.step_fns[k](s, batch, gen, noise)
             states[k] = s

@@ -82,3 +82,12 @@ def make_lm_data(seed: int, n_tokens: int, vocab: int, *, domain: int = 0,
                   vocab - 1)
         out[i] = tok
     return torch.from_numpy(out)
+
+
+def lm_examples(stream: torch.Tensor, seq_len: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chop a stream into (inputs, next-token labels) examples."""
+    n = (stream.shape[0] - 1) // seq_len
+    x = stream[: n * seq_len].reshape(n, seq_len)
+    y = stream[1: n * seq_len + 1].reshape(n, seq_len)
+    return x, y

@@ -22,10 +22,18 @@ runs on the GPU (``--use-pallas``: the exchange's mix kernel, and the
 RMSNorm, attention and scan kernels in the forwards no gradient passes
 through), or on the CPU with ``--device cpu`` (the kernels' plain
 versions). ``--rounds-per-block`` cuts the rounds into blocks as the
-reference does (the host evaluates and prints at block edges); the engine
-runs a block's rounds one by one (fused blocks: ROADMAP.md Queue 1 item
-5). ``--backend hier``, ``--n-shards > 1``, ``--checkpoint-dir`` and
-``--resume`` are not ported and refuse, naming their ROADMAP.md item.
+reference does (the host evaluates, checkpoints and prints at block
+edges); the engine runs a block's rounds one by one (fused blocks:
+ROADMAP.md Queue 1 item 5). ``--checkpoint-dir D`` snapshots the
+federation every ``--checkpoint-every`` rounds in the reference's files
+(:mod:`repro_torch.checkpoint`), and ``--resume`` continues a killed run
+from the newest snapshot there, bit for bit:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --preset 100m \
+        --rounds 10 --use-pallas --checkpoint-dir ckpt/run0 --resume
+
+``--backend hier`` and ``--n-shards > 1`` are not ported and refuse,
+naming their ROADMAP.md item.
 
 Each client's corpus is a token stream from its own bigram chain (domain
 = client id), cut into sequences of ``--seq + 1`` tokens; the test stream
@@ -38,13 +46,15 @@ embeddings, as the model's frontend stub takes them).
 from __future__ import annotations
 
 import argparse
+import os
 import time
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..checkpoint import FederationCheckpointer, config_fingerprint
 from ..configs import get_config, list_archs, proxy_of, smoke_variant
 from ..configs.base import DPConfig, LayerSpec, ModelConfig, ProxyFLConfig
 from ..core.accountant import PrivacyAccountant
@@ -58,8 +68,7 @@ from .steps import StepOptions, init_train_state, make_train_step
 
 # the flags of the reference's driver that this port refuses, with the
 # ROADMAP.md Queue 1 item that brings each
-_UNPORTED_FLAGS = {"--backend hier": 10, "--n-shards > 1": 10,
-                   "--checkpoint-dir": 7, "--resume": 7}
+_UNPORTED_FLAGS = {"--backend hier": 10, "--n-shards > 1": 10}
 
 
 def preset_100m(vocab: int = 8192) -> ModelConfig:
@@ -143,9 +152,7 @@ def tree_size_of(cfg: ModelConfig) -> str:
 
 def _refuse_unported(args) -> None:
     asked = {"--backend hier": args.backend == "hier",
-             "--n-shards > 1": args.n_shards > 1,
-             "--checkpoint-dir": args.checkpoint_dir is not None,
-             "--resume": args.resume}
+             "--n-shards > 1": args.n_shards > 1}
     for flag, item in _UNPORTED_FLAGS.items():
         if asked[flag]:
             raise SystemExit(f"{flag} is not ported yet (ROADMAP.md Queue 1 "
@@ -212,11 +219,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="check every received proxy against its sender's "
                          "commitment before mixing (loop backend)")
     ap.add_argument("--checkpoint-dir", default=None,
-                    help="not ported (ROADMAP.md Queue 1 item 7)")
+                    help="snapshot complete federation state here (enables "
+                         "preemption-tolerant runs; see repro_torch."
+                         "checkpoint; the JAX package's files)")
     ap.add_argument("--checkpoint-every", type=int, default=1,
                     help="rounds between snapshots (with --checkpoint-dir)")
     ap.add_argument("--resume", action="store_true",
-                    help="not ported (ROADMAP.md Queue 1 item 7)")
+                    help="restart from the newest snapshot in "
+                         "--checkpoint-dir (bit-identical continuation)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain versions)")
@@ -295,8 +305,27 @@ def make_engine(cfg: ModelConfig, proxy: ModelConfig, fl: ProxyFLConfig,
     return engine
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
+def checkpointer(run: Run, args) -> Optional[FederationCheckpointer]:
+    """The run's checkpointer under ``--checkpoint-dir`` (None without
+    it), fingerprinted as the reference's driver does: the protocol
+    config, the architectures, the cohort size and the corpus skew."""
+    if not args.checkpoint_dir:
+        return None
+    return FederationCheckpointer(
+        args.checkpoint_dir, every=args.checkpoint_every,
+        fingerprint=config_fingerprint(
+            run.fl, arch=run.cfg.name, proxy=run.proxy.name,
+            clients=args.clients,
+            # data-shaping flag: resuming under a different skew would
+            # silently continue on a different cohort
+            size_skew=args.size_skew),
+        verify=run.fl.verify_commitments)
+
+
+def train(args):
+    """The driver's run: set-up, the resume from ``--checkpoint-dir`` when
+    asked, the rounds in blocks (evaluation, snapshot and the round lines
+    at block edges). Returns the run and its final state."""
     run = setup(args)
     cfg, proxy, fl, engine, state = run[:5]
     K = args.clients
@@ -305,11 +334,34 @@ def main(argv=None) -> int:
           f"({proxy.param_counts()['total']/1e6:.1f}M)  clients={K} "
           f"backend={args.backend}  device={device_label(engine.device)}")
 
-    # the host evaluates and prints at block edges
-    for t, n_block in block_spans(0, args.rounds, args.rounds_per_block):
+    ckpt = checkpointer(run, args)
+    start = 0
+    if ckpt is not None and args.resume:
+        t0 = time.perf_counter()
+        # the run's own state is the template: a throwaway one would cost
+        # another set of K models at LLM sizes
+        restored = ckpt.restore_latest(engine, like=state, seed=args.seed)
+        if restored is not None:
+            state, start = restored
+            print(f"[train] resumed from {args.checkpoint_dir} at round "
+                  f"{start} (verified and restored in "
+                  f"{time.perf_counter() - t0:.3f} s)")
+
+    # the host evaluates, checkpoints and prints at block edges, and every
+    # checkpoint-cadence round is a block edge
+    for t, n_block in block_spans(start, args.rounds, args.rounds_per_block,
+                                  ckpt.every if ckpt is not None else 0):
         t0 = time.time()
         state, metrics = engine.run_rounds(state, run.data, t, n_block,
                                            args.seed)
+        if ckpt is not None:
+            t1 = time.perf_counter()
+            base = ckpt.maybe_save(engine, state, t + n_block - 1,
+                                   seed=args.seed)
+            if base is not None:
+                print(f"[train] saved {os.path.basename(base)} "
+                      f"({os.path.getsize(base + '.npz')} bytes) in "
+                      f"{time.perf_counter() - t1:.3f} s")
         dt = time.time() - t0
         ppl = evaluate_ppl(engine.client_params(state, 0, "private"), cfg,
                            run.test, use_pallas=fl.use_pallas)
@@ -326,6 +378,11 @@ def main(argv=None) -> int:
             if i == n_block - 1:  # block edge: host-synced ppl/eps/time
                 line += f"client0_test_ppl={ppl:.2f} eps={eps:.3f} ({dt:.1f}s)"
             print(line)
+    return run, state
+
+
+def main(argv=None) -> int:
+    train(parse_args(argv))
     return 0
 
 

@@ -36,6 +36,7 @@ def test_import_loads_no_jax_and_no_reference_package():
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
         assert "repro_torch.benchmarks.fig3_accuracy" in names
+        assert "repro_torch.checkpoint.federation" in names
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(SRC))

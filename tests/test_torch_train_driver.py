@@ -183,9 +183,7 @@ def test_driver_runs_other_modalities_and_backends(arch, extra, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [(["--backend", "hier"], 10),
-                                        (["--n-shards", "2"], 10),
-                                        (["--checkpoint-dir", "ckpt"], 7),
-                                        (["--resume"], 7)])
+                                        (["--n-shards", "2"], 10)])
 def test_driver_refuses_unported_flags_naming_their_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 item {item}"):
         train.main(["--arch", "qwen1.5-4b"] + SMOKE + flags)

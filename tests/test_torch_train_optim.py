@@ -316,22 +316,39 @@ def test_block_spans_match_reference(args):
 
 
 # ---------------------------------------------------------------------------
-# dp_adam_update's fused chain is Adam's f32 update only
+# dp_adam_update's fused chain is Adam's f32 update only: other state takes
+# the reference's fallback
 
 
 @pytest.mark.parametrize("case", ["bf16_params", "bf16_moments"])
-def test_dp_adam_update_refuses_non_f32(case):
+def test_dp_adam_update_non_f32_takes_the_fallback(case):
+    """Non-f32 params (with their f32 master copy) or bf16 moments take
+    the fallback: Adam's update on the noisy clipped mean gradient. The
+    gradient is worked out by hand here: one example clipped from norm 3
+    to C = 1, one under C and kept, σC·noise added, the sum halved. Held
+    at torch's default grade for each leaf's dtype."""
     dtype = torch.bfloat16 if case == "bf16_params" else torch.float32
-    params = {"w": torch.zeros(3, dtype=dtype)}
+    params = {"w": torch.linspace(-1, 1, 3).to(dtype)}
     opt = Adam(moment_dtype="bfloat16" if case == "bf16_moments"
                else "float32")
 
     def loss(p, b):
         return (p["w"].float() * b).sum()
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dp.dp_adam_update(loss, params, opt.init(params), torch.ones(2, 3),
-                          opt=opt, clip_norm=1.0, noise_multiplier=1.0)
+    batch = torch.tensor([[1.0, 2.0, 2.0], [0.3, 0.0, 0.4]])
+    noise = torch.linspace(-2, 2, 3)
+    state = opt.init(params)
+    assert (state.p32 is not None) == (case == "bf16_params")
+    p2, s2, _ = dp.dp_adam_update(loss, params, state, batch, opt=opt,
+                                  clip_norm=1.0, noise_multiplier=1.0,
+                                  noise=noise)
+    rows = batch.to(dtype).float()   # d loss / d w, at the params' dtype
+    g = (rows[0] / rows[0].norm() + rows[1] + noise) / 2
+    want_p, want_s = opt.update({"w": g}, state, params)
+    for a, b in zip(tree_leaves((p2, s2)), tree_leaves((want_p, want_s))):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a, b)
+    assert int(s2.t) == 1
 
 
 # ---------------------------------------------------------------------------
