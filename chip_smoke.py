@@ -10,7 +10,8 @@
    tensor-core attention kernels, the register kernels of both mixes, the
    rmsnorm instantiations, the clip pair's rows accumulate, the mamba
    scan's instantiations and the Adam step's (0 spill bytes each).
-2. Holds each of the twelve kernels (nine TPU kernels; attention has four:
+2. Holds each of the thirteen kernels (nine TPU kernels; the mix also as
+   the hier exchange's shard-grid entry; attention has four:
    bf16 on wgmma and f32 in split TF32, both on the tensor cores at every
    head dim, zero-padded up to their compiled widths (64, 128 and 256;
    split TF32 also 96), each with a 16-byte loader (TMA, cp.async) for
@@ -225,7 +226,29 @@
    (bf16), and a plain version with the noise dropped or the clip off
    shown to fail that grade; ``gossip_proxies`` against the plain mix at
    f32 2e-5; launches pinned.
-12. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
+12. Drives the hier backend (the "hier" phase), every run on ``cuda``
+   with the kernels on and the counters reset around it: (a) the main path
+   through ``run_federated(..., backend="hier", n_shards=S)``, 2 rounds at
+   S = 1, 2 and 4, without and with §3.4 dropout 0.25: every param, Adam
+   moment, w and epsilon bit-equal to the vmap run's (S = 1 runs the flat
+   exchange), per round exactly one ``sumsq_rows``, one
+   ``clip_accumulate_rows`` and one ``noise_adam_step`` a DP step of each
+   active client and one shard-grid mix (S > 1) or flat mix (S = 1);
+   (b) τ = 2, S = 2 on fig_async's protocol, 6 rounds: with DP on, one
+   shard-grid mix a round and epsilon vmap's; with lr 0 and dropout 0.25,
+   the mass of the clients plus the cross-shard buffer conserved every
+   round; killed after round 3 and resumed, the buffer restored and the
+   rounds bit-equal; dense mixing, ring at τ > 0 and compression refused
+   at S = 2; (c) the shard-grid mix in the kernel table (item 2): [8,
+   199,210] at S = 2, 4, 8, [64, 199,210] at S = 8, L across every bucket
+   edge, the train shape [4, 6,293,760] at S = 2, f32 and bf16, bit-equal
+   to S launches of the flat kernel, timed beside its plain version and
+   ``torch.bmm``; (d) the train driver's preset, K = 4, 2 rounds of 1
+   step, on ``--backend hier --n-shards 2``: leaf-equal to ``--backend
+   vmap``, one shard-grid mix a round, then ``--staleness 2`` for 3
+   rounds, launches pinned; (e) ``fig_hier``'s rows at K = 8 and 64 and
+   ``fig_kernels``' at K = 8, printed and written to ``chiprun_out/``.
+13. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
    and their narrow loaders, and the clip pair's rows route, under their
    own keys; the DP kernels and the mix also with their launches on each
    method's path and each figures run's, with its shape, and on each
@@ -235,8 +258,9 @@
    prefill and decode step of each served model, and their serve-shape
    rows; the mixes, rmsnorm, attention and the scan with their launches
    on the train path and their train-shape rows; every kernel with its
-   launches in the resume phase's resumed runs and (e)'s calls) and,
-   last, the result line
+   launches in the resume phase's resumed runs and (e)'s calls, and on
+   each hier run; the shard-grid mix under its own key, its launches on
+   the hier main set-up at S = 2) and, last, the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits nonzero. The script needs a CUDA device and
@@ -316,6 +340,13 @@ TIMED_LAUNCHES = 200
 FULL_WIDTH_CALLS = 10        # calls timed for the LLM-width kernels
 CLOSE = dict(atol=1e-5, rtol=1e-4)   # tests/test_conformance.py "close"
 ASYNC_ROUNDS, ASYNC_TAU = 6, 2   # fig_async runs 30 rounds; cut to 6
+# the hier phase: the main set-up at these shard counts (S = 1 runs the
+# flat exchange), with and without §3.4 dropout; the stale run at S = 2;
+# fig_hier's cohorts (its S = 8) and fig_kernels' at K = 8
+HIER_SHARDS, HIER_DROPOUT, HIER_STALE_S = (1, 2, 4), 0.25, 2
+HIER_FIG_K, HIER_FIG_ROUNDS = 64, 2
+# the train driver's preset on --backend hier --n-shards 2, 1 step a round
+HIER_TRAIN_ROUNDS, HIER_TRAIN_STALE_ROUNDS = 2, 3
 COMPRESS_RATIO = 0.25           # the drivers' top-k kept fraction
 # repro.core.accountant.epsilon_for(noise_multiplier=2.0, sample_rate=25 /
 # 150, steps=24, delta=1e-5) — mia_privacy's quick DP federation: 4 rounds
@@ -821,7 +852,68 @@ def kernel_cases(gen):
                    if dt == torch.float32 else None,
                    4 * K * D * es + 4 * K * K + 5 * K * es + 8 * K,
                    2 * K * K * D + 4 * K * D)
+    yield from blocks_cases(gen)
     yield from llm_kernel_cases(gen)
+
+
+def blocks_case(gen, K, D, S, dt, debias=False, row=None, cold=True):
+    """One check of the shard-grid mix (the hier exchange's intra-shard
+    half) on S shards of [K / S, K / S] column-stochastic blocks, against
+    its plain version, and, not de-biased (as the hier exchange calls it),
+    bit for bit against S launches of the flat kernel on the shards' rows
+    (the mixed rows; the weights are torch products, and de-biased each
+    path divides by its own product, whose rounding depends on the
+    product's order); ``torch.bmm`` of the blocks with the shards' rows is
+    the library yardstick (f32)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    L = K // S
+    blocks = torch.rand((S, L, L), generator=gen, device=dev)
+    blocks = blocks / blocks.sum(1, keepdim=True)
+    w = torch.rand((K,), generator=gen, device=dev) + 0.5
+    flat = torch.randn((K, D), generator=gen, device=dev).to(dt)
+    es = torch.tensor([], dtype=dt).element_size()
+
+    def flat_launches():
+        return (torch.cat([kernels.fused_pushsum_mix(
+            flat[s * L:(s + 1) * L], w[s * L:(s + 1) * L], blocks[s],
+            debias=debias)[0] for s in range(S)]),)
+
+    return Case("fused_pushsum_mix_blocks", dt, (K, D, S, debias),
+                lambda: kernels.fused_pushsum_mix_blocks(flat, w, blocks,
+                                                         debias=debias),
+                lambda: ref.fused_pushsum_mix_blocks_ref(flat, w, blocks,
+                                                         debias=debias),
+                (lambda: torch.bmm(blocks, flat.view(S, L, D)))
+                if dt == torch.float32 else None,
+                2 * K * D * es + 4 * S * L * L + 4 * K, 2 * S * L * L * D,
+                cold=cold, row=row,
+                exact=None if debias else flat_launches)
+
+
+def blocks_cases(gen):
+    """The shard-grid mix: the hier main set-up's [8, 199,210] at S = 2,
+    4 and 8 (S = 2 not de-biased, as the hier exchange calls it, timed as
+    the kernel's row; S = 4 and 8 timed under their own rows), fig_hier's
+    [64, 199,210] at S = 8, L across every register bucket edge (8/9,
+    16/17, 32/33) at two shards, f32 and bf16, with and without the
+    de-bias; the train shape in :func:`train_kernel_cases`."""
+    for S in (2, 4, 8):
+        for dt in (torch.float32, torch.bfloat16):
+            for debias in (False, True):
+                yield blocks_case(
+                    gen, MAIN_K, MAIN_D, S, dt, debias,
+                    row=None if S == 2 else f"fused_pushsum_mix_blocks S={S}")
+    for dt in (torch.float32, torch.bfloat16):
+        yield blocks_case(gen, HIER_FIG_K, MAIN_D, 8, dt,
+                          row="fused_pushsum_mix_blocks K=64")
+    for L in (8, 9, 16, 17, 32, 33):
+        for D in RAGGED_D:
+            for dt in (torch.float32, torch.bfloat16):
+                for debias in (False, True):
+                    yield blocks_case(gen, 2 * L, D, 2, dt, debias,
+                                      cold=False)
 
 
 def llm_kernel_cases(gen):
@@ -1016,6 +1108,8 @@ def train_kernel_cases(gen):
                lambda: torch.matmul(P, flat),
                2 * K * D * 4 + 4 * K * K + 4 * K, 2 * K * K * D,
                row="fused_pushsum_mix train")
+    yield blocks_case(gen, K, D, 2, torch.float32,
+                      row="fused_pushsum_mix_blocks train")
     kept = torch.diagonal(P).contiguous()
     sent = P - torch.diag(kept)
     args = (flat, w, kept, sent, 0.1 * randn(K, D),
@@ -1162,6 +1256,13 @@ SOURCES = {
                           "src/repro/kernels/pushsum_mix.py:63",
                           "src/repro/kernels/pushsum_mix.py::"
                           "fused_pushsum_mix"),
+    # the hier exchange's intra-shard half: the mix kernel on a grid over
+    # the shards, where the reference vmaps fused_pushsum_mix over them
+    # (src/repro/core/gossip.py:497-512)
+    "fused_pushsum_mix_blocks": ("src/repro_torch/kernels/csrc/pushsum_mix.cu",
+                                 "src/repro/kernels/pushsum_mix.py:63",
+                                 "src/repro/kernels/pushsum_mix.py::"
+                                 "fused_pushsum_mix"),
     "fused_stale_mix": ("src/repro_torch/kernels/csrc/stale_mix.cu",
                         "src/repro/kernels/pushsum_mix.py:117",
                         "src/repro/kernels/pushsum_mix.py::fused_stale_mix"),
@@ -4235,6 +4336,280 @@ def resume_path(setup, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the hier backend: the two-level factored exchange on the shard-grid mix
+
+
+def client_leaves(result):
+    """Every param and Adam moment of every client of a ProxyFL
+    ``run_federated`` result, in client order, then the de-bias weights."""
+    from repro_torch.nn.modules import tree_leaves
+    leaves = [leaf for c in result["clients"]
+              for role in ("private", "proxy")
+              for tree in (getattr(c, f"{role}_params"),
+                           getattr(c, f"{role}_opt").m,
+                           getattr(c, f"{role}_opt").v)
+              for leaf in tree_leaves(tree)]
+    return leaves, [c.w for c in result["clients"]]
+
+
+def dp_steps(cfg, K: int, steps_per_client: int) -> int:
+    """DP steps of ``cfg.rounds`` rounds: each active client's
+    ``steps_per_client`` a round, under the config's §3.4 masks."""
+    from repro_torch.core.engine import active_mask
+    masks = [active_mask(t, K, cfg) for t in range(cfg.rounds)]
+    return steps_per_client * sum(K if m is None else int(m.sum())
+                                  for m in masks)
+
+
+def hier_main(spec, data, test, cfg, card):
+    """(a) ``run_federated("proxyfl", backend="hier")`` on the main set-up,
+    2 rounds, at each of HIER_SHARDS, without and with §3.4 dropout: every
+    param, moment, w and epsilon bit-equal to the vmap run's (P's entries
+    are 0, ½ and 1 and each client has at most one cross-shard in-edge, so
+    each factored row rounds once, as the flat one does); the launches
+    exact: one clip pair and one Adam step a DP step, and a round's one
+    shard-grid mix (S > 1) or flat mix (S = 1)."""
+    from repro_torch.core.baselines import run_federated
+
+    K = len(data)
+    per_client = data[0][0].shape[0] // cfg.batch_size
+    out = {}
+    for rate in (0.0, HIER_DROPOUT):
+        dcfg = dataclasses.replace(cfg, dropout_rate=rate)
+        steps = dp_steps(dcfg, K, per_client)
+        flat = run_federated("proxyfl", [spec] * K, spec, data, test, dcfg,
+                             seed=0, eval_every=dcfg.rounds, backend="vmap",
+                             device="cuda")
+        flat_leaves, flat_w = client_leaves(flat)
+        for S in HIER_SHARDS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, counts = counted(lambda: run_federated(
+                "proxyfl", [spec] * K, spec, data, test, dcfg, seed=0,
+                eval_every=dcfg.rounds, backend="hier", n_shards=S,
+                device="cuda"))
+            seconds = time.perf_counter() - t0
+            mix = "fused_pushsum_mix_blocks" if S > 1 else \
+                "fused_pushsum_mix"
+            expect(counts, sumsq=steps, scale_accumulate=steps,
+                   noise_adam_step=steps, **{mix: dcfg.rounds},
+                   **{"sumsq/rows": steps, "scale_accumulate/rows": steps})
+            leaves, w = client_leaves(res)
+            assert len(leaves) == len(flat_leaves)
+            assert all(torch.equal(a, b) for a, b in zip(leaves,
+                                                         flat_leaves)), \
+                f"hier S={S} dropout {rate} differs from vmap"
+            assert w == flat_w and res["epsilon"] == flat["epsilon"]
+            if not rate:
+                assert all(e == EPSILON_2_ROUNDS for e in res["epsilon"])
+            label = f"S={S}" + (f" dropout {rate}" if rate else "")
+            out[label] = dict(counts=counts, rate=dcfg.rounds / seconds)
+            print(f"hier phase (a): {label}, {dcfg.rounds} rounds: every "
+                  f"one of {len(leaves)} params and moments, w and epsilon "
+                  f"{res['epsilon'][0]!r} bit-equal to vmap; launches "
+                  f"{got_nonzero(counts)}; {dcfg.rounds / seconds:.4f} "
+                  f"rounds/s (evaluation included) on {card}")
+    return out
+
+
+def hier_stale(spec, data, cfg, card):
+    """(b) hier τ = 2, S = 2 on fig_async's protocol, 6 rounds: with DP
+    on, one shard-grid mix a round and the DP launches, epsilon vmap's;
+    with lr 0 and dropout 0.25, the mass of the clients plus the
+    cross-shard buffer conserved every round; killed after round 3 and
+    resumed, the buffer restored and the rounds bit-equal; the reference's
+    refusals at S > 1 (dense mean, ring at τ > 0, compression)."""
+    from repro_torch.configs import DPConfig
+    from repro_torch.core.baselines import run_federated
+    from repro_torch.core.engine import dml_engine
+    from repro_torch.nn.modules import tree_flatten_vector
+
+    K = len(data)
+    acfg = dataclasses.replace(async_config(cfg), n_shards=HIER_STALE_S)
+    dpcfg = dataclasses.replace(acfg, dp=cfg.dp)
+    steps = dp_steps(dpcfg, K, dpcfg.local_steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: run_federated(
+        "proxyfl", [spec] * K, spec, data, data[0], dpcfg, seed=0,
+        eval_every=dpcfg.rounds, backend="hier", device="cuda"))
+    seconds = time.perf_counter() - t0
+    expect(counts, sumsq=steps, scale_accumulate=steps,
+           noise_adam_step=steps, fused_pushsum_mix_blocks=dpcfg.rounds,
+           **{"sumsq/rows": steps, "scale_accumulate/rows": steps})
+    flat = run_federated("proxyfl", [spec] * K, spec, data, data[0], dpcfg,
+                         seed=0, eval_every=dpcfg.rounds, backend="vmap",
+                         device="cuda")
+    assert res["epsilon"] == flat["epsilon"], (res["epsilon"],
+                                               flat["epsilon"])
+    leaves, w = client_leaves(res)
+    assert all(bool(torch.isfinite(x).all()) for x in leaves)
+    assert all(0.0 < v for v in w), w
+    print(f"hier phase (b): tau = {dpcfg.staleness}, S = "
+          f"{dpcfg.n_shards}, DP on, {dpcfg.rounds} rounds: launches "
+          f"{got_nonzero(counts)}; epsilon {res['epsilon'][0]!r} = vmap's; "
+          f"{dpcfg.rounds / seconds:.4f} rounds/s (evaluation included) on "
+          f"{card}")
+
+    mcfg = dataclasses.replace(acfg, lr=0.0, dropout_rate=HIER_DROPOUT)
+    eng = dml_engine((spec,) * K, spec, mcfg, backend="hier", device="cuda")
+    state = eng.init_states(0)
+
+    def masses(st):
+        z = torch.stack([tree_flatten_vector(c["proxy"]["params"])
+                         for c in st["clients"]]).double()
+        ws = torch.stack([c["w"] for c in st["clients"]]).double()
+        return (float((z * ws[:, None]).sum() + st["hier_buffer"].sum()),
+                float(ws.sum() + st["hier_w"].sum()))
+
+    theta0, w0 = masses(state)
+    assert w0 == K, w0
+    worst = (0.0, 0.0)
+    for t in range(mcfg.rounds):
+        state, _ = eng.run_round(state, data, t, seed=0)
+        theta_m, w_m = masses(state)
+        rel = (abs(theta_m - theta0) / abs(theta0), abs(w_m - K) / K)
+        assert rel[0] <= 1e-5 and rel[1] <= 1e-6, (t, theta_m, theta0, w_m)
+        worst = (max(worst[0], rel[0]), max(worst[1], rel[1]))
+    assert float(state["hier_w"].sum()) > 0, "no cross-shard mail in flight"
+    print(f"hier phase (b): lr 0, dropout {HIER_DROPOUT}, {mcfg.rounds} "
+          f"rounds: largest relative drift of theta-mass (clients plus "
+          f"buffer) {worst[0]:.3e}, of w-mass {worst[1]:.3e}")
+
+    kill = acfg.rounds // 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hier_") as d:
+        mid, full, restored, final, resumed, _ = engine_kill_and_resume(
+            lambda: dml_engine((spec,) * K, spec, acfg, backend="hier",
+                               device="cuda"), data, acfg.rounds, kill, d)
+    for key in ("hier_buffer", "hier_w"):
+        assert torch.equal(restored[key], mid[key]), key
+    assert float(restored["hier_w"].abs().sum()) > 0, "nothing in flight"
+    assert states_equal(full, final), "the resumed hier run differs"
+    expect(resumed, fused_pushsum_mix_blocks=acfg.rounds - kill)
+    print(f"hier phase (b): killed after round {kill} of {acfg.rounds}: "
+          f"the cross-shard buffer {tuple(restored['hier_buffer'].shape)} "
+          f"restored bit for bit, the resumed rounds bit-equal; launches "
+          f"{got_nonzero(resumed)}")
+
+    refusals = {"mean": (dict(), "mean", "dense mixing"),
+                "ring tau > 0": (dict(), "ring", "staleness>0"),
+                "compressed": (dict(compress="topk"), "pushsum",
+                               "compressed gossip")}
+    for label, (knobs, mix, text) in refusals.items():
+        try:
+            dml_engine((spec,) * K, spec, dataclasses.replace(acfg, **knobs),
+                       backend="hier", mix=mix, device="cuda")
+        except ValueError as e:
+            assert text in str(e), (label, e)
+        else:
+            raise AssertionError(f"hier with {label} was not refused")
+    print(f"hier phase (b): refused at S = {acfg.n_shards}: "
+          f"{', '.join(refusals)}")
+    return {"stale DP": counts, "stale resume": resumed}
+
+
+def hier_train(card):
+    """(d) the train driver's preset, K = 4, 2 rounds of 1 step, on
+    ``--backend hier --n-shards 2``: every leaf and w equal to the
+    ``--backend vmap`` run's, epsilon too, one shard-grid mix a round;
+    then ``--staleness 2`` for 3 rounds, launches pinned."""
+    from repro_torch.launch import train
+
+    base = TRAIN_ARGS + ["--steps-per-round", "1"]
+    hier = ["--backend", "hier", "--n-shards", "2"]
+
+    def args_of(extra, rounds):
+        return train.parse_args(base + extra + ["--rounds", str(rounds)])
+
+    vmap_args = args_of([], HIER_TRAIN_ROUNDS)
+    run = train.setup(vmap_args)
+    K = vmap_args.clients
+
+    def engine(args):
+        fl = dataclasses.replace(run.fl, n_shards=args.n_shards,
+                                 staleness=args.staleness)
+        return train.make_engine(run.cfg, run.proxy, fl, args, run.n_seqs,
+                                 "cuda")
+
+    out = {}
+    flat_eng = engine(vmap_args)
+    flat_state = train_drive(flat_eng, run, vmap_args)[0]
+    for tau, rounds in ((0, HIER_TRAIN_ROUNDS), (TRAIN_TAU,
+                                                 HIER_TRAIN_STALE_ROUNDS)):
+        args = args_of(hier + ["--staleness", str(tau)], rounds)
+        eng = engine(args)
+        # at τ > 0 the state is the wrapper with the empty buffer
+        start = run if not tau else run._replace(
+            state=eng.init_states(args.seed))
+        (state, rows, ppls, wall), got = counted(
+            lambda: train_drive(eng, start, args))
+        want = train_launches(run, K * rounds, rounds, rounds, stale=False)
+        want["fused_pushsum_mix_blocks"] = want.pop("fused_pushsum_mix")
+        expect(got, **want)
+        assert all(np.isfinite(m["proxy_loss"]).all() for m in rows)
+        if tau:
+            assert tuple(state["hier_buffer"].shape) == (tau, K, TRAIN_D)
+            assert float(state["hier_w"].sum()) > 0
+            what = (f"the cross-shard buffer "
+                    f"{tuple(state['hier_buffer'].shape)} in the state")
+        else:
+            assert states_equal(state, flat_state), \
+                "the hier train run differs from vmap's"
+            assert [a.epsilon() for a in eng.accountants] == \
+                [a.epsilon() for a in flat_eng.accountants]
+            what = "every leaf and w equal to --backend vmap's, epsilon too"
+        label = f"preset hier tau={tau}"
+        out[label] = got
+        print(f"hier phase (d): {label}, {rounds} rounds of 1 step: {what}; "
+              f"launches {got_nonzero(got)}; {rounds / wall:.4f} rounds/s "
+              f"(evaluation included) on {card}")
+    return out
+
+
+def hier_drivers(card):
+    """(e) ``fig_hier``'s rows at K = 8 and 64 and ``fig_kernels``' at K =
+    8 on the card, each row printed; their JSON in ``chiprun_out/``."""
+    from repro_torch.benchmarks import fig_hier, fig_kernels
+
+    out = Path(__file__).resolve().parent / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    runs = (("REPRO_BENCH_HIER_JSON", "fig_hier.json",
+             lambda: fig_hier.run(False, "cuda", clients=(8, HIER_FIG_K),
+                                  rounds=HIER_FIG_ROUNDS)),
+            ("REPRO_BENCH_KERNELS_JSON", "fig_kernels.json",
+             lambda: fig_kernels.run(False, "cuda", clients=(MAIN_K,))))
+    rows = {}
+    for env, name, fn in runs:
+        old = os.environ.get(env)
+        os.environ[env] = str(out / name)
+        try:
+            rows[name] = fn()
+        finally:
+            if old is None:
+                del os.environ[env]
+            else:
+                os.environ[env] = old
+        for r in rows[name]:
+            assert r["card"] == card, (r["card"], card)
+            print(f"hier phase (e): {name[:-5]} {json.dumps(r)}")
+    hier = [r for r in rows["fig_hier.json"] if r["backend"] == "hier"]
+    assert all(r["bytes_cross_per_client"] > 0 for r in hier)
+    return rows
+
+
+def hier_path(setup, card):
+    """The hier phase (module docstring, 12)."""
+    spec, data, test, cfg = setup
+    t0 = time.perf_counter()
+    res = {"main": hier_main(spec, data, test, cfg, card)}
+    res["stale"] = hier_stale(spec, data, cfg, card)
+    res["train"] = hier_train(card)
+    res["drivers"] = hier_drivers(card)
+    print(f"hier phase: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-scan", type=Path, default=None,
@@ -4294,11 +4669,15 @@ def main() -> int:
     serve = serve_path(card)
     trained = train_path(card)
     resumed = resume_path(setup, card)
+    hier = hier_path(setup, card)
 
     # each kernel's launches on the path that runs it
     # the clip pair: its rows route on the main path, its 1-D route in the
     # ops window; the narrow loaders: their sweeps
+    # the shard-grid mix: its launches on the hier main set-up at S = 2
     counts = dict(counts, fused_stale_mix=async_counts["fused_stale_mix"],
+                  fused_pushsum_mix_blocks=hier["main"]["S=2"]["counts"][
+                      "fused_pushsum_mix_blocks"],
                   sumsq_rows=counts["sumsq/rows"],
                   clip_accumulate_rows=counts["scale_accumulate/rows"],
                   sumsq=ops_counts["sumsq/vector"],
@@ -4332,6 +4711,10 @@ def main() -> int:
     by_method = {name: {"proxyfl": counts[key],
                         **{m: r["counts"][key] for m, r in methods.items()}}
                  for name, key in key_of.items()}
+    # every kernel's launches on each hier path
+    hier_counts = {**{f"main {k}": v["counts"]
+                      for k, v in hier["main"].items()},
+                   **hier["stale"], **hier["train"]}
     out = []
     for name, (source, replaces, tpu_kernel) in SOURCES.items():
         r = rows[row_of.get(name, name)]
@@ -4416,6 +4799,12 @@ def main() -> int:
         # part of each killed run, and in (e)'s two calls
         out[-1]["launches_resume"] = {
             run: c.get(launch_key(name), 0) for run, c in resumed.items()}
+        out[-1]["launches_hier"] = {
+            run: c.get(launch_key(name), 0) for run, c in hier_counts.items()}
+        if name == "fused_pushsum_mix_blocks":
+            out[-1]["hier_rows"] = {
+                label: rows[label] for label in rows
+                if label.startswith(f"{name} ")}
         if before_after and row_of.get(name, name) in before_after:
             out[-1]["before_after"] = before_after[row_of.get(name, name)]
     for row, r in rows.items():
@@ -4492,6 +4881,9 @@ def main() -> int:
           f"{b['exchange_ms']:.3f} ms, evaluation {b['eval_ms']:.3f} ms; "
           f"device busy {100 * b['busy_ms'] / b['wall_ms']:.2f}% of a "
           f"profiled step; peak {pre['peak'] / 1e9:.3f} GB on {card}")
+    for label, r in hier["main"].items():
+        print(f"hier path main set-up {label} rounds/s {r['rate']:.4f} on "
+              f"{card}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

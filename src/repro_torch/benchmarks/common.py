@@ -6,12 +6,13 @@ same image geometry, class count and non-IID partition as the
 reference's). The draws are the port's own (torch generators on the run's
 device), so a seed gives other numbers than in the JAX package; the task
 seed, the partitioners and each figure's set-up are the reference's.
-``bench_methods`` takes the knobs the ported drivers set, each at the
-reference's default; the others are fixed at the reference's defaults,
-but for ``use_pallas``, on here so that the runs go through the port's
-kernels. The checkpoint knobs and their environment variables
-(``REPRO_BENCH_CKPT_DIR``, ``REPRO_BENCH_CKPT_EVERY``,
-``REPRO_BENCH_RESUME``) are the reference's.
+``bench_methods`` takes every knob of the reference's but
+``rounds_per_block`` (fused round-blocks: ROADMAP.md Queue 1 item 5), each
+at the reference's default and read from the reference's environment
+variable when unset, but for ``use_pallas``, on by default here so that
+the runs go through the port's kernels (``REPRO_BENCH_PALLAS=0`` turns it
+off). ``FULL`` is ``REPRO_BENCH_FULL``, the default budget of the drivers
+that the runner (:mod:`.run`) calls without ``--full``.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from ..core.engine import stream_seed
 from ..core.protocol import ModelSpec
 from ..data.partition import partition_dirichlet, partition_major
 from ..data.synthetic import make_classification_data
+from ..launch.serve import sync
 from ..nn.vision import get_vision_model
 
 DATASETS = {
@@ -57,9 +59,14 @@ def _env_int(name: str) -> int:
         raise SystemExit(f"{name} must be an integer, got {raw!r}")
 
 
-def _env_flag(name: str) -> bool:
-    return os.environ.get(name, "").strip().lower() in ("1", "true", "yes",
-                                                        "on")
+def _env_flag(name: str, default: bool = False) -> bool:
+    """``1``, ``true``, ``yes`` or ``on`` (any case) is true; unset or
+    empty is ``default``; anything else is false."""
+    raw = os.environ.get(name, "").strip().lower()
+    return default if not raw else raw in ("1", "true", "yes", "on")
+
+
+FULL = _env_flag("REPRO_BENCH_FULL")
 
 
 def spec_of(name: str, shape, n_classes) -> ModelSpec:
@@ -139,10 +146,13 @@ def method_setup(dataset: str, n_clients: int, seed: int, *, rounds: int,
                  private_arch: str = "mlp", proxy_arch: str = "mlp",
                  alpha: float = 0.5, sigma: float = 1.0, clip: float = 1.0,
                  n_train_factor: float = 1.0, dropout_rate: float = 0.0,
-                 compress: str = "none", device="cuda"):
+                 compress: str = "none", use_pallas: bool = True,
+                 device="cuda", **cfg_knobs):
     """One seed's run of :func:`bench_methods`: ``(client data, test set,
-    private spec, proxy spec, config)``, the config with ``use_pallas`` on
-    and the batch cut to the mean client size."""
+    private spec, proxy spec, config)``, the batch cut to the mean client
+    size. ``cfg_knobs`` are other :class:`ProxyFLConfig` fields
+    (``staleness``, ``n_shards``, ``compress_ratio``, ``local_steps``,
+    ...); None keeps a field's default."""
     client_data, test, d = federation_data(
         dataset, n_clients, seed, n_train_factor=n_train_factor,
         p_major=p_major, device=device)
@@ -155,15 +165,26 @@ def method_setup(dataset: str, n_clients: int, seed: int, *, rounds: int,
     cfg = ProxyFLConfig(
         alpha=alpha, beta=alpha, n_clients=n_clients, rounds=rounds,
         batch_size=max(1, min(batch_size, mean_n)), seed=seed,
-        dropout_rate=dropout_rate, use_pallas=True, compress=compress,
-        dp=DPConfig(enabled=dp, noise_multiplier=sigma, clip_norm=clip))
+        dropout_rate=dropout_rate, use_pallas=use_pallas, compress=compress,
+        dp=DPConfig(enabled=dp, noise_multiplier=sigma, clip_norm=clip),
+        **{k: v for k, v in cfg_knobs.items() if v is not None})
     return client_data, test, priv, prox, cfg
 
 
 def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
                   rounds: int, seeds: Sequence[int], device="cuda",
-                  checkpoint_dir: Optional[str] = None,
+                  backend: Optional[str] = None, staleness: int = 0,
+                  n_shards: int = 0, checkpoint_dir: Optional[str] = None,
                   checkpoint_every: int = 0, resume: Optional[bool] = None,
+                  use_pallas: Optional[bool] = None,
+                  compress: Optional[str] = None,
+                  compress_ratio: Optional[float] = None,
+                  verify_commitments: Optional[bool] = None,
+                  local_steps: Optional[int] = None,
+                  lr: Optional[float] = None,
+                  weight_decay: Optional[float] = None,
+                  topology: Optional[str] = None,
+                  min_active: Optional[int] = None,
                   **knobs) -> List[Dict]:
     """One row per method (and a ``-proxy`` row for ProxyFL and FML) with
     the reference's keys: the final test accuracy's mean and spread over
@@ -174,10 +195,22 @@ def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
     multiplier ``sigma`` and clip norm ``clip``, the major-class share
     ``p_major`` (None: the dataset's), ``private_arch`` and
     ``proxy_arch``, the DML weight ``alpha`` (= β), §3.4's per-round
-    ``dropout_rate``, ``n_train_factor`` and the compressed exchange
-    ``compress`` (``"none"``, ``"topk"`` or ``"int8"``, at the config's
-    ratio). The DP steps and the uncompressed mix run the port's kernels
-    on a CUDA device (their plain versions on the CPU).
+    ``dropout_rate`` and ``n_train_factor``. The DP steps and the
+    uncompressed mixes run the port's kernels on a CUDA device (their plain
+    versions on the CPU).
+
+    The engine knobs, each read from the reference's environment variable
+    when unset: ``backend`` (``REPRO_BENCH_BACKEND``, default ``"auto"``);
+    ``staleness`` (``REPRO_BENCH_STALENESS``), the delay τ of the async
+    backend and of the hier backend's cross-shard edges, refused by the
+    other backends; ``n_shards`` (``REPRO_BENCH_SHARDS``), the hier
+    backend's shard count, refused by the others above 1; ``use_pallas``
+    (``REPRO_BENCH_PALLAS``, default on); ``compress`` and
+    ``compress_ratio`` (``REPRO_BENCH_COMPRESS``,
+    ``REPRO_BENCH_COMPRESS_RATIO``), the compressed exchange;
+    ``verify_commitments`` (``REPRO_BENCH_VERIFY``). ``local_steps``,
+    ``lr``, ``weight_decay``, ``topology`` and ``min_active`` go into the
+    config as given (None: its default).
 
     ``checkpoint_dir`` makes every (method, seed) run snapshot its complete
     federation every ``checkpoint_every`` rounds (0: every round) under
@@ -186,10 +219,45 @@ def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
     uninterrupted one. Unset, each reads its environment variable:
     ``REPRO_BENCH_CKPT_DIR``, ``REPRO_BENCH_CKPT_EVERY``,
     ``REPRO_BENCH_RESUME`` (``1``, ``true``, ``yes`` or ``on``)."""
+    backend = backend or os.environ.get("REPRO_BENCH_BACKEND", "auto")
+    staleness = staleness or _env_int("REPRO_BENCH_STALENESS")
+    n_shards = n_shards or _env_int("REPRO_BENCH_SHARDS")
+    if staleness and backend not in ("async", "hier"):
+        # a silently ignored τ would report synchronous results as stale
+        raise SystemExit(
+            f"staleness={staleness} requires backend='async' or 'hier' "
+            f"(got {backend!r}; the synchronous backends deliver every "
+            "round) — set REPRO_BENCH_BACKEND=async")
+    if n_shards > 1 and backend != "hier":
+        raise SystemExit(
+            f"n_shards={n_shards} requires backend='hier' "
+            f"(got {backend!r}; the flat backends have no shard level) "
+            "— set REPRO_BENCH_BACKEND=hier")
     checkpoint_dir = checkpoint_dir or os.environ.get("REPRO_BENCH_CKPT_DIR")
     checkpoint_every = checkpoint_every or _env_int("REPRO_BENCH_CKPT_EVERY")
     if resume is None:
         resume = _env_flag("REPRO_BENCH_RESUME")
+    if use_pallas is None:
+        use_pallas = _env_flag("REPRO_BENCH_PALLAS", default=True)
+    if verify_commitments is None:
+        verify_commitments = _env_flag("REPRO_BENCH_VERIFY")
+    compress = (compress or os.environ.get("REPRO_BENCH_COMPRESS", "").strip()
+                or "none")
+    if compress_ratio is None:
+        raw = os.environ.get("REPRO_BENCH_COMPRESS_RATIO", "").strip()
+        if raw:
+            try:
+                compress_ratio = float(raw)
+            except ValueError:
+                raise SystemExit("REPRO_BENCH_COMPRESS_RATIO must be a "
+                                 f"float, got {raw!r}")
+    knobs.update(
+        staleness=staleness, n_shards=n_shards or 1,
+        use_pallas=bool(use_pallas), compress=compress,
+        compress_ratio=compress_ratio,
+        verify_commitments=bool(verify_commitments), local_steps=local_steps,
+        lr=lr, weight_decay=weight_decay, topology=topology,
+        min_active=min_active)
     rows = []
     for method in methods:
         accs, proxy_accs, eps_out = [], [], None
@@ -200,7 +268,7 @@ def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
                 **knobs)
             res = run_federated(
                 method, [priv] * n_clients, prox, client_data, test, cfg,
-                seed=seed, eval_every=rounds, device=device,
+                seed=seed, eval_every=rounds, device=device, backend=backend,
                 checkpoint_dir=(os.path.join(checkpoint_dir, dataset)
                                 if checkpoint_dir else None),
                 checkpoint_every=checkpoint_every, resume=resume)
@@ -231,6 +299,34 @@ def iter_methods(dataset: str, methods: Sequence[str], **kw
     each method's rows as it finishes."""
     for method in methods:
         yield from bench_methods(dataset, (method,), **kw)
+
+
+def time_rounds(engine, data, seed: int, rounds: int, *, trials: int = 3,
+                fresh: bool = False) -> float:
+    """Steady-state seconds a round: one warm-up pass, then ``trials``
+    passes of rounds 0 .. rounds-1 one at a time (``engine.run_rounds``),
+    each from the state the last left, or from ``init_states(seed)`` with
+    ``fresh`` (set-up untimed); the best pass, the reference's throughput
+    measure. Synchronises the card before each clock read."""
+    state = engine.init_states(seed)
+    state, _ = engine.run_rounds(state, data, 0, rounds, seed)
+    sync(engine.device)
+    times = []
+    for _ in range(trials):
+        if fresh:
+            state = engine.init_states(seed)
+        t0 = time.perf_counter()
+        state, _ = engine.run_rounds(state, data, 0, rounds, seed)
+        sync(engine.device)
+        times.append((time.perf_counter() - t0) / rounds)
+    return float(np.min(times))
+
+
+def write_rows(rows: List[Dict], env: str, default: str) -> None:
+    """The rows as JSON in the file ``env`` names, else ``default`` in the
+    working directory (the reference drivers' convention)."""
+    with open(os.environ.get(env, default), "w") as f:
+        json.dump(rows, f, indent=1)
 
 
 def cut(default, override):

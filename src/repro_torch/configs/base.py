@@ -13,9 +13,7 @@ item 13).
 
 In this port ``ProxyFLConfig.use_pallas=True`` runs the hand-written
 kernels of :mod:`repro_torch.kernels` on a CUDA device and their plain
-versions on a CPU device the caller chose. Fields whose feature is not
-ported yet (``n_shards``) are kept for parity and refused by the engine
-when they matter (see ``ROADMAP.md``).
+versions on a CPU device the caller chose.
 """
 from __future__ import annotations
 
@@ -244,9 +242,9 @@ class ProxyFLConfig:
     seed: int = 0
     dropout_rate: float = 0.0  # §3.4 dropout
     min_active: int = 1
-    backend: str = "auto"  # "auto" | "loop" | "vmap" | "async" in this port
-    staleness: int = 0  # async gossip delay τ (backend="async")
-    n_shards: int = 1  # hier layout (not ported yet)
+    backend: str = "auto"  # "auto" | "loop" | "vmap" | "async" | "hier"
+    staleness: int = 0  # gossip delay τ (async; hier's cross-shard edges)
+    n_shards: int = 1  # hier layout: shards of n_clients / n_shards
     use_pallas: bool = False  # hand-written kernels on CUDA
     compress: str = "none"  # "none" | "topk" | "int8" (core/compress.py)
     compress_ratio: float = 0.25  # top-k kept fraction of D

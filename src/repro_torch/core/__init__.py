@@ -4,7 +4,8 @@
 - ``accountant``  RDP accounting of the sampled Gaussian mechanism (§3.3)
 - ``gossip``      PushSum on time-varying directed graphs (§3.4)
 - ``protocol``    Algorithm 1: DML client step + gossip round
-- ``engine``      FederationEngine: the round executor (loop, vmap, async)
+- ``engine``      FederationEngine: the round executor (loop, vmap, async,
+                  hier)
 - ``commit``      hash-chained proxy commitments (verifiable federation)
 - ``baselines``   FedAvg / FML / AvgPush / CWT / Regular / Joint (§4.1)
 

@@ -18,8 +18,11 @@
 
 As in the paper, the single-model methods train their one model with
 DP-SGD; ProxyFL and FML apply it to the proxies only. Every method runs
-with §3.4 dropout (``cfg.dropout_rate``) and on the ``"async"``
-stale-gossip backend (``cfg.staleness``), which refuses CWT at τ > 0.
+with §3.4 dropout (``cfg.dropout_rate``), on the ``"async"``
+stale-gossip backend (``cfg.staleness``), which refuses CWT at τ > 0, and
+on the two-level ``"hier"`` backend (``n_shards``; the reference's
+refusals: FML and FedAvg's dense mean at S > 1, CWT at τ > 0, compression
+at S > 1).
 ProxyFL and FML take heterogeneous private architectures (fig. 5b) on the
 loop backend, and every method takes ragged (size-skewed) cohorts. The
 compressed exchange (``cfg.compress``) and commitment verification
@@ -27,8 +30,7 @@ compressed exchange (``cfg.compress``) and commitment verification
 in on the config. ``checkpoint_dir`` snapshots the federation and
 ``resume`` continues it bit for bit (:mod:`repro_torch.checkpoint`, the
 reference's files). Round-blocks (``rounds_per_block``) come with the
-fused blocks of ROADMAP.md Queue 1 item 5, and the hier backend with
-item 10.
+fused blocks of ROADMAP.md Queue 1 item 5.
 """
 from __future__ import annotations
 
@@ -66,17 +68,19 @@ def _resolve_backend(backend, cfg: ProxyFLConfig, client_data) -> str:
     """``backend``, else ``cfg.backend``, else ``"auto"``, as the
     reference resolves it: ``"auto"`` on per-client data trees that could
     not be padded together (other structures, dtypes or trailing dims)
-    means the loop; ``"async"`` refuses them, since its stale exchange has
-    no loop fallback that would keep the delivery semantics."""
+    means the loop; ``"async"`` and ``"hier"`` refuse them, since their
+    exchanges have no loop fallback that would keep their semantics."""
     backend = backend or cfg.backend or "auto"
     if backend == "auto" and not pad_compatible(client_data):
         return "loop"
-    if backend == "async" and not pad_compatible(client_data):
+    if backend in ("async", "hier") and not pad_compatible(client_data):
         raise ValueError(
-            "backend='async' runs on the stacked path and needs identical "
-            "or pad-compatible per-client data trees; genuinely "
-            "incompatible trees have no stale-gossip execution "
-            "(backend='loop' would silently change the exchange semantics)")
+            f"backend='{backend}' runs on the stacked path and needs "
+            "identical or pad-compatible per-client data trees; genuinely "
+            "incompatible trees have no "
+            f"{'two-level' if backend == 'hier' else 'stale-gossip'} "
+            "execution (backend='loop' would silently change the exchange "
+            "semantics)")
     return backend
 
 
@@ -145,6 +149,7 @@ def run_federated(
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 0,
     resume: bool = False,
+    n_shards: Optional[int] = None,
     device="cuda",
     transmit_tamper=None,
 ) -> Dict:
@@ -172,6 +177,10 @@ def run_federated(
     The engine backend is ``backend``, else ``cfg.backend``, else
     ``"auto"`` (:func:`_resolve_backend`); ``"async"`` delays delivery by
     ``cfg.staleness`` rounds and is never chosen by ``"auto"``.
+    ``n_shards`` overrides ``cfg.n_shards`` (None keeps the config): the
+    shard count of ``backend="hier"``'s [n_shards × clients-per-shard]
+    factored exchange, whose cross-shard edges ``cfg.staleness`` delays;
+    the other backends ignore it.
 
     ``cfg.compress`` (``"topk"`` or ``"int8"``) compresses whatever the
     method exchanges (proxies for ProxyFL and FML, the model for the
@@ -193,6 +202,8 @@ def run_federated(
     dev = resolve_device(device)
     if use_pallas is not None:
         cfg = dataclasses.replace(cfg, use_pallas=use_pallas)
+    if n_shards is not None:
+        cfg = dataclasses.replace(cfg, n_shards=int(n_shards))
     backend = _resolve_backend(backend, cfg, client_data)
     K = len(client_data)
     ckpt = _checkpointer(checkpoint_dir, checkpoint_every, method, cfg,

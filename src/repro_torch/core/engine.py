@@ -1,6 +1,6 @@
 """FederationEngine — the executor of one federated round; port of the
-synchronous PushSum round and the async (stale-gossip) backend of
-``src/repro/core/engine.py``, with §3.4 dropout.
+synchronous PushSum round, the async (stale-gossip) backend and the hier
+(two-level) backend of ``src/repro/core/engine.py``, with §3.4 dropout.
 
 One round has two parts (Algorithm 1). First every ACTIVE client runs its
 local steps: this port loops over clients and steps in Python, one client
@@ -24,6 +24,25 @@ dropped client holds its own mass (identity column):
   rounds earlier merges in. A dropped client keeps ``kept = 1``, sends
   nothing, and still merges the mail that arrives for it. At τ = 0 the
   async backend runs the synchronous exchange verbatim.
+* ``backend="hier"``: a two-level cohort of S = ``cfg.n_shards`` shards of
+  L = K / S clients (:func:`repro_torch.core.gossip.hier_layout`) runs the
+  SAME P(t), factored by edge locality
+  (:func:`repro_torch.core.gossip.hier_mix_split`): a block-diagonal
+  [S, L, L] part, S shard-local products in one launch of the shard-grid
+  mix kernel under ``cfg.use_pallas``, plus at most one scaled cross-shard
+  edge into each client, a gather. Client states keep the flat per-client
+  layout; the [S, L, D] view exists inside the exchange only. S = 1 runs
+  the synchronous exchange verbatim, whatever τ. At τ = 0 and S > 1 the
+  factored exchange (:func:`repro_torch.core.gossip.hier_mix_debiased`)
+  equals the flat one bit for bit, since P's entries are 0, ½ and 1 and
+  each client has at most one cross-shard in-edge. At τ = ``staleness`` >
+  0 only the cross-shard sends are delayed, through a τ-deep buffer
+  ``{"hier_buffer": [τ, K, D], "hier_w": [τ, K]}`` in the state wrapper
+  (:func:`repro_torch.core.gossip.hier_stale_mix_apply`). As in the
+  reference, hier refuses a heterogeneous cohort, dense mixing (``mix=
+  "mean"`` or ``topology="full"``) at S > 1, the ring mix at τ > 0 and a
+  compressed exchange at S > 1. The accountants step as on vmap, so
+  epsilon depends on neither τ nor S.
 
 Compressed exchange
 -------------------
@@ -96,15 +115,16 @@ from ..nn.modules import (tree_flatten_vector, tree_leaves, tree_map,
 from ..optim import Adam
 from .commit import CommitmentError, client_commitment
 from .compress import COMPRESS_KEY_FOLD, compress_spec
-from .gossip import (mix_matrix, pushsum_mix_debiased, stale_mix_apply,
-                     stale_mix_split)
+from .gossip import (hier_layout, hier_mix_debiased, hier_mix_split,
+                     hier_stale_mix_apply, mix_matrix, pushsum_mix_debiased,
+                     stale_mix_apply, stale_mix_split)
 
 # round t's streams are seeded from (seed, ROUND_KEY_OFFSET + t, ...), apart
 # from the per-client init streams (seed, k), as in the reference
 ROUND_KEY_OFFSET = 10_000
-BACKENDS = ("auto", "vmap", "loop", "async")
+BACKENDS = ("auto", "vmap", "loop", "async", "hier")
 MIXES = ("pushsum", "mean", "ring", "none")
-_UNPORTED_BACKENDS = {"shard_map": 12, "hier": 10}
+_UNPORTED_BACKENDS = {"shard_map": 12}
 
 StepFn = Callable[..., Tuple[Dict, Dict]]
 InitFn = Callable[[torch.Generator], Dict]
@@ -232,18 +252,23 @@ class FederationEngine:
     (drawn on the CPU, moved to ``device``) the same way. A cohort whose
     clients hold different step functions (heterogeneous private
     architectures) runs on ``backend="loop"``, which ``"auto"`` picks for
-    it; ``"vmap"`` and ``"async"`` refuse it, as in the reference.
+    it; ``"vmap"``, ``"async"`` and ``"hier"`` refuse it, as in the
+    reference.
     ``sample_fn(data_k, generator, idx=None) -> batch`` draws a local batch,
     or gathers ``idx`` when the replay hook supplies it. ``mix`` is the
     exchange rule of :func:`repro_torch.core.gossip.mix_matrix`;
-    ``staleness`` the async backend's delivery delay τ (None reads
-    ``cfg.staleness``; the synchronous backends ignore it). ``draws`` and
+    ``staleness`` the delivery delay τ of the async backend and of the hier
+    backend's cross-shard edges (None reads ``cfg.staleness``; the
+    synchronous backends ignore it); the hier shard count is
+    ``cfg.n_shards``, which must divide ``n_clients``. ``draws`` and
     ``codec_draws`` are the replay hooks (module docstring).
 
     The state is a list of per-client dicts, or the wrapper ``{"clients":
-    [...], ["stale_theta": [τ, K, D], "stale_w": [τ, K],] ["ef_state": [K,
-    D]]}`` on the async backend at τ>0 (buffer row 0 is the next delivery)
-    and wherever a compressed exchange runs (the public copies).
+    [...], ["stale_theta": [τ, K, D], "stale_w": [τ, K],] ["hier_buffer":
+    [τ, K, D], "hier_w": [τ, K],] ["ef_state": [K, D]]}`` on the async
+    backend at τ>0 and the hier backend at τ>0 with S>1 (buffer row 0 is
+    the next delivery) and wherever a compressed exchange runs (the public
+    copies).
     """
 
     def __init__(self, cfg: ProxyFLConfig, *, n_clients: int,
@@ -263,7 +288,7 @@ class FederationEngine:
         homogeneous = all(f is self.step_fns[0] for f in self.step_fns)
         if backend == "auto":
             backend = "vmap" if homogeneous else "loop"
-        if backend in ("vmap", "async") and not homogeneous:
+        if backend in ("vmap", "async", "hier") and not homogeneous:
             raise ValueError(
                 f"{backend} backend requires a homogeneous cohort; "
                 "heterogeneous private architectures need backend='loop'")
@@ -271,7 +296,7 @@ class FederationEngine:
         self.mix = mix
         self.mixing = mix != "none" and n_clients > 1
         self.staleness = 0
-        if backend == "async":
+        if backend in ("async", "hier"):
             self.staleness = int(cfg.staleness if staleness is None
                                  else staleness)
             if self.staleness < 0:
@@ -279,17 +304,40 @@ class FederationEngine:
                                  f"{self.staleness}")
             if self.staleness and mix == "ring":
                 raise ValueError(
-                    "async staleness>0 is incompatible with the pure-"
+                    f"{backend} staleness>0 is incompatible with the pure-"
                     "permutation ring mix (CWT): clients keep no self mass, "
                     "so a delayed delivery would leave them model-less for "
                     "the first τ rounds; use staleness=0 or a mix with a "
                     "positive diagonal (pushsum/mean)")
         # τ=0 runs the synchronous exchange verbatim on the unwrapped state
-        self._stale = self.staleness > 0
+        self._stale = backend == "async" and self.staleness > 0
+        # hier: S shards of K / S clients; S = 1 makes every edge
+        # intra-shard, so the flat exchange runs verbatim
+        self.n_shards = (hier_layout(n_clients, cfg.n_shards)[0]
+                         if backend == "hier" else 1)
+        self._hier = backend == "hier" and self.n_shards > 1
+        if self._hier and self.mixing:
+            topo = {"pushsum": cfg.topology, "mean": "full",
+                    "ring": "ring"}[mix]
+            if topo == "full":
+                raise ValueError(
+                    "hier with n_shards>1 needs a sparse exchange: dense "
+                    "mixing (mix='mean' / topology='full') has O(K) "
+                    "cross-shard edges per client, which no O(1) inter-"
+                    "shard collective schedule can realize; use pushsum/"
+                    "ring mixes or n_shards=1")
+        self._hier_stale = self._hier and self.staleness > 0
         # the compressed exchange (None: the uncompressed one, unwrapped)
         self.compress = compress_spec(cfg)
+        if self.compress is not None and self._hier:
+            raise ValueError(
+                "compressed gossip (cfg.compress != 'none') is not "
+                "implemented for the hier factored exchange — the codec "
+                "is wired to the dense matmul paths; use n_shards=1 (which "
+                "runs the vmap programs verbatim) or the loop/vmap/async "
+                "backends for compressed rounds")
         self._compressed = self.compress is not None and self.mixing
-        self._wrapped = self._stale or self._compressed
+        self._wrapped = self._stale or self._compressed or self._hier_stale
         self.use_pallas = cfg.use_pallas
         self.draws = draws
         self.codec_draws = codec_draws
@@ -307,9 +355,9 @@ class FederationEngine:
 
     def init_states(self, seed: int):
         """Per-client init from a CPU generator seeded from (seed, k); at
-        τ>0 also the empty in-flight buffer (nothing arrives for τ rounds);
-        with compression the public copies, warm-started at the initial
-        proxies in f32."""
+        τ>0 also the empty in-flight buffer, the async one or the hier
+        cross-shard one (nothing arrives for τ rounds); with compression the
+        public copies, warm-started at the initial proxies in f32."""
         states = []
         for k in range(self.K):
             gen = torch.Generator().manual_seed(stream_seed(seed, k))
@@ -319,14 +367,16 @@ class FederationEngine:
             return states
         state: Dict[str, Any] = {"clients": states}
         proxy = states[0]["proxy"]["params"]
-        if self._stale:
-            dtype = tree_flatten_vector(proxy).dtype
-            state["stale_theta"] = torch.zeros(
-                (self.staleness, self.K, tree_size(proxy)), dtype=dtype,
-                device=self.device)
-            state["stale_w"] = torch.zeros(
-                (self.staleness, self.K), dtype=states[0]["w"].dtype,
-                device=self.device)
+        for keys, on in ((("stale_theta", "stale_w"), self._stale),
+                         (("hier_buffer", "hier_w"), self._hier_stale)):
+            if on:
+                state[keys[0]] = torch.zeros(
+                    (self.staleness, self.K, tree_size(proxy)),
+                    dtype=tree_flatten_vector(proxy).dtype,
+                    device=self.device)
+                state[keys[1]] = torch.zeros(
+                    (self.staleness, self.K), dtype=states[0]["w"].dtype,
+                    device=self.device)
         if self._compressed:
             state["ef_state"] = torch.stack(
                 [tree_flatten_vector(s["proxy"]["params"])
@@ -374,6 +424,11 @@ class FederationEngine:
             # fails the key/shape match with a descriptive error)
             payload["stale_theta"] = state["stale_theta"]
             payload["stale_w"] = state["stale_w"]
+        if self._hier_stale:
+            # the hier cross-shard buffer, under the reference's keys (τ=0
+            # and n_shards=1 snapshots carry none: plain vmap payloads)
+            payload["hier_buffer"] = state["hier_buffer"]
+            payload["hier_w"] = state["hier_w"]
         if self._compressed:
             # the public copies too: round t+1 transmits C(m − ef_state)
             # and receivers mix ef_state itself (a resume across a
@@ -407,6 +462,9 @@ class FederationEngine:
             if self._stale:
                 state["stale_theta"] = loaded["stale_theta"]
                 state["stale_w"] = loaded["stale_w"]
+            if self._hier_stale:
+                state["hier_buffer"] = loaded["hier_buffer"]
+                state["hier_w"] = loaded["hier_w"]
             if self._compressed:
                 state["ef_state"] = loaded["compress_ef_state"]
         rounds_done = int(loaded["rounds_done"])
@@ -464,6 +522,8 @@ class FederationEngine:
             state = dict(state, clients=states) if self._wrapped else states
         elif self._stale:
             state = self._exchange_stale(states, state, t, act, seed)
+        elif self._hier:
+            state = self._exchange_hier(states, state, t, act)
         else:
             state = self._exchange(states, t, act, state, seed)
         for k, acc in enumerate(self.accountants):
@@ -592,6 +652,38 @@ class FederationEngine:
                    stale_w=torch.cat([buf_w[1:],
                                       send_w[None].to(buf_w.dtype)]))
         return out
+
+    def _hier_split(self, t: int, act=None):
+        """Round t's factored schedule ``(blocks [S, L, L], src [K], scale
+        [K])`` on the engine's device."""
+        blocks, src, scale = hier_mix_split(
+            mix_matrix(self.mix, t, self.K, self.cfg.topology, act),
+            self.n_shards)
+        return (torch.as_tensor(blocks, dtype=torch.float32,
+                                device=self.device),
+                torch.as_tensor(src, dtype=torch.int64, device=self.device),
+                torch.as_tensor(scale, dtype=torch.float32,
+                                device=self.device))
+
+    def _exchange_hier(self, states: List[Dict], state, t: int, act=None):
+        """The factored exchange at S > 1: synchronous at τ = 0 (returns the
+        new client list), else the intra-shard mix with the cross-shard
+        sends through the τ-deep buffer, rotated like the async one
+        (returns the new wrapper)."""
+        blocks, src, scale = self._hier_split(t, act)
+        flat, w = self._flat_proxies(states)
+        if not self._hier_stale:
+            unb, w2 = hier_mix_debiased(flat, w, blocks, src, scale,
+                                        use_pallas=self.use_pallas)
+            return self._with_proxies(states, unb, w2)
+        buf_t, buf_w = state["hier_buffer"], state["hier_w"]
+        unb, send_t, w2, send_w = hier_stale_mix_apply(
+            flat, w, blocks, src, scale, buf_t[0], buf_w[0],
+            use_pallas=self.use_pallas)
+        return dict(state, clients=self._with_proxies(states, unb, w2),
+                    hier_buffer=torch.cat([buf_t[1:], send_t[None]]),
+                    hier_w=torch.cat([buf_w[1:],
+                                      send_w[None].to(buf_w.dtype)]))
 
     def run_rounds(self, state, data: Sequence, t0: int, n_rounds: int,
                    seed: int) -> Tuple[Any, Dict[str, np.ndarray]]:

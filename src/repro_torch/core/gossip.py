@@ -1,16 +1,20 @@
 """PushSum gossip on time-varying directed graphs (paper §3.4): the
-synchronous exchange and the async backend's stale (τ>0) exchange; port of
-``src/repro/core/gossip.py``.
+synchronous exchange, the async backend's stale (τ>0) exchange and the hier
+backend's two-level factored exchange; port of ``src/repro/core/gossip.py``.
 
 The schedule functions (:func:`exponential_offsets`, :func:`gossip_shift`,
 :func:`adjacency_matrix`, :func:`mix_matrix`, the round-block schedules
 :func:`shift_schedule`, :func:`adjacency_schedule`, :func:`mix_schedule`,
 the stale split :func:`stale_mix_split`, :func:`stale_mix_schedule` and the
-numpy oracle :func:`stale_gossip_reference`) are numpy, copied verbatim, so
+numpy oracle :func:`stale_gossip_reference`; the hier factoring
+:func:`hier_layout`, :func:`hier_mix_split`, :func:`hier_mix_schedule` and
+its oracle :func:`hier_gossip_reference`) are numpy, copied verbatim, so
 they are array-equal to the reference. The exchanges run on the stacked
 ``[K, D]`` proxies: plain torch products, or the hand-written kernels under
 ``use_pallas`` (:func:`pushsum_mix_debiased` through the mix kernel,
-:func:`stale_mix_apply` through the stale-mix kernel), or the compressed
+:func:`stale_mix_apply` through the stale-mix kernel, the hier exchanges
+:func:`hier_mix_debiased` and :func:`hier_stale_mix_apply` through the
+shard-grid entry of the mix kernel), or the compressed
 exchange of :mod:`repro_torch.core.compress` (plain torch, no kernel).
 :func:`comm_cost_per_round` is the analytic communication model of fig. 4.
 """
@@ -22,7 +26,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..kernels import fused_pushsum_mix, fused_stale_mix
+from ..kernels import (fused_pushsum_mix, fused_pushsum_mix_blocks,
+                       fused_stale_mix)
 from .compress import compressed_pushsum_mix, compressed_stale_mix
 
 
@@ -370,6 +375,169 @@ def stale_gossip_reference(z0, w0, Ps, staleness: int):
             buf_t = np.concatenate([buf_t[1:], send_t[None]])
             buf_w = np.concatenate([buf_w[1:], send_w[None]])
         z = mixed / w[:, None]
+    return z, w, buf_t, buf_w
+
+
+# ---------------------------------------------------------------------------
+# hierarchical gossip: the hier backend's two-level factoring of P^(t)
+#
+# A cohort of S shards × L clients-per-shard runs the SAME flat column-
+# stochastic schedule P^(t), factored by edge locality: the entries whose
+# sender and receiver share a shard form a block-diagonal [S, L, L] part
+# (S independent [L, L] × [L, D] products, the shard-grid mix kernel under
+# ``use_pallas``), and the cross-shard entries a scaled partial permutation
+# (each client receives from at most one peer in another shard per round
+# under the exponential and ring graphs). P = blockdiag + cross with
+# disjoint supports, so the factored exchange moves the same mass as the
+# flat one. Staleness delays the cross part only: its deliveries ride a
+# τ-deep in-flight buffer while the intra-shard exchange stays synchronous.
+
+
+def hier_layout(n_clients: int, n_shards: int) -> Tuple[int, int]:
+    """Validated two-level cohort layout ``(S, L)``: client k lives in
+    shard ``k // L`` at local index ``k % L``. ``n_shards`` must divide the
+    cohort evenly (one [S, L, L] block shape for every shard)."""
+    S = 1 if n_shards is None else int(n_shards)
+    if S < 1 or S > n_clients or n_clients % S:
+        raise ValueError(
+            f"n_shards={n_shards} must evenly divide n_clients="
+            f"{n_clients} (two-level [shards × clients-per-shard] cohort)")
+    return S, n_clients // S
+
+
+def hier_mix_split(P, n_shards: int):
+    """Factor one flat column-stochastic ``P`` [K, K] by edge locality:
+    ``(blocks[S, L, L], src[K], scale[K])``, ``blocks[s]`` the part of P
+    among shard s's clients (diagonal included), ``src[i]`` / ``scale[i]``
+    client i's one cross-shard in-edge (``P[i, src[i]] == scale[i]``), or
+    ``src[i] == i, scale[i] == 0`` when it has none. Exact:
+    ``blockdiag(blocks) + scatter(src, scale) == P``. Raises when the cross
+    part is not a scaled partial permutation (two or more cross-shard
+    edges into or out of a client, as dense "full"/"mean" mixing has)."""
+    P = np.asarray(P)
+    K = P.shape[-1]
+    S, L = hier_layout(K, n_shards)
+    shard = np.arange(K) // L
+    intra = shard[:, None] == shard[None, :]
+    cross = np.where(intra, 0.0, P)
+    if (np.count_nonzero(cross, axis=1) > 1).any() or \
+            (np.count_nonzero(cross, axis=0) > 1).any():
+        raise ValueError(
+            "hier factoring needs at most one cross-shard edge per client "
+            "per round (a scaled partial permutation); dense mixing "
+            "(topology='full' / mix='mean') is not hier-factorable")
+    blocks = np.where(intra, P, 0.0).reshape(S, L, S, L)
+    blocks = blocks[np.arange(S), :, np.arange(S), :]          # [S, L, L]
+    src = np.argmax(cross != 0.0, axis=1)
+    has = cross[np.arange(K), src] != 0.0
+    src = np.where(has, src, np.arange(K))
+    scale = np.where(has, cross[np.arange(K), src], 0.0)
+    return blocks, src.astype(np.int64), scale
+
+
+def hier_mix_schedule(mix: str, t0: int, T: int, n_clients: int,
+                      n_shards: int, topology: str = "exponential",
+                      active=None, self_weight: float = 0.5):
+    """:func:`hier_mix_split` of each round of a round-block's
+    :func:`mix_schedule`, stacked: ``(blocks[T, S, L, L], src[T, K],
+    scale[T, K])`` (``active`` is None or bool[T, K])."""
+    Ps = mix_schedule(mix, t0, T, n_clients, topology, active=active,
+                      self_weight=self_weight)
+    parts = [hier_mix_split(Ps[i], n_shards) for i in range(T)]
+    blocks = np.stack([p[0] for p in parts])
+    src = np.stack([p[1] for p in parts])
+    scale = np.stack([p[2] for p in parts])
+    return blocks, src, scale
+
+
+def _hier_intra(x: torch.Tensor, w: torch.Tensor, blocks, use_pallas: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block-diagonal half of one factored exchange: S independent
+    [L, L] × [L, D] products over the stacked rows and the matching w mix,
+    not de-biased; one launch of the shard-grid mix kernel under
+    ``use_pallas``."""
+    if use_pallas:
+        return fused_pushsum_mix_blocks(x, w, blocks, debias=False)
+    Pb = _as_matrix(blocks, x)
+    S, L, _ = Pb.shape
+    mixed = torch.einsum("sij,sjd->sid", Pb, x.reshape(S, L, -1))
+    wm = torch.einsum("sij,sj->si", Pb.to(w.dtype), w.reshape(S, L))
+    return mixed.reshape(x.shape), wm.reshape(w.shape)
+
+
+def _cross(src, scale, like: torch.Tensor):
+    return (torch.as_tensor(src, dtype=torch.int64, device=like.device),
+            _as_matrix(scale, like))
+
+
+def hier_mix_debiased(flat: torch.Tensor, w: torch.Tensor, blocks, src,
+                      scale, *, use_pallas: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One synchronous factored exchange, the two-level form of
+    :func:`pushsum_mix_debiased`: the shard-local products plus the scaled
+    cross-shard gather ``s·flat[src]``, then the de-bias. Every client has
+    at most one cross-shard in-edge, so with P's entries 0, ½ and 1 each
+    output is the flat exchange's one rounding, bit for bit."""
+    mixed, wm = _hier_intra(flat, w, blocks, use_pallas)
+    idx, s = _cross(src, scale, flat)
+    mixed = mixed + s[:, None] * flat[idx]
+    w2 = wm + s.to(w.dtype) * w[idx]
+    return mixed / w2[:, None], w2
+
+
+def hier_stale_mix_apply(flat: torch.Tensor, w: torch.Tensor, blocks, src,
+                         scale, buf_t0: torch.Tensor, buf_w0: torch.Tensor,
+                         *, use_pallas: bool = False):
+    """One stale (τ>0) factored exchange: re-bias θ = z·w, mix the
+    intra-shard part synchronously on the current θ, emit the cross-shard
+    send ``scale·θ[src]`` (the caller pushes it into the τ-deep buffer and
+    owns the rotation), merge the round-(t−τ) delivery ``buf_t0`` /
+    ``buf_w0`` and de-bias by the identically delayed weights. Returns
+    ``(z', send_t, w', send_w)``."""
+    theta = flat * w[:, None]                  # raw PushSum numerator
+    mixed, wm = _hier_intra(theta, w, blocks, use_pallas)
+    idx, s = _cross(src, scale, flat)
+    send_t = s[:, None] * theta[idx]
+    send_w = s.to(w.dtype) * w[idx]
+    w2 = wm + buf_w0
+    return (mixed + buf_t0) / w2[:, None], send_t, w2, send_w
+
+
+def hier_gossip_reference(z0, w0, Ps, n_shards: int, staleness: int = 0):
+    """Numpy reference of the two-level (hier) PushSum exchange, the oracle
+    of the hier backend. Per round, with ``blocks, src, scale =
+    hier_mix_split(P, n_shards)``: re-bias θ = z·w; mix ``blockdiag(blocks)
+    @ θ`` synchronously; deliver ``scale·θ[src]`` at once (τ = 0) or
+    through a τ-deep buffer (τ > 0, the cross-shard mass only); z' = (mixed
+    + delivery) / (w-mixed + w-delivery). Σ w + Σ buf_w and Σ z·w + Σ
+    buf_theta are conserved every round; at τ = 0 it equals the flat
+    :func:`stale_gossip_reference` at staleness 0. Returns ``(z, w,
+    buf_theta[τ, K, D], buf_w[τ, K])``; buffer row 0 is the next
+    delivery."""
+    z = np.asarray(z0, np.float64)
+    w = np.asarray(w0, np.float64)
+    K, D = z.shape
+    S, L = hier_layout(K, n_shards)
+    tau = int(staleness)
+    buf_t = np.zeros((tau, K, D))
+    buf_w = np.zeros((tau, K))
+    for P in Ps:
+        blocks, src, scale = hier_mix_split(np.asarray(P, np.float64),
+                                            n_shards)
+        theta = z * w[:, None]
+        mixed = np.einsum("sij,sjd->sid", blocks,
+                          theta.reshape(S, L, D)).reshape(K, D)
+        wm = np.einsum("sij,sj->si", blocks, w.reshape(S, L)).reshape(K)
+        send_t = scale[:, None] * theta[src]
+        send_w = scale * w[src]
+        if tau == 0:
+            arrive_t, arrive_w = send_t, send_w
+        else:
+            arrive_t, arrive_w = buf_t[0], buf_w[0]
+            buf_t = np.concatenate([buf_t[1:], send_t[None]])
+            buf_w = np.concatenate([buf_w[1:], send_w[None]])
+        w = wm + arrive_w
+        z = (mixed + arrive_t) / w[:, None]
     return z, w, buf_t, buf_w
 
 

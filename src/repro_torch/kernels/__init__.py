@@ -25,6 +25,10 @@ The round hot path (``ProxyFLConfig.use_pallas``):
   in one pass (``repro_torch.core.dp.dp_adam_update``).
 - :func:`fused_pushsum_mix` — the de-biased PushSum exchange
   (``repro_torch.core.gossip.pushsum_mix_debiased``).
+- :func:`fused_pushsum_mix_blocks` — the hier backend's intra-shard mix,
+  S shards' [L, L] blocks in one launch of the mix kernel on a shard grid
+  (``repro_torch.core.gossip.hier_mix_debiased``,
+  ``hier_stale_mix_apply``).
 - :func:`fused_stale_mix` — the async backend's stale exchange at
   staleness τ>0: re-bias, send, merge the delayed delivery, de-bias
   (``repro_torch.core.gossip.stale_mix_apply``).
@@ -75,7 +79,8 @@ from .dp_step import noise_adam_step, noise_sgd_step
 from .flash_attention import flash_attention
 from .mamba_scan import mamba_scan
 from .ops import gqa_flash_attention, tree_clip_accumulate
-from .pushsum_mix import fused_pushsum_mix, fused_stale_mix
+from .pushsum_mix import (fused_pushsum_mix, fused_pushsum_mix_blocks,
+                          fused_stale_mix)
 from .rmsnorm import rmsnorm
 
 KERNELS = {
@@ -84,6 +89,7 @@ KERNELS = {
     "noise_sgd_step": noise_sgd_step,
     "noise_adam_step": noise_adam_step,
     "fused_pushsum_mix": fused_pushsum_mix,
+    "fused_pushsum_mix_blocks": fused_pushsum_mix_blocks,
     "fused_stale_mix": fused_stale_mix,
     "rmsnorm": rmsnorm,
     "flash_attention": flash_attention,
@@ -142,6 +148,7 @@ __all__ = [
     "clip_accumulate_rows",
     "flash_attention",
     "fused_pushsum_mix",
+    "fused_pushsum_mix_blocks",
     "fused_stale_mix",
     "gqa_flash_attention",
     "mamba_scan",

@@ -56,6 +56,9 @@ _SIGNATURES = {
                               ctypes.c_int, _P),
     "repro_pushsum_mix": (_P, ctypes.c_int, _P, _P, _P, ctypes.c_int,
                           ctypes.c_int64, ctypes.c_int, _P),
+    "repro_pushsum_mix_blocks": (_P, ctypes.c_int, _P, _P, _P, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                                 _P),
     "repro_stale_mix": (_P, _P, ctypes.c_int, _P, _P, _P, _P, _P, _P,
                         ctypes.c_int, ctypes.c_int64, _P),
     "repro_noise_sgd_step": (_P, _P, _P, ctypes.c_int, _P, ctypes.c_int64,

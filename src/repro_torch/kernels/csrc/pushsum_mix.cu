@@ -30,6 +30,18 @@
 //   on the launch shape. Above K = 32 (BENCH_9 ran up to 256) the column
 //   has no room in registers nor P in shared memory: the streaming kernel
 //   re-reads x[:, j] per output row through the cache and P through __ldg.
+//
+// repro_pushsum_mix_blocks is the hier backend's intra-shard half
+// (src/repro/core/gossip.py::_hier_intra, which vmaps the reference's
+// fused_pushsum_mix over the shards): S independent [L, L] x [L, D]
+// products over x [S*L, D], P [S, L, L] and w2 [S*L], one launch. The same
+// kernels run on a grid whose second dimension is the shard: the CTAs of
+// shard s stage P[s] and w2[s*L..] in shared memory and read and write
+// rows s*L .. s*L + L - 1; the bucket and C are picked from L as from K.
+// So each output is the same fmaf chain over k = 0..L-1 from 0 as the flat
+// kernel's on the shard's [L, D] rows with P[s]: bit-equal to S flat
+// launches. The flat entry is the one-shard grid.
+//   Bound: the flat entry's, 2*S*L*4*D bytes; 12.7 MB at [8, 199,210].
 #include "common.cuh"
 
 namespace repro {
@@ -37,12 +49,23 @@ namespace {
 
 constexpr int kRegK = 32;  // the largest K bucket of the register kernel
 
+// The rows, the [K, K] block of P and the K entries of w2 of shard
+// blockIdx.y, on a grid over shards of K rows each (the flat entry
+// launches one shard).
+#define REPRO_SHARD(T)                                   \
+  const int64_t r0 = (int64_t)blockIdx.y * K;            \
+  const T* __restrict__ x = x_all + r0 * D;              \
+  T* __restrict__ out = out_all + r0 * D;                \
+  const float* __restrict__ P = P_all + r0 * K;          \
+  const float* __restrict__ w2 = w2_all + r0
+
 // K <= KB; each thread owns columns j .. j + C - 1 of a grid-stride loop
 template <typename T, int KB, int C>
 __global__ void __launch_bounds__(kThreads)
-mix_reg(const T* __restrict__ x, const float* __restrict__ P,
-        const float* __restrict__ w2, T* __restrict__ out, int K, int64_t D,
-        int debias) {
+mix_reg(const T* __restrict__ x_all, const float* __restrict__ P_all,
+        const float* __restrict__ w2_all, T* __restrict__ out_all, int K,
+        int64_t D, int debias) {
+  REPRO_SHARD(T);
   __shared__ float sP[KB * KB];
   __shared__ float sW[KB];
   for (int e = threadIdx.x; e < K * K; e += blockDim.x) sP[e] = P[e];
@@ -83,10 +106,12 @@ mix_reg(const T* __restrict__ x, const float* __restrict__ P,
 }
 
 template <typename T>
-__global__ void mix_stream(const T* __restrict__ x,
-                           const float* __restrict__ P,
-                           const float* __restrict__ w2, T* __restrict__ out,
-                           int K, int64_t D, int debias) {
+__global__ void mix_stream(const T* __restrict__ x_all,
+                           const float* __restrict__ P_all,
+                           const float* __restrict__ w2_all,
+                           T* __restrict__ out_all, int K, int64_t D,
+                           int debias) {
+  REPRO_SHARD(T);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < D;
        j += stride) {
@@ -102,14 +127,15 @@ __global__ void mix_stream(const T* __restrict__ x,
 
 template <typename T, int KB, int C>
 void launch_reg(const void* x, const float* P, const float* w2, void* out,
-                int K, int64_t D, int debias, cudaStream_t st) {
-  mix_reg<T, KB, C><<<grid_for((D + C - 1) / C), kThreads, 0, st>>>(
-      (const T*)x, P, w2, (T*)out, K, D, debias);
+                int S, int K, int64_t D, int debias, cudaStream_t st) {
+  const dim3 grid(grid_for((D + C - 1) / C), S);
+  mix_reg<T, KB, C><<<grid, kThreads, 0, st>>>((const T*)x, P, w2, (T*)out,
+                                               K, D, debias);
 }
 
 template <typename T, int KB>
 void launch_bucket(const void* x, const float* P, const float* w2, void* out,
-                   int K, int64_t D, int debias, cudaStream_t st) {
+                   int S, int K, int64_t D, int debias, cudaStream_t st) {
   // C columns a thread need every row start (k * D) and both bases aligned
   // to C elements; the column x[:KB][C] holds at most 32 floats
   constexpr int kMaxC = 32 / KB;
@@ -118,28 +144,42 @@ void launch_bucket(const void* x, const float* P, const float* w2, void* out,
     return D % c == 0 && (uintptr_t)x % a == 0 && (uintptr_t)out % a == 0;
   };
   if constexpr (kMaxC >= 4) {
-    if (fits(4)) return launch_reg<T, KB, 4>(x, P, w2, out, K, D, debias, st);
+    if (fits(4))
+      return launch_reg<T, KB, 4>(x, P, w2, out, S, K, D, debias, st);
   }
   if constexpr (kMaxC >= 2) {
-    if (fits(2)) return launch_reg<T, KB, 2>(x, P, w2, out, K, D, debias, st);
+    if (fits(2))
+      return launch_reg<T, KB, 2>(x, P, w2, out, S, K, D, debias, st);
   }
-  launch_reg<T, KB, 1>(x, P, w2, out, K, D, debias, st);
+  launch_reg<T, KB, 1>(x, P, w2, out, S, K, D, debias, st);
 }
 
+// S shards of K rows each (S = 1: the flat exchange)
 template <typename T>
 cudaError_t launch_mix(const void* x, const float* P, const float* w2,
-                       void* out, int K, int64_t D, int debias,
+                       void* out, int S, int K, int64_t D, int debias,
                        cudaStream_t st) {
   if (K <= 8)
-    launch_bucket<T, 8>(x, P, w2, out, K, D, debias, st);
+    launch_bucket<T, 8>(x, P, w2, out, S, K, D, debias, st);
   else if (K <= 16)
-    launch_bucket<T, 16>(x, P, w2, out, K, D, debias, st);
+    launch_bucket<T, 16>(x, P, w2, out, S, K, D, debias, st);
   else if (K <= kRegK)
-    launch_bucket<T, kRegK>(x, P, w2, out, K, D, debias, st);
+    launch_bucket<T, kRegK>(x, P, w2, out, S, K, D, debias, st);
   else
-    mix_stream<T><<<grid_for(D), kThreads, 0, st>>>((const T*)x, P, w2,
-                                                    (T*)out, K, D, debias);
+    mix_stream<T><<<dim3(grid_for(D), S), kThreads, 0, st>>>(
+        (const T*)x, P, w2, (T*)out, K, D, debias);
   return cudaGetLastError();
+}
+
+cudaError_t launch_any(const void* x, int dtype, const float* P,
+                       const float* w2, void* out, int S, int K, int64_t D,
+                       int debias, cudaStream_t st) {
+  if (S < 1 || S > 65535 || K < 1 || D < 1) return cudaErrorInvalidValue;
+  if (dtype == kF32)
+    return launch_mix<float>(x, P, w2, out, S, K, D, debias, st);
+  if (dtype == kBF16)
+    return launch_mix<__nv_bfloat16>(x, P, w2, out, S, K, D, debias, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -150,11 +190,15 @@ using namespace repro;
 extern "C" int repro_pushsum_mix(const void* x, int dtype, const float* P,
                                  const float* w2, void* out, int K,
                                  int64_t D, int debias, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (K < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  if (dtype == kF32)
-    return (int)launch_mix<float>(x, P, w2, out, K, D, debias, st);
-  if (dtype == kBF16)
-    return (int)launch_mix<__nv_bfloat16>(x, P, w2, out, K, D, debias, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_any(x, dtype, P, w2, out, 1, K, D, debias,
+                         (cudaStream_t)stream);
+}
+
+// x and out [S*L, D], P [S, L, L], w2 [S*L]
+extern "C" int repro_pushsum_mix_blocks(const void* x, int dtype,
+                                        const float* P, const float* w2,
+                                        void* out, int S, int L, int64_t D,
+                                        int debias, void* stream) {
+  return (int)launch_any(x, dtype, P, w2, out, S, L, D, debias,
+                         (cudaStream_t)stream);
 }

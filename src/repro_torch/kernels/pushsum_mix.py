@@ -5,13 +5,17 @@ lines 7-11).
 ``debias=True`` or ``(P·z, P·w)`` without. On a CUDA tensor the [K, D]
 product runs in the kernel of ``csrc/pushsum_mix.cu`` (replacing
 ``src/repro/kernels/pushsum_mix.py``'s ``fused_pushsum_mix``).
+:func:`fused_pushsum_mix_blocks` is the hier backend's intra-shard half,
+the same kernel on a grid over S shards of [L, L] blocks in one launch
+(the reference vmaps ``fused_pushsum_mix`` over the shards).
 
 :func:`fused_stale_mix` is the async (staleness τ>0) exchange: re-bias
 θ = z·w, ``send_t = sent@θ``, ``z' = (kept·θ + buf_t0)/w'``, in the kernel
 of ``csrc/stale_mix.cu`` (replacing the reference's ``fused_stale_mix``).
 
-In both, the O(K) weight products (``w' = P·w``; ``w' = kept·w + buf_w0``
-and ``send_w = sent@w``) stay torch products, as the reference forms them
+In all three, the O(K) weight products (``w' = P·w``; the per-shard
+``blocks @ w``; ``w' = kept·w + buf_w0`` and ``send_w = sent@w``) stay
+torch products, as the reference forms them
 outside its kernels. On a CPU tensor the plain versions in :mod:`.ref` run.
 """
 from __future__ import annotations
@@ -21,7 +25,8 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .ref import fused_pushsum_mix_ref, fused_stale_mix_ref
+from .ref import (fused_pushsum_mix_blocks_ref, fused_pushsum_mix_ref,
+                  fused_stale_mix_ref)
 
 
 def fused_pushsum_mix(flat: torch.Tensor, w: torch.Tensor, P, *,
@@ -55,6 +60,52 @@ def fused_pushsum_mix(flat: torch.Tensor, w: torch.Tensor, P, *,
 
 
 fused_pushsum_mix.launches = 0
+
+
+def fused_pushsum_mix_blocks(flat: torch.Tensor, w: torch.Tensor, blocks, *,
+                             debias: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The hier exchange's intra-shard half: S independent [L, L] × [L, D]
+    products, ``(blockdiag(blocks)·z [/ wm], wm)`` with ``wm`` the
+    per-shard ``blocks[s] @ w[s·L:(s+1)·L]``.
+
+    flat [S·L, D] f32/bf16, w [S·L], blocks [S, L, L] (array or tensor, any
+    float dtype; used in f32). One launch of the mix kernel on a grid over
+    the shards, each output bit-equal to :func:`fused_pushsum_mix` on its
+    shard's rows with its block."""
+    if flat.dim() != 2 or flat.shape[0] < 1 or flat.shape[1] < 1:
+        raise ValueError("fused_pushsum_mix_blocks: flat must be a non-empty "
+                         f"[S·L, D] matrix, got {tuple(flat.shape)}")
+    if flat.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"fused_pushsum_mix_blocks: flat dtype {flat.dtype} "
+                        "not supported (float32 or bfloat16)")
+    shape = tuple(blocks.shape)
+    if len(shape) != 3 or shape[1] != shape[2] or shape[0] < 1 \
+            or shape[0] * shape[1] != flat.shape[0] \
+            or tuple(w.shape) != (flat.shape[0],):
+        raise ValueError(
+            "fused_pushsum_mix_blocks: need blocks [S, L, L] with S·L = "
+            f"{flat.shape[0]} rows and w [{flat.shape[0]}], got blocks "
+            f"{shape} and w {tuple(w.shape)}")
+    _build.refuse_grad("fused_pushsum_mix_blocks", flat, w, blocks)
+    if flat.device.type == "cpu":
+        return fused_pushsum_mix_blocks_ref(flat, w, blocks, debias=debias)
+    S, L, _ = shape
+    D = flat.shape[1]
+    Bf = torch.as_tensor(blocks, dtype=torch.float32,
+                         device=flat.device).contiguous()
+    wm = torch.einsum("sij,sj->si", Bf,
+                      w.to(torch.float32).reshape(S, L)).reshape(S * L)
+    _build.check_cuda("fused_pushsum_mix_blocks", flat, Bf, wm)
+    out = torch.empty_like(flat)
+    _build.launch("repro_pushsum_mix_blocks", flat.data_ptr(),
+                  _build.DTYPE_CODES[flat.dtype], Bf.data_ptr(),
+                  wm.data_ptr(), out.data_ptr(), S, L, D, int(debias))
+    fused_pushsum_mix_blocks.launches += 1
+    return out, wm.to(w.dtype)
+
+
+fused_pushsum_mix_blocks.launches = 0
 
 
 def fused_stale_mix(flat: torch.Tensor, w: torch.Tensor, kept, sent,

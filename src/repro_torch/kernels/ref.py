@@ -49,6 +49,25 @@ def fused_pushsum_mix_ref(flat: torch.Tensor, w: torch.Tensor, P, *,
     return mixed.to(flat.dtype), w2.to(w.dtype)
 
 
+def fused_pushsum_mix_blocks_ref(flat: torch.Tensor, w: torch.Tensor,
+                                 blocks, *, debias: bool = False):
+    """The hier exchange's intra-shard half, f32 accumulation: S independent
+    [L, L] × [L, D] products of ``blocks`` [S, L, L] with the shards' rows
+    of ``flat`` [S·L, D] (and of ``w`` [S·L]), de-biased or not."""
+    Bf = torch.as_tensor(blocks, dtype=torch.float32, device=flat.device)
+    S, L, _ = Bf.shape
+    mixed = torch.einsum("sij,sjd->sid", Bf,
+                         flat.to(torch.float32).reshape(S, L, -1))
+    # shard by shard, as S calls of fused_pushsum_mix_ref form it: on the
+    # CPU a batched matrix-vector product rounds otherwise than `@`
+    ws = w.to(torch.float32).reshape(S, L)
+    wm = torch.stack([Bf[s] @ ws[s] for s in range(S)])
+    if debias:
+        mixed = mixed / wm[..., None]
+    return (mixed.reshape(flat.shape).to(flat.dtype),
+            wm.reshape(w.shape).to(w.dtype))
+
+
 def fused_stale_mix_ref(flat, w, kept, sent, buf_t0, buf_w0):
     """Stale (async τ>0) exchange: re-bias θ = z·w, split kept/sent, merge
     the delayed delivery, de-bias — returns (z', send_t, w', send_w)."""

@@ -8,7 +8,11 @@ lines 2–5, :func:`repro_torch.launch.steps.make_train_step`), then the
 PushSum exchange of the proxies (lines 7–11), through
 :class:`repro_torch.core.engine.FederationEngine`. ``--backend`` ``loop``
 and ``vmap`` run the synchronous exchange (this port runs clients one at
-a time on either), ``async --staleness T`` the stale one. The default
+a time on either), ``async --staleness T`` the stale one, and ``hier
+--n-shards S [--staleness T]`` the two-level one: S shards of clients/S
+clients mixing shard-locally (one launch of the shard-grid mix kernel
+under ``--use-pallas``) plus at most one cross-shard edge per client, the
+cross-shard edges T rounds late. The default
 ``--preset 100m`` trains a ~120M-parameter private model around a 6.3M
 proxy; ``--arch NAME --smoke`` a registry architecture's reduced variant.
 
@@ -32,8 +36,11 @@ from the newest snapshot there, bit for bit:
     PYTHONPATH=src python -m repro_torch.launch.train --preset 100m \
         --rounds 10 --use-pallas --checkpoint-dir ckpt/run0 --resume
 
-``--backend hier`` and ``--n-shards > 1`` are not ported and refuse,
-naming their ROADMAP.md item.
+    PYTHONPATH=src python -m repro_torch.launch.train --preset 100m \
+        --backend hier --n-shards 2 --staleness 2 --use-pallas
+
+``--staleness`` needs ``--backend async`` or ``hier`` and ``--n-shards >
+1`` needs ``hier``, with the reference's messages.
 
 Each client's corpus is a token stream from its own bigram chain (domain
 = client id), cut into sequences of ``--seq + 1`` tokens; the test stream
@@ -65,10 +72,6 @@ from ..nn.model import forward
 from ..nn.modules import torch_dtype
 from .serve import device_label
 from .steps import StepOptions, init_train_state, make_train_step
-
-# the flags of the reference's driver that this port refuses, with the
-# ROADMAP.md Queue 1 item that brings each
-_UNPORTED_FLAGS = {"--backend hier": 10, "--n-shards > 1": 10}
 
 
 def preset_100m(vocab: int = 8192) -> ModelConfig:
@@ -150,15 +153,6 @@ def tree_size_of(cfg: ModelConfig) -> str:
     return f"{cfg.n_layers}L/d{cfg.d_model}"
 
 
-def _refuse_unported(args) -> None:
-    asked = {"--backend hier": args.backend == "hier",
-             "--n-shards > 1": args.n_shards > 1}
-    for flag, item in _UNPORTED_FLAGS.items():
-        if asked[flag]:
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP.md Queue 1 "
-                             f"item {item})")
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=list_archs())
@@ -182,15 +176,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=("loop", "vmap", "async", "hier"),
                     help="federation engine backend (loop and vmap: the "
                          "synchronous exchange; async: staleness-τ stale "
-                         "gossip, see --staleness; hier: not ported, "
-                         "ROADMAP.md Queue 1 item 10)")
+                         "gossip, see --staleness; hier: two-level cohort "
+                         "of --n-shards shards with block-diagonal "
+                         "intra-shard mixing and sparse cross-shard edges, "
+                         "see --n-shards)")
     ap.add_argument("--staleness", type=int, default=0,
-                    help="gossip delay τ for --backend async: the round-t "
-                         "exchange merges neighbor proxy mass sent τ rounds "
-                         "earlier; 0 runs the synchronous exchange")
+                    help="gossip delay τ for --backend async or hier: the "
+                         "round-t exchange merges neighbor proxy mass sent "
+                         "τ rounds earlier; with hier only the cross-shard "
+                         "edges are delayed; 0 runs the synchronous "
+                         "exchange")
     ap.add_argument("--n-shards", type=int, default=1,
-                    help="two-level cohort layout of --backend hier (not "
-                         "ported: ROADMAP.md Queue 1 item 10)")
+                    help="two-level cohort layout for --backend hier: "
+                         "n_shards shards of clients/n_shards clients each "
+                         "(must divide evenly); 1 keeps every edge "
+                         "intra-shard and runs the flat exchange verbatim")
     ap.add_argument("--dropout-rate", type=float, default=0.0,
                     help="per-round client dropout probability (§3.4)")
     ap.add_argument("--min-active", type=int, default=1,
@@ -233,10 +233,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if not args.preset and not args.arch:
         args.preset = "100m"
-    _refuse_unported(args)
-    if args.staleness and args.backend != "async":
-        raise SystemExit("--staleness requires --backend async "
+    if args.staleness and args.backend not in ("async", "hier"):
+        raise SystemExit("--staleness requires --backend async or hier "
                          "(the synchronous backends deliver every round)")
+    if args.n_shards > 1 and args.backend != "hier":
+        raise SystemExit("--n-shards > 1 requires --backend hier "
+                         "(the flat backends have no shard level)")
     return args
 
 
@@ -263,7 +265,8 @@ def setup(args) -> Run:
         weight_decay=args.weight_decay, batch_size=args.batch,
         topology=args.topology, seed=args.seed,
         dropout_rate=args.dropout_rate, min_active=args.min_active,
-        staleness=args.staleness, use_pallas=args.use_pallas,
+        staleness=args.staleness, n_shards=args.n_shards,
+        use_pallas=args.use_pallas,
         compress=args.compress, compress_ratio=args.compress_ratio,
         verify_commitments=args.verify_commitments,
         dp=DPConfig(enabled=not args.no_dp, clip_norm=args.clip,

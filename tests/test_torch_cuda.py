@@ -105,6 +105,10 @@ def test_kernel_matches_plain_at_main_shape(gen, name):
         if name == "fused_pushsum_mix":
             got = kernels.fused_pushsum_mix(flat, w, P)
             want = ref.fused_pushsum_mix_ref(flat, w, P)
+        elif name == "fused_pushsum_mix_blocks":   # hier: 2 shards of 4
+            blocks = torch.rand((2, 4, 4), generator=gen, device="cuda")
+            got = kernels.fused_pushsum_mix_blocks(flat, w, blocks)
+            want = ref.fused_pushsum_mix_blocks_ref(flat, w, blocks)
         else:
             assert name == "fused_stale_mix", name
             kept = torch.diagonal(P).contiguous()
@@ -787,3 +791,29 @@ def test_smoke_model_serves_through_the_kernels(gen, arch):
         "attn" in kinds and cfg.attn_impl != "mla")
     for g, w in zip(got + got_cache, want + want_cache):
         torch.testing.assert_close(g, w, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,D", [(2, 4, 199_210), (8, 8, 199_210),
+                                   (2, 9, 1_001), (2, 33, 4_097)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocks_kernel_is_s_flat_launches_on_the_card(n, L, D, dtype):
+    """The hier exchange's shard-grid mix (one launch) equals S launches of
+    the flat kernel on the shards' rows bit for bit, and its plain version
+    within the kernel tolerance; across the register buckets' edges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flat = torch.randn((n * L, D), generator=gen, device="cuda").to(dtype)
+    w = torch.rand(n * L, generator=gen, device="cuda") + 0.5
+    blocks = torch.rand((n, L, L), generator=gen, device="cuda")
+    kernels.reset_launch_counts()
+    got = kernels.fused_pushsum_mix_blocks(flat, w, blocks)
+    assert kernels.launch_counts()["fused_pushsum_mix_blocks"] == 1
+    flats = [kernels.fused_pushsum_mix(flat[s * L:(s + 1) * L],
+                                       w[s * L:(s + 1) * L], blocks[s],
+                                       debias=False) for s in range(n)]
+    assert torch.equal(got[0], torch.cat([f[0] for f in flats]))
+    want = ref.fused_pushsum_mix_blocks_ref(flat, w, blocks)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)

@@ -73,12 +73,25 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for():
                       seeds=(0,), n_train_factor=0.01)
 
 
-@pytest.mark.parametrize("backend,item", [("shard_map", 12), ("hier", 10)])
+@pytest.mark.parametrize("backend,item", [("shard_map", 12)])
 def test_unported_backends_name_the_roadmap_item(backend, item):
     spec, _, cfg = _tiny()
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue 1 item {item}"):
         dml_engine((spec,) * 2, spec, cfg, backend=backend, device="cpu")
+
+
+@pytest.mark.parametrize("backend,n_shards,staleness",
+                         [("hier", 2, 0), ("hier", 2, 1), ("hier", 1, 0)])
+def test_hier_constructs_an_engine_on_the_cpu(backend, n_shards, staleness):
+    """The backend the isolation test once refused now runs a round."""
+    spec, data, cfg = _tiny()
+    cfg = dataclasses.replace(cfg, n_shards=n_shards, staleness=staleness)
+    eng = dml_engine((spec,) * 2, spec, cfg, backend=backend, device="cpu")
+    assert eng.backend == "hier" and eng.n_shards == n_shards
+    state, _ = eng.run_round(eng.init_states(0), data, 0, seed=0)
+    assert len(eng.export_states(state)) == 2
+    assert isinstance(state, dict) == (n_shards > 1 and staleness > 0)
 
 
 @pytest.mark.parametrize("knobs", [dict(compress="topk"),

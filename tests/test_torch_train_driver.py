@@ -4,8 +4,8 @@ package's: a port-only train step of every registry name's smoke variant
 × 2 local steps of the engine on the reference's batch and noise draws from
 the same states, at the conformance ``close`` grade (atol 1e-5, rtol 1e-4);
 ``python -m repro_torch.launch.train`` on the CPU with the reference
-accountant's epsilon, its other modalities and backends; and the flags it
-refuses, each naming its ROADMAP.md item."""
+accountant's epsilon, its other modalities and backends (hier at two
+shards bit-equal to vmap); and the reference's refusals, word for word."""
 import numpy as np
 import pytest
 
@@ -182,11 +182,45 @@ def test_driver_runs_other_modalities_and_backends(arch, extra, capsys):
     assert ("eps=nan" in lines[-1]) == ("--no-dp" in extra)
 
 
-@pytest.mark.parametrize("flags,item", [(["--backend", "hier"], 10),
-                                        (["--n-shards", "2"], 10)])
-def test_driver_refuses_unported_flags_naming_their_item(flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 item {item}"):
+@pytest.mark.parametrize("flags,message", [
+    (["--n-shards", "2"], "--n-shards > 1 requires --backend hier "
+                          "(the flat backends have no shard level)"),
+    (["--backend", "vmap", "--staleness", "1"],
+     "--staleness requires --backend async or hier (the synchronous "
+     "backends deliver every round)")])
+def test_driver_refuses_what_the_reference_refuses(flags, message):
+    """The reference driver's own refusals, word for word
+    (``src/repro/launch/train.py``)."""
+    with pytest.raises(SystemExit) as e:
         train.main(["--arch", "qwen1.5-4b"] + SMOKE + flags)
+    assert str(e.value) == message
+
+
+@pytest.mark.parametrize("staleness", [0, 2])
+def test_driver_hier_two_shards(staleness, capsys):
+    """``--backend hier --n-shards 2`` on the CPU: at τ = 0 every leaf and
+    w of the final state equals the ``--backend vmap`` run's bit for bit;
+    at τ = 2 the cross-shard buffer is in the state and the run finishes
+    with finite losses."""
+    argv = ["--arch", "qwen1.5-4b"] + SMOKE + ["--clients", "4",
+                                               "--rounds", "2",
+                                               "--use-pallas"]
+    hier = ["--backend", "hier", "--n-shards", "2",
+            "--staleness", str(staleness)]
+    _, state = train.train(train.parse_args(argv + hier))
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if l.startswith("[round ")]
+    assert len(lines) == 2 and "nan" not in lines[-1]
+    if staleness:
+        assert sorted(state) == ["clients", "hier_buffer", "hier_w"]
+        assert float(state["hier_w"].sum()) > 0
+        return
+    _, flat = train.train(train.parse_args(argv + ["--backend", "vmap"]))
+    assert isinstance(state, list) and len(state) == 4
+    ours, theirs = tree_leaves(state), tree_leaves(flat)
+    assert len(ours) == len(theirs)
+    for a, b in zip(ours, theirs):
+        assert torch.equal(a, b)
 
 
 def test_driver_needs_cuda_unless_the_cpu_is_asked_for():
