@@ -10,8 +10,9 @@
    tensor-core attention kernels, the register kernels of both mixes, the
    rmsnorm instantiations, the clip pair's rows accumulate, the mamba
    scan's instantiations and the Adam step's (0 spill bytes each).
-2. Holds each of the thirteen kernels (nine TPU kernels; the mix also as
-   the hier exchange's shard-grid entry; attention has four:
+2. Holds each of the fifteen kernels (nine TPU kernels; the mix also as
+   the hier exchange's shard-grid entry, the clip accumulate and Adam also
+   on the stacked executor's client grid; attention has four:
    bf16 on wgmma and f32 in split TF32, both on the tensor cores at every
    head dim, zero-padded up to their compiled widths (64, 128 and 256;
    split TF32 also 96), each with a 16-byte loader (TMA, cp.async) for
@@ -22,7 +23,12 @@
    and over fig. 3's cifar10 proxy's [250, 656,810], table 2's cnn1
    proxy's [32, 66,778], fig. 6's VGG's [128, 110,792] and fig. 5b's
    Regular proxies' [250, D] (D = 107,786, 51,830, 211,594), also bit for bit
-   against a loop of the 1-D kernels) against its
+   against a loop of the 1-D kernels; the stacked executor's
+   ``sumsq_rows`` over [2,000, D] and the client-grid routes
+   ``clip_accumulate_rows_clients`` [8, 250, D] and
+   ``noise_adam_step_clients`` [8, D] at D = 199,210 and 656,810, each
+   also bit for bit against K launches of the flat kernel, the clip
+   timed beside ``torch.einsum``) against its
    plain PyTorch version on the
    card, at the main paths' shapes (D = 199,210 f32, K = 8; the LLM
    kernels at the full widths of qwen2-7b, gemma3-4b, falcon-mamba-7b and
@@ -82,10 +88,12 @@
    drives the sync DP path: ``run_federated("proxyfl", ...)`` on the
    paper's MNIST protocol (synthetic data), mlp 784-200-200-10, 8 clients
    of 1,000 examples, batch 250, DP sigma = 1, C = 1, ``use_pallas=True``,
-   two rounds on ``cuda``, with the kernel launch counters reset just
-   before and read just after; checks the exact launch counts (one
-   ``sumsq`` and one ``scale_accumulate`` per DP step, both on the rows
-   route; none of the ops API's four kernels), finite
+   two rounds on ``cuda`` (the stacked executor, each round replayed from
+   its CUDA graph), with the kernel launch counters reset just before and
+   read just after; checks the exact launch counts (a local step of the
+   cohort one ``sumsq_rows`` over [K·B, D], one client-grid
+   ``clip_accumulate_rows`` and one client-grid ``noise_adam_step``: 4 /
+   4 / 4 and one mix a round; none of the ops API's four kernels), finite
    losses, accuracy above chance, the pinned epsilon, and that the plain
    path on the same seed reaches the same params at the conformance
    ``close`` grade.
@@ -93,9 +101,8 @@
    ``avgpush``, ``cwt``, ``regular``, ``joint``) through
    ``run_federated`` on the same set-up, two rounds each on ``cuda``, the
    counters reset just before and read just after each: exact launch
-   counts (32 ``sumsq`` and 32 ``scale_accumulate`` on the rows route and
-   32 ``noise_adam_step`` a round, Joint's 32 steps on its one pooled
-   client included; one ``fused_pushsum_mix`` a round for FML, FedAvg,
+   counts (the stacked counts: 4 of each DP kernel a round, Joint's 32 on
+   its one pooled client; one ``fused_pushsum_mix`` a round for FML, FedAvg,
    AvgPush and CWT, none for Regular and Joint; nothing else), the pinned
    epsilon (Joint's for its pooled sample rate), finite test losses and
    accuracies in [0, 1], and the same run with ``use_pallas=False`` at the
@@ -110,15 +117,17 @@
    table 2's camelyon (cnn1, a Dirichlet cohort of 4, B = 32, sigma 1.4,
    C 0.7, alpha 0.3) and fig. 6's kvasir (the small VGG, a Dirichlet
    cohort of 8, B = 128), ProxyFL and FedAvg or AvgPush each. The counters
-   reset just before and read just after each run: one ``sumsq`` and one
-   ``scale_accumulate`` on the rows route and one ``noise_adam_step`` per
-   DP step, sum_k max(1, n_k // B) steps a round from the clients' own
-   sizes, one ``fused_pushsum_mix`` a round where the method mixes,
-   nothing else; each client's epsilon the accountant's for its own
-   sample rate and steps, and table 2's privacy rows the JAX package's;
-   finite losses; a second run bit-equal, each of its client steps equal
-   to the plain path's from the same state at the ``close`` grade; rounds/s
-   with the kernels and plain.
+   reset just before and read just after each run: on the heterogeneous
+   cohort (the loop) one ``sumsq_rows``, one flat clip accumulate and one
+   flat Adam step per client step, sum_k max(1, n_k // B) a round; on the
+   homogeneous ones (stacked) one of each a batched step, max_k max(1,
+   n_k // B) a round, exhausted clients masked; one ``fused_pushsum_mix`` a
+   round where the method mixes, nothing else; each client's epsilon the
+   accountant's for its own sample rate and steps, and table 2's privacy
+   rows the JAX package's; finite losses; a second run bit-equal, each of
+   its client steps against the plain path's from the same state at the
+   ``close`` grade (:class:`Lockstep`; a stacked step against the plain
+   step vmapped alike); rounds/s with the kernels and plain.
 6. Drives the async path: ``run_federated(..., backend="async")`` on
    fig_async's protocol (staleness 2, 2 local steps of batch 64, DP off)
    on the same data for 6 rounds, counters reset just before and read just
@@ -204,8 +213,9 @@
    3 rounds straight and killed after round 2 (a snapshot every round)
    then resumed for round 3 under ``verify_commitments``: every leaf and
    w bit-equal, epsilon exact (the JAX package's), the resumed round's
-   launches exactly 32 ``sumsq_rows``, 32 ``clip_accumulate_rows``, 32
-   ``noise_adam_step`` and 1 mix; one mantissa bit of a committed proxy
+   launches exactly 4 ``sumsq_rows`` and 4 of each client-grid route
+   (vmap; 32 of each flat route on the loop) and 1 mix; one mantissa bit
+   of a committed proxy
    leaf of the newest snapshot flipped and the next resume refused with
    ``CommitmentError`` naming round 3, client 1 and the leaf; (b) async
    τ = 2 on fig_async's protocol, 6 rounds killed after round 3: the
@@ -231,9 +241,9 @@
    through ``run_federated(..., backend="hier", n_shards=S)``, 2 rounds at
    S = 1, 2 and 4, without and with §3.4 dropout 0.25: every param, Adam
    moment, w and epsilon bit-equal to the vmap run's (S = 1 runs the flat
-   exchange), per round exactly one ``sumsq_rows``, one
-   ``clip_accumulate_rows`` and one ``noise_adam_step`` a DP step of each
-   active client and one shard-grid mix (S > 1) or flat mix (S = 1);
+   exchange), per round exactly one ``sumsq_rows``, one client-grid clip
+   accumulate and one client-grid Adam step a batched step (4, dropped
+   clients masked) and one shard-grid mix (S > 1) or flat mix (S = 1);
    (b) τ = 2, S = 2 on fig_async's protocol, 6 rounds: with DP on, one
    shard-grid mix a round and epsilon vmap's; with lr 0 and dropout 0.25,
    the mass of the clients plus the cross-shard buffer conserved every
@@ -248,9 +258,35 @@
    vmap``, one shard-grid mix a round, then ``--staleness 2`` for 3
    rounds, launches pinned; (e) ``fig_hier``'s rows at K = 8 and 64 and
    ``fig_kernels``' at K = 8, printed and written to ``chiprun_out/``.
-13. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
-   and their narrow loaders, and the clip pair's rows route, under their
-   own keys; the DP kernels and the mix also with their launches on each
+13. Drives the stacked executor (the "stacked" phase), on the main
+   set-up unless said: (a) a block of 2 rounds (the first eager, the
+   capture's warm-up; the second captured and replayed), its launches
+   exact with the replay counted (4 ``sumsq_rows``, 4 client-grid clip
+   accumulates, 4 client-grid Adam steps and 1 mix a round), epsilon
+   pinned, the [2, K] metrics finite; (b) the same block eager against
+   it (bit-equal predicted, the difference printed; ``close`` gated); (c)
+   blocks of 1, 2 and 4 of 4 rounds bit-equal, and a second dataset of
+   the same shapes replaying the one graph against eager rounds on it;
+   (d) each batched step of 2
+   rounds against the loop's kernel step client by client
+   (:class:`Lockstep`), the ReLU sign changes between the batched and the
+   per-client products counted; (e) rounds/s of the loop, the stacked
+   round eager and captured (8 rounds as one block after a warm-up round,
+   evaluation excluded), and the device's busy share of one captured
+   round and of a block of 4 under the profiler; (f) table 2's ragged
+   cnn1 cohort in epoch mode, one round: max_k n_k // B launches of each DP
+   kernel, each client's own epsilon, each batched step against the
+   loop's; (g) async τ = 2 (fig_async's protocol) and hier S = 2, 4 rounds
+   captured, blocks of 1 and 4 bit-equal, launches exact; (h)
+   ``run_federated(rounds_per_block=2)`` killed after round 2 of 4 and
+   resumed at the block edge, bit-equal to the straight and the
+   per-round run.
+14. Prints one JSON line ``{"kernels": [...]}`` (attention's two kernels
+   and their narrow loaders, the clip pair's rows route, and the
+   client-grid routes of the clip accumulate and of Adam, under their own
+   keys, each with its launches on its own path: the flat clip and Adam on
+   fig. 5b's heterogeneous cohort (the loop), the client grid on the main
+   path; the DP kernels and the mix also with their launches on each
    method's path and each figures run's, with its shape, and on each
    compressed run's, the MIA federations' and compressed async's; the
    LLM kernels with their launches on the serve path (qwen2-7b's served
@@ -259,9 +295,10 @@
    rows; the mixes, rmsnorm, attention and the scan with their launches
    on the train path and their train-shape rows; every kernel with its
    launches in the resume phase's resumed runs and (e)'s calls, and on
-   each hier run; the shard-grid mix under its own key, its launches on
-   the hier main set-up at S = 2) and, last, the result line
-   ``{"ok": true, "device": {...}}``.
+   each hier run and each stacked-phase run; the shard-grid mix under its
+   own key, its launches on the hier main set-up at S = 2); every kernel
+   of the line must have launched on its path, or the run fails. Last, the
+   result line ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits nonzero. The script needs a CUDA device and
 the repository's ``src/`` beside it; it never runs on the CPU.
@@ -330,6 +367,7 @@ TABLE2_EPSILONS = {"C1": 2.381721055853542, "C2": 2.1759964739464497,
                    "C3": 2.0809329681079025, "C4": 2.1198894308107272,
                    "Joint": 1.0006292618507429}
 MAIN_B = 250                 # examples of a DP step (the clip rows)
+MAIN_PER_CLIENT = 1_000      # examples of each main-path client
 # the mlp on fig. 3's cifar10 stand-in (32x32x3): 32·32·3·200 + 200 +
 # 200·200 + 200 + 200·10 + 10 params, its proxy's width on that path
 CIFAR_D = 656_810
@@ -700,6 +738,85 @@ def clip_rows_cases(gen):
                    row=tag and f"clip_accumulate_rows {tag}")
 
 
+def client_grid_cases(gen):
+    """The stacked executor's launches: ``sumsq_rows`` over the cohort's
+    [K·B, D] rows and the client-grid routes of the clip accumulate ([K,
+    B, D] → [K, D]) and of Adam ([K, D], c1 / c2 per client) at the main
+    round's K = 8, B = 250 and D = 199,210, then fig. 3's cifar10 D =
+    656,810, then ragged shapes in f32 (and bf16 for the clip); each bit
+    for bit against K launches of the flat kernel and within f32 2e-5 of
+    its plain version. The library yardstick of the clip is
+    ``torch.einsum`` over the cohort."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+
+    def cohort(K, B, D, dt):
+        rows = padded_rows(gen, K * B, D, dt)
+        # [K, B, D] with the padded row stride, as core/dp.py's stacked
+        # per-example gradients are laid out
+        return rows.as_strided((K, B, D), (B * rows.stride(0),
+                                           rows.stride(0), 1))
+
+    hp = dict(stddev=1.0, n_units=MAIN_B, lr=1e-3, weight_decay=1e-4,
+              b1=0.9, b2=0.999, eps=1e-8)
+    shapes = [(MAIN_K, MAIN_B, MAIN_D, torch.float32, None),
+              (MAIN_K, MAIN_B, CIFAR_D, torch.float32, "cifar10"),
+              (3, 7, 1_025, torch.float32, "ragged"),
+              (3, 7, 1_025, torch.bfloat16, "ragged")]
+    for K, B, D, dt, tag in shapes:
+        es = torch.tensor([], dtype=dt).element_size()
+        g = cohort(K, B, D, dt)
+        s = torch.rand((K, B), generator=gen, device="cuda") + 0.01
+        suffix = "" if tag is None else f" {tag}"
+        f32 = dt == torch.float32
+        if f32:
+            flat = g.reshape(K * B, D)
+            yield Case("sumsq_rows", dt, (K * B, D),
+                       lambda x=flat: kernels.sumsq_rows(x),
+                       lambda x=flat: ref.sumsq_rows_ref(x),
+                       lambda x=flat: torch.linalg.vecdot(x, x),
+                       K * B * D * es + 4 * K * B, 2 * K * B * D,
+                       plain_calls=3, calls=50,
+                       exact=lambda x=flat, B=B: torch.cat(
+                           [kernels.sumsq_rows(x[i:i + B])
+                            for i in range(0, x.shape[0], B)]),
+                       row=f"sumsq_rows clients{suffix}")
+        yield Case("clip_accumulate_rows_clients", dt, (K, B, D),
+                   lambda g=g, s=s: kernels.clip_accumulate_rows_clients(
+                       g, s),
+                   lambda g=g, s=s: ref.clip_accumulate_rows_clients_ref(
+                       g, s),
+                   (lambda g=g, s=s: torch.einsum("kbd,kb->kd", g, s))
+                   if f32 else None,
+                   K * B * D * es + 4 * K * B + 4 * K * D, 2 * K * B * D,
+                   plain_calls=3, calls=50,
+                   exact=lambda g=g, s=s: torch.stack(
+                       [kernels.clip_accumulate_rows(g[k], s[k])
+                        for k in range(g.shape[0])]),
+                   row=None if tag is None else
+                   f"clip_accumulate_rows_clients {tag}")
+        if not f32:
+            continue
+        vecs = tuple(torch.randn((K, D), generator=gen, device="cuda")
+                     for _ in range(4)) + (
+            torch.rand((K, D), generator=gen, device="cuda"),)
+        t = torch.arange(1, K + 1, device="cuda", dtype=torch.float32)
+        c1, c2 = 1 - 0.9 ** t, 1 - 0.999 ** t
+        yield Case("noise_adam_step_clients", dt, (K, D),
+                   lambda v=vecs, c1=c1, c2=c2: kernels.noise_adam_step_clients(
+                       *v, c1=c1, c2=c2, **hp),
+                   lambda v=vecs, c1=c1, c2=c2:
+                   ref.noise_adam_step_clients_ref(*v, c1=c1, c2=c2, **hp),
+                   None, 32 * K * D + 8 * K, 19 * K * D, cold=tag is None,
+                   exact=lambda v=vecs, c1=c1, c2=c2: tuple(
+                       torch.stack(x) for x in zip(*(
+                           kernels.noise_adam_step(
+                               *(a[k] for a in v), c1=c1[k], c2=c2[k], **hp)
+                           for k in range(v[0].shape[0])))),
+                   row=None if tag is None else
+                   f"noise_adam_step_clients {tag}")
+
+
 def kernel_cases(gen):
     """Yield a :class:`Case` per checked shape; the main-path shape comes
     first per kernel."""
@@ -775,6 +892,7 @@ def kernel_cases(gen):
                exact=lambda a=off, hp=hp: ref.noise_adam_step_ref(
                    *a, **dict(hp, n_units=torch.full((), 250.0, device=dev))))
     yield from clip_rows_cases(gen)
+    yield from client_grid_cases(gen)
     mix_shapes = [(MAIN_K, MAIN_D), (MAIN_K, CIFAR_D)] + [
         (K, D) for K in RAGGED_K for D in RAGGED_D]
     # the figures phase's exchanges: fig. 5b's four mlp proxies, table 2's
@@ -1252,6 +1370,18 @@ SOURCES = {
     "noise_adam_step": ("src/repro_torch/kernels/csrc/dp_step.cu",
                         "src/repro/kernels/dp_step.py:115",
                         "src/repro/kernels/dp_step.py::noise_adam_step"),
+    # the client-grid routes: the stacked executor's one launch a local
+    # step for the cohort, where the reference's jax.vmap over the
+    # pallas_call adds a grid axis
+    "clip_accumulate_rows_clients": ("src/repro_torch/kernels/csrc/"
+                                     "dp_clip.cu",
+                                     "src/repro/kernels/dp_clip.py:68",
+                                     "src/repro/kernels/dp_clip.py::"
+                                     "scale_accumulate"),
+    "noise_adam_step_clients": ("src/repro_torch/kernels/csrc/dp_step.cu",
+                                "src/repro/kernels/dp_step.py:115",
+                                "src/repro/kernels/dp_step.py::"
+                                "noise_adam_step"),
     "fused_pushsum_mix": ("src/repro_torch/kernels/csrc/pushsum_mix.cu",
                           "src/repro/kernels/pushsum_mix.py:63",
                           "src/repro/kernels/pushsum_mix.py::"
@@ -1769,6 +1899,17 @@ def expect(counts, **want):
     assert counts == full, (counts, full)
 
 
+def dp_launches(n: int, stacked: bool = True):
+    """The counters of n DP steps' launches (one ``sumsq_rows``, one clip
+    accumulate and one Adam step each): on the stacked executor's client
+    grid (a step of the whole cohort), or the loop's flat routes (a step
+    of one client)."""
+    clip, adam = ("clients", "clients") if stacked else ("rows", "flat")
+    return {"sumsq": n, "scale_accumulate": n, "noise_adam_step": n,
+            "sumsq/rows": n, f"scale_accumulate/{clip}": n,
+            f"noise_adam_step/{adam}": n}
+
+
 def ops_api():
     """Each public op of the ops API once at full width, through the entry
     points a caller uses, with the launch counts pinned: gqa_flash_attention
@@ -1923,7 +2064,7 @@ def mnist_setup():
     from repro_torch.nn.vision import get_vision_model
 
     dev = torch.device("cuda")
-    shape, n_classes, K, per_client = (28, 28, 1), 10, MAIN_K, 1_000
+    shape, n_classes, K, per_client = (28, 28, 1), 10, MAIN_K, MAIN_PER_CLIENT
     vm = get_vision_model("mlp")
     spec = ModelSpec("mlp", lambda g: vm.init(g, shape, n_classes), vm.apply)
     # the MNIST stand-in of benchmarks/common.py: sep 2.5, p_major 0.8,
@@ -1994,11 +2135,11 @@ def main_path(spec, data, test, cfg):
     print(f"main path: test losses {np.round(losses, 4).tolist()}")
     print(f"main path: launches {counts}")
 
-    # one launch of each clip kernel per DP step, both on the rows route
-    steps = cfg.rounds * K * (per_client // cfg.batch_size)
-    expect(counts, sumsq=steps, scale_accumulate=steps, noise_adam_step=steps,
-           fused_pushsum_mix=cfg.rounds,
-           **{"sumsq/rows": steps, "scale_accumulate/rows": steps})
+    # the stacked executor: one launch of each DP kernel a local step for
+    # the whole cohort (sumsq_rows over its [K·B, D] rows, the clip and
+    # Adam on the client grid), one mix a round
+    steps = cfg.rounds * (per_client // cfg.batch_size)
+    expect(counts, **dp_launches(steps), fused_pushsum_mix=cfg.rounds)
     assert all(math.isfinite(v) for v in losses), losses
     assert priv.mean() > 0.2, priv
     assert all(e == EPSILON_2_ROUNDS for e in res["epsilon"]), res["epsilon"]
@@ -2051,9 +2192,12 @@ def methods_path(spec, data, test, cfg, card):
     from repro_torch.nn.losses import cross_entropy
 
     K, (xt, yt), per_client = len(data), test, data[0][0].shape[0]
-    steps = cfg.rounds * K * (per_client // cfg.batch_size)
     out = {}
     for method in OTHER_METHODS:
+        # stacked: a launch of each DP kernel a local step of the cohort;
+        # Joint's one pooled client takes the K clients' steps
+        steps = cfg.rounds * (per_client // cfg.batch_size) * (
+            K if method == "joint" else 1)
         kernels.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2063,9 +2207,7 @@ def methods_path(spec, data, test, cfg, card):
         seconds = time.perf_counter() - t0
         counts = {**kernels.launch_counts(), **kernels.route_launch_counts()}
         mixes = 0 if method in ("regular", "joint") else cfg.rounds
-        expect(counts, sumsq=steps, scale_accumulate=steps,
-               noise_adam_step=steps, fused_pushsum_mix=mixes,
-               **{"sumsq/rows": steps, "scale_accumulate/rows": steps})
+        expect(counts, **dp_launches(steps), fused_pushsum_mix=mixes)
         want_eps = (EPSILON_JOINT_2_ROUNDS if method == "joint"
                     else EPSILON_2_ROUNDS)
         assert len(res["epsilon"]) == (1 if method == "joint" else K)
@@ -2104,8 +2246,9 @@ def methods_path(spec, data, test, cfg, card):
               f"1e-4); {rate:.4f} rounds/s with the kernels, "
               f"{plain_rate:.4f} plain (evaluation included) on {card}; "
               f"launches sumsq/rows {counts['sumsq/rows']} "
-              f"scale_accumulate/rows {counts['scale_accumulate/rows']} "
-              f"noise_adam_step {counts['noise_adam_step']} "
+              f"scale_accumulate/clients "
+              f"{counts['scale_accumulate/clients']} "
+              f"noise_adam_step/clients {counts['noise_adam_step/clients']} "
               f"fused_pushsum_mix {counts['fused_pushsum_mix']}")
         out[method] = dict(counts=counts, rate=rate, plain_rate=plain_rate)
     return out
@@ -2149,59 +2292,155 @@ def figure_runs():
 
 
 class Lockstep:
-    """Within the block, every client step the engines build also runs on
-    the plain path (``use_pallas=False``) from the same state and the same
-    draws (a twin of the step's generator), and its result is compared
-    with the kernel path's at the ``close`` grade; the kernel path's state
-    goes on. This holds the kernels to the plain path step by step: over a
-    run the two trajectories may part further, since a one-ulp difference
-    in a near-zero first Adam step, spread by the conv models' max-pool
-    near-ties, grows from step to step (fig. 6's ProxyFL: 9.595e-05 after
-    2 rounds on the H100)."""
+    """Within the block, every client step the engines take is also taken
+    from the same state and the same draws by a twin, and the two results
+    are compared at the ``close`` grade; the engine's state goes on. The
+    twin is the plain path's step (``use_pallas=False``; ``against=
+    "plain"``) or the loop's own kernel step (``against="loop"``). On the
+    loop a client step is twinned where it runs (a twin of its generator).
+    On the stacked executor, which the block runs eagerly, a batched step
+    is twinned on the same state, batch and noise: against the plain path
+    by the plain step vmapped alike (the same batched products, so only
+    the DP chain's order differs, held at ``close`` everywhere as on the
+    loop); against the loop client by client. There the batched products
+    round otherwise than the twin's per-client ones, so the gradients
+    differ in their last bits, and the params of a
+    first Adam step are held as the train phase holds them: at ``close``
+    but for the coordinates at |g| < 100·ε on the twin (g from the
+    moments), where lr·g/(|g| + ε) turns a last-bit gradient difference
+    into a step difference past ``close``; those are masked and counted
+    (``eps_masked``, and ``eps_past`` of them past ``close``). And a ReLU
+    whose pre-activation is within rounding of 0 may fire on one path and
+    not on the other (:func:`relu_ties` counts them for the mlp,
+    ``ties``), which moves one example's gradient of the units behind it:
+    where a coordinate's whole gradient is that small, its step leaves
+    ``close``, and its Adam moments move with it. So against the loop the
+    params and moments may hold at most ``OUTLIERS_PER_COORD`` of their
+    coordinates past ``close`` (``outliers`` of ``coords``, counted and
+    printed); every other leaf holds at ``close`` everywhere. Over a run
+    the two trajectories may part further, since a one-ulp
+    difference in a near-zero first Adam step, spread by the conv models'
+    max-pool near-ties, grows from step to step (fig. 6's ProxyFL:
+    9.595e-05 after 2 rounds on the H100)."""
 
-    def __init__(self):
+    def __init__(self, against: str = "plain"):
+        self.against = against
         self.worst, self.beyond, self.steps = 0.0, 0, 0
+        self.eps_masked, self.eps_past = 0, 0
+        self.coords, self.outliers, self.ties = 0, 0, 0
+        self.twins = {}
 
     def __enter__(self):
         from repro_torch.core import engine
         self.engine = engine
-        self.raw = engine._dml_state_step, engine._ce_state_step
-        dml_raw, ce_raw = self.raw
+        self.raw = (engine._dml_state_step, engine._ce_state_step,
+                    engine.FederationEngine._vstep)
+        dml_raw, ce_raw, vstep_raw = self.raw
+        plain = self.against == "plain"
 
         def dml(private_spec, proxy_spec, cfg):
-            return self.both(dml_raw(private_spec, proxy_spec, cfg),
-                             dml_raw(private_spec, proxy_spec,
-                                     dataclasses.replace(cfg,
-                                                         use_pallas=False)))
+            return self.both(
+                dml_raw(private_spec, proxy_spec, cfg),
+                dml_raw(private_spec, proxy_spec,
+                        dataclasses.replace(cfg, use_pallas=not plain
+                                            and cfg.use_pallas)))
 
         def ce(spec, cfg, dp):
             return self.both(ce_raw(spec, cfg, dp), ce_raw(
-                spec, dataclasses.replace(cfg, use_pallas=False), dp))
+                spec, dataclasses.replace(cfg, use_pallas=not plain
+                                          and cfg.use_pallas), dp))
+
+        def vstep(eng, stacked, batch, noise):
+            from repro_torch.core.engine import unstack_state
+            from repro_torch.nn.modules import tree_map
+            out = vstep_raw(eng, stacked, batch, noise)
+            twin = self.twins[id(eng.step_fns[0])]
+            if self.against == "plain":
+                # the plain step vmapped alike: the same batched products
+                ref = vstep_raw(eng, stacked, batch, noise, step=twin)
+                for k in range(eng.K):
+                    self.compare(unstack_state(out[0], k),
+                                 unstack_state(ref[0], k))
+                return out
+            self.ties += relu_ties(stacked, batch)
+            for k in range(eng.K):
+                before = unstack_state(stacked, k)
+                ref = twin(before, tree_map(lambda x: x[k], batch), None,
+                           None if noise is None else noise[k])
+                self.compare(unstack_state(out[0], k), ref[0], before)
+            return out
 
         engine._dml_state_step, engine._ce_state_step = dml, ce
+        engine.FederationEngine._vstep = vstep
+        engine.FederationEngine._eager_stacked = True
         return self
 
     def __exit__(self, *exc):
-        self.engine._dml_state_step, self.engine._ce_state_step = self.raw
+        engine = self.engine
+        (engine._dml_state_step, engine._ce_state_step,
+         engine.FederationEngine._vstep) = self.raw
+        engine.FederationEngine._eager_stacked = False
 
-    def both(self, kernel_step, plain_step):
+    def compare(self, got, want, before=None):
+        """Every leaf of a client's new state at ``close``; with
+        ``before`` (the state the step started from) a first Adam step's
+        params at |g| < 100·ε masked."""
         from repro_torch.nn.modules import tree_leaves
 
+        def held(a, b, mask=None, param=False):
+            if not a.is_floating_point():
+                assert torch.equal(a, b)
+                return
+            off = (a - b).abs() > CLOSE["atol"] + CLOSE["rtol"] * b.abs()
+            if mask is not None:
+                self.eps_masked += int(mask.sum())
+                self.eps_past += int((off & mask).sum())
+                off, a, b = off & ~mask, a[~mask], b[~mask]
+            if a.numel():
+                self.worst = max(self.worst, max_err(a, b))
+            if param and before is not None:
+                self.coords += a.numel()
+                self.outliers += int(off.sum())
+            else:
+                self.beyond += int(off.sum())
+
+        for key in sorted(want):
+            g, w = got[key], want[key]
+            opt = w.get("opt") if isinstance(w, dict) else None
+            if before is None or getattr(opt, "t", None) is None:
+                for a, b in zip(tree_leaves(g), tree_leaves(w)):
+                    held(a, b)
+                continue
+            for a, b in zip(tree_leaves(g["opt"]), tree_leaves(opt)):
+                held(a, b, param=True)
+            for pa, pb, m2, m0 in zip(
+                    tree_leaves(g["params"]), tree_leaves(w["params"]),
+                    tree_leaves(opt.m), tree_leaves(before[key]["opt"].m)):
+                grad = (m2 - 0.9 * m0) / (1 - 0.9)
+                held(pa, pb, grad.abs() < 100 * 1e-8 if int(opt.t) == 1
+                     else None, param=True)
+        self.steps += 1
+
+    def check(self, steps: int) -> None:
+        """The block's gates: every step twinned, nothing past ``close``
+        but the params' outliers within their budget."""
+        assert self.steps == steps, (self.steps, steps)
+        assert not self.beyond, (self.beyond, self.worst)
+        assert self.outliers <= OUTLIERS_PER_COORD * self.coords, \
+            (self.outliers, self.coords)
+
+    def both(self, kernel_step, twin_step):
         def step(state, batch, generator, noise=None):
+            if generator is None:
+                # vmapped by the stacked executor: twinned at its steps
+                return kernel_step(state, batch, generator, noise)
             twin = torch.Generator(device=generator.device)
             twin.set_state(generator.get_state())
             out = kernel_step(state, batch, generator, noise)
-            ref = plain_step(state, batch, twin, noise)
-            for a, b in zip(tree_leaves(out[0]), tree_leaves(ref[0])):
-                if a.is_floating_point():
-                    self.worst = max(self.worst, max_err(a, b))
-                    self.beyond += int(((a - b).abs() > CLOSE["atol"]
-                                        + CLOSE["rtol"] * b.abs()).sum())
-                else:
-                    assert torch.equal(a, b)
-            self.steps += 1
+            self.compare(out[0], twin_step(state, batch, twin, noise)[0])
             return out
 
+        self.twins[id(step)] = twin_step
         return step
 
 
@@ -2244,7 +2483,14 @@ def figures_path(card):
         sizes = [x.shape[0] for x, _ in data]
         B = cfg.batch_size
         steps = [max(1, n // B) for n in sizes]
-        total = cfg.rounds * sum(steps)
+        # a homogeneous cohort runs stacked: a launch of each DP kernel a
+        # batched step, the cohort's largest count a round (exhausted
+        # clients masked); the heterogeneous one on the loop, a launch a
+        # client step
+        stacked = all(p == privs[0] for p in privs)
+        total = cfg.rounds * (max(steps) if stacked else sum(steps))
+        twinned = cfg.rounds * (max(steps) * len(sizes) if stacked
+                                else sum(steps))
         D = tree_size(prox.init(torch.Generator(device="cuda")))
 
         def run(use_pallas):
@@ -2260,9 +2506,8 @@ def figures_path(card):
         res, rate = run(True)
         counts = {**kernels.launch_counts(), **kernels.route_launch_counts()}
         mixes = 0 if method == "regular" else cfg.rounds
-        expect(counts, sumsq=total, scale_accumulate=total,
-               noise_adam_step=total, fused_pushsum_mix=mixes,
-               **{"sumsq/rows": total, "scale_accumulate/rows": total})
+        expect(counts, **dp_launches(total, stacked),
+               fused_pushsum_mix=mixes)
         sigma, delta = cfg.dp.noise_multiplier, cfg.dp.delta
         want_eps = [epsilon_for(noise_multiplier=sigma,
                                 sample_rate=min(1.0, B / n),
@@ -2290,7 +2535,7 @@ def figures_path(card):
         # the second run of the seed: each step also on the plain path
         with Lockstep() as lock:
             again, _ = run(True)
-        assert lock.steps == total, (key, lock.steps)
+        assert lock.steps == twinned, (key, lock.steps)
         if lock.beyond:
             failures.append(f"{key}: {lock.beyond} values of a step differ "
                             "from the plain path's beyond the close grade "
@@ -2306,22 +2551,29 @@ def figures_path(card):
               f"{apart:.3e} apart after {cfg.rounds} round(s); a second run "
               f"bit-equal; {rate:.4f} rounds/s with the kernels, "
               f"{plain_rate:.4f} plain (evaluation included) on {card}; "
-              "launches sumsq/rows "
-              f"{counts['sumsq/rows']} scale_accumulate/rows "
-              f"{counts['scale_accumulate/rows']} noise_adam_step "
-              f"{counts['noise_adam_step']} fused_pushsum_mix "
-              f"{counts['fused_pushsum_mix']}")
+              f"{'stacked' if stacked else 'loop'}: launches sumsq/rows "
+              f"{counts['sumsq/rows']} scale_accumulate/"
+              f"{'clients' if stacked else 'rows'} {counts['scale_accumulate']}"
+              f" noise_adam_step {counts['noise_adam_step']} "
+              f"fused_pushsum_mix {counts['fused_pushsum_mix']}")
         out[key] = dict(counts=counts, rate=rate, plain_rate=plain_rate,
                         step_diff=lock.worst, apart=apart, rows=[B, D],
-                        K=len(sizes))
+                        K=len(sizes), stacked=stacked)
     assert not failures, failures
     return out
 
 
 def timed_round(eng, state, data, t):
     """Host-clock seconds of one engine round and of each local step in
-    it (each step synchronised and timed in place)."""
+    it (each step synchronised and timed in place; none on the stacked
+    executor, whose steps run inside its captured round)."""
     step_s = []
+    if eng.stacked:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_round(state, data, t, seed=0)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, step_s
     raw_steps = eng.step_fns
 
     def timed(raw_step):
@@ -2365,7 +2617,8 @@ DEVICE_KERNELS = {
     "noise_adam_step": ("noise_adam",),
     "sumsq": ("sumsq_partials",),
     "scale_accumulate/vector": ("scale_acc",),
-    "scale_accumulate/rows": ("clip_acc_rows",),
+    # the flat call and the client grid run one kernel
+    ("scale_accumulate/rows", "scale_accumulate/clients"): ("clip_acc_rows",),
     "fused_pushsum_mix": ("mix_reg", "mix_stream"),
     "fused_stale_mix": ("stale_reg", "stale_stream"),
 }
@@ -2426,7 +2679,9 @@ def device_profile(fn, sessions: int = 3):
         raise AssertionError(f"no whole profile in {sessions} sessions")
     seen = Counter(kernel_key(e.name) for e in on_device)
     for counter, names in DEVICE_KERNELS.items():
-        got, want = sum(seen[n] for n in names), counts.get(counter, 0)
+        got = sum(seen[n] for n in names)
+        want = sum(counts.get(c, 0) for c in (
+            counter if isinstance(counter, tuple) else (counter,)))
         assert got == want, (f"the profile recorded {got} {'/'.join(names)} "
                              f"kernel(s) where {counter} launched {want}")
     return wall_ms, on_device
@@ -2528,23 +2783,23 @@ def async_path(spec, data, test, cfg):
     print(f"async path: kernels vs plain path after {acfg.rounds} rounds, "
           f"max abs diff of params, w and both buffers {worst:.3e} (close "
           "grade atol 1e-5 rtol 1e-4)")
-    print(f"async path: engine rounds (no evaluation), run in turns "
+    print(f"async path: engine rounds (no evaluation; a fresh engine, "
+          f"its capture included), run in turns "
           f"kernels, plain, plain, kernels: kernels "
           f"{' '.join(f'{r:.3f}' for r in rates[True])} rounds/s, plain "
           f"path {' '.join(f'{r:.3f}' for r in rates[False])} rounds/s")
-    exchange = {p: host_ms(lambda p=p: engines[p]._exchange_stale(
-        finals[p]["clients"], finals[p], 0)) for p in (True, False)}
+    exchange = {p: host_ms(lambda p=p: engines[p]._exchange(
+        finals[p]["clients"], 0, None, finals[p], 0)) for p in (True, False)}
     print(f"async path: stale exchange of {K} proxies (flatten, mix, "
           f"unflatten, buffer rotation) kernels {exchange[True]:.3f} ms, "
           f"plain {exchange[False]:.3f} ms")
 
-    # where a warm async round's time goes
+    # where a warm async round's time goes (the stacked round replayed:
+    # its local steps run inside the graph)
     eng, state = engines[True], finals[True]
-    round_s, step_s = timed_round(eng, state, data, acfg.rounds)
-    print(f"async breakdown: one engine round {round_s * 1e3:.3f} ms, of it "
-          f"{len(step_s)} local steps {sum(step_s) * 1e3:.3f} ms (min "
-          f"{min(step_s) * 1e3:.3f}, median {np.median(step_s) * 1e3:.3f}, "
-          f"max {max(step_s) * 1e3:.3f} ms per step)")
+    round_s, _ = timed_round(eng, state, data, acfg.rounds)
+    print(f"async breakdown: one engine round {round_s * 1e3:.3f} ms "
+          "(a replay of the captured stacked round and its draws)")
     wall_ms, on_device = device_profile(
         lambda: eng.run_round(state, data, acfg.rounds, seed=0))
     busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
@@ -2707,7 +2962,8 @@ class ExchangeLockstep:
             if kw.get("compress") is not None:
                 cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
                        for k, v in kw.items()}
-                ref = self.raw(flat.cpu(), w.cpu(), P, **cpu)
+                ref = self.raw(flat.cpu(), w.cpu(), torch.as_tensor(P).cpu(),
+                               **cpu)
                 assert torch.equal(out[2].cpu(), ref[2]), "public copies"
                 for a, b in zip(out[:2], ref[:2]):
                     torch.testing.assert_close(a.cpu(), b, **CLOSE)
@@ -2723,9 +2979,10 @@ class ExchangeLockstep:
 
 
 class PerRound:
-    """Within the block, the launch counts of each engine round: reset
-    just before the round and read just after; their sum stays in the
-    counters when the block ends."""
+    """Within the block, the launch counts of each engine round-block
+    (each round, at ``run_federated``'s default of one round a block):
+    reset just before the block and read just after; their sum stays in
+    the counters when the block ends."""
 
     def __init__(self):
         self.rounds = []
@@ -2733,10 +2990,10 @@ class PerRound:
     def __enter__(self):
         from repro_torch import kernels
         from repro_torch.core.engine import FederationEngine
-        self.cls, self.raw = FederationEngine, FederationEngine.run_round
+        self.cls, self.raw = FederationEngine, FederationEngine.run_rounds
         raw, rounds = self.raw, self.rounds
 
-        def counted_round(eng, *args, **kwargs):
+        def counted_block(eng, *args, **kwargs):
             kernels.reset_launch_counts()
             out = raw(eng, *args, **kwargs)
             torch.cuda.synchronize()
@@ -2744,11 +3001,11 @@ class PerRound:
                            **kernels.route_launch_counts()})
             return out
 
-        self.cls.run_round = counted_round
+        self.cls.run_rounds = counted_block
         return self
 
     def __exit__(self, *exc):
-        self.cls.run_round = self.raw
+        self.cls.run_rounds = self.raw
 
     def total(self):
         return {k: sum(r[k] for r in self.rounds) for k in self.rounds[0]}
@@ -2769,7 +3026,8 @@ def compressed_path(spec, data, test, cfg, card):
     from repro_torch.nn.modules import tree_flatten_vector
 
     K, (xt, yt), per_client = len(data), test, data[0][0].shape[0]
-    steps = cfg.rounds * K * (per_client // cfg.batch_size)
+    S = per_client // cfg.batch_size
+    steps = cfg.rounds * K * S
     out = {}
     for mode in ("none", "topk", "int8"):
         ccfg = dataclasses.replace(cfg, compress=mode,
@@ -2798,11 +3056,8 @@ def compressed_path(spec, data, test, cfg, card):
                   f"(evaluation included); exchange {ms:.3f} ms on {card}")
             continue
         assert len(per_round.rounds) == ccfg.rounds
-        per = steps // ccfg.rounds
         for round_counts in per_round.rounds:
-            expect(round_counts, sumsq=per, scale_accumulate=per,
-                   noise_adam_step=per,
-                   **{"sumsq/rows": per, "scale_accumulate/rows": per})
+            expect(round_counts, **dp_launches(S))
         assert all(e == EPSILON_2_ROUNDS for e in res["epsilon"]), \
             (mode, res["epsilon"])
         with torch.no_grad():
@@ -2835,9 +3090,9 @@ def compressed_path(spec, data, test, cfg, card):
         print(f"exchange (b): {mode} ProxyFL acc mean {priv.mean():.4f}; "
               f"epsilon {res['epsilon'][0]!r}; test loss mean "
               f"{np.mean(losses):.4f}; launches sumsq/rows "
-              f"{counts['sumsq/rows']} scale_accumulate/rows "
-              f"{counts['scale_accumulate/rows']} noise_adam_step "
-              f"{counts['noise_adam_step']} fused_pushsum_mix "
+              f"{counts['sumsq/rows']} scale_accumulate/clients "
+              f"{counts['scale_accumulate/clients']} noise_adam_step/clients "
+              f"{counts['noise_adam_step/clients']} fused_pushsum_mix "
               f"{counts['fused_pushsum_mix']}; each of {lock.steps} client "
               f"steps against the plain path's max abs diff "
               f"{lock.worst:.3e}, each of {xlock.calls} exchanges against "
@@ -3003,7 +3258,10 @@ def step_breakdown(spec, data, test, cfg):
     from repro_torch.nn.modules import tree_size
     from repro_torch.optim import Adam
 
-    eng = dml_engine((spec,) * len(data), spec, cfg, device="cuda")
+    # one client's step on the loop (the stacked round's breakdown is the
+    # stacked phase's)
+    eng = dml_engine((spec,) * len(data), spec, cfg, backend="loop",
+                     device="cuda")
     t0 = time.perf_counter()
     states = eng.init_states(0)
     torch.cuda.synchronize()
@@ -3866,9 +4124,13 @@ def train_path(card):
 
 def launch_key(name: str) -> str:
     """The counter of a kernel-line name: the clip pair's rows route and
-    1-D route, attention by its route, the rest by name."""
+    1-D route, the client-grid routes, Adam's flat route, attention by its
+    route, the rest by name."""
     return {"sumsq_rows": "sumsq/rows",
             "clip_accumulate_rows": "scale_accumulate/rows",
+            "clip_accumulate_rows_clients": "scale_accumulate/clients",
+            "noise_adam_step": "noise_adam_step/flat",
+            "noise_adam_step_clients": "noise_adam_step/clients",
             "sumsq": "sumsq/vector",
             "scale_accumulate": "scale_accumulate/vector",
             "flash_attention": "flash_attention/wgmma",
@@ -3931,10 +4193,13 @@ def resume_main(spec, data, test, cfg):
     from repro_torch.core.commit import CommitmentError
 
     K, per_client = len(data), data[0][0].shape[0]
-    steps = K * (per_client // cfg.batch_size)
+    S = per_client // cfg.batch_size
     rcfg = dataclasses.replace(cfg, rounds=RESUME_ROUNDS)
     out = {}
     for backend in ("vmap", "loop"):
+        # a round: S batched steps stacked, K·S client steps on the loop
+        stacked = backend == "vmap"
+        steps = S if stacked else K * S
         def run(c, **kw):
             return run_federated("proxyfl", [spec] * K, spec, data, test, c,
                                  seed=0, eval_every=c.rounds,
@@ -3947,9 +4212,8 @@ def resume_main(spec, data, test, cfg):
             resumed, counts = counted(lambda: run(
                 dataclasses.replace(rcfg, verify_commitments=True),
                 checkpoint_dir=d, checkpoint_every=1, resume=True))
-            expect(counts, sumsq=steps, scale_accumulate=steps,
-                   noise_adam_step=steps, fused_pushsum_mix=1,
-                   **{"sumsq/rows": steps, "scale_accumulate/rows": steps})
+            expect(counts, **dp_launches(steps, stacked),
+                   fused_pushsum_mix=1)
             assert all(torch.equal(a, b) for a, b in zip(
                 all_leaves(full, "proxyfl"), all_leaves(resumed, "proxyfl"))
             ), f"{backend}: the resumed run differs"
@@ -4058,7 +4322,7 @@ def resume_compressed(spec, data, cfg):
     from repro_torch.core.engine import dml_engine
 
     K, per_client = len(data), data[0][0].shape[0]
-    steps = K * (per_client // cfg.batch_size)
+    steps = per_client // cfg.batch_size     # stacked: a launch a step
     ccfg = dataclasses.replace(cfg, compress="int8")
 
     def make(c=ccfg):
@@ -4072,9 +4336,7 @@ def resume_compressed(spec, data, cfg):
             make, data, 2, 1, d)
         assert torch.equal(restored["ef_state"], mid["ef_state"])
         assert states_equal(full, final), "the resumed int8 run differs"
-        expect(counts, sumsq=steps, scale_accumulate=steps,
-               noise_adam_step=steps,
-               **{"sumsq/rows": steps, "scale_accumulate/rows": steps})
+        expect(counts, **dp_launches(steps))
         topk = make(dataclasses.replace(ccfg, compress="topk"))
         try:
             ck.restore_latest(topk, like=topk.init_states(0), seed=0)
@@ -4353,22 +4615,14 @@ def client_leaves(result):
     return leaves, [c.w for c in result["clients"]]
 
 
-def dp_steps(cfg, K: int, steps_per_client: int) -> int:
-    """DP steps of ``cfg.rounds`` rounds: each active client's
-    ``steps_per_client`` a round, under the config's §3.4 masks."""
-    from repro_torch.core.engine import active_mask
-    masks = [active_mask(t, K, cfg) for t in range(cfg.rounds)]
-    return steps_per_client * sum(K if m is None else int(m.sum())
-                                  for m in masks)
-
-
 def hier_main(spec, data, test, cfg, card):
     """(a) ``run_federated("proxyfl", backend="hier")`` on the main set-up,
     2 rounds, at each of HIER_SHARDS, without and with §3.4 dropout: every
     param, moment, w and epsilon bit-equal to the vmap run's (P's entries
     are 0, ½ and 1 and each client has at most one cross-shard in-edge, so
     each factored row rounds once, as the flat one does); the launches
-    exact: one clip pair and one Adam step a DP step, and a round's one
+    exact: one clip pair and one Adam step a batched step of the cohort
+    (dropped clients are masked, not skipped), and a round's one
     shard-grid mix (S > 1) or flat mix (S = 1)."""
     from repro_torch.core.baselines import run_federated
 
@@ -4377,7 +4631,7 @@ def hier_main(spec, data, test, cfg, card):
     out = {}
     for rate in (0.0, HIER_DROPOUT):
         dcfg = dataclasses.replace(cfg, dropout_rate=rate)
-        steps = dp_steps(dcfg, K, per_client)
+        steps = dcfg.rounds * per_client
         flat = run_federated("proxyfl", [spec] * K, spec, data, test, dcfg,
                              seed=0, eval_every=dcfg.rounds, backend="vmap",
                              device="cuda")
@@ -4392,9 +4646,7 @@ def hier_main(spec, data, test, cfg, card):
             seconds = time.perf_counter() - t0
             mix = "fused_pushsum_mix_blocks" if S > 1 else \
                 "fused_pushsum_mix"
-            expect(counts, sumsq=steps, scale_accumulate=steps,
-                   noise_adam_step=steps, **{mix: dcfg.rounds},
-                   **{"sumsq/rows": steps, "scale_accumulate/rows": steps})
+            expect(counts, **dp_launches(steps), **{mix: dcfg.rounds})
             leaves, w = client_leaves(res)
             assert len(leaves) == len(flat_leaves)
             assert all(torch.equal(a, b) for a, b in zip(leaves,
@@ -4428,16 +4680,15 @@ def hier_stale(spec, data, cfg, card):
     K = len(data)
     acfg = dataclasses.replace(async_config(cfg), n_shards=HIER_STALE_S)
     dpcfg = dataclasses.replace(acfg, dp=cfg.dp)
-    steps = dp_steps(dpcfg, K, dpcfg.local_steps)
+    steps = dpcfg.rounds * dpcfg.local_steps
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res, counts = counted(lambda: run_federated(
         "proxyfl", [spec] * K, spec, data, data[0], dpcfg, seed=0,
         eval_every=dpcfg.rounds, backend="hier", device="cuda"))
     seconds = time.perf_counter() - t0
-    expect(counts, sumsq=steps, scale_accumulate=steps,
-           noise_adam_step=steps, fused_pushsum_mix_blocks=dpcfg.rounds,
-           **{"sumsq/rows": steps, "scale_accumulate/rows": steps})
+    expect(counts, **dp_launches(steps),
+           fused_pushsum_mix_blocks=dpcfg.rounds)
     flat = run_federated("proxyfl", [spec] * K, spec, data, data[0], dpcfg,
                          seed=0, eval_every=dpcfg.rounds, backend="vmap",
                          device="cuda")
@@ -4598,6 +4849,293 @@ def hier_drivers(card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the stacked phase: the stacked executor, its captured round and blocks
+
+
+STACKED_RATE_ROUNDS = 8    # rounds of each timed block
+# coordinates of the params and Adam moments of a stacked step allowed
+# past ``close`` against its per-client twin: ReLU near-ties (Lockstep).
+# On the H100: 12 of 76,492,876 param and moment coordinates (1.6e-7) on
+# the main set-up's 2 rounds, 0 of 52,874,193 on table 2's cohort; the
+# budget is about 3x the first. A client-grid Adam that leaves the last
+# coordinate of each client's row as it was puts 1.8e-6 past ``close``,
+# one client's clip scales 1% off 6.9e-6 (the mlp at D 199,210, K 4,
+# B 16, 2 rounds, plain versions on the CPU): both fail it.
+OUTLIERS_PER_COORD = 5e-7
+
+
+def relu_ties(stacked, batch) -> int:
+    """ReLUs of an mlp step that fire on one path and not on the other:
+    both hidden layers' pre-activations of every client's batch formed
+    batched over the cohort (as the stacked step forms them) and client by
+    client (as the loop does), for the private and the proxy model; the
+    count of sign changes (0 for a model that is not an mlp)."""
+    from torch.func import vmap
+    K = batch[0].shape[0]
+    x = batch[0].reshape(K, batch[0].shape[1], -1)
+    flips = 0
+    for role in ("private", "proxy"):
+        p = stacked.get(role, {}).get("params", {})
+        if not {"fc1", "fc2"} <= set(p) or p["fc1"]["w"].shape[1] != \
+                x.shape[-1]:
+            continue   # not an mlp on the flat input
+        hs, hl = x, x
+        for layer in ("fc1", "fc2"):
+            w, b = p[layer]["w"], p[layer]["b"]
+            zs = vmap(lambda h, w, b: h @ w + b)(hs, w, b)
+            zl = torch.stack([hl[k] @ w[k] + b[k] for k in range(K)])
+            flips += int(((zs > 0) != (zl > 0)).sum())
+            hs, hl = torch.relu(zs), torch.relu(zl)
+    return flips
+
+
+def stacked_engine(spec, cfg, K, backend="vmap", eager=False):
+    """A ProxyFL engine of the main set-up on the card with DP
+    accountants, run eagerly when asked."""
+    from repro_torch.core.accountant import PrivacyAccountant
+    from repro_torch.core.engine import dml_engine
+    eng = dml_engine((spec,) * K, spec, cfg, backend=backend, device="cuda")
+    if eager:
+        eng._eager_stacked = True
+    if cfg.dp.enabled:
+        eng.attach_accountants([PrivacyAccountant(
+            cfg.dp.noise_multiplier, cfg.batch_size / MAIN_PER_CLIENT,
+            cfg.dp.delta)
+            for _ in range(K)])
+    return eng
+
+
+def blocks_of(make, data, rounds: int, block: int):
+    """A fresh engine's state after ``rounds`` rounds in blocks of
+    ``block``, and the engine."""
+    from repro_torch.core.engine import block_spans
+    eng = make()
+    state = eng.init_states(0)
+    for t, n in block_spans(0, rounds, block):
+        state, _ = eng.run_rounds(state, data, t, n, 0)
+    return state, eng
+
+
+def rounds_per_s(eng, data, rounds: int = STACKED_RATE_ROUNDS) -> float:
+    """Rounds/s of ``rounds`` rounds as one block, after two warm-up
+    rounds (on the captured path the eager first round and the capture),
+    evaluation excluded."""
+    state = eng.init_states(0)
+    state, _ = eng.run_rounds(state, data, 0, 2, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_rounds(state, data, 2, rounds, 0)
+    torch.cuda.synchronize()
+    return rounds / (time.perf_counter() - t0)
+
+
+def stacked_main(spec, data, cfg, card):
+    """(a)-(e) of the stacked phase on the main set-up."""
+    from repro_torch.nn.modules import tree_leaves
+
+    K = len(data)
+    S = data[0][0].shape[0] // cfg.batch_size
+    out = {}
+    # (a) a 2-round block captured: launches exact, replays counted
+    eng = stacked_engine(spec, cfg, K)
+    state0 = eng.init_states(0)
+    (cap, metrics), counts = counted(
+        lambda: eng.run_rounds(state0, data, 0, 2, 0))
+    expect(counts, **dp_launches(2 * S), fused_pushsum_mix=2)
+    assert all(a.epsilon() == EPSILON_2_ROUNDS for a in eng.accountants)
+    assert all(v.shape == (2, K) and np.isfinite(v).all()
+               for v in metrics.values()), metrics
+    out["counts"] = counts
+    # (b) the same block eager: bit-equal predicted, the difference printed
+    eager, _ = stacked_engine(spec, cfg, K, eager=True).run_rounds(
+        state0, data, 0, 2, 0)
+    diff = max(max_err(a, b) for a, b in zip(tree_leaves(cap),
+                                             tree_leaves(eager)))
+    for a, b in zip(tree_leaves(cap), tree_leaves(eager)):
+        torch.testing.assert_close(a, b, **CLOSE)
+    print(f"stacked: captured round against eager, 2 rounds: max abs diff "
+          f"{diff:.3e} ({'bit-equal' if states_equal(cap, eager) else 'not bit-equal'})")
+    out["captured_vs_eager"] = diff
+    # (c) blocks of 1, 2 and all 4 rounds bit-equal
+    finals = [blocks_of(lambda: stacked_engine(spec, cfg, K), data, 4, b)[0]
+              for b in (1, 2, 4)]
+    assert states_equal(finals[0], finals[1]) and \
+        states_equal(finals[0], finals[2]), "a block size changed the run"
+    # another dataset of the same shapes (the clients in reverse) replays
+    # the same graph, its data reloaded: as the eager round on it
+    e = stacked_engine(spec, cfg, K)
+    st, _ = e.run_rounds(e.init_states(0), data, 0, 2, 0)
+    other = data[::-1]
+    got, _ = e.run_rounds(st, other, 2, 2, 0)
+    want, _ = stacked_engine(spec, cfg, K, eager=True).run_rounds(
+        st, other, 2, 2, 0)
+    assert len(e._graphs) == 1, len(e._graphs)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a, b, **CLOSE)
+    print("stacked: a second dataset of the same shapes replays the one "
+          "captured round, its data reloaded: "
+          f"{'bit-equal' if states_equal(got, want) else 'close'} to the "
+          "eager rounds on it")
+    # (d) each batched step against the loop's kernel steps, client by
+    # client, on the same state, batch and noise
+    with Lockstep(against="loop") as lock:
+        e = stacked_engine(spec, cfg, K)
+        e.run_rounds(e.init_states(0), data, 0, 2, 0)
+    lock.check(2 * S * K)
+    print(f"stacked: blocks of 1 / 2 / 4 rounds bit-equal; each of "
+          f"{lock.steps} client steps of the stacked rounds against the "
+          f"loop's from the same state: max abs diff {lock.worst:.3e} "
+          f"(close grade; in first Adam steps {lock.eps_masked} param "
+          f"coordinates at |g| < 100 eps masked, {lock.eps_past} of them "
+          f"past close; {lock.outliers} of {lock.coords:,} param and moment "
+          f"coordinates past close; {lock.ties} hidden ReLUs of the steps' "
+          "batches fire on one path only); epsilon after 2 rounds "
+          f"{eng.accountants[0].epsilon()!r}")
+    out["lockstep"] = lock.worst
+    # (e) rounds/s: the loop, the stacked round eager and captured
+    rates = {"loop": rounds_per_s(stacked_engine(spec, cfg, K, "loop"),
+                                  data),
+             "eager": rounds_per_s(stacked_engine(spec, cfg, K, eager=True),
+                                   data),
+             "captured": rounds_per_s(stacked_engine(spec, cfg, K), data)}
+    out["rates"] = rates
+    # a block of captured rounds under the profiler: the device's busy
+    # share, and one round alone (the host's draws not overlapped)
+    e = stacked_engine(spec, cfg, K)
+    st, _ = e.run_rounds(e.init_states(0), data, 0, 2, 0)
+    busy = {}
+    for T in (1, 4):
+        wall_ms, on_device = device_profile(
+            lambda T=T: e.run_rounds(st, data, 2, T, 0))
+        busy_ms = sum(ev.self_device_time_total for ev in on_device) / 1e3
+        busy[T] = (busy_ms, wall_ms, len(on_device))
+    out["busy"] = busy
+    by_kernel = {}
+    for ev in on_device:     # the block of 4
+        key = kernel_key(ev.name)
+        by_kernel[key] = by_kernel.get(key, 0.0) + ev.self_device_time_total
+    print("stacked: device us a captured round by kernel (a block of 4 "
+          "rounds / 4): " + ", ".join(
+              f"{n} {t / 4:.3f}" for n, t in sorted(
+                  by_kernel.items(), key=lambda kv: -kv[1])[:12]))
+    print(f"stacked: rounds/s (evaluation excluded, {STACKED_RATE_ROUNDS} "
+          f"rounds as one block) loop {rates['loop']:.4f}, eager stacked "
+          f"{rates['eager']:.4f}, captured {rates['captured']:.4f}; "
+          "captured under the profiler: " + "; ".join(
+              f"a block of {T} round(s) wall {w:.3f} ms, device busy "
+              f"{b:.3f} ms ({100 * b / w:.2f}%), {n} device kernels and "
+              "copies" for T, (b, w, n) in busy.items()) + f", on {card}")
+    return out
+
+
+def stacked_ragged(card):
+    """(f) Table 2's ragged cnn1 cohort in epoch mode, one round: each
+    batched step against the loop's kernel steps, launches S = max n_k //
+    B a round, epsilon each client's own."""
+    from repro_torch.benchmarks import common, table2_histo
+    from repro_torch.core.accountant import epsilon_for
+    from repro_torch.core.baselines import run_federated
+
+    conf = table2_histo.configuration(True)
+    for key in ("methods", "seeds", "rounds"):
+        conf.pop(key)
+    data, test, priv, prox, cfg = common.method_setup(
+        conf.pop("dataset"), conf.pop("n_clients"), 0, rounds=1,
+        device="cuda", **conf)
+    K, B = len(data), cfg.batch_size
+    sizes = [x.shape[0] for x, _ in data]
+    S = max(max(1, n // B) for n in sizes)
+    res, counts = counted(lambda: run_federated(
+        "proxyfl", [priv] * K, prox, data, test, cfg, seed=0, eval_every=1,
+        device="cuda"))
+    expect(counts, **dp_launches(S), fused_pushsum_mix=1)
+    want = [epsilon_for(noise_multiplier=cfg.dp.noise_multiplier,
+                        sample_rate=min(1.0, B / n), steps=max(1, n // B),
+                        delta=cfg.dp.delta) for n in sizes]
+    assert res["epsilon"] == want, (res["epsilon"], want)
+    with Lockstep(against="loop") as lock:
+        run_federated("proxyfl", [priv] * K, prox, data, test, cfg, seed=0,
+                      eval_every=1, device="cuda")
+    lock.check(S * K)
+    print(f"stacked: table 2's cohort (sizes {sizes}, B {B}) in epoch mode: "
+          f"{S} batched steps a round (the loop: "
+          f"{sum(max(1, n // B) for n in sizes)}"
+          f" client steps); each of {lock.steps} client steps against the "
+          f"loop's: max abs diff {lock.worst:.3e} (close grade; "
+          f"{lock.eps_masked} first-Adam-step coordinates masked, "
+          f"{lock.eps_past} past close; {lock.outliers} of "
+          f"{lock.coords:,} param and moment coordinates past close) on "
+          f"{card}")
+    return dict(counts=counts, lockstep=lock.worst, steps=S)
+
+
+def stacked_async_hier(spec, data, cfg):
+    """(g) async τ = 2 on fig_async's protocol and hier S = 2 on the main
+    set-up, stacked and captured: 4 rounds as blocks of 1 and of 4
+    bit-equal, launches exact (a stale mix a round; 4 / 4 / 4 DP launches
+    and a shard-grid mix a round)."""
+    K, out = len(data), {}
+    acfg = async_config(cfg)
+    hcfg = dataclasses.replace(cfg, n_shards=2)
+    for name, backend, c, mixes in (
+            ("async", "async", acfg, {"fused_stale_mix": 4}),
+            ("hier", "hier", hcfg, {"fused_pushsum_mix_blocks": 4,
+                                    **dp_launches(4 * 4)})):
+        def make(c=c, backend=backend):
+            return stacked_engine(spec, c, K, backend)
+        one, _ = blocks_of(make, data, 4, 1)
+        (whole, _), counts = counted(lambda: blocks_of(make, data, 4, 4))
+        assert states_equal(one, whole), f"{name}: blocks differ"
+        expect(counts, **mixes)
+        out[name] = counts
+        print(f"stacked: {name} 4 rounds, blocks of 1 and 4 bit-equal; "
+              f"launches {dict((k, v) for k, v in counts.items() if v)}")
+    return out
+
+
+def stacked_resume(spec, data, test, cfg):
+    """(h) ``run_federated(rounds_per_block=2)``, 4 rounds, a snapshot
+    every 2: killed after round 2 and resumed, bit-equal to the straight
+    run and to the per-round run."""
+    from repro_torch.core.baselines import run_federated
+    from repro_torch.nn.modules import tree_leaves
+    K = len(data)
+    c4 = dataclasses.replace(cfg, rounds=4)
+
+    def run(c, **kw):
+        res = run_federated("proxyfl", [spec] * K, spec, data, test, c,
+                            seed=0, eval_every=2, device="cuda", **kw)
+        return [leaf for cl in res["clients"] for leaf in tree_leaves(
+            (cl.private_params, cl.proxy_params))], res["epsilon"]
+
+    straight, eps = run(c4, rounds_per_block=2)
+    per_round, _ = run(c4, rounds_per_block=1)
+    with tempfile.TemporaryDirectory() as d:
+        run(dataclasses.replace(cfg, rounds=2), rounds_per_block=2,
+            checkpoint_dir=d, checkpoint_every=2)
+        resumed, eps2 = run(c4, rounds_per_block=2, checkpoint_dir=d,
+                            checkpoint_every=2, resume=True)
+    assert all(torch.equal(a, b) for a, b in zip(straight, per_round))
+    assert all(torch.equal(a, b) for a, b in zip(straight, resumed))
+    assert eps == eps2
+    print("stacked: run_federated in blocks of 2, killed after round 2 and "
+          "resumed at the block edge: bit-equal to the straight run and to "
+          "the per-round run")
+
+
+def stacked_path(setup, card):
+    """The stacked phase (module docstring, 13)."""
+    spec, data, test, cfg = setup
+    t0 = time.perf_counter()
+    res = {"main": stacked_main(spec, data, cfg, card)}
+    res["ragged"] = stacked_ragged(card)
+    res["async_hier"] = stacked_async_hier(spec, data, cfg)
+    stacked_resume(spec, data, test, cfg)
+    print(f"stacked phase: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def hier_path(setup, card):
     """The hier phase (module docstring, 12)."""
     spec, data, test, cfg = setup
@@ -4670,16 +5208,23 @@ def main() -> int:
     trained = train_path(card)
     resumed = resume_path(setup, card)
     hier = hier_path(setup, card)
+    stacked = stacked_path(setup, card)
 
     # each kernel's launches on the path that runs it
-    # the clip pair: its rows route on the main path, its 1-D route in the
-    # ops window; the narrow loaders: their sweeps
-    # the shard-grid mix: its launches on the hier main set-up at S = 2
+    # the main path (stacked): sumsq_rows, the client-grid clip and Adam,
+    # the mix; the flat clip and Adam: fig. 5b's heterogeneous cohort on
+    # the loop; the 1-D routes: the ops window; the narrow loaders: their
+    # sweeps; the shard-grid mix: the hier main set-up at S = 2
+    loop_counts = figures["fig5b hetero proxyfl"]["counts"]
     counts = dict(counts, fused_stale_mix=async_counts["fused_stale_mix"],
                   fused_pushsum_mix_blocks=hier["main"]["S=2"]["counts"][
                       "fused_pushsum_mix_blocks"],
                   sumsq_rows=counts["sumsq/rows"],
-                  clip_accumulate_rows=counts["scale_accumulate/rows"],
+                  clip_accumulate_rows=loop_counts["scale_accumulate/rows"],
+                  noise_adam_step=loop_counts["noise_adam_step/flat"],
+                  clip_accumulate_rows_clients=counts[
+                      "scale_accumulate/clients"],
+                  noise_adam_step_clients=counts["noise_adam_step/clients"],
                   sumsq=ops_counts["sumsq/vector"],
                   scale_accumulate=ops_counts["scale_accumulate/vector"])
     counts["noise_sgd_step"] = ops_counts["noise_sgd_step"]
@@ -4699,15 +5244,17 @@ def main() -> int:
                   flash_attention_narrow=narrow_launches[torch.bfloat16],
                   flash_attention_tf32x3_narrow=narrow_launches[
                       torch.float32])
-    row_of = {"flash_attention_tf32x3": "flash_attention f32",
+    # sumsq_rows: the main path's launches take the cohort's [K·B, D] rows
+    row_of = {"sumsq_rows": "sumsq_rows clients",
+              "flash_attention_tf32x3": "flash_attention f32",
               "flash_attention_narrow": "flash_attention unaligned",
               "flash_attention_tf32x3_narrow":
               "flash_attention unaligned f32"}
     # the DP kernels' and the mix's launches on each other method's path
-    key_of = {"sumsq_rows": "sumsq/rows",
-              "clip_accumulate_rows": "scale_accumulate/rows",
-              "noise_adam_step": "noise_adam_step",
-              "fused_pushsum_mix": "fused_pushsum_mix"}
+    key_of = {name: launch_key(name) for name in (
+        "sumsq_rows", "clip_accumulate_rows", "noise_adam_step",
+        "clip_accumulate_rows_clients", "noise_adam_step_clients",
+        "fused_pushsum_mix")}
     by_method = {name: {"proxyfl": counts[key],
                         **{m: r["counts"][key] for m, r in methods.items()}}
                  for name, key in key_of.items()}
@@ -4715,6 +5262,11 @@ def main() -> int:
     hier_counts = {**{f"main {k}": v["counts"]
                       for k, v in hier["main"].items()},
                    **hier["stale"], **hier["train"]}
+    # every kernel's launches on each stacked-phase run
+    stacked_counts = {"main 2 rounds": stacked["main"]["counts"],
+                      "table2 1 round": stacked["ragged"]["counts"],
+                      **{f"{k} 4 rounds": v
+                         for k, v in stacked["async_hier"].items()}}
     out = []
     for name, (source, replaces, tpu_kernel) in SOURCES.items():
         r = rows[row_of.get(name, name)]
@@ -4748,13 +5300,18 @@ def main() -> int:
             out[-1]["launches_by_figure"] = {
                 run: {"launches": f["counts"][key_of[name]],
                       "shape": ([f["K"], f["rows"][1]]
-                                if name == "fused_pushsum_mix" else
+                                if name in ("fused_pushsum_mix",
+                                            "noise_adam_step_clients") else
                                 [f["rows"][1]] if name == "noise_adam_step"
+                                else [f["K"], *f["rows"]]
+                                if name == "clip_accumulate_rows_clients"
                                 else f["rows"])}
                 for run, f in figures.items()}
             for fig in ("table2", "fig6"):
                 if f"{name} {fig}" in rows:
                     out[-1][f"{fig}_row"] = rows[f"{name} {fig}"]
+        if name == "sumsq_rows":
+            out[-1]["loop_row"] = rows["sumsq_rows"]   # a client's [B, D]
         if name == "flash_attention":
             out[-1]["window_row"] = rows["flash_attention window"]
             out[-1]["phi3_row"] = rows["flash_attention phi-3-vision"]
@@ -4801,6 +5358,9 @@ def main() -> int:
             run: c.get(launch_key(name), 0) for run, c in resumed.items()}
         out[-1]["launches_hier"] = {
             run: c.get(launch_key(name), 0) for run, c in hier_counts.items()}
+        out[-1]["launches_stacked"] = {
+            run: c.get(launch_key(name), 0)
+            for run, c in stacked_counts.items()}
         if name == "fused_pushsum_mix_blocks":
             out[-1]["hier_rows"] = {
                 label: rows[label] for label in rows
@@ -4884,6 +5444,13 @@ def main() -> int:
     for label, r in hier["main"].items():
         print(f"hier path main set-up {label} rounds/s {r['rate']:.4f} on "
               f"{card}")
+    rates, busy = stacked["main"]["rates"], stacked["main"]["busy"]
+    print(f"stacked path main set-up rounds/s (evaluation excluded): loop "
+          f"{rates['loop']:.4f}, eager stacked {rates['eager']:.4f}, captured "
+          f"{rates['captured']:.4f}; device busy over a block of 4 captured "
+          f"rounds {100 * busy[4][0] / busy[4][1]:.2f}% on {card}")
+    missing = [r["name"] for r in out if not r["launches"]]
+    assert not missing, f"kernels launched no time on their path: {missing}"
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,9 @@ same image geometry, class count and non-IID partition as the
 reference's). The draws are the port's own (torch generators on the run's
 device), so a seed gives other numbers than in the JAX package; the task
 seed, the partitioners and each figure's set-up are the reference's.
-``bench_methods`` takes every knob of the reference's but
-``rounds_per_block`` (fused round-blocks: ROADMAP.md Queue 1 item 5), each
-at the reference's default and read from the reference's environment
-variable when unset, but for ``use_pallas``, on by default here so that
+``bench_methods`` takes every knob of the reference's, each at the
+reference's default and read from the reference's environment variable
+when unset, but for ``use_pallas``, on by default here so that
 the runs go through the port's kernels (``REPRO_BENCH_PALLAS=0`` turns it
 off). ``FULL`` is ``REPRO_BENCH_FULL``, the default budget of the drivers
 that the runner (:mod:`.run`) calls without ``--full``.
@@ -173,7 +172,8 @@ def method_setup(dataset: str, n_clients: int, seed: int, *, rounds: int,
 
 def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
                   rounds: int, seeds: Sequence[int], device="cuda",
-                  backend: Optional[str] = None, staleness: int = 0,
+                  backend: Optional[str] = None, rounds_per_block: int = 0,
+                  staleness: int = 0,
                   n_shards: int = 0, checkpoint_dir: Optional[str] = None,
                   checkpoint_every: int = 0, resume: Optional[bool] = None,
                   use_pallas: Optional[bool] = None,
@@ -201,7 +201,9 @@ def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
 
     The engine knobs, each read from the reference's environment variable
     when unset: ``backend`` (``REPRO_BENCH_BACKEND``, default ``"auto"``);
-    ``staleness`` (``REPRO_BENCH_STALENESS``), the delay τ of the async
+    ``rounds_per_block`` (``REPRO_BENCH_BLOCK``; 0 and 1 run round by
+    round), the rounds of one engine round-block (bit-equal results, the
+    host at block edges only); ``staleness`` (``REPRO_BENCH_STALENESS``), the delay τ of the async
     backend and of the hier backend's cross-shard edges, refused by the
     other backends; ``n_shards`` (``REPRO_BENCH_SHARDS``), the hier
     backend's shard count, refused by the others above 1; ``use_pallas``
@@ -220,6 +222,7 @@ def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
     ``REPRO_BENCH_CKPT_DIR``, ``REPRO_BENCH_CKPT_EVERY``,
     ``REPRO_BENCH_RESUME`` (``1``, ``true``, ``yes`` or ``on``)."""
     backend = backend or os.environ.get("REPRO_BENCH_BACKEND", "auto")
+    rounds_per_block = rounds_per_block or _env_int("REPRO_BENCH_BLOCK") or 1
     staleness = staleness or _env_int("REPRO_BENCH_STALENESS")
     n_shards = n_shards or _env_int("REPRO_BENCH_SHARDS")
     if staleness and backend not in ("async", "hier"):
@@ -269,6 +272,7 @@ def bench_methods(dataset: str, methods: Sequence[str], *, n_clients: int,
             res = run_federated(
                 method, [priv] * n_clients, prox, client_data, test, cfg,
                 seed=seed, eval_every=rounds, device=device, backend=backend,
+                rounds_per_block=rounds_per_block,
                 checkpoint_dir=(os.path.join(checkpoint_dir, dataset)
                                 if checkpoint_dir else None),
                 checkpoint_every=checkpoint_every, resume=resume)
@@ -302,21 +306,29 @@ def iter_methods(dataset: str, methods: Sequence[str], **kw
 
 
 def time_rounds(engine, data, seed: int, rounds: int, *, trials: int = 3,
-                fresh: bool = False) -> float:
+                fresh: bool = False, block: Optional[int] = None) -> float:
     """Steady-state seconds a round: one warm-up pass, then ``trials``
-    passes of rounds 0 .. rounds-1 one at a time (``engine.run_rounds``),
-    each from the state the last left, or from ``init_states(seed)`` with
-    ``fresh`` (set-up untimed); the best pass, the reference's throughput
-    measure. Synchronises the card before each clock read."""
-    state = engine.init_states(seed)
-    state, _ = engine.run_rounds(state, data, 0, rounds, seed)
+    passes of rounds 0 .. rounds-1 in blocks of ``block`` rounds (None: one
+    block, ``engine.run_rounds``), each from the state the last left, or
+    from ``init_states(seed)`` with ``fresh`` (set-up untimed); the best
+    pass, the reference's throughput measure. Synchronises the card before
+    each clock read."""
+    block = block or rounds
+
+    def one_pass(state):
+        for t in range(0, rounds, block):
+            state, _ = engine.run_rounds(state, data, t,
+                                         min(block, rounds - t), seed)
+        return state
+
+    state = one_pass(engine.init_states(seed))
     sync(engine.device)
     times = []
     for _ in range(trials):
         if fresh:
             state = engine.init_states(seed)
         t0 = time.perf_counter()
-        state, _ = engine.run_rounds(state, data, 0, rounds, seed)
+        state = one_pass(state)
         sync(engine.device)
         times.append((time.perf_counter() - t0) / rounds)
     return float(np.min(times))

@@ -16,11 +16,10 @@ with ``acc_delta_vs_sync`` and rounds/s on seed 0's cohort (best of 3
 passes from a fresh state, after a warm-up pass), beside the card as
 ``nvidia-smi`` names it, with its power limit.
 
-The reference runs each federation, and times each pass, as one compiled
-round-block (``rounds_per_block=rounds``); any block size gives its
-trajectory bit for bit, so here the rounds run one at a time, and the
-rounds/s column measures the per-round loop until fused blocks land
-(ROADMAP.md Queue 1 item 5).
+As in the reference, each federation runs, and each pass is timed, as one
+round-block of the whole horizon (``rounds_per_block=rounds``: on the card
+the rounds replay the captured stacked round without returning to the
+host); any block size gives the same trajectory bit for bit.
 
     python -m repro_torch.benchmarks.fig_async [--full] [--device cpu]
         [--rounds N] [--train-factor F]
@@ -73,7 +72,7 @@ def run(full: bool = FULL, device="cuda", *, rounds: Optional[int] = None,
             res = run_federated(
                 "proxyfl", [spec] * n_clients, spec, client_data, test,
                 cfg, seed=seed, eval_every=rounds, backend=backend,
-                device=dev)
+                rounds_per_block=rounds, device=dev)
             row = res["history"][-1]
             accs.extend(row["private_acc"])
             paccs.extend(row["proxy_acc"])
@@ -93,7 +92,8 @@ def run(full: bool = FULL, device="cuda", *, rounds: Optional[int] = None,
             "private_acc_mean": float(np.mean(accs)),
             "acc_delta_vs_sync": proxy_mean - sync_proxy,
             "sec_per_round": sec, "rounds_per_sec": 1.0 / sec,
-            "rounds_per_block": 1, "use_pallas": use_pallas, "card": card,
+            "rounds_per_block": rounds, "use_pallas": use_pallas,
+            "card": card,
         })
     write_rows(rows, "REPRO_BENCH_ASYNC_JSON", "fig_async.json")
     return rows

@@ -15,16 +15,14 @@ hier, the analytic cross-shard wire bytes a client sends a round, which
 stay flat in K. A tiny mlp on 8x8x1 images, 4 classes, 32 examples a
 client, DP off, one local step of batch 8, the kernels on
 (``REPRO_BENCH_PALLAS=0`` for the plain path): the rows time the round
-machinery, not the model. Each row carries the card as ``nvidia-smi``
-names it, with its power limit.
+machinery, not the model. Each pass is one round-block of ``--rounds``
+rounds (8 by default; ``rounds_per_block`` in the rows), as in the
+reference: the stacked backends replay their captured round on the card,
+the loop runs its clients one at a time. Each row carries the card as
+``nvidia-smi`` names it, with its power limit.
 
-Rows the reference has and this port lacks:
-
-* ``shard_map`` at K = 8, one client per device of a mesh: ROADMAP.md
-  Queue 1 item 12;
-* blocked timing (8 rounds as one compiled program): item 5. Rounds run
-  one at a time here, every backend loops over its clients in Python, and
-  ``rounds_per_block`` reads 1.
+The reference's ``shard_map`` row at K = 8, one client per device of a
+mesh, waits for ROADMAP.md Queue 1 item 12.
 
 The reference ran its rows in a subprocess with a forced 8-device host
 mesh (JAX fixes its device count at start-up); the port needs neither. On
@@ -105,7 +103,7 @@ def run(full: bool = FULL, device="cuda", *,
             base = base or sec
             rows.append(dict(
                 figure="fig_hier", K=K, backend=backend, n_shards=S,
-                staleness=tau, rounds_per_block=1, devices=1,
+                staleness=tau, rounds_per_block=n, devices=1,
                 sec_per_round=sec, rounds_per_sec=1.0 / sec,
                 speedup_vs_loop=base / sec,
                 bytes_cross_per_client=(

@@ -9,10 +9,9 @@ printed as CSV rows (port of ``benchmarks/run.py``).
     PYTHONPATH=src python -m repro_torch.benchmarks.run --only fig_hier --device cpu
 
 The registry lists the port's drivers only (``src/repro_torch/benchmarks``;
-every ``fig_*`` file there is registered). The reference's ``fig_blocks``
-and ``fig_ragged`` wait for fused round-blocks and the stacked executor
-(ROADMAP.md Queue 1 item 5) and ``roofline`` for the XLA-tooling
-analogues (item 14). ``REPRO_BENCH_FULL=1`` is ``--full``. The runner runs
+every ``fig_*`` file there is registered). The reference's ``roofline``
+waits for the XLA-tooling analogues (ROADMAP.md Queue 1 item 14).
+``REPRO_BENCH_FULL=1`` is ``--full``. The runner runs
 on the card (``--device cuda``, the default) and prints its name and power
 limit first.
 """
@@ -28,8 +27,9 @@ import time
 from .. import resolve_device
 from ..launch.serve import device_label
 from . import (fig3_accuracy, fig4_comm, fig5_ablations, fig6_kvasir,
-               fig11_batchsize, fig_async, fig_compress, fig_dropout,
-               fig_hier, fig_kernels, mia_privacy, table2_histo)
+               fig11_batchsize, fig_async, fig_blocks, fig_compress,
+               fig_dropout, fig_hier, fig_kernels, fig_ragged, mia_privacy,
+               table2_histo)
 from .common import FULL
 
 # name -> (module, paper anchor, runtime tier). ``--list`` shows each
@@ -44,6 +44,8 @@ MODULES = {
     "fig11_batchsize": (fig11_batchsize, "Fig. 11", "full"),
     "fig_kernels": (fig_kernels, "beyond-paper", "fast"),
     "fig_hier": (fig_hier, "beyond-paper", "fast"),
+    "fig_blocks": (fig_blocks, "beyond-paper", "fast"),
+    "fig_ragged": (fig_ragged, "beyond-paper", "full"),
     "fig_compress": (fig_compress, "beyond-paper", "full"),
     "fig_async": (fig_async, "beyond-paper", "full"),
     "fig_dropout": (fig_dropout, "paper §3.4", "full"),

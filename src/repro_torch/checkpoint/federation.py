@@ -79,7 +79,7 @@ DEFAULT_FINGERPRINT_EXCLUDE = (
                 # 0..49 bit-identically (round_key is absolute in t)
     "backend",  # loop/vmap/shard_map/async are conformance-tested to
                 # produce identical trajectories (tests/test_conformance.py;
-                # this port runs loop and vmap client by client alike)
+                # the port's stacked vmap within close of its loop)
     "verify_commitments",  # verification knob only: the verified run's
                 # trajectory is bit-identical to the unverified one (the
                 # hashes observe state, never change it — tests/test_commit,

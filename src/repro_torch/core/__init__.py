@@ -4,8 +4,8 @@
 - ``accountant``  RDP accounting of the sampled Gaussian mechanism (§3.3)
 - ``gossip``      PushSum on time-varying directed graphs (§3.4)
 - ``protocol``    Algorithm 1: DML client step + gossip round
-- ``engine``      FederationEngine: the round executor (loop, vmap, async,
-                  hier)
+- ``engine``      FederationEngine: the round and round-block executor
+                  (the loop; vmap, async and hier stacked)
 - ``commit``      hash-chained proxy commitments (verifiable federation)
 - ``baselines``   FedAvg / FML / AvgPush / CWT / Regular / Joint (§4.1)
 

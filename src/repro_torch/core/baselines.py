@@ -29,8 +29,10 @@ compressed exchange (``cfg.compress``) and commitment verification
 (``cfg.verify_commitments``, with the ``transmit_tamper`` adversary) ride
 in on the config. ``checkpoint_dir`` snapshots the federation and
 ``resume`` continues it bit for bit (:mod:`repro_torch.checkpoint`, the
-reference's files). Round-blocks (``rounds_per_block``) come with the
-fused blocks of ROADMAP.md Queue 1 item 5.
+reference's files). ``rounds_per_block`` runs the rounds in engine
+round-blocks (:func:`_drive_blocks`), cut so that every checkpoint and
+evaluation round is a block edge; any block size gives the per-round
+results bit for bit.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ from ..checkpoint.federation import FederationCheckpointer, config_fingerprint
 from ..configs import ProxyFLConfig
 from ..data.ragged import pad_compatible
 from .accountant import PrivacyAccountant
-from .engine import dml_engine, single_model_engine
+from .engine import block_spans, dml_engine, single_model_engine
 from .protocol import ClientState, ModelSpec, evaluate, evaluate_batched
 
 METHODS = ("proxyfl", "fml", "fedavg", "avgpush", "cwt", "regular", "joint")
@@ -134,6 +136,28 @@ def _eval_row(engine, state, round_no: int, roles, xt, yt) -> Dict:
     return row
 
 
+def _drive_blocks(engine, state, data, start: int, rounds: int, seed: int,
+                  ckpt, eval_every: int, rounds_per_block: int, eval_cb):
+    """One driver loop for every method: rounds ``start .. rounds-1`` in
+    engine round-blocks of at most ``rounds_per_block`` rounds
+    (:meth:`FederationEngine.run_rounds`), the host at block edges only.
+    :func:`repro_torch.core.engine.block_spans` cuts the blocks so that
+    every checkpoint-cadence and evaluation-cadence round is a block edge:
+    the snapshots and history rows are the per-round loop's, and a killed
+    run resumes from a block edge bit for bit. ``rounds_per_block=1`` is
+    the per-round loop."""
+    for t, n in block_spans(start, rounds, rounds_per_block,
+                            ckpt.every if ckpt is not None else 0,
+                            eval_every):
+        state, _ = engine.run_rounds(state, data, t, n, seed)
+        done = t + n
+        if ckpt is not None:
+            ckpt.maybe_save(engine, state, done - 1, seed=seed)
+        if (eval_every > 0 and done % eval_every == 0) or done == rounds:
+            eval_cb(state, done)
+    return state
+
+
 def run_federated(
     method: str,
     private_specs: Sequence[ModelSpec],
@@ -146,6 +170,7 @@ def run_federated(
     eval_every: int = 1,
     use_pallas: Optional[bool] = None,
     backend: Optional[str] = None,
+    rounds_per_block: int = 1,
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 0,
     resume: bool = False,
@@ -177,6 +202,11 @@ def run_federated(
     The engine backend is ``backend``, else ``cfg.backend``, else
     ``"auto"`` (:func:`_resolve_backend`); ``"async"`` delays delivery by
     ``cfg.staleness`` rounds and is never chosen by ``"auto"``.
+    ``rounds_per_block`` runs the rounds in engine round-blocks of at most
+    that many rounds (:func:`_drive_blocks`; the stacked executor replays
+    a block's rounds without returning to the host, the loop runs them one
+    by one), every checkpoint and evaluation round a block edge; the
+    results are the per-round run's bit for bit.
     ``n_shards`` overrides ``cfg.n_shards`` (None keeps the config): the
     shard count of ``backend="hier"``'s [n_shards × clients-per-shard]
     factored exchange, whose cross-shard edges ``cfg.staleness`` delays;
@@ -240,13 +270,11 @@ def run_federated(
         if restored is not None:
             state, start = restored
     history: List[Dict] = []
-    for t in range(start, cfg.rounds):
-        state, _ = engine.run_round(state, data, t, seed)
-        if ckpt is not None:
-            ckpt.maybe_save(engine, state, t, seed=seed)
-        done = t + 1
-        if (eval_every > 0 and done % eval_every == 0) or done == cfg.rounds:
-            history.append(_eval_row(engine, state, done, roles, xt, yt))
+    state = _drive_blocks(
+        engine, state, data, start, cfg.rounds, seed, ckpt, eval_every,
+        rounds_per_block,
+        lambda st, done: history.append(_eval_row(engine, st, done, roles,
+                                                  xt, yt)))
     if not history:
         # a resume landed at (or past) the horizon: no round ran, but
         # callers still expect a final evaluation row

@@ -1,21 +1,54 @@
-"""FederationEngine — the executor of one federated round; port of the
-synchronous PushSum round, the async (stale-gossip) backend and the hier
-(two-level) backend of ``src/repro/core/engine.py``, with §3.4 dropout.
+"""FederationEngine — the executor of one federated round and of
+round-blocks; port of the synchronous PushSum round, the async
+(stale-gossip) backend and the hier (two-level) backend of
+``src/repro/core/engine.py``, with §3.4 dropout.
 
 One round has two parts (Algorithm 1). First every ACTIVE client runs its
-local steps: this port loops over clients and steps in Python, one client
-at a time, on the engine's device; a client dropped by the round's §3.4
-mask (:func:`active_mask`) skips them, keeps its state and reports NaN
-metrics. Then the proxies are flattened, stacked into ``[K, D]`` and
-exchanged over ``mix_matrix(mix, t, K, topology, active)``, in which a
-dropped client holds its own mass (identity column):
+local steps; a client dropped by the round's §3.4 mask
+(:func:`active_mask`) keeps its state and reports NaN metrics. Then the
+proxies are flattened, stacked into ``[K, D]`` and exchanged over
+``mix_matrix(mix, t, K, topology, active)``, in which a dropped client
+holds its own mass (identity column).
 
-* ``backend`` ``"auto"``, ``"vmap"`` or ``"loop"``: one de-biased PushSum
-  exchange (:func:`repro_torch.core.gossip.pushsum_mix_debiased`, the mix
-  kernel under ``cfg.use_pallas``). All three run the per-client loop: the
-  reference's ``loop`` and ``vmap`` backends agree at the conformance
-  ``close`` grade, and a batched executor over clients is later work
-  (ROADMAP.md Queue 1 item 5).
+Executors
+---------
+* The **stacked executor** (``"vmap"``, ``"async"`` and ``"hier"`` on a
+  homogeneous cohort whose engine comes from :func:`dml_engine` or
+  :func:`single_model_engine`): the clients' states are stacked to a
+  leading K dim at a block's entry, and each local step is ONE client step
+  vmapped over the cohort (``torch.func.vmap``; the DP kernels' vmap rules
+  launch their client-grid routes, one launch a step for the whole
+  cohort), as the reference's ``_local_phase`` runs ``jax.vmap`` inside a
+  ``lax.scan``. A ragged cohort is padded (:func:`repro_torch.data.ragged.
+  pad_stack`); each client's batch indices are drawn below its own length,
+  so padding is never read, and in epoch mode a client past its
+  ``n_k // B`` steps keeps its state and Adam count frozen
+  (:func:`_tree_where`). Metrics are each client's last executed step's.
+  The exchange runs on the stacked proxies, and the state is unstacked to
+  the per-client list at the block's exit: the public layout never
+  changes.
+* On a CUDA device the stacked round is captured once per shape key
+  (step count, step mask, data shapes) into a ``torch.cuda.CUDAGraph``
+  (the counterpart of the reference's jit cache of round programs): the
+  key's first round runs eagerly on a side stream as the capture's
+  warm-up, its second is captured there, and every later round is a
+  replay: before each, the round's draws go into static ``[S, K, B]`` /
+  ``[S, K, D]`` buffers and the exchange's inputs (P(t), or the stale or
+  hier split) and the active mask into static inputs; the ``[T, K]``
+  metrics stay on the device until the block's edge. A failed capture
+  raises; it never falls back to eager execution. On the CPU the same
+  round runs eagerly. Launch counters (:mod:`repro_torch.kernels`) count
+  what a capture recorded once, then add it on every replay.
+* The **loop** (``backend="loop"``, heterogeneous cohorts, and engines
+  built from step functions that cannot be vmapped, such as the LLM train
+  driver's) runs the clients one at a time.
+
+Backends
+--------
+* ``"auto"``, ``"vmap"`` or ``"loop"``: one de-biased PushSum exchange
+  (:func:`repro_torch.core.gossip.pushsum_mix_debiased`, the mix kernel
+  under ``cfg.use_pallas``). ``"vmap"`` and ``"loop"`` agree at the
+  conformance ``close`` grade (batched products round otherwise).
 * ``backend="async"`` with staleness τ = ``cfg.staleness`` > 0: the stale
   exchange (:func:`repro_torch.core.gossip.stale_mix_apply`, the stale-mix
   kernel under ``cfg.use_pallas``). Each client keeps ``kept(t)·θ`` of its
@@ -44,6 +77,19 @@ dropped client holds its own mass (identity column):
   compressed exchange at S > 1. The accountants step as on vmap, so
   epsilon depends on neither τ nor S.
 
+The async and hier backends share the stacked local phase with vmap
+verbatim (only the exchange differs), so async at τ = 0 and hier at S > 1,
+τ = 0 equal vmap bit for bit.
+
+Round-blocks
+------------
+:meth:`FederationEngine.run_rounds` runs rounds ``t0 .. t0+T-1`` as one
+block: the host sees the federation at the block's edge only (the
+metrics, the unstacked state), and the accountants step once per block
+over each client's active rounds. Every draw is seeded afresh from
+``(seed, t, k, s)``, so any block size replays the per-round trajectory
+bit for bit, and a resume at a block edge continues it.
+
 Compressed exchange
 -------------------
 ``cfg.compress`` ∈ {"topk", "int8"} (with ``cfg.compress_ratio`` for
@@ -67,15 +113,18 @@ tampered with in flight raises
 :class:`repro_torch.core.commit.CommitmentError` naming the client and
 round. ``transmit_tamper`` is the adversary hook the tests inject
 (:func:`repro_torch.core.attacks.bitflip_proxy`). As in the reference,
-only the loop backend verifies: ``"vmap"`` (which this port also runs
-client by client) and ``"async"`` do not.
+only the loop backend verifies: ``"vmap"``, ``"async"`` and ``"hier"`` do
+not.
 
 Randomness
 ----------
 The port cannot replay JAX's threefry streams, so it has one schedule of
-its own: client k's local step s of round t draws its batch indices and
-then its DP noise from a fresh ``torch.Generator`` on the engine's device,
-seeded from ``(seed, ROUND_KEY_OFFSET + t, k, s)``; client k's initial
+its own: client k's local step s of round t draws its batch indices
+(``randint(0, n_k)``, :func:`draw_batch_idx`) and then its DP noise from a
+fresh ``torch.Generator`` on the engine's device, seeded from ``(seed,
+ROUND_KEY_OFFSET + t, k, s)``, on the loop and the stacked executor alike
+(the stacked executor draws for the live (k, s) pairs only, before the
+round runs); client k's initial
 params come from a CPU generator seeded from ``(seed, k)``, so they are the
 same numbers on every device. A dropped client therefore shifts no one
 else's draws. The int8 codec's U[0,1) block [K, D] of round t comes from a
@@ -102,14 +151,19 @@ refused.
 """
 from __future__ import annotations
 
+import gc
+import inspect
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from .. import resolve_device
 from ..checkpoint.ckpt import load_checkpoint, save_checkpoint
 from ..configs import ProxyFLConfig
+from ..data.ragged import pad_compatible, pad_stack
 from ..nn.modules import (tree_flatten_vector, tree_leaves, tree_map,
                           tree_size, tree_unflatten_vector)
 from ..optim import Adam
@@ -194,10 +248,9 @@ def block_spans(start: int, rounds: int, rounds_per_block: int, *cadences):
     """Yield ``(t0, n)`` round-block spans covering ``[start, rounds)``:
     blocks of at most ``rounds_per_block`` rounds, cut so that every
     multiple of each nonzero cadence (checkpoint_every, eval_every, ...)
-    is a block edge, the one place a driver observes the federation. The
-    reference's rule; its engine runs a block as one program, this port's
-    :meth:`FederationEngine.run_rounds` runs the block's rounds one by
-    one."""
+    is a block edge, the one place a driver observes the federation (the
+    reference's rule; :meth:`FederationEngine.run_rounds` runs each
+    block)."""
     B = max(1, int(rounds_per_block or 1))
     t = start
     while t < rounds:
@@ -222,6 +275,138 @@ def active_schedule(t0: int, n_rounds: int, n_clients: int,
         return None
     return np.stack([np.ones(n_clients, bool) if m is None else m
                      for m in masks])
+
+
+def draw_batch_idx(generator: Optional[torch.Generator], n: int,
+                   batch_size: int, device, out=None) -> torch.Tensor:
+    """A local step's batch indices: ``batch_size`` draws of U{0..n-1}
+    with replacement from ``generator``, the first draw of a step's stream
+    (the DP noise follows it); ``n`` is the client's own length, so a
+    padded stack's padding is never drawn. Into ``out`` when given."""
+    if out is not None:
+        return torch.randint(0, n, (batch_size,), generator=generator,
+                             out=out)
+    return torch.randint(0, n, (batch_size,), generator=generator,
+                         device=device)
+
+
+def _to_device(a, dtype, device, out=None) -> torch.Tensor:
+    """A host array on ``device``: a fresh tensor, or copied into ``out``
+    without waiting (from pinned memory on a CUDA device, which the
+    caching host allocator keeps until the copy has run)."""
+    t = torch.as_tensor(np.array(a), dtype=dtype)
+    if out is None:
+        return t.to(device)
+    if out.device.type == "cuda":
+        return out.copy_(t.pin_memory(), non_blocking=True)
+    return out.copy_(t)
+
+
+def _sampler_accepts_n_valid(fn) -> bool:
+    """True when ``fn`` can be called ``fn(data_k, generator, n_valid=...)``:
+    the masked sampling a ragged cohort needs on the stacked executor. The
+    parameter must be NAMED ``n_valid``, so a sampler whose third parameter
+    means something else never receives a length."""
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return False
+    p = sig.parameters.get("n_valid")
+    return p is not None and p.kind in (p.POSITIONAL_OR_KEYWORD,
+                                        p.KEYWORD_ONLY)
+
+
+def stack_states(states: Sequence[Dict]) -> Dict:
+    """List of per-client state trees -> one tree with a leading K dim."""
+    return tree_map(lambda *xs: torch.stack(xs), states[0], *states[1:])
+
+
+def unstack_state(stacked: Dict, k: int) -> Dict:
+    """Client k's state out of a stacked tree (views)."""
+    return tree_map(lambda x: x[k], stacked)
+
+
+def _tree_where(mask_k: torch.Tensor, new, old):
+    """Per-client select over stacked trees (``mask_k`` bool[K])."""
+    def sel(n, o):
+        m = mask_k.reshape((mask_k.shape[0],) + (1,) * (n.dim() - 1))
+        return torch.where(m, n, o)
+    return tree_map(sel, new, old)
+
+
+def _stack_metric_rows(rows: Sequence[Dict[str, np.ndarray]], n_clients: int
+                       ) -> Dict[str, np.ndarray]:
+    """Per-round metric dicts ([K] arrays) -> one [T, K] array per key
+    (the union of keys, NaN where a round did not emit a metric)."""
+    keys = set().union(*(r.keys() for r in rows)) if rows else set()
+    nan = np.full(n_clients, np.nan)
+    return {k: np.stack([np.asarray(r.get(k, nan), float) for r in rows])
+            for k in sorted(keys)}
+
+
+def _rebuild(like, leaves: Sequence[torch.Tensor]):
+    """``like``'s structure (None subtrees kept) around ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+class _CapturedRound:
+    """One stacked round captured into a CUDA graph on ``stream`` (the
+    stream the key's first round ran on, eagerly, as the capture's
+    warm-up): a static carry (the stacked clients and the wrapper's
+    buffers), the static inputs the caller fills before each replay, and
+    the launch counts the capture recorded, added to the counters on every
+    replay. The capture leaves the counters as it found them."""
+
+    def __init__(self, round_fn, carry, inputs, stream):
+        from .. import kernels
+        self.carry = tree_map(lambda x: x.clone(), carry)
+        # the stacked data and step counts become the graph's own inputs,
+        # reloaded when another dataset of the same shapes comes
+        self.inputs = dict(inputs, data=tree_map(lambda x: x.clone(),
+                                                 inputs["data"]),
+                           steps=inputs["steps"].clone())
+        self.data_of = inputs["data"]
+        inputs = self.inputs
+        before = kernels.count_state()
+        self.graph = torch.cuda.CUDAGraph()
+        # an engine holding graphs lives in a reference cycle, so an old
+        # one is freed by the collector; its graph must not be destroyed
+        # while this one captures
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                new, self.last = round_fn(self.carry, self.inputs)
+                # the round writes its carry back in place: replays chain
+                for dst, src in zip(tree_leaves(self.carry),
+                                    tree_leaves(new)):
+                    dst.copy_(src)
+        finally:
+            gc.enable()
+        after = kernels.count_state()
+        self.delta = {k: after[k] - before[k] for k in after}
+        kernels.set_counts(before)
+
+    def load(self, carry) -> None:
+        for dst, src in zip(tree_leaves(self.carry), tree_leaves(carry)):
+            dst.copy_(src)
+
+    def load_data(self, data_s, steps) -> None:
+        """The graph reads ``data_s`` (a cohort's stacked data, of the
+        captured shapes) and its step counts from now on."""
+        if data_s is not self.data_of:
+            for dst, src in zip(tree_leaves(self.inputs["data"]),
+                                tree_leaves(data_s)):
+                dst.copy_(src)
+            self.inputs["steps"].copy_(steps)
+            self.data_of = data_s
+
+    def replay(self) -> Dict[str, torch.Tensor]:
+        from .. import kernels
+        self.graph.replay()
+        kernels.add_counts(self.delta)
+        return {k: v.clone() for k, v in self.last.items()}
 
 
 def _per_client(fns, n_clients: int) -> List:
@@ -255,7 +440,13 @@ class FederationEngine:
     it; ``"vmap"``, ``"async"`` and ``"hier"`` refuse it, as in the
     reference.
     ``sample_fn(data_k, generator, idx=None) -> batch`` draws a local batch,
-    or gathers ``idx`` when the replay hook supplies it. ``mix`` is the
+    or gathers ``idx`` when the replay hook supplies it. ``stackable``
+    says that ``step_fns`` can run vmapped over the cohort (the factories
+    set it): the homogeneous vmap, async and hier backends then run the
+    stacked executor, which draws each step's indices itself
+    (:func:`draw_batch_idx` with ``sample_fn.batch_size``), and, with
+    ``noisy_steps``, the step's flat N(0, 1) noise over the proxy params
+    after them. ``mix`` is the
     exchange rule of :func:`repro_torch.core.gossip.mix_matrix`;
     ``staleness`` the delivery delay τ of the async backend and of the hier
     backend's cross-shard edges (None reads ``cfg.staleness``; the
@@ -263,19 +454,25 @@ class FederationEngine:
     ``cfg.n_shards``, which must divide ``n_clients``. ``draws`` and
     ``codec_draws`` are the replay hooks (module docstring).
 
-    The state is a list of per-client dicts, or the wrapper ``{"clients":
-    [...], ["stale_theta": [τ, K, D], "stale_w": [τ, K],] ["hier_buffer":
+    Between calls the state is a list of per-client dicts, or the wrapper
+    ``{"clients": [...], ["stale_theta": [τ, K, D], "stale_w": [τ, K],]
+    ["hier_buffer":
     [τ, K, D], "hier_w": [τ, K],] ["ef_state": [K, D]]}`` on the async
     backend at τ>0 and the hier backend at τ>0 with S>1 (buffer row 0 is
     the next delivery) and wherever a compressed exchange runs (the public
     copies).
     """
 
+    # private: run the stacked round eagerly on a CUDA device too (the
+    # chip smoke test holds the captured round against it)
+    _eager_stacked = False
+
     def __init__(self, cfg: ProxyFLConfig, *, n_clients: int,
                  step_fns, init_fns, sample_fn: SampleFn,
                  backend: str = "auto", mix: str = "pushsum", device="cuda",
                  draws: Optional[DrawsFn] = None, staleness=None,
-                 codec_draws: Optional[CodecDrawsFn] = None):
+                 codec_draws: Optional[CodecDrawsFn] = None,
+                 stackable: bool = False, noisy_steps: bool = False):
         _refuse_unported(backend)
         if mix not in MIXES:
             raise ValueError(f"unknown mix {mix!r}")
@@ -347,6 +544,23 @@ class FederationEngine:
         self.verify_commitments = bool(cfg.verify_commitments)
         self.transmit_tamper: Optional[TamperFn] = None
         self.accountants: List = [None] * n_clients
+        # the stacked executor (module docstring): the homogeneous stacked
+        # backends on vmappable step functions
+        self.stacked = stackable and backend in ("vmap", "async", "hier")
+        if self.stacked and not hasattr(sample_fn, "batch_size"):
+            raise ValueError("the stacked executor draws batch indices "
+                             "itself: sample_fn needs a batch_size")
+        self.noisy_steps = noisy_steps
+        self._masked_sampler = _sampler_accepts_n_valid(sample_fn)
+        # padded stacked copies of the data, keyed by the data's identity
+        # (alternating datasets each keep theirs)
+        self._data_cache: "OrderedDict" = OrderedDict()
+        self._data_cache_max = 4
+        self._stack_misses = 0
+        # on a CUDA device, the side stream of each shape key's first,
+        # eager round, and the round captured on it at the key's next round
+        self._warm: Dict[Tuple, Any] = {}
+        self._graphs: Dict[Tuple, _CapturedRound] = {}
 
     # -- state construction / access ---------------------------------------
 
@@ -504,6 +718,10 @@ class FederationEngine:
         if act is not None and act.shape != (self.K,):
             raise ValueError(f"active must be bool[{self.K}], got "
                              f"{act.shape}")
+        if self.stacked:
+            state, ms = self._run_stacked(
+                state, data, t, 1, seed, None if act is None else act[None])
+            return state, {k: v[0] for k, v in ms.items()}
         states = list(self._clients_of(state))
         last: List[Optional[Dict]] = [None] * self.K
         for k in range(self.K):
@@ -511,19 +729,21 @@ class FederationEngine:
                 continue   # dropped: no steps, state kept
             s = states[k]
             m: Dict = {}
+            # a masked sampler gets the client's length as the stacked
+            # executor passes it, so one whose ``n_valid`` has no default
+            # runs on the loop too (where the leaves share one example axis)
+            dims = {x.shape[0] for x in tree_leaves(data[k])}
+            kw = ({"n_valid": dims.pop()} if self._masked_sampler
+                  and len(dims) == 1 else {})
             for i in range(self.n_steps(data[k])):
                 gen, idx, noise = step_draws(seed, k, t, i, self.device,
                                              self.draws)
-                batch = self.sample_fn(data[k], gen, idx)
+                batch = self.sample_fn(data[k], gen, idx, **kw)
                 s, m = self.step_fns[k](s, batch, gen, noise)
             states[k] = s
             last[k] = m
         if not self.mixing:
             state = dict(state, clients=states) if self._wrapped else states
-        elif self._stale:
-            state = self._exchange_stale(states, state, t, act, seed)
-        elif self._hier:
-            state = self._exchange_hier(states, state, t, act)
         else:
             state = self._exchange(states, t, act, state, seed)
         for k, acc in enumerate(self.accountants):
@@ -560,40 +780,103 @@ class FederationEngine:
                      w=w2[k].to(s["w"].dtype))
                 for k, s in enumerate(states)]
 
-    def _codec_noise(self, seed: int, t: int, shape) -> Optional[torch.Tensor]:
-        """Round t's U[0,1) block for the int8 codec (None for top-k, which
-        draws nothing): from its own generator on the engine's device, or
-        the ``codec_draws`` replay hook."""
-        if self.compress.mode != "int8":
-            return None
-        if self.codec_draws is not None:
-            return torch.as_tensor(np.array(self.codec_draws(t)),
-                                   dtype=torch.float32, device=self.device)
-        gen = torch.Generator(device=self.device).manual_seed(
-            stream_seed(seed, ROUND_KEY_OFFSET + t, COMPRESS_KEY_FOLD))
-        return torch.rand(tuple(shape), generator=gen, dtype=torch.float32,
-                          device=self.device)
+    def _mix_inputs(self, t: int, act, seed: int, D: int,
+                    out: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+        """Round t's exchange inputs on the device: P(t), or the stale
+        split (kept, sent) or the hier split (blocks, src, scale), and the
+        int8 codec's U[0,1) block over [K, D] proxies. Into ``out``'s
+        tensors when given (a captured round's static inputs), else
+        fresh."""
+        P = mix_matrix(self.mix, t, self.K, self.cfg.topology, act)
+        if self._stale:
+            kept, sent = stale_mix_split(P)
+            host = {"kept": (kept, torch.float32),
+                    "sent": (sent, torch.float32)}
+        elif self._hier:
+            blocks, src, scale = hier_mix_split(P, self.n_shards)
+            host = {"blocks": (blocks, torch.float32),
+                    "src": (src, torch.int64), "scale": (scale, torch.float32)}
+        else:
+            host = {"P": (P, torch.float32)}
+        fresh = out is None
+        out = {} if fresh else out
+        for key, (a, dt) in host.items():
+            out[key] = _to_device(a, dt, self.device,
+                                  None if fresh else out[key])
+        if self._compressed and self.compress.mode == "int8":
+            K = self.K
+            if self.codec_draws is not None:
+                out["codec"] = _to_device(
+                    np.array(self.codec_draws(t)), torch.float32,
+                    self.device, None if fresh else out["codec"])
+            else:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    stream_seed(seed, ROUND_KEY_OFFSET + t,
+                                COMPRESS_KEY_FOLD))
+                if fresh:
+                    out["codec"] = torch.rand((K, D), generator=gen,
+                                              dtype=torch.float32,
+                                              device=self.device)
+                else:
+                    torch.rand((K, D), generator=gen, out=out["codec"])
+        return out
+
+    def _mix(self, flat: torch.Tensor, w: torch.Tensor, carry: Dict,
+             inp: Dict[str, torch.Tensor]):
+        """The exchange of the stacked [K, D] proxies and [K] weights on
+        round inputs ``inp`` (:meth:`_mix_inputs`): returns ``(z', w',
+        buffers')`` with ``buffers'`` the wrapper's entries other than the
+        clients (the in-flight buffers rotated, the public copies
+        advanced). One definition for the loop and the stacked executor."""
+        out = {k: v for k, v in carry.items() if k != "clients"}
+        codec = dict(compress=self.compress, ef_state=carry["ef_state"],
+                     noise=inp.get("codec")) if self._compressed else {}
+        if self._stale:
+            buf_t, buf_w = carry["stale_theta"], carry["stale_w"]
+            res = stale_mix_apply(flat, w, inp["kept"], inp["sent"],
+                                  buf_t[0], buf_w[0],
+                                  use_pallas=self.use_pallas, **codec)
+            unb, send_t, w2, send_w = res[:4]
+            if self._compressed:
+                out["ef_state"] = res[4]
+            out.update(stale_theta=torch.cat([buf_t[1:], send_t[None]]),
+                       stale_w=torch.cat([buf_w[1:],
+                                          send_w[None].to(buf_w.dtype)]))
+            return unb, w2, out
+        if self._hier:
+            args = (flat, w, inp["blocks"], inp["src"], inp["scale"])
+            if not self._hier_stale:
+                unb, w2 = hier_mix_debiased(*args, use_pallas=self.use_pallas)
+                return unb, w2, out
+            buf_t, buf_w = carry["hier_buffer"], carry["hier_w"]
+            unb, send_t, w2, send_w = hier_stale_mix_apply(
+                *args, buf_t[0], buf_w[0], use_pallas=self.use_pallas)
+            out.update(hier_buffer=torch.cat([buf_t[1:], send_t[None]]),
+                       hier_w=torch.cat([buf_w[1:],
+                                         send_w[None].to(buf_w.dtype)]))
+            return unb, w2, out
+        res = pushsum_mix_debiased(flat, w, inp["P"],
+                                   use_pallas=self.use_pallas, **codec)
+        if self._compressed:
+            out["ef_state"] = res[2]
+        return res[0], res[1], out
 
     def _exchange(self, states: List[Dict], t: int, act=None, state=None,
                   seed: int = 0):
-        """The de-biased PushSum mix of the stacked [K, D] proxies; returns
-        the new client list, or with compression the new wrapper (``state``
-        carries the public copies, ``seed`` the codec stream's)."""
-        P = mix_matrix(self.mix, t, self.K, self.cfg.topology, act)
+        """The loop executor's exchange: the per-client proxies stacked to
+        [K, D] (checked against their commitments on the loop backend),
+        :meth:`_mix`, and the new client list, or the new wrapper
+        (``state`` carries the wrapper's buffers, ``seed`` the codec
+        stream's)."""
         flat, w = self._flat_proxies(states)
         if self.backend == "loop" and (self.verify_commitments
                                        or self.transmit_tamper is not None):
             flat = self._verified_exchange(flat, states, t)
-        if not self._compressed:
-            unb, w2 = pushsum_mix_debiased(flat, w, P,
-                                           use_pallas=self.use_pallas)
-            return self._with_proxies(states, unb, w2)
-        unb, w2, ef_state = pushsum_mix_debiased(
-            flat, w, P, use_pallas=self.use_pallas, compress=self.compress,
-            ef_state=state["ef_state"],
-            noise=self._codec_noise(seed, t, flat.shape))
-        return dict(state, clients=self._with_proxies(states, unb, w2),
-                    ef_state=ef_state)
+        carry = state if self._wrapped else {}
+        unb, w2, out = self._mix(flat, w, carry, self._mix_inputs(
+            t, act, seed, flat.shape[1]))
+        clients = self._with_proxies(states, unb, w2)
+        return dict(out, clients=clients) if self._wrapped else clients
 
     def _verified_exchange(self, flat: torch.Tensor, states: List[Dict],
                            t: int) -> torch.Tensor:
@@ -625,75 +908,244 @@ class FederationEngine:
                         "mix it", round=t, client=k)
         return torch.as_tensor(flat_np, dtype=flat.dtype, device=flat.device)
 
-    def _exchange_stale(self, states: List[Dict], state: Dict, t: int,
-                        act=None, seed: int = 0) -> Dict:
-        """The stale exchange: keep, send into the buffer, merge the
-        delivery rotating out of row 0, de-bias; returns the new wrapper
-        (with compression, its public copies advanced too)."""
-        kept, sent = stale_mix_split(
-            mix_matrix(self.mix, t, self.K, self.cfg.topology, act))
-        kept = torch.as_tensor(kept, dtype=torch.float32, device=self.device)
-        sent = torch.as_tensor(sent, dtype=torch.float32, device=self.device)
-        flat, w = self._flat_proxies(states)
-        buf_t, buf_w = state["stale_theta"], state["stale_w"]
-        out = dict(state)
-        if self._compressed:
-            unb, send_t, w2, send_w, out["ef_state"] = stale_mix_apply(
-                flat, w, kept, sent, buf_t[0], buf_w[0],
-                use_pallas=self.use_pallas, compress=self.compress,
-                ef_state=state["ef_state"],
-                noise=self._codec_noise(seed, t, flat.shape))
-        else:
-            unb, send_t, w2, send_w = stale_mix_apply(
-                flat, w, kept, sent, buf_t[0], buf_w[0],
-                use_pallas=self.use_pallas)
-        out.update(clients=self._with_proxies(states, unb, w2),
-                   stale_theta=torch.cat([buf_t[1:], send_t[None]]),
-                   stale_w=torch.cat([buf_w[1:],
-                                      send_w[None].to(buf_w.dtype)]))
-        return out
-
-    def _hier_split(self, t: int, act=None):
-        """Round t's factored schedule ``(blocks [S, L, L], src [K], scale
-        [K])`` on the engine's device."""
-        blocks, src, scale = hier_mix_split(
-            mix_matrix(self.mix, t, self.K, self.cfg.topology, act),
-            self.n_shards)
-        return (torch.as_tensor(blocks, dtype=torch.float32,
-                                device=self.device),
-                torch.as_tensor(src, dtype=torch.int64, device=self.device),
-                torch.as_tensor(scale, dtype=torch.float32,
-                                device=self.device))
-
-    def _exchange_hier(self, states: List[Dict], state, t: int, act=None):
-        """The factored exchange at S > 1: synchronous at τ = 0 (returns the
-        new client list), else the intra-shard mix with the cross-shard
-        sends through the τ-deep buffer, rotated like the async one
-        (returns the new wrapper)."""
-        blocks, src, scale = self._hier_split(t, act)
-        flat, w = self._flat_proxies(states)
-        if not self._hier_stale:
-            unb, w2 = hier_mix_debiased(flat, w, blocks, src, scale,
-                                        use_pallas=self.use_pallas)
-            return self._with_proxies(states, unb, w2)
-        buf_t, buf_w = state["hier_buffer"], state["hier_w"]
-        unb, send_t, w2, send_w = hier_stale_mix_apply(
-            flat, w, blocks, src, scale, buf_t[0], buf_w[0],
-            use_pallas=self.use_pallas)
-        return dict(state, clients=self._with_proxies(states, unb, w2),
-                    hier_buffer=torch.cat([buf_t[1:], send_t[None]]),
-                    hier_w=torch.cat([buf_w[1:],
-                                      send_w[None].to(buf_w.dtype)]))
-
     def run_rounds(self, state, data: Sequence, t0: int, n_rounds: int,
                    seed: int) -> Tuple[Any, Dict[str, np.ndarray]]:
-        """Rounds ``t0 .. t0+n_rounds-1``, one at a time (round-blocks are
-        later work); each metric comes back stacked to [n_rounds, K]."""
+        """Rounds ``t0 .. t0+n_rounds-1`` as one round-block: on the
+        stacked executor the host sees only the block's edge (module
+        docstring), on the loop the rounds run one by one. Dropout replays
+        the per-round masks (:func:`active_schedule`); the accountants step
+        once per block over each client's active rounds, which lands on the
+        per-round counters. Each metric comes back stacked to [n_rounds, K]
+        (NaN for a client that did not step)."""
+        if n_rounds < 1:
+            raise ValueError(f"a block has at least one round, got "
+                             f"{n_rounds}")
+        if self.stacked:
+            return self._run_stacked(
+                state, data, t0, n_rounds, seed,
+                active_schedule(t0, n_rounds, self.K, self.cfg))
         rows = []
         for t in range(t0, t0 + n_rounds):
             state, m = self.run_round(state, data, t, seed)
             rows.append(m)
-        return state, {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+        return state, _stack_metric_rows(rows, self.K)
+
+    def client_steps(self, data: Sequence) -> np.ndarray:
+        """int64[K] local steps of each client a round: ``cfg.local_steps``
+        for all, or each client's epoch ``n_k // B`` (the stacked
+        executor's step mask)."""
+        return np.asarray([self.n_steps(d) for d in data], np.int64)
+
+    # -- the stacked executor -----------------------------------------------
+
+    def _stack_data(self, data: Sequence):
+        """``(stacked, lengths, steps)`` of ``data``: the padded stacked
+        device copy and the clients' lengths and step counts (host), kept
+        in a small LRU keyed by the data's identity, so alternating
+        datasets (train and fine-tune) each keep theirs. A cohort that
+        cannot be stacked, or a ragged one without a masked sampler, is
+        refused."""
+        ck = id(data)
+        cached = self._data_cache.get(ck)
+        if cached is not None and cached[0] is data:
+            self._data_cache.move_to_end(ck)
+            return cached[1:]
+        self._stack_misses += 1
+        if not pad_compatible(data):
+            raise ValueError(
+                "the stacked executor (vmap, async, hier) needs per-client "
+                "data trees of one structure whose leaves share one example "
+                "axis, dtypes and trailing dims (ragged leading dims are "
+                "padded and mask-sampled); use backend='loop' for "
+                "incompatible trees")
+        stacked, n_valid = pad_stack(data)
+        lengths = n_valid.cpu().numpy()
+        if (lengths != lengths[0]).any() and not self._masked_sampler:
+            raise ValueError(
+                "ragged per-client datasets on the stacked path need a "
+                "masked sampler: sample_fn must accept (data_k, generator, "
+                "n_valid) so padding is never drawn (see "
+                "repro_torch.core.engine.classifier_sampler)")
+        entry = (data, stacked, lengths, self.client_steps(data))
+        self._data_cache[ck] = entry
+        while len(self._data_cache) > self._data_cache_max:
+            self._data_cache.popitem(last=False)
+        return entry[1:]
+
+    def _vstep(self, stacked, batch, noise, step=None):
+        """One local step of every client at once: the client step (or
+        ``step``) vmapped over the cohort (state leaves flattened around the
+        vmap, since ``torch.func`` takes no None leaf)."""
+        step = step or self.step_fns[0]
+        leaves = tree_leaves(stacked)
+
+        def one(leaves_k, batch_k, noise_k):
+            state_k = _rebuild(stacked, leaves_k)
+            new, m = step(state_k, batch_k, None, noise_k)
+            return tree_leaves(new), m
+
+        if noise is None:
+            new, m = vmap(lambda lv, b: one(lv, b, None))(leaves, batch)
+        else:
+            new, m = vmap(one)(leaves, batch, noise)
+        return _rebuild(stacked, new), m
+
+    def _round_fn(self, S: int, step_masked: bool):
+        """The stacked round as a function of ``(carry, inputs) -> (carry',
+        last)``: S vmapped local steps (a client past its step count, or
+        dropped, keeps its state), the last executed step's metrics of each
+        client (NaN for a dropped one) and the exchange. Reads nothing on
+        the host, so a CUDA graph can hold it."""
+        K = self.K
+        sample = self.sample_fn
+
+        def round_fn(carry, inp):
+            stacked = carry["clients"]
+            act, data_s, steps_dev = inp["act"], inp["data"], inp["steps"]
+            st, ms = stacked, []
+            for s in range(S):
+                batch = vmap(lambda d, i: sample(d, None, i))(
+                    data_s, inp["idx"][s])
+                st2, m = self._vstep(st, batch, inp["noise"][s]
+                                     if "noise" in inp else None)
+                if step_masked:
+                    st2 = _tree_where(act & (s < steps_dev), st2, st)
+                st, ms = st2, ms + [m]
+            last_i = torch.clamp(steps_dev - 1, 0, S - 1)
+            cols = torch.arange(K, device=steps_dev.device)
+            last = {key: torch.where(
+                act, torch.stack([m[key] for m in ms])[last_i, cols],
+                float("nan")) for key in ms[0]}
+            trained = _tree_where(act, st, stacked)
+            out = dict(carry, clients=trained)
+            if self.mixing:
+                theta = trained["proxy"]["params"]
+                flat = torch.cat([x.reshape(K, -1) for x in
+                                  tree_leaves(theta)], dim=1)
+                w = trained["w"]
+                unb, w2, bufs = self._mix(flat, w.to(flat.dtype), out, inp)
+                pieces = iter(torch.split(
+                    unb, [x[0].numel() for x in tree_leaves(theta)], dim=1))
+                theta2 = tree_map(lambda x: next(pieces).reshape(
+                    x.shape).to(x.dtype), theta)
+                out = dict(bufs, clients=dict(
+                    trained, proxy=dict(trained["proxy"], params=theta2),
+                    w=w2.to(w.dtype)))
+            return out, last
+
+        return round_fn
+
+    def _round_inputs(self, t: int, act: np.ndarray, lengths: np.ndarray,
+                      steps: np.ndarray, S: int, D: int, seed: int,
+                      out: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+        """Round t's inputs of the stacked round: the batch indices [S, K,
+        B] and DP noise [S, K, D] of every live (client, step) pair (zeros
+        elsewhere, never used), drawn as the loop draws them, the active
+        mask and the exchange's inputs; into ``out`` when given."""
+        dev, K, B = self.device, self.K, self.sample_fn.batch_size
+        fresh = out is None
+        if fresh:
+            out = {"idx": torch.zeros((S, K, B), dtype=torch.int64,
+                                      device=dev),
+                   "act": torch.zeros((K,), dtype=torch.bool, device=dev)}
+            if self.noisy_steps:
+                out["noise"] = torch.zeros((S, K, D), dtype=torch.float32,
+                                           device=dev)
+        idx, noise = out["idx"], out.get("noise")
+        for s in range(S):
+            for k in range(K):
+                if not (act[k] and s < steps[k]):
+                    idx[s, k].zero_()
+                    if noise is not None:
+                        noise[s, k].zero_()
+                    continue
+                if self.draws is not None:
+                    i, n = self.draws(k, t, s)
+                    _to_device(i, torch.int64, dev, idx[s, k])
+                    if noise is not None:
+                        _to_device(n, torch.float32, dev, noise[s, k])
+                    continue
+                gen = torch.Generator(device=dev).manual_seed(
+                    stream_seed(seed, ROUND_KEY_OFFSET + t, k, s))
+                draw_batch_idx(gen, int(lengths[k]), B, dev, out=idx[s, k])
+                if noise is not None:
+                    torch.randn((D,), generator=gen, out=noise[s, k])
+        _to_device(act, torch.bool, dev, out["act"])
+        if self.mixing:
+            out.update(self._mix_inputs(t, act, seed, D,
+                                        out=None if fresh else out))
+        return out
+
+    def _run_stacked(self, state, data: Sequence, t0: int, T: int,
+                     seed: int, act_sched: Optional[np.ndarray]):
+        """Rounds ``t0 .. t0+T-1`` on the stacked executor: stack at the
+        block's entry, T rounds (replays of the captured round on a CUDA
+        device), unstack at its exit; the [T, K] metrics come to the host
+        once, and the accountants step once."""
+        data_s, lengths, steps = self._stack_data(data)
+        S = int(steps.max())
+        step_masked = bool((steps != steps[0]).any())
+        act_stack = (np.ones((T, self.K), bool) if act_sched is None
+                     else np.asarray(act_sched, bool))
+        clients = stack_states(self._clients_of(state))
+        carry = dict(state, clients=clients) if self._wrapped \
+            else {"clients": clients}
+        D = sum(x[0].numel() for x in tree_leaves(clients["proxy"]["params"]))
+        steps_dev = torch.as_tensor(steps, device=self.device)
+        # one graph for every dataset of the same shapes, as one compiled
+        # round serves them in the reference
+        key = (S, step_masked) + tuple((tuple(x.shape), x.dtype)
+                                       for x in tree_leaves(data_s))
+        graph = self._graphs.get(key)
+        round_fn = None if graph else self._round_fn(S, step_masked)
+        rows = []
+        in_graph = False     # the live carry is the graph's static one
+        for i, t in enumerate(range(t0, t0 + T)):
+            if graph is not None:
+                if not in_graph:
+                    graph.load(carry)
+                    graph.load_data(data_s, steps_dev)
+                    in_graph = True
+                self._round_inputs(t, act_stack[i], lengths, steps, S, D,
+                                   seed, out=graph.inputs)
+                rows.append(graph.replay())
+                continue
+            inp = dict(self._round_inputs(t, act_stack[i], lengths, steps, S,
+                                          D, seed),
+                       data=data_s, steps=steps_dev)
+            if self.device.type != "cuda" or self._eager_stacked:
+                carry, last = round_fn(carry, inp)
+            elif key not in self._warm:
+                # the key's first round runs eagerly on a side stream: the
+                # capture's warm-up (library set-up) is a real round
+                side = self._warm[key] = torch.cuda.Stream(device=self.device)
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side):
+                    carry, last = round_fn(carry, inp)
+                now = torch.cuda.current_stream(self.device)
+                now.wait_stream(side)
+                for x in tree_leaves((carry, last)):
+                    x.record_stream(now)     # made on side, used on now
+            else:
+                graph = self._graphs[key] = _CapturedRound(
+                    round_fn, carry, inp, self._warm[key])
+                in_graph = True
+                last = graph.replay()
+            rows.append(last)
+        if in_graph:
+            carry = tree_map(lambda x: x.clone(), graph.carry)
+        clients = carry.pop("clients")
+        per_client = [unstack_state(clients, k) for k in range(self.K)]
+        state = dict(carry, clients=per_client) if self._wrapped \
+            else per_client
+        metrics = {k: torch.stack([r[k] for r in rows]).cpu().numpy()
+                   for k in rows[0]}
+        for k, acc in enumerate(self.accountants):
+            if acc is not None:
+                n_active = int(act_stack[:, k].sum())
+                if n_active:
+                    acc.step(n_active * int(steps[k]))
+        return state, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -701,16 +1153,20 @@ class FederationEngine:
 
 
 def classifier_sampler(batch_size: int) -> SampleFn:
-    """Uniform-with-replacement batch draw from (x, y); ``idx`` (the replay
-    hook's indices) replaces the draw."""
+    """Uniform-with-replacement batch draw from (x, y)
+    (:func:`draw_batch_idx`); ``idx`` (the replay hook's indices, or the
+    stacked executor's) replaces the draw. ``n_valid`` bounds the draw on
+    a padded client (default: its whole leading dim), so the loop and the
+    stacked executor draw the same indices on a ragged cohort."""
 
-    def sample(data_k, generator, idx=None):
+    def sample(data_k, generator, idx=None, n_valid=None):
         x, y = data_k
         if idx is None:
-            idx = torch.randint(0, x.shape[0], (batch_size,),
-                                generator=generator, device=x.device)
+            idx = draw_batch_idx(generator, x.shape[0] if n_valid is None
+                                 else int(n_valid), batch_size, x.device)
         return x[idx], y[idx]
 
+    sample.batch_size = batch_size
     return sample
 
 
@@ -766,7 +1222,8 @@ def dml_engine(private_specs: Tuple, proxy_spec, cfg: ProxyFLConfig,
         cfg, n_clients=len(private_specs), step_fns=step_fns,
         init_fns=init_fns, sample_fn=classifier_sampler(cfg.batch_size),
         backend=backend, mix=mix, device=device, draws=draws,
-        codec_draws=codec_draws)
+        codec_draws=codec_draws, stackable=True,
+        noisy_steps=cfg.dp.enabled)
 
 
 def _ce_state_step(spec, cfg: ProxyFLConfig, dp: bool) -> StepFn:
@@ -810,4 +1267,5 @@ def single_model_engine(spec, cfg: ProxyFLConfig, dp: bool,
         step_fns=_ce_state_step(spec, cfg, dp),
         init_fns=_ce_state_init(spec, cfg),
         sample_fn=classifier_sampler(cfg.batch_size), backend=backend,
-        mix=mix, device=device, draws=draws, codec_draws=codec_draws)
+        mix=mix, device=device, draws=draws, codec_draws=codec_draws,
+        stackable=True, noisy_steps=dp)

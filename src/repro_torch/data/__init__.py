@@ -1,9 +1,8 @@
-"""Synthetic data, partitions and batching (``repro.data`` counterpart).
-``pad_stack`` comes with the stacked executor (ROADMAP.md Queue 1 item
-5)."""
+"""Synthetic data, partitions and batching (``repro.data`` counterpart);
+``pad_stack`` pads a ragged cohort for the stacked executor."""
 from .loader import sample_batch, steps_per_epoch
 from .partition import partition_dirichlet, partition_major
-from .ragged import client_lengths, pad_compatible
+from .ragged import client_lengths, pad_compatible, pad_stack
 from .synthetic import lm_examples, make_classification_data, make_lm_data
 
 __all__ = [
@@ -13,6 +12,7 @@ __all__ = [
     "partition_major",
     "client_lengths",
     "pad_compatible",
+    "pad_stack",
     "lm_examples",
     "make_classification_data",
     "make_lm_data",

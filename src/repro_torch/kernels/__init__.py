@@ -23,6 +23,14 @@ The round hot path (``ProxyFLConfig.use_pallas``):
   ``"vector"`` route).
 - :func:`noise_adam_step` — noise add, clipped mean, weight decay and Adam
   in one pass (``repro_torch.core.dp.dp_adam_update``).
+- :func:`clip_accumulate_rows_clients` / :func:`noise_adam_step_clients`
+  — the ``"clients"`` routes of the clip accumulate and the Adam step: K
+  clients in one launch on a grid whose y is the client, what a client step
+  vmapped over the cohort launches (the stacked executor of
+  ``repro_torch.core.engine``; ``sumsq_rows`` then takes the ``[K·B, D]``
+  rows in one launch). ``sumsq_rows``, ``clip_accumulate_rows``,
+  ``scale_accumulate`` and ``noise_adam_step`` are ``torch.library``
+  custom ops whose ``torch.func.vmap`` rules pick these routes.
 - :func:`fused_pushsum_mix` — the de-biased PushSum exchange
   (``repro_torch.core.gossip.pushsum_mix_debiased``).
 - :func:`fused_pushsum_mix_blocks` — the hier backend's intra-shard mix,
@@ -65,8 +73,10 @@ The ops API (:mod:`.ops`; no training path calls these):
 
 Each wrapper counts its kernel launches in a plain integer attribute
 ``launches``; :func:`launch_counts` and :func:`reset_launch_counts` read and
-clear them all. Attention, RMSNorm, ``sumsq`` and ``scale_accumulate`` also
-count by route (``route_launches``), read by :func:`route_launch_counts`.
+clear them all. Attention, RMSNorm, ``sumsq``, ``scale_accumulate`` and
+``noise_adam_step`` also count by route (``route_launches``), read by
+:func:`route_launch_counts`. :func:`count_state` and :func:`add_counts`
+let a CUDA graph's replays count the launches its capture recorded.
 """
 from typing import Dict, Optional
 
@@ -74,8 +84,9 @@ import torch
 
 from . import ref
 from .dp_clip import (clip_accumulate, clip_accumulate_rows,
-                      scale_accumulate, sumsq, sumsq_rows)
-from .dp_step import noise_adam_step, noise_sgd_step
+                      clip_accumulate_rows_clients, scale_accumulate, sumsq,
+                      sumsq_rows)
+from .dp_step import noise_adam_step, noise_adam_step_clients, noise_sgd_step
 from .flash_attention import flash_attention
 from .mamba_scan import mamba_scan
 from .ops import gqa_flash_attention, tree_clip_accumulate
@@ -96,7 +107,7 @@ KERNELS = {
     "mamba_scan": mamba_scan,
 }
 # wrappers with more than one kernel or launch shape
-ROUTED = (flash_attention, rmsnorm, sumsq, scale_accumulate)
+ROUTED = (flash_attention, rmsnorm, sumsq, scale_accumulate, noise_adam_step)
 
 
 def default_interpret(device="cuda") -> bool:
@@ -127,8 +138,8 @@ def launch_counts() -> Dict[str, int]:
 
 def route_launch_counts() -> Dict[str, int]:
     """Launches by route: ``flash_attention/<route>``,
-    ``rmsnorm/<route>``, ``sumsq/<route>`` and
-    ``scale_accumulate/<route>``."""
+    ``rmsnorm/<route>``, ``sumsq/<route>``, ``scale_accumulate/<route>``
+    and ``noise_adam_step/<route>``."""
     return {f"{fn.__name__}/{route}": n for fn in ROUTED
             for route, n in fn.route_launches.items()}
 
@@ -140,12 +151,35 @@ def reset_launch_counts() -> None:
         fn.route_launches = dict.fromkeys(fn.route_launches, 0)
 
 
+def count_state() -> Dict[str, int]:
+    """Every counter, by kernel and by route, as one flat dict."""
+    return {**launch_counts(), **route_launch_counts()}
+
+
+def set_counts(counts: Dict[str, int]) -> None:
+    """Put every counter back to ``counts`` (a :func:`count_state`)."""
+    for name, fn in KERNELS.items():
+        fn.launches = counts[name]
+    for fn in ROUTED:
+        for route in fn.route_launches:
+            fn.route_launches[route] = counts[f"{fn.__name__}/{route}"]
+
+
+def add_counts(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (a difference of two :func:`count_state` reads) to the
+    counters: a replayed CUDA graph launches what its capture recorded, and
+    no wrapper runs to count it."""
+    now = count_state()
+    set_counts({k: now[k] + delta.get(k, 0) for k in now})
+
+
 __all__ = [
     "ref",
     "default_interpret",
     "resolve_interpret",
     "clip_accumulate",
     "clip_accumulate_rows",
+    "clip_accumulate_rows_clients",
     "flash_attention",
     "fused_pushsum_mix",
     "fused_pushsum_mix_blocks",
@@ -153,6 +187,7 @@ __all__ = [
     "gqa_flash_attention",
     "mamba_scan",
     "noise_adam_step",
+    "noise_adam_step_clients",
     "noise_sgd_step",
     "scale_accumulate",
     "sumsq",
@@ -163,4 +198,7 @@ __all__ = [
     "launch_counts",
     "route_launch_counts",
     "reset_launch_counts",
+    "count_state",
+    "set_counts",
+    "add_counts",
 ]

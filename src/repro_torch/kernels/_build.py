@@ -51,9 +51,17 @@ _SIGNATURES = {
     "repro_clip_accumulate_rows": (_P, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int64, ctypes.c_int64, _P, _P,
                                    _P),
+    "repro_clip_accumulate_rows_clients": (_P, ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int64,
+                                           ctypes.c_int64, ctypes.c_int64,
+                                           _P, _P, _P),
     "repro_noise_adam_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               ctypes.c_int64, *(ctypes.c_float,) * 9,
                               ctypes.c_int, _P),
+    "repro_noise_adam_step_clients": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      ctypes.c_int, ctypes.c_int64,
+                                      *(ctypes.c_float,) * 9, ctypes.c_int,
+                                      _P),
     "repro_pushsum_mix": (_P, ctypes.c_int, _P, _P, _P, ctypes.c_int,
                           ctypes.c_int64, ctypes.c_int, _P),
     "repro_pushsum_mix_blocks": (_P, ctypes.c_int, _P, _P, _P, ctypes.c_int,

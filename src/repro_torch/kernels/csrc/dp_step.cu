@@ -39,6 +39,12 @@
 //   where that divides by n_units (given n_units as a Python number,
 //   PyTorch's CUDA division multiplies by its f32 reciprocal instead, an
 //   ulp apart in g).
+//   The client-grid route (repro_noise_adam_step_clients) runs the same
+//   kernel on a 2-D grid: blockIdx.y is client k of [K, D] stacks and reads
+//   its own c1[k] and c2[k] (Adam's step count is per client: dropout and
+//   ragged step masks make the counts differ), so row k is bit-equal to the
+//   flat call on that client's vectors. Bound: 32*K*D + 8*K bytes; 51 MB
+//   at the main round's K = 8, D = 199,210, about 15.2 us.
 #include "common.cuh"
 
 namespace repro {
@@ -75,7 +81,17 @@ __global__ void noise_adam(const float* __restrict__ c1p,
                            float* __restrict__ p2, float* __restrict__ m2,
                            float* __restrict__ v2, int64_t n,
                            AdamScalars s) {
-  const float c1 = *c1p, c2 = *c2p;
+  // blockIdx.y: the client of a [K, n] stack (0 for the flat call)
+  const int64_t row = (int64_t)blockIdx.y * n;
+  acc += row;
+  noise += row;
+  p += row;
+  m += row;
+  v += row;
+  p2 += row;
+  m2 += row;
+  v2 += row;
+  const float c1 = c1p[blockIdx.y], c2 = c2p[blockIdx.y];
   const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t groups = n / C;
   const int64_t stride = (int64_t)gridDim.x * kThreads;
@@ -164,8 +180,37 @@ int launch_sgd(const float* acc, const float* noise, const void* p, void* p2,
 
 using namespace repro;
 
-// cols: elements a thread (1, 2 or 4); every vector's base must be aligned
-// to cols floats.
+// K clients' rows of n elements in [K, n] stacks, c1 and c2 [K]; cols:
+// elements a thread (1, 2 or 4); every row's base must be aligned to cols
+// floats.
+extern "C" int repro_noise_adam_step_clients(
+    const float* c1, const float* c2, const float* acc, const float* noise,
+    const float* p, const float* m, const float* v, float* p2, float* m2,
+    float* v2, int K, int64_t n, float stddev, float n_units, float lr,
+    float wd, float b1, float b2, float omb1, float omb2, float eps, int cols,
+    void* stream) {
+  if (n < 1 || K < 1 || K > 65535) return (int)cudaErrorInvalidValue;
+  const AdamScalars s{stddev, n_units, lr, wd, b1, b2, omb1, omb2, eps};
+  cudaStream_t st = (cudaStream_t)stream;
+  // the flat call's grid over a row's groups of cols, one grid row a client
+  const dim3 grid(grid_for(cols == 1 ? n : (n / cols > 0 ? n / cols : 1)),
+                  K);
+  if (cols == 4)
+    noise_adam<4><<<grid, kThreads, 0, st>>>(c1, c2, acc, noise, p, m, v,
+                                             p2, m2, v2, n, s);
+  else if (cols == 2)
+    noise_adam<2><<<grid, kThreads, 0, st>>>(c1, c2, acc, noise, p, m, v,
+                                             p2, m2, v2, n, s);
+  else if (cols == 1)
+    noise_adam<1><<<grid, kThreads, 0, st>>>(c1, c2, acc, noise, p, m, v,
+                                             p2, m2, v2, n, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// One client: cols elements a thread (1, 2 or 4); every vector's base must
+// be aligned to cols floats.
 extern "C" int repro_noise_adam_step(const float* c1, const float* c2,
                                      const float* acc, const float* noise,
                                      const float* p, const float* m,
@@ -175,21 +220,9 @@ extern "C" int repro_noise_adam_step(const float* c1, const float* c2,
                                      float b1, float b2, float omb1,
                                      float omb2, float eps, int cols,
                                      void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  const AdamScalars s{stddev, n_units, lr, wd, b1, b2, omb1, omb2, eps};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (cols == 4)
-    noise_adam<4><<<grid_for(n / 4 > 0 ? n / 4 : 1), kThreads, 0, st>>>(
-        c1, c2, acc, noise, p, m, v, p2, m2, v2, n, s);
-  else if (cols == 2)
-    noise_adam<2><<<grid_for(n / 2 > 0 ? n / 2 : 1), kThreads, 0, st>>>(
-        c1, c2, acc, noise, p, m, v, p2, m2, v2, n, s);
-  else if (cols == 1)
-    noise_adam<1><<<grid_for(n), kThreads, 0, st>>>(
-        c1, c2, acc, noise, p, m, v, p2, m2, v2, n, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return repro_noise_adam_step_clients(c1, c2, acc, noise, p, m, v, p2, m2,
+                                       v2, 1, n, stddev, n_units, lr, wd, b1,
+                                       b2, omb1, omb2, eps, cols, stream);
 }
 
 // cols: elements a thread (1, 2 or 4); every vector's base must be aligned

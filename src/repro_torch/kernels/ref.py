@@ -38,6 +38,14 @@ def clip_accumulate_rows_ref(g: torch.Tensor,
     return acc
 
 
+def clip_accumulate_rows_clients_ref(g: torch.Tensor,
+                                     scales: torch.Tensor) -> torch.Tensor:
+    """K clients' :func:`clip_accumulate_rows_ref`, one client at a time:
+    [K, D] f32 from g [K, B, D] and scales [K, B]."""
+    return torch.stack([clip_accumulate_rows_ref(g[k], scales[k])
+                        for k in range(g.shape[0])])
+
+
 def fused_pushsum_mix_ref(flat: torch.Tensor, w: torch.Tensor, P, *,
                           debias: bool = True):
     """Synchronous PushSum exchange, f32 accumulation: (P·z [/ P·w], P·w)."""
@@ -94,6 +102,15 @@ def noise_adam_step_ref(acc, noise, p, m, v, *, stddev, n_units, lr,
     v2 = b2 * v.to(torch.float32) + (1.0 - b2) * g * g
     step = lr * (m2 / c1) / (torch.sqrt(v2 / c2) + eps)
     return (pf - step).to(p.dtype), m2.to(m.dtype), v2.to(v.dtype)
+
+
+def noise_adam_step_clients_ref(acc, noise, p, m, v, *, c1, c2, **hp):
+    """K clients' :func:`noise_adam_step_ref`, one client at a time: the
+    vectors [K, D], the bias corrections ``c1`` / ``c2`` [K]."""
+    outs = [noise_adam_step_ref(acc[k], noise[k], p[k], m[k], v[k],
+                                c1=c1[k], c2=c2[k], **hp)
+            for k in range(acc.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*outs))
 
 
 def noise_sgd_step_ref(acc, noise, p, *, stddev, n_units, lr,

@@ -7,8 +7,10 @@ language-modelling data: each round, every client's local DML steps
 lines 2–5, :func:`repro_torch.launch.steps.make_train_step`), then the
 PushSum exchange of the proxies (lines 7–11), through
 :class:`repro_torch.core.engine.FederationEngine`. ``--backend`` ``loop``
-and ``vmap`` run the synchronous exchange (this port runs clients one at
-a time on either), ``async --staleness T`` the stale one, and ``hier
+and ``vmap`` run the synchronous exchange (the LLM client step is not
+vmapped over clients yet, so every backend runs the clients one at a
+time here: ROADMAP.md Queue 1 item 5's remainder), ``async --staleness
+T`` the stale one, and ``hier
 --n-shards S [--staleness T]`` the two-level one: S shards of clients/S
 clients mixing shard-locally (one launch of the shard-grid mix kernel
 under ``--use-pallas``) plus at most one cross-shard edge per client, the
@@ -27,8 +29,8 @@ RMSNorm, attention and scan kernels in the forwards no gradient passes
 through), or on the CPU with ``--device cpu`` (the kernels' plain
 versions). ``--rounds-per-block`` cuts the rounds into blocks as the
 reference does (the host evaluates, checkpoints and prints at block
-edges); the engine runs a block's rounds one by one (fused blocks:
-ROADMAP.md Queue 1 item 5). ``--checkpoint-dir D`` snapshots the
+edges); with the clients looped, the engine runs a block's rounds one by
+one. ``--checkpoint-dir D`` snapshots the
 federation every ``--checkpoint-every`` rounds in the reference's files
 (:mod:`repro_torch.checkpoint`), and ``--resume`` continues a killed run
 from the newest snapshot there, bit for bit:
@@ -198,7 +200,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "--dropout-rate > 0")
     ap.add_argument("--rounds-per-block", type=int, default=1,
                     help="rounds between host evaluations (block edges); "
-                         "the engine runs a block's rounds one by one")
+                         "the LLM engine loops over clients and runs a "
+                         "block's rounds one by one")
     ap.add_argument("--size-skew", type=float, default=0.0,
                     help="per-client corpus size skew in [0, 1): client k "
                          "holds ~64*(1-skew)^k sequences")

@@ -146,7 +146,8 @@ def replay_run_federated(method, dataset, n_clients, rounds, seed, *,
         eng = port_engine(*args, draws=draws, codec_draws=codec_draws,
                           **kwargs)
         eng.init_states = lambda _seed: to_port(init)
-        _recording(eng, "run_round")
+        # the driver runs round-blocks, as the reference's does
+        _recording(eng, "run_rounds")
         if engines is not None:
             engines.append(eng)
         return eng

@@ -10,9 +10,9 @@ JAX package, and commitment verification of the loop backend's exchange.
   verified run is bit-identical to an unverified one; a bit flipped in
   flight (``bitflip_proxy``) is refused with ``CommitmentError`` naming
   the client and round; unverified, the same tamper makes the run diverge;
-  ``"vmap"`` verifies nothing and takes no tamper, as in the reference
-  (whose vmap round never calls ``_verified_exchange``), although the port
-  runs it client by client too.
+  ``"vmap"`` (the stacked executor) verifies nothing and takes no tamper,
+  as in the reference (whose vmap round never calls
+  ``_verified_exchange``): its run with both is the clean vmap run.
 """
 from typing import NamedTuple
 
@@ -162,8 +162,10 @@ def test_unverified_tampered_run_diverges(clean_loop):
     assert not all(torch.equal(a, b) for a, b in zip(tampered, clean_loop))
 
 
-def test_vmap_does_not_verify(clean_loop):
+def test_vmap_does_not_verify():
     """As in the reference, only the loop backend verifies (and takes the
-    tamper): the vmap run with both is the clean run."""
+    tamper): the vmap run with both is the clean vmap run."""
     got = _run("vmap", True, bitflip_proxy(1, bit=22, index=5))
-    assert all(torch.equal(a, b) for a, b in zip(got, clean_loop))
+    clean = _run("vmap", False)
+    assert len(got) == len(clean)
+    assert all(torch.equal(a, b) for a, b in zip(got, clean))

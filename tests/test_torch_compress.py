@@ -306,29 +306,21 @@ def test_stale_w_mass_conserved_under_compression(mode):
         np.testing.assert_allclose(float(w_mass), K, rtol=1e-6)
 
 
-def _old_exchange(self, states, t, act=None, *_):
-    """The sync exchange as it was before compression was ported (the
-    engine now also passes the state and the seed, which it ignores)."""
-    P = gossip.mix_matrix(self.mix, t, self.K, self.cfg.topology, act)
-    flat, w = self._flat_proxies(states)
-    unb, w2 = gossip.pushsum_mix_debiased(flat, w, P,
-                                          use_pallas=self.use_pallas)
-    return self._with_proxies(states, unb, w2)
-
-
-def _old_exchange_stale(self, states, state, t, act=None, *_):
-    """The stale exchange as it was before compression was ported."""
-    kept, sent = gossip.stale_mix_split(
-        gossip.mix_matrix(self.mix, t, self.K, self.cfg.topology, act))
-    kept = torch.as_tensor(kept, dtype=torch.float32, device=self.device)
-    sent = torch.as_tensor(sent, dtype=torch.float32, device=self.device)
-    flat, w = self._flat_proxies(states)
-    buf_t, buf_w = state["stale_theta"], state["stale_w"]
+def _old_mix(self, flat, w, carry, inp):
+    """The uncompressed exchange as it was before compression was ported,
+    on the engine's round inputs: the sync mix, or the stale one with its
+    buffer rotation (both executors call ``_mix``)."""
+    if not self._stale:
+        unb, w2 = gossip.pushsum_mix_debiased(flat, w, inp["P"],
+                                              use_pallas=self.use_pallas)
+        return unb, w2, {}
+    buf_t, buf_w = carry["stale_theta"], carry["stale_w"]
     unb, send_t, w2, send_w = gossip.stale_mix_apply(
-        flat, w, kept, sent, buf_t[0], buf_w[0], use_pallas=self.use_pallas)
-    return {"clients": self._with_proxies(states, unb, w2),
-            "stale_theta": torch.cat([buf_t[1:], send_t[None]]),
-            "stale_w": torch.cat([buf_w[1:], send_w[None].to(buf_w.dtype)])}
+        flat, w, inp["kept"], inp["sent"], buf_t[0], buf_w[0],
+        use_pallas=self.use_pallas)
+    return unb, w2, {
+        "stale_theta": torch.cat([buf_t[1:], send_t[None]]),
+        "stale_w": torch.cat([buf_w[1:], send_w[None].to(buf_w.dtype)])}
 
 
 @pytest.mark.parametrize("backend,staleness", [("vmap", 0), ("loop", 0),
@@ -344,10 +336,7 @@ def test_compress_none_runs_bit_equal_to_the_uncompressed_exchange(
                                 device="cpu")
         assert eng.compress is None and not eng._compressed
         if old:
-            if staleness:
-                eng._exchange_stale = _old_exchange_stale.__get__(eng)
-            else:
-                eng._exchange = _old_exchange.__get__(eng)
+            eng._mix = _old_mix.__get__(eng)
         state, _ = eng.run_rounds(eng.init_states(0), data, 0, 3, seed=0)
         assert isinstance(state, dict) == bool(staleness)
         if staleness:

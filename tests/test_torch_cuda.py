@@ -817,3 +817,62 @@ def test_blocks_kernel_is_s_flat_launches_on_the_card(n, L, D, dtype):
     want = ref.fused_pushsum_mix_blocks_ref(flat, w, blocks)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("K,B,n", [(1, 1, 1), (3, 7, 1_025), (8, 250, D)])
+def test_client_grid_routes_are_k_flat_launches_on_the_card(gen, K, B, n):
+    """The stacked executor's client-grid clip accumulate and Adam step
+    (one launch each) equal K launches of the flat kernels bit for bit,
+    and their plain versions within f32 2e-5."""
+    g = _padded_rows(gen, K * B, n, torch.float32).reshape(K, B, n)
+    s = torch.rand((K, B), generator=gen, device="cuda")
+    kernels.reset_launch_counts()
+    acc = kernels.clip_accumulate_rows_clients(g, s)
+    assert kernels.route_launch_counts()["scale_accumulate/clients"] == 1
+    assert torch.equal(acc, torch.stack(
+        [kernels.clip_accumulate_rows(g[k], s[k]) for k in range(K)]))
+    torch.testing.assert_close(acc, ref.clip_accumulate_rows_clients_ref(
+        g, s), **F32)
+    vecs = tuple(torch.randn((K, n), generator=gen, device="cuda")
+                 for _ in range(4)) + (
+        torch.rand((K, n), generator=gen, device="cuda"),)
+    t = torch.arange(1, K + 1, dtype=torch.float32, device="cuda")
+    hp = dict(stddev=1.0, n_units=B, lr=1e-3, weight_decay=1e-4,
+              c1=1 - 0.9 ** t, c2=1 - 0.999 ** t)
+    got = kernels.noise_adam_step_clients(*vecs, **hp)
+    assert kernels.route_launch_counts()["noise_adam_step/clients"] == 1
+    flat = [kernels.noise_adam_step(*(v[k] for v in vecs), **dict(
+        hp, c1=hp["c1"][k], c2=hp["c2"][k])) for k in range(K)]
+    for i in range(3):
+        assert torch.equal(got[i], torch.stack([f[i] for f in flat]))
+    for a, b in zip(got, ref.noise_adam_step_clients_ref(*vecs, **hp)):
+        torch.testing.assert_close(a, b, **F32)
+
+
+def test_captured_stacked_rounds_equal_eager_ones_on_the_card(gen):
+    """A block of the stacked executor on the card (its first round eager,
+    the next captured and replayed) equals the eager block bit for bit,
+    and counts the replayed launches: 2 local steps a round, one launch
+    of each DP kernel a step, one mix a round."""
+    from repro_torch.core.engine import dml_engine
+    vm = get_vision_model("mlp")
+    shape = (6, 6, 1)
+    spec = ModelSpec("mlp", lambda g: vm.init(g, shape, 4), vm.apply)
+    data = [(torch.randn((40,) + shape, generator=gen, device="cuda"),
+             torch.randint(0, 4, (40,), generator=gen, device="cuda"))
+            for _ in range(4)]
+    cfg = ProxyFLConfig(n_clients=4, rounds=3, local_steps=2, batch_size=8,
+                        use_pallas=True, dp=DPConfig(enabled=True))
+    states = {}
+    for eager in (False, True):
+        eng = dml_engine((spec,) * 4, spec, cfg, device="cuda")
+        eng._eager_stacked = eager
+        kernels.reset_launch_counts()
+        states[eager], _ = eng.run_rounds(eng.init_states(0), data, 0, 3, 0)
+        torch.cuda.synchronize()
+        counts = kernels.route_launch_counts()
+        assert counts["sumsq/rows"] == counts["scale_accumulate/clients"] \
+            == counts["noise_adam_step/clients"] == 6
+        assert kernels.launch_counts()["fused_pushsum_mix"] == 3
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(states[False]), tree_leaves(states[True])))

@@ -160,7 +160,8 @@ def test_fig_hier_rows(no_bench_env, tmp_path):
         torch.Generator().manual_seed(0)))
     for r in rows:
         assert HIER_KEYS <= set(r) and r["card"] == "the CPU"
-        assert r["rounds_per_block"] == 1 and r["sec_per_round"] > 0
+        # each timed pass is one block of the 2 rounds
+        assert r["rounds_per_block"] == 2 and r["sec_per_round"] > 0
         if r["backend"] == "loop":
             assert r["speedup_vs_loop"] == 1.0
         if r["backend"] == "hier":
@@ -196,7 +197,8 @@ def test_fig_async_tau0_row_is_the_async_backend_at_tau0(no_bench_env,
     rows = fig_async.run(False, "cpu", rounds=2, n_train_factor=0.05)
     assert [r["staleness"] for r in rows] == list(fig_async.STALENESS)
     for r in rows:
-        assert ASYNC_KEYS <= set(r) and r["rounds_per_block"] == 1
+        # the whole horizon is one block
+        assert ASYNC_KEYS <= set(r) and r["rounds_per_block"] == 2
     assert rows[0]["acc_delta_vs_sync"] == 0.0
     data, test, d = common.federation_data("mnist", 4, 0, device="cpu",
                                            n_train_factor=0.05)
@@ -221,8 +223,10 @@ def test_every_fig_file_is_registered():
     for name, (mod, _, tier) in runner.MODULES.items():
         assert mod.__name__ == f"repro_torch.benchmarks.{name}"
         assert tier in runner.TIERS and callable(mod.run)
-    assert {"fig_hier", "fig_kernels", "fig_async"} <= set(runner.MODULES)
-    assert runner.names_for_tier("fast") == ["fig_kernels", "fig_hier"]
+    assert {"fig_hier", "fig_kernels", "fig_async", "fig_blocks",
+            "fig_ragged"} <= set(runner.MODULES)
+    assert runner.names_for_tier("fast") == ["fig_kernels", "fig_hier",
+                                             "fig_blocks"]
     with pytest.raises(ValueError):
         runner.names_for_tier("slow")
 
@@ -234,7 +238,7 @@ def test_runner_list_and_refusal(capsys):
     for l in lines:
         assert "(no docstring)" not in l
     with pytest.raises(SystemExit, match="unknown benchmarks"):
-        runner.main(["--only", "fig_blocks", "--device", "cpu"])
+        runner.main(["--only", "roofline", "--device", "cpu"])
 
 
 def test_runner_runs_a_driver_on_the_cpu(capsys):

@@ -177,7 +177,7 @@ def test_hetero_cohort_runs_on_the_loop(backend, resolved):
     assert eng.backend == resolved
     assert len({id(f) for f in eng.step_fns}) == len(ARCHS)
     homo = _tiny_engine("auto", specs(("cnn1",), (8, 8, 1), 3)[1] * 4)
-    assert homo.backend == "vmap"   # the port runs it client by client too
+    assert homo.backend == "vmap" and homo.stacked and not eng.stacked
     assert len({id(f) for f in homo.step_fns}) == 1
 
 

@@ -735,7 +735,8 @@ def test_cpu_calls_launch_nothing():
 
 def test_cpu_calls_count_no_route():
     """Calls on CPU tensors, on every route's dtype and head dim, leave the
-    per-route counts of attention, rmsnorm and the DP clip pair at 0."""
+    per-route counts of attention, rmsnorm, the DP clip pair and the Adam
+    step at 0."""
     kernels.reset_launch_counts()
     for dtype in (torch.float32, torch.bfloat16):
         for D in (32, 128):
@@ -752,7 +753,9 @@ def test_cpu_calls_count_no_route():
                            "flash_attention/tf32x3/narrow", "rmsnorm/vector",
                            "rmsnorm/scalar", "sumsq/vector", "sumsq/rows",
                            "scale_accumulate/vector",
-                           "scale_accumulate/rows"}
+                           "scale_accumulate/rows",
+                           "scale_accumulate/clients",
+                           "noise_adam_step/flat", "noise_adam_step/clients"}
     assert not any(counts.values())
 
 
