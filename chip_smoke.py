@@ -187,25 +187,38 @@
    takes no state) also this tree's scan bit for bit against that
    commit's.
 10. Drives the LLM ProxyFL training path (the "train" phase) through
-   ``repro_torch.launch.train``'s set-up and the engine: (a) its default
-   ``--preset 100m`` at full width (private 12 layers of d 768, vocab
-   8,192; proxy 4 layers of d 256, D = 6,293,760), K = 4, 2 rounds of 3
-   steps, B = 8, S = 128, DP sigma 1, C 1, the vmap backend, with the
-   kernels and on the plain path: launches exact (per client step one
-   forward of each peer without a gradient, rmsnorm and split-TF32
-   attention; one evaluation a round; one mix a round; none in the 48
-   differentiated forwards, counted), each client step against the plain
-   path's from the same state (moments and losses at ``close``; each
-   leaf's gradient, from the moments, normwise within 1e-4; params at
-   ``close`` but for a first Adam step's coordinates at |g| < 100 eps,
-   masked by that rule and counted), a second run bit-equal, epsilon the JAX package's, rounds/s, peak
-   memory, a step's breakdown and its device busy share; (b) the preset
+   ``repro_torch.launch.train``'s set-up and the engine, on the stacked
+   executor (each local step one client step vmapped over the cohort):
+   (a) its default ``--preset 100m`` at full width (private 12 layers of
+   d 768, vocab 8,192; proxy 4 layers of d 256, D = 6,293,760), K = 4, 3
+   rounds of 3 steps, B = 8, S = 128, DP sigma 1, C 1, the vmap backend
+   (the first round eager, the second captured into a CUDA graph, the
+   third replayed), with the kernels and on the plain path: launches
+   exact with the replays counted (per batched step one forward of each
+   peer without a gradient for the cohort: rmsnorm on its client grid and
+   split-TF32 attention folded over the clients, one launch a call; one
+   evaluation a round on the flat routes; one mix a round; none in the
+   differentiated forwards, counted), captured bit-equal to eager, a
+   second run bit-equal, each batched step against the loop's kernel step
+   client by client (:class:`Lockstep`, the first-Adam-step mask and the
+   ``OUTLIERS_PER_COORD`` budget, counts printed) and against the plain
+   path's step vmapped alike (moments and losses at ``close``; each leaf's
+   gradient, from the moments, normwise within 1e-4; params at ``close``
+   but for a first Adam step's coordinates at |g| < 100 eps, masked by
+   that rule and counted), epsilon the JAX package's, rounds/s without
+   evaluation of the loop, the stacked round eager and captured, a
+   captured round's device busy share and device µs by kernel, peak
+   memory, the loop's step breakdown and its busy share; (b) the preset
    on ``--backend async --staleness 2``, 3 rounds: one stale mix a round
    at [4, 6,293,760], launches exact; (c) the smoke variant of every
-   registry name, K = 2, one round of one step: launches exact, the bf16
-   runs' f32 master copies moved. The kernel table also times the mix and
-   the stale mix at [4, 6,293,760] and the peers' rmsnorm and attention
-   at the preset's shapes.
+   registry name, K = 2, one round of one step: launches exact (the
+   mamba models' scans on the scan's client route), the bf16 runs' f32
+   master copies moved. The kernel table also times the mix and the stale
+   mix at [4, 6,293,760], the peers' rmsnorm and attention at the
+   preset's shapes, and the client routes: ``rmsnorm_clients`` at [4,
+   1,024, 256] and [4, 1,024, 768], the folded attention at [32, 128, 8,
+   32] and [32, 128, 12, 64] and ``mamba_scan_clients`` at [4, 8, 128,
+   8,192], each bit-equal to K flat launches.
 11. Drives checkpoints and resume (the "resume" phase), every run on
    ``cuda`` with the kernels on and the counters reset around it: times
    one main-path snapshot's save, chain verification and restore; (a) the
@@ -256,7 +269,8 @@
    ``torch.bmm``; (d) the train driver's preset, K = 4, 2 rounds of 1
    step, on ``--backend hier --n-shards 2``: leaf-equal to ``--backend
    vmap``, one shard-grid mix a round, then ``--staleness 2`` for 3
-   rounds, launches pinned; (e) ``fig_hier``'s rows at K = 8 and 64 and
+   rounds, launches pinned (both stacked: the peers' kernels once a
+   batched step); (e) ``fig_hier``'s rows at K = 8 and 64 and
    ``fig_kernels``' at K = 8, printed and written to ``chiprun_out/``.
 13. Drives the stacked executor (the "stacked" phase), on the main
    set-up unless said: (a) a block of 2 rounds (the first eager, the
@@ -296,7 +310,10 @@
    on the train path and their train-shape rows; every kernel with its
    launches in the resume phase's resumed runs and (e)'s calls, and on
    each hier run and each stacked-phase run; the shard-grid mix under its
-   own key, its launches on the hier main set-up at S = 2); every kernel
+   own key, its launches on the hier main set-up at S = 2; the client
+   routes of rmsnorm and attention with their launches on the train
+   preset's stacked rounds, the scan's on the mamba smoke variants');
+   every kernel
    of the line must have launched on its path, or the run fails. Last, the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -425,7 +442,8 @@ SERVE_TOKENS, SERVE_GEN = (4, 1_024), 16
 # at K = 4, B = 8, S = 128, DP sigma = 1, C = 1, the kernels on
 TRAIN_ARGS = ["--preset", "100m", "--clients", "4", "--steps-per-round",
               "3", "--batch", "8", "--seq", "128", "--use-pallas"]
-TRAIN_ROUNDS, TRAIN_ASYNC_ROUNDS, TRAIN_TAU = 2, 3, 2
+TRAIN_ROUNDS, TRAIN_ASYNC_ROUNDS, TRAIN_TAU = 3, 3, 2
+TRAIN_RATE_ROUNDS = 3   # rounds of each timed block of the preset
 TRAIN_SMOKE_ARGS = ["--smoke", "--clients", "2", "--rounds", "1",
                     "--steps-per-round", "1", "--batch", "2", "--seq", "32",
                     "--use-pallas"]
@@ -437,16 +455,18 @@ TRAIN_D, TRAIN_K = 6_293_760, 4
 TRAIN_ATTN = {"proxy": dict(B=8, S=128, Hq=8, Hkv=8, D=32),
               "private": dict(B=8, S=128, Hq=12, Hkv=12, D=64)}
 TRAIN_RMS = {"proxy": (1_024, 256), "private": (1_024, 768)}
+# the scan's client route at falcon-mamba-7b's width (di 8,192, ds 16) over
+# the preset's cohort and batch (K = 4, B = 8, S = 128)
+TRAIN_SCAN = dict(B=8, S=128, di=8_192, ds=16)
 # the train lockstep's grade on each leaf's gradient, kernel path against
 # plain, normwise: only the peers' logits differ between the two, whose
 # kernels agree with their plain versions to about 1e-6
 TRAIN_GRAD_NORMWISE = 1e-4
 # repro.core.accountant.epsilon_for(noise_multiplier=1.0, sample_rate=8 /
-# 64, steps=6 and 9, delta=1e-5): the preset's 2 rounds x 3 steps, and the
-# async run's 3 rounds x 3; (sample_rate=2 / 64, steps=1): a smoke run's
-# one step; from the JAX package's accountant, pinned here
-EPSILON_TRAIN = 3.666989208094371
-EPSILON_TRAIN_ASYNC = 3.9927285274659177
+# 64, steps=9, delta=1e-5): the preset's 3 rounds x 3 steps, and the async
+# run's; (sample_rate=2 / 64, steps=1): a smoke run's one step; from the
+# JAX package's accountant, pinned here
+EPSILON_TRAIN = 3.9927285274659177
 EPSILON_TRAIN_SMOKE = 1.3620407962879644
 # the resume phase: the main path killed after round 2 of 3 and resumed
 # (epsilon_for(noise_multiplier=1.0, sample_rate=0.25, steps=12,
@@ -1254,6 +1274,81 @@ def train_kernel_cases(gen):
                        x, (d,), weight=g, eps=1e-6),
                    2 * rows * d * 4 + d * 4, 4 * rows * d,
                    row=f"rmsnorm train {model}")
+    yield from client_route_cases(gen)
+
+
+def client_route_cases(gen):
+    """The client routes that a client step vmapped over the preset's
+    cohort (K = 4) launches in its peers' forwards: rmsnorm's client grid
+    at the proxy's and the private model's rows ([4, 1,024, 256] / [4,
+    1,024, 768] f32, each client its own gain; also the scalar
+    instantiation at d = 255 and bf16), attention with the clients folded
+    into its batch ([32, 128, 8, 32] / [32, 128, 12, 64] f32, split TF32)
+    and the scan's client route at falcon-mamba-7b's width ([4, 8, 128,
+    8,192], ds 16, each client its own A); each bit for bit against K
+    launches of the flat kernel and within its tolerance of its plain
+    version. Library yardsticks: ``F.rms_norm`` under ``torch.func.vmap``
+    (one gain a client), SDPA on the folded batch, none for the scan."""
+    from torch.func import vmap
+
+    from repro_torch import kernels
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    K = TRAIN_K
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    rms_shapes = [(rows, d, torch.float32, f"rmsnorm_clients{tag}")
+                  for tag, (rows, d) in zip(("", " private"),
+                                            TRAIN_RMS.values())]
+    rms_shapes += [(64, 255, torch.float32, None),
+                   (64, 264, torch.bfloat16, None)]
+    for rows, d, dt, row in rms_shapes:
+        x, g = randn(K, rows, d, dtype=dt), randn(K, d, dtype=dt)
+        es = torch.tensor([], dtype=dt).element_size()
+        yield Case("rmsnorm_clients", dt, (K, rows, d),
+                   lambda x=x, g=g: kernels.rmsnorm_clients(x, g),
+                   lambda x=x, g=g: ref.rmsnorm_clients_ref(x, g),
+                   lambda x=x, g=g, d=d: vmap(
+                       lambda a, b: torch.nn.functional.rms_norm(
+                           a, (d,), weight=b, eps=1e-6))(x, g),
+                   2 * K * rows * d * es + K * d * es, 4 * K * rows * d,
+                   exact=lambda x=x, g=g: torch.stack(
+                       [kernels.rmsnorm(x[k], g[k]) for k in range(K)]),
+                   row=row)
+    for tag, shape in zip(("", " private"), TRAIN_ATTN.values()):
+        folded = dict(shape, B=K * shape["B"])
+        q, k, v, lib = attention_inputs(gen, dtype=torch.float32, **folded)
+        q, k, v = (t.reshape((K, shape["B"]) + tuple(t.shape[1:]))
+                   for t in (q, k, v))
+        yield Case("flash_attention_clients", torch.float32,
+                   tuple(folded.values()),
+                   lambda q=q, k=k, v=v: vmap(kernels.gqa_flash_attention)(
+                       q, k, v),
+                   lambda q=q, k=k, v=v: ref.gqa_flash_attention_ref(
+                       *(t.flatten(0, 1) for t in (q, k, v))).reshape(
+                           q.shape),
+                   lib, *attention_cost(dtype=torch.float32, **folded),
+                   peak=TF32X3_OPS_PER_S,
+                   exact=lambda q=q, k=k, v=v: torch.stack(
+                       [kernels.gqa_flash_attention(q[i], k[i], v[i])
+                        for i in range(K)]),
+                   row=f"flash_attention_clients{tag}")
+    B, S, di, ds = TRAIN_SCAN.values()
+    per = [mamba_inputs(gen, B, S, di, ds) for _ in range(K)]
+    args = tuple(torch.stack(t) for t in zip(*per))
+    yield Case("mamba_scan_clients", torch.float32, (K, B, S, di, ds),
+               lambda: kernels.mamba_scan_clients(*args),
+               lambda: ref.mamba_scan_clients_ref(*args), None,
+               4 * K * (3 * B * S * di + 2 * B * S * ds + di * ds),
+               K * B * S * di * ds,
+               peak=SFU_PER_CLOCK_SM * SMS * sm_clock_hz(), ops_name="exp",
+               tol=SCAN_TOL, calls=FULL_WIDTH_CALLS, plain_calls=2,
+               plain_graph=False,
+               exact=lambda: torch.stack([kernels.mamba_scan(*p)
+                                          for p in per]),
+               row="mamba_scan_clients")
 
 
 def scan_cases(gen):
@@ -1427,6 +1522,21 @@ SOURCES = {
     "mamba_scan": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:74",
                    "src/repro/kernels/mamba_scan.py::mamba_scan"),
+    # the client routes of a client step vmapped over the cohort (the
+    # stacked LLM train step's peers): rmsnorm and the scan on a grid over
+    # clients, attention (split TF32 at the train shapes) with the clients
+    # folded into its batch, where the reference's jax.vmap over the
+    # pallas_call adds a grid axis
+    "rmsnorm_clients": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                        "src/repro/kernels/rmsnorm.py:48",
+                        "src/repro/kernels/rmsnorm.py::rmsnorm"),
+    "flash_attention_clients": (
+        "src/repro_torch/kernels/csrc/flash_attention_tf32x3.cu",
+        "src/repro/kernels/flash_attention.py:106",
+        "src/repro/kernels/flash_attention.py::flash_attention"),
+    "mamba_scan_clients": ("src/repro_torch/kernels/csrc/mamba_scan.cu",
+                           "src/repro/kernels/mamba_scan.py:74",
+                           "src/repro/kernels/mamba_scan.py::mamba_scan"),
 }
 
 
@@ -1474,8 +1584,8 @@ def check_kernels():
             library_cold_us=cold_us(c.lib) if c.cold and c.lib else None)
         if not c.plain_graph:
             print(f"{row}: the plain version's CUDA-graph time is not "
-                  f"measured: it is a Python loop of {c.shape[1]:,} steps of "
-                  "about ten torch ops each, too many nodes for a graph of "
+                  "measured: it is a Python loop over the sequence, about "
+                  "ten torch ops a step, too many nodes for a graph of "
                   "repeated calls")
         torch.cuda.empty_cache()
     return rows
@@ -1958,7 +2068,8 @@ def ops_api():
     expect(counts, flash_attention=1, rmsnorm=1, mamba_scan=1,
            noise_sgd_step=1, sumsq=1, scale_accumulate=1,
            **{"flash_attention/wgmma": 1, "rmsnorm/vector": 1,
-              "sumsq/vector": 1, "scale_accumulate/vector": 1})
+              "mamba_scan/flat": 1, "sumsq/vector": 1,
+              "scale_accumulate/vector": 1})
 
     want = dict(attn=ref.gqa_flash_attention_ref(q, k, v),
                 norm=ref.rmsnorm_ref(x, g),
@@ -2296,7 +2407,9 @@ class Lockstep:
     from the same state and the same draws by a twin, and the two results
     are compared at the ``close`` grade; the engine's state goes on. The
     twin is the plain path's step (``use_pallas=False``; ``against=
-    "plain"``) or the loop's own kernel step (``against="loop"``). On the
+    "plain"``) or the loop's own kernel step (``against="loop"``); an
+    engine whose step no factory made (the LLM train driver's) gets its
+    twin as ``twin``. On the
     loop a client step is twinned where it runs (a twin of its generator).
     On the stacked executor, which the block runs eagerly, a batched step
     is twinned on the same state, batch and noise: against the plain path
@@ -2321,11 +2434,22 @@ class Lockstep:
     the two trajectories may part further, since a one-ulp
     difference in a near-zero first Adam step, spread by the conv models'
     max-pool near-ties, grows from step to step (fig. 6's ProxyFL:
-    9.595e-05 after 2 rounds on the H100)."""
+    9.595e-05 after 2 rounds on the H100).
 
-    def __init__(self, against: str = "plain"):
-        self.against = against
+    With ``grad_normwise`` (the LLM train step against the plain path,
+    where ``close``'s atol is about a coordinate's size and elementwise
+    holds little) a batched step is also held as the loop's is against
+    the loop: the losses at ``close``, each leaf's gradient g = (m' −
+    b1·m) / (1 − b1) normwise within the grade (``grad_worst``,
+    ``grad_beyond``), a first Adam step's params at |g| < 100·ε masked;
+    the params and moments have no outlier budget there."""
+
+    def __init__(self, against: str = "plain", twin=None,
+                 grad_normwise: Optional[float] = None):
+        self.against, self.twin = against, twin
+        self.grad_normwise = grad_normwise
         self.worst, self.beyond, self.steps = 0.0, 0, 0
+        self.grad_worst, self.grad_beyond = 0.0, 0
         self.eps_masked, self.eps_past = 0, 0
         self.coords, self.outliers, self.ties = 0, 0, 0
         self.twins = {}
@@ -2354,13 +2478,21 @@ class Lockstep:
             from repro_torch.core.engine import unstack_state
             from repro_torch.nn.modules import tree_map
             out = vstep_raw(eng, stacked, batch, noise)
-            twin = self.twins[id(eng.step_fns[0])]
+            # the twin of a factory's step, or the one given (an engine
+            # built elsewhere, as the LLM train driver's)
+            twin = self.twins.get(id(eng.step_fns[0]), self.twin)
             if self.against == "plain":
                 # the plain step vmapped alike: the same batched products
                 ref = vstep_raw(eng, stacked, batch, noise, step=twin)
+                grads = self.grad_normwise is not None
+                if grads:
+                    for key in ("private_loss", "proxy_loss"):
+                        self.held(out[1][key], ref[1][key])
                 for k in range(eng.K):
                     self.compare(unstack_state(out[0], k),
-                                 unstack_state(ref[0], k))
+                                 unstack_state(ref[0], k),
+                                 unstack_state(stacked, k) if grads
+                                 else None)
                 return out
             self.ties += relu_ties(stacked, batch)
             for k in range(eng.K):
@@ -2381,53 +2513,65 @@ class Lockstep:
          engine.FederationEngine._vstep) = self.raw
         engine.FederationEngine._eager_stacked = False
 
+    def held(self, a, b, mask=None, budget=False):
+        """a at ``close`` to b, the coordinates of ``mask`` counted apart;
+        with ``budget`` (a param or moment against the loop) those past
+        ``close`` count against the outlier budget."""
+        if not a.is_floating_point():
+            assert torch.equal(a, b)
+            return
+        off = (a - b).abs() > CLOSE["atol"] + CLOSE["rtol"] * b.abs()
+        if mask is not None:
+            self.eps_masked += int(mask.sum())
+            self.eps_past += int((off & mask).sum())
+            off, a, b = off & ~mask, a[~mask], b[~mask]
+        if a.numel():
+            self.worst = max(self.worst, max_err(a, b))
+        if budget and self.against == "loop":
+            self.coords += a.numel()
+            self.outliers += int(off.sum())
+        else:
+            self.beyond += int(off.sum())
+
     def compare(self, got, want, before=None):
         """Every leaf of a client's new state at ``close``; with
         ``before`` (the state the step started from) a first Adam step's
-        params at |g| < 100·ε masked."""
+        params at |g| < 100·ε masked and, with ``grad_normwise``, each
+        leaf's gradient held normwise."""
         from repro_torch.nn.modules import tree_leaves
-
-        def held(a, b, mask=None, param=False):
-            if not a.is_floating_point():
-                assert torch.equal(a, b)
-                return
-            off = (a - b).abs() > CLOSE["atol"] + CLOSE["rtol"] * b.abs()
-            if mask is not None:
-                self.eps_masked += int(mask.sum())
-                self.eps_past += int((off & mask).sum())
-                off, a, b = off & ~mask, a[~mask], b[~mask]
-            if a.numel():
-                self.worst = max(self.worst, max_err(a, b))
-            if param and before is not None:
-                self.coords += a.numel()
-                self.outliers += int(off.sum())
-            else:
-                self.beyond += int(off.sum())
-
         for key in sorted(want):
             g, w = got[key], want[key]
             opt = w.get("opt") if isinstance(w, dict) else None
             if before is None or getattr(opt, "t", None) is None:
                 for a, b in zip(tree_leaves(g), tree_leaves(w)):
-                    held(a, b)
+                    self.held(a, b)
                 continue
             for a, b in zip(tree_leaves(g["opt"]), tree_leaves(opt)):
-                held(a, b, param=True)
-            for pa, pb, m2, m0 in zip(
+                self.held(a, b, budget=True)
+            for pa, pb, m1, m2, m0 in zip(
                     tree_leaves(g["params"]), tree_leaves(w["params"]),
-                    tree_leaves(opt.m), tree_leaves(before[key]["opt"].m)):
+                    tree_leaves(g["opt"].m), tree_leaves(opt.m),
+                    tree_leaves(before[key]["opt"].m)):
                 grad = (m2 - 0.9 * m0) / (1 - 0.9)
-                held(pa, pb, grad.abs() < 100 * 1e-8 if int(opt.t) == 1
-                     else None, param=True)
+                if self.grad_normwise is not None:
+                    rel = float(torch.linalg.vector_norm(
+                        (m1 - 0.9 * m0) / (1 - 0.9) - grad)
+                        / torch.linalg.vector_norm(grad).clamp_min(1e-30))
+                    self.grad_worst = max(self.grad_worst, rel)
+                    self.grad_beyond += int(rel > self.grad_normwise)
+                self.held(pa, pb, grad.abs() < 100 * 1e-8
+                          if int(opt.t) == 1 else None, budget=True)
         self.steps += 1
 
     def check(self, steps: int) -> None:
         """The block's gates: every step twinned, nothing past ``close``
-        but the params' outliers within their budget."""
+        but the params' outliers within their budget, every gradient
+        within its normwise grade."""
         assert self.steps == steps, (self.steps, steps)
         assert not self.beyond, (self.beyond, self.worst)
         assert self.outliers <= OUTLIERS_PER_COORD * self.coords, \
             (self.outliers, self.coords)
+        assert not self.grad_beyond, (self.grad_beyond, self.grad_worst)
 
     def both(self, kernel_step, twin_step):
         def step(state, batch, generator, noise=None):
@@ -2622,6 +2766,9 @@ DEVICE_KERNELS = {
     "fused_pushsum_mix": ("mix_reg", "mix_stream"),
     "fused_stale_mix": ("stale_reg", "stale_stream"),
 }
+ATTENTION_ROUTES = ("flash_attention/wgmma", "flash_attention/tf32x3",
+                    "flash_attention/wgmma/narrow",
+                    "flash_attention/tf32x3/narrow")
 
 
 def device_profile(fn, sessions: int = 3):
@@ -2678,12 +2825,25 @@ def device_profile(fn, sessions: int = 3):
     else:
         raise AssertionError(f"no whole profile in {sessions} sessions")
     seen = Counter(kernel_key(e.name) for e in on_device)
+    # attention folded over a vmapped cohort counts under its own route
+    # and runs the kernel of its dtype's: each kernel route's kernels lie
+    # between its launches and those plus the folds', and all of
+    # attention's kernels are its launches (with no fold, each route's
+    # exactly)
+    folded = counts.get("flash_attention/clients", 0)
     for counter, names in DEVICE_KERNELS.items():
         got = sum(seen[n] for n in names)
         want = sum(counts.get(c, 0) for c in (
             counter if isinstance(counter, tuple) else (counter,)))
-        assert got == want, (f"the profile recorded {got} {'/'.join(names)} "
-                             f"kernel(s) where {counter} launched {want}")
+        slack = folded if counter in ATTENTION_ROUTES else 0
+        assert want <= got <= want + slack, (
+            f"the profile recorded {got} {'/'.join(names)} kernel(s) where "
+            f"{counter} launched {want}"
+            + (f" and the folds {folded}" if slack else ""))
+    got = sum(seen[n] for r in ATTENTION_ROUTES for n in DEVICE_KERNELS[r])
+    assert got == counts.get("flash_attention", 0), (
+        f"the profile recorded {got} attention kernel(s) where attention "
+        f"launched {counts.get('flash_attention', 0)}")
     return wall_ms, on_device
 
 
@@ -3368,7 +3528,8 @@ def serve_launches(cfg):
     route = TENSOR_CORE_ROUTE[torch_dtype(cfg.dtype)]
     decode = {"rmsnorm": rms, "rmsnorm/vector": rms}
     prefill = dict(decode, flash_attention=attn,
-                   **{f"flash_attention/{route}": attn}, mamba_scan=scan)
+                   **{f"flash_attention/{route}": attn,
+                      "mamba_scan/flat": scan}, mamba_scan=scan)
     return prefill, decode
 
 
@@ -3726,17 +3887,34 @@ def add_counts(*pairs):
     return out
 
 
+def peer_launches(cfg):
+    """The launches of one peer forward of ``cfg`` without a gradient on
+    the stacked executor: a forward without a cache (:func:`serve_launches`'
+    prefill counts) for the whole cohort, each kernel once and on its
+    client route (rmsnorm's client grid, attention folded over the
+    clients, the scan's client route) in place of its flat ones."""
+    out = {}
+    for key, n in serve_launches(cfg)[0].items():
+        name = key.split("/")[0]
+        if key == name:
+            out[name] = n
+        else:
+            out[f"{name}/clients"] = out.get(f"{name}/clients", 0) + n
+    return out
+
+
 def train_launches(run, steps: int, evals: int, mixes: int, stale: bool):
     """Exact launches of a training run with the kernels on: each client
-    step runs the proxy peer's forward once (one microbatch) and the
-    private peer's once (one DP chunk of the batch), each a forward
-    without a cache (:func:`serve_launches`' prefill counts); each
-    evaluation the private model's over the test set in batches of 8; each
-    exchange one mix (the stale one under async τ > 0). The differentiated
-    forwards run the plain path: none."""
+    step (on the stacked executor each batched step, ``steps`` of them)
+    runs the proxy peer's forward once (one microbatch) and the private
+    peer's once (one DP chunk of the batch), each a forward without a
+    cache (:func:`peer_launches`); each evaluation the private model's
+    over the test set in batches of 8 (flat routes); each exchange one mix
+    (the stale one under async τ > 0). The differentiated forwards run the
+    plain path: none."""
     test_batches = -(-run.test.shape[0] // 8)
-    want = add_counts((steps, serve_launches(run.proxy)[0]),
-                      (steps, serve_launches(run.cfg)[0]),
+    want = add_counts((steps, peer_launches(run.proxy)),
+                      (steps, peer_launches(run.cfg)),
                       (evals * test_batches, serve_launches(run.cfg)[0]))
     want["fused_stale_mix" if stale else "fused_pushsum_mix"] = mixes
     return {k: v for k, v in want.items() if v}
@@ -3774,81 +3952,6 @@ def train_drive(eng, run, args):
                                  use_pallas=eng.use_pallas))
     torch.cuda.synchronize()
     return state, rows, ppls, time.perf_counter() - t0
-
-
-class TrainLockstep:
-    """While active, every client step of the engine's kernel path also
-    runs on the plain path (``use_pallas=False``) from the same state and
-    draws (a twin of the step's generator), and the two are compared: the
-    losses and the Adam moments at ``close``; each leaf's gradient, g =
-    (m' − b1·m) / (1 − b1) from the moments both steps start from,
-    normwise within ``TRAIN_GRAD_NORMWISE`` (``close``'s atol is about a
-    coordinate's size here, so elementwise it holds little); the params at
-    ``close``, but for the coordinates that a model's first Adam step
-    takes in its ε regime, |g| < 100·ε on the plain path, where lr·g/(|g|
-    + ε) turns a last-bit gradient difference into a step difference past
-    ``close``: those are masked by that rule and counted. The kernel
-    path's state goes on."""
-
-    def __init__(self, eng, plain_step, adam):
-        self.eng, self.plain, self.adam = eng, plain_step, adam
-        self.worst, self.beyond, self.steps = 0.0, 0, 0
-        self.grad_worst, self.grad_beyond = 0.0, 0
-        self.eps_masked, self.eps_past = 0, 0
-
-    def __enter__(self):
-        self.raw = self.eng.step_fns
-        self.eng.step_fns = [self.both(f) for f in self.raw]
-        return self
-
-    def __exit__(self, *exc):
-        self.eng.step_fns = self.raw
-
-    def both(self, kernel_step):
-        def step(state, batch, generator, noise=None):
-            twin = torch.Generator(device=generator.device)
-            twin.set_state(generator.get_state())
-            out = kernel_step(state, batch, generator, noise)
-            ref = self.plain(state, batch, twin, noise)
-            for key in ("private_loss", "proxy_loss"):
-                self.beyond += int(self.close(out[1][key],
-                                              ref[1][key]).sum())
-            for role in ("private", "proxy"):
-                self.compare(out[0][role], ref[0][role],
-                             state[role]["opt"].m)
-            self.steps += 1
-            return out
-        return step
-
-    def close(self, a, b):
-        beyond = (a - b).abs() > CLOSE["atol"] + CLOSE["rtol"] * b.abs()
-        self.worst = max(self.worst, max_err(a, b))
-        return beyond
-
-    def compare(self, got, want, m_before):
-        from repro_torch.nn.modules import tree_leaves
-        oa, ob = got["opt"], want["opt"]
-        # f32 models (the preset): no master copy
-        assert torch.equal(oa.t, ob.t) and oa.p32 is None
-        b1, first = self.adam.b1, int(oa.t) == 1
-        for pa, pb, ma, mb, m0, va, vb in zip(
-                tree_leaves(got["params"]), tree_leaves(want["params"]),
-                *(tree_leaves(x) for x in (oa.m, ob.m, m_before, oa.v,
-                                           ob.v))):
-            self.beyond += int(self.close(ma, mb).sum()
-                               + self.close(va, vb).sum())
-            ga, gb = ((m - b1 * m0) / (1 - b1) for m in (ma, mb))
-            rel = float(torch.linalg.vector_norm(ga - gb)
-                        / torch.linalg.vector_norm(gb).clamp_min(1e-30))
-            self.grad_worst = max(self.grad_worst, rel)
-            self.grad_beyond += int(rel > TRAIN_GRAD_NORMWISE)
-            off = self.close(pa, pb)
-            if first:
-                masked = gb.abs() < 100 * self.adam.eps
-                self.eps_masked += int(masked.sum())
-                self.eps_past += int((off & masked).sum())
-                off = off & ~masked
-            self.beyond += int(off.sum())
 
 
 def train_breakdown(run, args, card):
@@ -3942,23 +4045,88 @@ def train_breakdown(run, args, card):
                 busy_ms=busy_ms)
 
 
+def free_engines():
+    """Drop what engines no longer referenced hold on the card: an engine
+    with captured rounds lives in a reference cycle, and each graph keeps
+    its memory pool until the collector frees it."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def train_rates(run, args):
+    """Rounds/s of the preset without evaluation, each as one block of
+    ``TRAIN_RATE_ROUNDS`` rounds after two warm-up rounds (on the captured
+    path the key's eager first round and the capture): the loop, the
+    stacked round eager and captured."""
+    from repro_torch.launch import train
+    rates = {}
+    for label, backend, eager in (("loop", "loop", False),
+                                  ("eager", "vmap", True),
+                                  ("captured", "vmap", False)):
+        a = train.parse_args(TRAIN_ARGS + ["--backend", backend])
+        eng = train.make_engine(run.cfg, run.proxy, run.fl, a, run.n_seqs,
+                                "cuda")
+        eng._eager_stacked = eager
+        state, _ = eng.run_rounds(clone(run.state), run.data, 0, 2, a.seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = eng.run_rounds(state, run.data, 2, TRAIN_RATE_ROUNDS,
+                                  a.seed)
+        torch.cuda.synchronize()
+        rates[label] = TRAIN_RATE_ROUNDS / (time.perf_counter() - t0)
+        del eng, state
+        free_engines()
+    return rates
+
+
+def train_profile(run, args, card):
+    """A captured round of the preset under the profiler (after the key's
+    eager first round and the capture): the device's busy share and its
+    device µs by kernel."""
+    eng = train_engine(run, args, use_pallas=True)
+    state, _ = eng.run_rounds(clone(run.state), run.data, 0, 2, args.seed)
+    wall_ms, on_device = device_profile(
+        lambda: eng.run_rounds(state, run.data, 2, 1, args.seed))
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    busy = {}
+    for e in on_device:
+        key = kernel_key(e.name)
+        busy[key] = busy.get(key, 0.0) + e.self_device_time_total
+    print(f"train phase (a): a captured round of the preset under the "
+          f"profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.2f}%), {len(on_device)} device "
+          f"kernels and copies on {card}")
+    print("train phase (a): device us a captured round by kernel: " + ", ".join(
+        f"{k} {t:.3f}" for k, t in sorted(busy.items(),
+                                          key=lambda kv: -kv[1])[:12]))
+    del eng, state
+    free_engines()
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, by_kernel=busy)
+
+
 def train_preset(card):
-    """(a) the preset, 2 rounds of 3 steps on the vmap backend, with the
-    kernels and on the plain path: launches exact (none inside the
-    differentiated forwards), each client step against the plain path's
-    from the same state (:class:`TrainLockstep`), a second run bit-equal,
-    epsilon the JAX package's; rounds/s, peak memory, the breakdown."""
+    """(a) the preset, 3 rounds of 3 steps on the vmap backend (the
+    stacked executor: the first round eager, the second captured, the
+    third replayed), with the kernels and on the plain path: launches
+    exact with the replays counted (none inside the differentiated
+    forwards), captured bit-equal to eager, a second run bit-equal, each
+    batched step against the loop's kernel steps client by client and
+    against the plain path's vmapped alike (:class:`Lockstep`), epsilon
+    the JAX package's; rounds/s of the loop, eager and captured, a
+    captured round's busy share and device µs by kernel, peak memory, the
+    loop's step breakdown."""
     from repro_torch import kernels
     from repro_torch.launch import steps, train
     from repro_torch.nn.modules import tree_leaves
-    from repro_torch.optim import Adam
 
     args = train.parse_args(TRAIN_ARGS + ["--rounds", str(TRAIN_ROUNDS)])
     t0 = time.perf_counter()
     run = train.setup(args)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    K, steps_per_client = args.clients, args.steps_per_round * args.rounds
+    K, S = args.clients, args.steps_per_round
     print(f"train phase (a): {run.cfg.name} {train.tree_size_of(run.cfg)} "
           f"({sum(x.numel() for x in tree_leaves(run.state[0]['private']['params'])):,} "
           f"params) around {run.proxy.name} (D = "
@@ -3982,6 +4150,8 @@ def train_preset(card):
         return raw_fwd(params, cfg, batch, opts, use_pallas=use_pallas)
 
     eng = train_engine(run, args, use_pallas=True)
+    assert eng.stacked
+    free_engines()
     torch.cuda.reset_peak_memory_stats()
     steps._forward_logits = fwd
     try:
@@ -3990,62 +4160,112 @@ def train_preset(card):
     finally:
         steps._forward_logits = raw_fwd
     peak = torch.cuda.max_memory_allocated()
-    want = train_launches(run, K * steps_per_client, args.rounds,
-                          args.rounds, stale=False)
+    reserved = torch.cuda.memory_reserved()
+    # per batched step, one launch of each peer kernel for the cohort on
+    # its client route; the evaluations on the flat routes; replays
+    # counted by the capture's counts
+    want = train_launches(run, S * args.rounds, args.rounds, args.rounds,
+                          stale=False)
     expect(got, **want)
-    # per client step: the private loss's forward and the proxy's
-    # per-example forward (one call under vmap for the DP chunk)
+    assert len(eng._graphs) == 1, len(eng._graphs)
+    # the forwards a gradient passes through, traced once a batched step
+    # by the rounds whose Python ran (the eager round and the capture; a
+    # replay runs none): the private loss's and the proxy's per-example
+    # one (one call under the DP vmap)
     assert inside["launches"] == 0 and inside["calls"] == \
-        K * steps_per_client * 2, inside
+        2 * S * min(args.rounds, 2), inside
     eps = [a.epsilon() for a in eng.accountants]
     assert all(e == EPSILON_TRAIN for e in eps), eps
     for m in rows:
         for key in ("private_loss", "proxy_loss"):
             assert np.isfinite(m[key]).all(), (key, m[key])
     assert all(np.isfinite(p) for p in ppls), ppls
+    del eng
+    free_engines()
+    # captured against eager: bit-equal predicted, the difference printed
+    eager_eng = train_engine(run, args, use_pallas=True)
+    eager_eng._eager_stacked = True
+    eager = train_drive(eager_eng, run, args)[0]
+    diff = max(max_err(a, b) for a, b in zip(tree_leaves(state),
+                                             tree_leaves(eager)))
+    assert states_equal(state, eager), f"captured differs from eager {diff}"
+    del eager_eng, eager
+    free_engines()
     # the rate of the second run: the first pays the process's first
     # calls at these shapes (library heuristics, the allocator's growth)
     second, _, _, warm = train_drive(train_engine(run, args,
                                                   use_pallas=True), run, args)
     for a, b in zip(tree_leaves(state), tree_leaves(second)):
         assert torch.equal(a, b), "a second run of the seed differs"
+    del second
+    free_engines()
     rate = args.rounds / warm
     print(f"train phase (a): launches {got_nonzero(got)} in {args.rounds} "
-          f"rounds (per client step: {serve_launches(run.proxy)[0]['rmsnorm']} "
-          f"rmsnorm and {serve_launches(run.proxy)[0]['flash_attention']} "
-          f"attention in the proxy peer, "
-          f"{serve_launches(run.cfg)[0]['rmsnorm']} and "
+          f"rounds of {S} batched steps (per batched step, for the cohort: "
+          f"{serve_launches(run.proxy)[0]['rmsnorm']} rmsnorm and "
+          f"{serve_launches(run.proxy)[0]['flash_attention']} attention in "
+          f"the proxy peer, {serve_launches(run.cfg)[0]['rmsnorm']} and "
           f"{serve_launches(run.cfg)[0]['flash_attention']} in the private "
-          f"peer); {inside['calls']} differentiated forwards, "
-          f"{inside['launches']} launches in them; eps {eps[0]!r}; "
-          f"client-0 test ppl {['%.3f' % p for p in ppls]}; "
-          f"{rate:.4f} rounds/s ({warm:.3f} s for {args.rounds} rounds, "
-          f"evaluation included; the process's first run {wall:.3f} s), "
-          f"peak {peak / 1e9:.3f} GB on {card}")
+          f"peer, on their client routes); the first round eager, the "
+          f"second captured, the third replayed, captured bit-equal to "
+          f"eager (max abs diff {diff:.3e}); {inside['calls']} "
+          f"differentiated forwards traced, {inside['launches']} launches "
+          f"in them; eps {eps[0]!r}; client-0 test ppl "
+          f"{['%.3f' % p for p in ppls]}; {rate:.4f} rounds/s ({warm:.3f} "
+          f"s for {args.rounds} rounds, evaluation included; the process's "
+          f"first run {wall:.3f} s), peak {peak / 1e9:.3f} GB allocated, "
+          f"{reserved / 1e9:.3f} GB reserved, on {card}")
 
+    # each batched step against the loop's kernel step, client by client
+    lock_eng = train_engine(run, args, use_pallas=True)
+    with Lockstep(against="loop", twin=lock_eng.step_fns[0]) as lock:
+        train_drive(lock_eng, run, args)
+    lock.check(S * args.rounds * K)
+    print(f"train phase (a): each of {lock.steps} client steps of the "
+          f"stacked rounds against the loop's kernel step from the same "
+          f"state, batch and noise: max abs diff {lock.worst:.3e} (close "
+          f"grade; in first Adam steps {lock.eps_masked} param coordinates "
+          f"at |g| < 100 eps masked, {lock.eps_past} of them past close; "
+          f"{lock.outliers} of {lock.coords:,} param and moment coordinates "
+          f"past close) on {card}")
+    del lock_eng
+    free_engines()
     plain_eng = train_engine(run, args, use_pallas=False)
     plain_wall = train_drive(plain_eng, run, args)[3]
+    # the plain step, without its engine's captured round (one graph's
+    # pool on the card at a time)
+    plain_step = plain_eng.step_fns[0]
+    del plain_eng
+    free_engines()
     lock_eng = train_engine(run, args, use_pallas=True)
-    with TrainLockstep(lock_eng, plain_eng.step_fns[0],
-                       Adam(lr=args.lr, weight_decay=args.weight_decay)) \
-            as lock:
+    with Lockstep(twin=plain_step, grad_normwise=TRAIN_GRAD_NORMWISE) \
+            as tlock:
         train_drive(lock_eng, run, args)
-    assert lock.steps == K * steps_per_client and lock.beyond == 0 \
-        and lock.grad_beyond == 0, (lock.steps, lock.beyond,
-                                    lock.grad_beyond, lock.grad_worst)
-    print(f"train phase (a): a second run bit-equal; each of {lock.steps} "
-          f"client steps against the plain path's from the same state: "
-          f"losses, moments and params at close, worst {lock.worst:.3e}; "
-          f"each leaf's gradient normwise, worst {lock.grad_worst:.3e} "
-          f"(grade {TRAIN_GRAD_NORMWISE:g}); in first Adam steps "
-          f"{lock.eps_masked} param coordinates at |g| < 100 eps masked "
-          f"by rule, {lock.eps_past} of them past close; plain path "
+    tlock.check(K * S * args.rounds)
+    print(f"train phase (a): a second run bit-equal; each of {tlock.steps} "
+          f"client steps against the plain path's vmapped alike from the "
+          f"same state: losses, moments and params at close, worst "
+          f"{tlock.worst:.3e}; each leaf's gradient normwise, worst "
+          f"{tlock.grad_worst:.3e} (grade {TRAIN_GRAD_NORMWISE:g}); in first "
+          f"Adam steps {tlock.eps_masked} param coordinates at |g| < 100 eps "
+          f"masked by rule, {tlock.eps_past} of them past close; plain path "
           f"{args.rounds / plain_wall:.4f} rounds/s on {card}")
+    del lock_eng
+    free_engines()
+    rates = train_rates(run, args)
+    print(f"train phase (a): rounds/s of the preset without evaluation "
+          f"({TRAIN_RATE_ROUNDS} rounds of {S} steps as one block after two "
+          f"warm-up rounds): loop {rates['loop']:.4f}, eager stacked "
+          f"{rates['eager']:.4f}, captured {rates['captured']:.4f} on {card}")
+    profile = train_profile(run, args, card)
     breakdown = train_breakdown(run, args, card)
     return dict(counts=got, rate=rate, plain_rate=args.rounds / plain_wall,
-                peak=peak, breakdown=breakdown, lock_worst=lock.worst,
-                grad_worst=lock.grad_worst, eps_masked=lock.eps_masked,
-                eps_past=lock.eps_past, ppl=ppls)
+                peak=peak, reserved=reserved, breakdown=breakdown,
+                lock_worst=tlock.worst, grad_worst=tlock.grad_worst,
+                eps_masked=tlock.eps_masked, eps_past=tlock.eps_past,
+                loop_worst=lock.worst, outliers=lock.outliers,
+                coords=lock.coords, rates=rates, profile=profile, ppl=ppls,
+                captured_vs_eager=diff)
 
 
 def got_nonzero(counts):
@@ -4065,10 +4285,10 @@ def train_async(card):
         lambda: train_drive(eng, run, args))
     K = args.clients
     expect(got, **train_launches(
-        run, K * args.steps_per_round * args.rounds, args.rounds,
+        run, args.steps_per_round * args.rounds, args.rounds,
         args.rounds, stale=True))
     assert tuple(state["stale_theta"].shape) == (TRAIN_TAU, K, TRAIN_D)
-    assert all(a.epsilon() == EPSILON_TRAIN_ASYNC for a in eng.accountants)
+    assert all(a.epsilon() == EPSILON_TRAIN for a in eng.accountants)
     assert all(np.isfinite(m["proxy_loss"]).all() for m in rows)
     print(f"train phase (b): async tau = {TRAIN_TAU}, {args.rounds} rounds: "
           f"launches {got_nonzero(got)}; {args.rounds / wall:.4f} rounds/s "
@@ -4090,7 +4310,9 @@ def train_smoke(card):
         eng = train_engine(run, args, use_pallas=True)
         (state, rows, ppls, _), got = counted(
             lambda: train_drive(eng, run, args))
-        expect(got, **train_launches(run, args.clients, 1, 1, stale=False))
+        assert eng.stacked
+        # one batched step: each peer kernel once for the cohort
+        expect(got, **train_launches(run, 1, 1, 1, stale=False))
         assert all(a.epsilon() == EPSILON_TRAIN_SMOKE
                    for a in eng.accountants)
         assert np.isfinite(rows[0]["private_loss"]).all()
@@ -4112,8 +4334,11 @@ def train_smoke(card):
 def train_path(card):
     """The train phase (module docstring, 10)."""
     t0 = time.perf_counter()
-    res = {"preset": train_preset(card), "async": train_async(card),
-           "smoke": train_smoke(card)}
+    res = {"preset": train_preset(card)}
+    res["async"] = train_async(card)
+    free_engines()
+    res["smoke"] = train_smoke(card)
+    free_engines()
     print(f"train phase: {time.perf_counter() - t0:.1f} s")
     return res
 
@@ -4137,7 +4362,10 @@ def launch_key(name: str) -> str:
             "flash_attention_tf32x3": "flash_attention/tf32x3",
             "flash_attention_narrow": "flash_attention/wgmma/narrow",
             "flash_attention_tf32x3_narrow":
-            "flash_attention/tf32x3/narrow"}.get(name, name)
+            "flash_attention/tf32x3/narrow",
+            "rmsnorm_clients": "rmsnorm/clients",
+            "flash_attention_clients": "flash_attention/clients",
+            "mamba_scan_clients": "mamba_scan/clients"}.get(name, name)
 
 
 def flip_mantissa_bit(npz_path: str, key_part: str) -> str:
@@ -4388,8 +4616,8 @@ def resume_train(card):
         killed_s = time.perf_counter() - t0
         lines, counts = counted(lambda: driver_lines(argv + [
             "--checkpoint-dir", d, "--resume"]))
-        expect(counts, **train_launches(run, steps=run.engine.K, evals=1,
-                                        mixes=1, stale=False))
+        expect(counts, **train_launches(run, steps=1, evals=1, mixes=1,
+                                        stale=False))
         resumed_line = next(l for l in lines if l.startswith("[round 2/2]"))
         assert resumed_line.rsplit("(", 1)[0] == round_line.rsplit("(", 1)[0], \
             (resumed_line, round_line)
@@ -4786,6 +5014,11 @@ def hier_train(card):
     out = {}
     flat_eng = engine(vmap_args)
     flat_state = train_drive(flat_eng, run, vmap_args)[0]
+    flat_eps = [a.epsilon() for a in flat_eng.accountants]
+    # one captured preset engine on the card at a time: each graph holds
+    # its memory pool
+    del flat_eng
+    free_engines()
     for tau, rounds in ((0, HIER_TRAIN_ROUNDS), (TRAIN_TAU,
                                                  HIER_TRAIN_STALE_ROUNDS)):
         args = args_of(hier + ["--staleness", str(tau)], rounds)
@@ -4795,7 +5028,7 @@ def hier_train(card):
             state=eng.init_states(args.seed))
         (state, rows, ppls, wall), got = counted(
             lambda: train_drive(eng, start, args))
-        want = train_launches(run, K * rounds, rounds, rounds, stale=False)
+        want = train_launches(run, rounds, rounds, rounds, stale=False)
         want["fused_pushsum_mix_blocks"] = want.pop("fused_pushsum_mix")
         expect(got, **want)
         assert all(np.isfinite(m["proxy_loss"]).all() for m in rows)
@@ -4807,14 +5040,15 @@ def hier_train(card):
         else:
             assert states_equal(state, flat_state), \
                 "the hier train run differs from vmap's"
-            assert [a.epsilon() for a in eng.accountants] == \
-                [a.epsilon() for a in flat_eng.accountants]
+            assert [a.epsilon() for a in eng.accountants] == flat_eps
             what = "every leaf and w equal to --backend vmap's, epsilon too"
         label = f"preset hier tau={tau}"
         out[label] = got
         print(f"hier phase (d): {label}, {rounds} rounds of 1 step: {what}; "
               f"launches {got_nonzero(got)}; {rounds / wall:.4f} rounds/s "
               f"(evaluation included) on {card}")
+        del eng, state
+        free_engines()
     return out
 
 
@@ -4872,6 +5106,8 @@ def relu_ties(stacked, batch) -> int:
     client (as the loop does), for the private and the proxy model; the
     count of sign changes (0 for a model that is not an mlp)."""
     from torch.func import vmap
+    if not isinstance(batch, (tuple, list)):
+        return 0   # an LLM batch: no ReLU
     K = batch[0].shape[0]
     x = batch[0].reshape(K, batch[0].shape[1], -1)
     flips = 0
@@ -5240,6 +5476,15 @@ def main() -> int:
                        ("mamba_scan", "falcon-mamba-7b")):
         pre, dec = serve[arch]["launches"]
         counts[name] = pre[name] + (SERVE_GEN - 1) * dec.get(name, 0)
+    # the client routes: their launches on the train preset's stacked
+    # rounds (rmsnorm, attention) and on the mamba smoke variants' (the
+    # scan)
+    preset_counts = trained["preset"]["counts"]
+    counts["rmsnorm_clients"] = preset_counts["rmsnorm/clients"]
+    counts["flash_attention_clients"] = preset_counts[
+        "flash_attention/clients"]
+    counts["mamba_scan_clients"] = sum(
+        c.get("mamba_scan/clients", 0) for c in trained["smoke"].values())
     counts.update(route_windows,
                   flash_attention_narrow=narrow_launches[torch.bfloat16],
                   flash_attention_tf32x3_narrow=narrow_launches[
@@ -5334,15 +5579,19 @@ def main() -> int:
                     "prefill": rows["flash_attention serve"],
                     "prefill window": rows["flash_attention serve window"]},
                 "mamba_scan": {"prefill": rows["mamba_scan serve"]}}[name]
+        if name in ("rmsnorm_clients", "flash_attention_clients"):
+            out[-1]["private_row"] = rows[f"{name} private"]
         if name in ("fused_pushsum_mix", "fused_stale_mix", "rmsnorm",
-                    "flash_attention", "mamba_scan"):
-            # the train path: the preset's 2 rounds (the stale mix: its
+                    "flash_attention", "mamba_scan", "rmsnorm_clients",
+                    "flash_attention_clients", "mamba_scan_clients"):
+            # the train path: the preset's 3 rounds (the stale mix: its
             # async run's 3), each registry name's smoke round
             key = "async" if name == "fused_stale_mix" else "preset"
+            ckey = launch_key(name) if name.endswith("_clients") else name
             out[-1]["launches_train"] = {
                 "preset 100m" + (" async" if key == "async" else ""):
-                trained[key]["counts"].get(name, 0),
-                **{f"{arch} smoke": c.get(name, 0)
+                trained[key]["counts"].get(ckey, 0),
+                **{f"{arch} smoke": c.get(ckey, 0)
                    for arch, c in trained["smoke"].items()}}
             out[-1]["train_rows"] = {
                 label: rows[label] for label in rows
@@ -5431,16 +5680,22 @@ def main() -> int:
               f"tok/s ({r['decode_ms']:.3f} ms a step), peak "
               f"{r['peak_bytes'] / 1e9:.3f} GB on {card}")
     pre = trained["preset"]
-    b = pre["breakdown"]
+    b, tr, prof = pre["breakdown"], pre["rates"], pre["profile"]
+    print(f"train path preset 100m (stacked): rounds/s without evaluation "
+          f"loop {tr['loop']:.4f}, eager stacked {tr['eager']:.4f}, captured "
+          f"{tr['captured']:.4f}; a captured round's device busy "
+          f"{100 * prof['busy_ms'] / prof['wall_ms']:.2f}%; peak "
+          f"{pre['peak'] / 1e9:.3f} GB allocated, {pre['reserved'] / 1e9:.3f} "
+          f"GB reserved on {card}")
     print(f"train path preset 100m: {pre['rate']:.4f} rounds/s (plain path "
           f"{pre['plain_rate']:.4f}), async tau = {TRAIN_TAU} "
-          f"{trained['async']['rate']:.4f} rounds/s; a client step "
+          f"{trained['async']['rate']:.4f} rounds/s; the loop's client step "
           f"{b['step_ms']:.3f} ms (private update {b['private_ms']:.3f}, "
           f"proxy DP update {b['proxy_ms']:.3f} of it per-example grads "
           f"{b['per_example_ms']:.3f}, the rest {b['rest_ms']:.3f}), exchange "
           f"{b['exchange_ms']:.3f} ms, evaluation {b['eval_ms']:.3f} ms; "
           f"device busy {100 * b['busy_ms'] / b['wall_ms']:.2f}% of a "
-          f"profiled step; peak {pre['peak'] / 1e9:.3f} GB on {card}")
+          f"profiled loop step on {card}")
     for label, r in hier["main"].items():
         print(f"hier path main set-up {label} rounds/s {r['rate']:.4f} on "
               f"{card}")

@@ -24,7 +24,9 @@ fused noise + Adam tail (``noise_adam_step``). Nothing on these paths
 reads a device value on the host.
 
 :func:`dp_gradient_chunked` is the LLM step's DP gradient (plain torch, a
-batch tree in chunks, a hook for the peer logits once per chunk);
+batch tree in chunks, a hook for the peer logits once per chunk; the
+stacked executor vmaps it over the cohort, the per-example vmap inside
+the client one);
 :func:`dp_gradient_poisson` is Eq. (7) under exact Poisson subsampling
 (a masked padded batch, the mean over the EXPECTED batch size; plain
 torch, as the reference's); :func:`non_dp_gradient` takes the plain mean

@@ -13,13 +13,15 @@ holds its own mass (identity column).
 Executors
 ---------
 * The **stacked executor** (``"vmap"``, ``"async"`` and ``"hier"`` on a
-  homogeneous cohort whose engine comes from :func:`dml_engine` or
-  :func:`single_model_engine`): the clients' states are stacked to a
-  leading K dim at a block's entry, and each local step is ONE client step
-  vmapped over the cohort (``torch.func.vmap``; the DP kernels' vmap rules
-  launch their client-grid routes, one launch a step for the whole
-  cohort), as the reference's ``_local_phase`` runs ``jax.vmap`` inside a
-  ``lax.scan``. A ragged cohort is padded (:func:`repro_torch.data.ragged.
+  homogeneous cohort whose engine comes from :func:`dml_engine`,
+  :func:`single_model_engine` or the LLM train driver's ``make_engine``):
+  the clients' states are stacked to a leading K dim at a block's entry,
+  and each local step is ONE client step vmapped over the cohort
+  (``torch.func.vmap``; the kernels' vmap rules launch their client
+  routes, one launch a call for the whole cohort: the DP kernels' client
+  grids, and in the LLM step's peer forwards rmsnorm's and the scan's
+  client grids and attention folded over the clients), as the reference's
+  ``_local_phase`` runs ``jax.vmap`` inside a ``lax.scan``. A ragged cohort is padded (:func:`repro_torch.data.ragged.
   pad_stack`); each client's batch indices are drawn below its own length,
   so padding is never read, and in epoch mode a client past its
   ``n_k // B`` steps keeps its state and Adam count frozen
@@ -40,8 +42,8 @@ Executors
   round runs eagerly. Launch counters (:mod:`repro_torch.kernels`) count
   what a capture recorded once, then add it on every replay.
 * The **loop** (``backend="loop"``, heterogeneous cohorts, and engines
-  built from step functions that cannot be vmapped, such as the LLM train
-  driver's) runs the clients one at a time.
+  built from step functions that cannot be vmapped) runs the clients one
+  at a time.
 
 Backends
 --------

@@ -41,8 +41,10 @@ The round hot path (``ProxyFLConfig.use_pallas``):
   staleness τ>0: re-bias, send, merge the delayed delivery, de-bias
   (``repro_torch.core.gossip.stale_mix_apply``).
 
-The LLM serving path (``repro_torch.nn.model`` with ``use_pallas``, where
-the reference's model calls no kernel):
+The LLM paths (``repro_torch.nn.model`` with ``use_pallas``, where the
+reference's model calls no kernel): serving, the train driver's evaluation
+and, in a client step, the peers' forwards no gradient passes through
+(``repro_torch.launch.steps``):
 
 - :func:`rmsnorm` — every RMSNorm of the model (each layer's two, MLA's
   latent norms, the final norm), in prefill and decode.
@@ -50,6 +52,15 @@ the reference's model calls no kernel):
   tokens at position 0 (the no-cache forward and a prefill).
 - :func:`mamba_scan` — the selective scan of a mamba block of more than
   one token, from the cache's state, with its final state out.
+- :func:`rmsnorm_clients` / :func:`mamba_scan_clients` and the folded
+  attention — what the peers' forwards of a client step vmapped over the
+  cohort launch (the stacked executor of ``repro_torch.core.engine``, on
+  the train driver's ``vmap``, ``async`` and ``hier`` backends): the
+  ``"clients"`` routes of rmsnorm and the scan, K clients each with its
+  own gains or A in one launch on a grid over clients, and attention with
+  the clients folded into its batch. ``rmsnorm``, ``flash_attention`` /
+  ``gqa_flash_attention`` and ``mamba_scan`` are ``torch.library`` custom
+  ops whose ``torch.func.vmap`` rules pick these.
 
 The ops API (:mod:`.ops`; no training path calls these):
 
@@ -73,10 +84,13 @@ The ops API (:mod:`.ops`; no training path calls these):
 
 Each wrapper counts its kernel launches in a plain integer attribute
 ``launches``; :func:`launch_counts` and :func:`reset_launch_counts` read and
-clear them all. Attention, RMSNorm, ``sumsq``, ``scale_accumulate`` and
-``noise_adam_step`` also count by route (``route_launches``), read by
-:func:`route_launch_counts`. :func:`count_state` and :func:`add_counts`
-let a CUDA graph's replays count the launches its capture recorded.
+clear them all. Attention, RMSNorm, ``sumsq``, ``scale_accumulate``,
+``noise_adam_step`` and the scan also count by route (``route_launches``),
+read by :func:`route_launch_counts`: each launch of a wrapper counts
+under exactly one of its routes (``clients`` for a vmapped cohort's), so
+a wrapper's routes sum to its ``launches``. :func:`count_state` and
+:func:`add_counts` let a CUDA graph's replays count the launches its
+capture recorded.
 """
 from typing import Dict, Optional
 
@@ -88,11 +102,11 @@ from .dp_clip import (clip_accumulate, clip_accumulate_rows,
                       sumsq_rows)
 from .dp_step import noise_adam_step, noise_adam_step_clients, noise_sgd_step
 from .flash_attention import flash_attention
-from .mamba_scan import mamba_scan
+from .mamba_scan import mamba_scan, mamba_scan_clients
 from .ops import gqa_flash_attention, tree_clip_accumulate
 from .pushsum_mix import (fused_pushsum_mix, fused_pushsum_mix_blocks,
                           fused_stale_mix)
-from .rmsnorm import rmsnorm
+from .rmsnorm import rmsnorm, rmsnorm_clients
 
 KERNELS = {
     "sumsq": sumsq,
@@ -107,7 +121,8 @@ KERNELS = {
     "mamba_scan": mamba_scan,
 }
 # wrappers with more than one kernel or launch shape
-ROUTED = (flash_attention, rmsnorm, sumsq, scale_accumulate, noise_adam_step)
+ROUTED = (flash_attention, rmsnorm, sumsq, scale_accumulate, noise_adam_step,
+          mamba_scan)
 
 
 def default_interpret(device="cuda") -> bool:
@@ -138,8 +153,8 @@ def launch_counts() -> Dict[str, int]:
 
 def route_launch_counts() -> Dict[str, int]:
     """Launches by route: ``flash_attention/<route>``,
-    ``rmsnorm/<route>``, ``sumsq/<route>``, ``scale_accumulate/<route>``
-    and ``noise_adam_step/<route>``."""
+    ``rmsnorm/<route>``, ``sumsq/<route>``, ``scale_accumulate/<route>``,
+    ``noise_adam_step/<route>`` and ``mamba_scan/<route>``."""
     return {f"{fn.__name__}/{route}": n for fn in ROUTED
             for route, n in fn.route_launches.items()}
 
@@ -186,6 +201,7 @@ __all__ = [
     "fused_stale_mix",
     "gqa_flash_attention",
     "mamba_scan",
+    "mamba_scan_clients",
     "noise_adam_step",
     "noise_adam_step_clients",
     "noise_sgd_step",
@@ -194,6 +210,7 @@ __all__ = [
     "sumsq_rows",
     "tree_clip_accumulate",
     "rmsnorm",
+    "rmsnorm_clients",
     "KERNELS",
     "launch_counts",
     "route_launch_counts",

@@ -73,6 +73,12 @@ _SIGNATURES = {
                              *(ctypes.c_float,) * 4, ctypes.c_int, _P),
     "repro_rmsnorm": (_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int64,
                       ctypes.c_int, ctypes.c_float, ctypes.c_int, _P),
+    # x, its code, g, its code, out, K, rows a client, d, x's and g's
+    # client strides (elements), eps, vec
+    "repro_rmsnorm_clients": (_P, ctypes.c_int, _P, ctypes.c_int, _P,
+                              ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                              ctypes.c_int64, ctypes.c_int64, ctypes.c_float,
+                              ctypes.c_int, _P),
     "repro_flash_attention_sm90": (*_FLASH, _P),
     "repro_flash_attention_tf32x3": (*_FLASH, _P),
     # the narrow loaders take the bytes a copy last
@@ -83,6 +89,12 @@ _SIGNATURES = {
     "repro_mamba_scan": (_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
                          _P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int,
                          ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P),
+    # the same with K clients of B rows each, A [K, di, ds]
+    "repro_mamba_scan_clients": (_P, ctypes.c_int, _P, ctypes.c_int, _P,
+                                 ctypes.c_int, _P, ctypes.c_int, _P, _P, _P,
+                                 _P, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                 _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -185,6 +197,16 @@ def launch(name: str, *args) -> None:
     err = getattr(library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed to launch: cudaError {err}")
+
+
+def transformed() -> bool:
+    """Whether a ``torch.func`` transform (a vmap over a cohort) is active:
+    there a call goes through the wrapper's ``torch.library`` op, whose
+    vmap rule picks the route. Outside every transform (serving,
+    evaluation) a call runs the op's body directly, without the
+    dispatcher. One query, not one a tensor: it is on every eager call's
+    path."""
+    return torch._C._functorch.maybe_current_level() is not None
 
 
 def refuse_grad(name: str, *tensors) -> None:

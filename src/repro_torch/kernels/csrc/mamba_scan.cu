@@ -53,6 +53,12 @@
 //   = 0.56 M clocks, about 280 us at 1.98 GHz, above both bounds. With two
 //   warps a scheduler the chains of each step (shared loads, expf, the y
 //   sum and its shuffles) are not hidden; PERF.md has the measured time.
+//   repro_mamba_scan_clients runs K clients' scans, each with its own A
+//   (a parameter of the client's model), in one launch: the clients' batch
+//   rows are the grid's y, K * B of them, and row b reads client b / B's A
+//   (what jax.vmap of the reference's pallas_call over a cohort runs: a
+//   grid axis more). A row's arithmetic is the flat launch's, so every
+//   client's y and final state are bit-equal to a flat launch on it.
 #include "common.cuh"
 
 namespace repro {
@@ -207,7 +213,8 @@ selective_scan(const void* __restrict__ dt, const void* __restrict__ x,
                const void* __restrict__ Bm, const void* __restrict__ Cm,
                const float* __restrict__ A, void* __restrict__ y,
                const float* __restrict__ h0, float* __restrict__ hlast,
-               int64_t S, int di, int ds, int codes, int modes) {
+               int64_t S, int di, int ds, int codes, int modes,
+               int rows_per_a) {
   extern __shared__ __align__(16) float smem[];
   constexpr int nthr = kChannels * L;
   const int tile = kChunk * kChannels, rows = kChunk * ds;
@@ -221,6 +228,7 @@ selective_scan(const void* __restrict__ dt, const void* __restrict__ x,
   const int ch0 = blockIdx.x * kChannels, ch = ch0 + chl;
   const int64_t b = blockIdx.y;
   const int y_code = (codes >> 1) & 1;
+  A += (int64_t)(blockIdx.y / rows_per_a) * di * ds;  // the row's client
 
   float h[NS], a[NS];
 #pragma unroll
@@ -301,7 +309,7 @@ template <int L, int NS>
 int launch_scan(const void* dt, const void* x, const void* Bm, const void* Cm,
                 const float* A, void* y, const float* h0, float* hlast,
                 int B, int64_t S, int di, int ds, int codes, int modes,
-                cudaStream_t st) {
+                int rows_per_a, cudaStream_t st) {
   const size_t bytes = sizeof(float) * smem_floats(ds);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -311,7 +319,7 @@ int launch_scan(const void* dt, const void* x, const void* Bm, const void* Cm,
   }
   const dim3 grid((di + kChannels - 1) / kChannels, B);
   selective_scan<L, NS><<<grid, kChannels * L, bytes, st>>>(
-      dt, x, Bm, Cm, A, y, h0, hlast, S, di, ds, codes, modes);
+      dt, x, Bm, Cm, A, y, h0, hlast, S, di, ds, codes, modes, rows_per_a);
   return (int)cudaGetLastError();
 }
 
@@ -324,30 +332,26 @@ int stage_mode(const void* p, int code, int row) {
   return (uintptr_t)p % 16 == 0 && row % 4 == 0 ? kStage16 : kStage4;
 }
 
-}  // namespace
-}  // namespace repro
-
-using namespace repro;
-
-extern "C" int repro_mamba_scan(const void* dt, int dt_code, const void* x,
-                                int x_code, const void* Bm, int b_code,
-                                const void* Cm, int c_code, const float* A,
-                                void* y, const float* h0, float* hlast,
-                                int B, int64_t S, int di, int ds,
-                                void* stream) {
-  if (B < 1 || B > 65535 || S < 1 || di < 1 || ds < 1 || ds > 64 ||
-      !valid_code(dt_code) || !valid_code(x_code) || !valid_code(b_code) ||
-      !valid_code(c_code))
+// K * B rows (K = 1: the flat call), B a client: row b scans with client
+// b / B's A [di, ds] (A holds K of them back to back).
+int scan_clients(const void* dt, int dt_code, const void* x, int x_code,
+                 const void* Bm, int b_code, const void* Cm, int c_code,
+                 const float* A, void* y, const float* h0, float* hlast,
+                 int K, int B, int64_t S, int di, int ds,
+                 cudaStream_t st) {
+  if (K < 1 || B < 1 || (int64_t)K * B > 65535 || S < 1 || di < 1 ||
+      ds < 1 || ds > 64 || !valid_code(dt_code) || !valid_code(x_code) ||
+      !valid_code(b_code) || !valid_code(c_code))
     return (int)cudaErrorInvalidValue;
   const int codes = dt_code | x_code << 1 | b_code << 2 | c_code << 3;
   const int modes = stage_mode(dt, dt_code, di) |
                     stage_mode(x, x_code, di) << 2 |
                     stage_mode(Bm, b_code, ds) << 4 |
                     stage_mode(Cm, c_code, ds) << 6;
-  cudaStream_t st = (cudaStream_t)stream;
-#define REPRO_SCAN(L, NS)                                                   \
-  launch_scan<L, NS>(dt, x, Bm, Cm, A, y, h0, hlast, B, S, di, ds, codes, \
-                     modes, st)
+  const int rows = K * B;
+#define REPRO_SCAN(L, NS)                                                    \
+  launch_scan<L, NS>(dt, x, Bm, Cm, A, y, h0, hlast, rows, S, di, ds, codes, \
+                     modes, B, st)
   switch (lanes_for(ds)) {
     case 2:
       switch (states_for(ds)) {
@@ -366,4 +370,34 @@ extern "C" int repro_mamba_scan(const void* dt, int dt_code, const void* x,
       return REPRO_SCAN(16, 4);
   }
 #undef REPRO_SCAN
+}
+
+}  // namespace
+}  // namespace repro
+
+using namespace repro;
+
+extern "C" int repro_mamba_scan(const void* dt, int dt_code, const void* x,
+                                int x_code, const void* Bm, int b_code,
+                                const void* Cm, int c_code, const float* A,
+                                void* y, const float* h0, float* hlast,
+                                int B, int64_t S, int di, int ds,
+                                void* stream) {
+  return scan_clients(dt, dt_code, x, x_code, Bm, b_code, Cm, c_code, A, y,
+                      h0, hlast, 1, B, S, di, ds, (cudaStream_t)stream);
+}
+
+// K clients' [B, S, ...] inputs stacked back to back ([K, B, S, di] and
+// [K, B, S, ds]; h0 and hlast [K, B, di, ds] or NULL) with their A [K, di,
+// ds] f32, in one launch of K * B rows.
+extern "C" int repro_mamba_scan_clients(const void* dt, int dt_code,
+                                        const void* x, int x_code,
+                                        const void* Bm, int b_code,
+                                        const void* Cm, int c_code,
+                                        const float* A, void* y,
+                                        const float* h0, float* hlast, int K,
+                                        int B, int64_t S, int di, int ds,
+                                        void* stream) {
+  return scan_clients(dt, dt_code, x, x_code, Bm, b_code, Cm, c_code, A, y,
+                      h0, hlast, K, B, S, di, ds, (cudaStream_t)stream);
 }

@@ -33,6 +33,13 @@
 //   bf16 or 8,192 f32 on the vector path, 4,096 on the scalar one) does not
 //   fit; there the kernel sums in a first pass and re-reads x (from L2) in
 //   the second.
+//   repro_rmsnorm_clients is the same kernel on a grid whose y is the
+//   client: K clients' [rows, d] matrices, each with its own gain, in one
+//   launch (what jax.vmap of the reference's pallas_call over a cohort
+//   with per-client gains runs: a grid axis more). A block's row and its
+//   arithmetic are those of the flat launch on that client's matrix, so
+//   every client's output is bit-equal to a flat launch on it, on the
+//   vector path and on the scalar one.
 #include "common.cuh"
 
 namespace repro {
@@ -152,9 +159,14 @@ template <typename T, typename G, int W>
 __global__ void __launch_bounds__(kThreads, 4)
 rmsnorm_rows(const T* __restrict__ x, const G* __restrict__ g,
              T* __restrict__ out, int64_t rows, int d, int warps_per_row,
-             float eps) {
+             float eps, int64_t client_stride, int64_t g_client_stride) {
   using Raw = typename Access<T, W>::Raw;
   __shared__ float part[kBlockWarps];
+  // the client of a client-grid launch (0 for a flat one): its matrix and
+  // its gain, x and out laid out alike
+  x += blockIdx.y * client_stride;
+  out += blockIdx.y * client_stride;
+  g += blockIdx.y * g_client_stride;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sub = warp % warps_per_row;  // the warp's place in its row
   const int64_t row = (int64_t)blockIdx.x * (kBlockWarps / warps_per_row) +
@@ -227,35 +239,59 @@ rmsnorm_rows(const T* __restrict__ x, const G* __restrict__ g,
   }
 }
 
+// K clients of `rows` rows each (K = 1: the flat call), client k's matrix
+// at x + k * xs elements and its gain at g + k * gs.
 template <typename T, typename G, int W>
-int launch_rows(const void* x, const void* g, void* out, int64_t rows, int d,
-                float eps, cudaStream_t st) {
+int launch_rows(const void* x, const void* g, void* out, int K, int64_t rows,
+                int d, int64_t xs, int64_t gs, float eps, cudaStream_t st) {
   const int n = d / W;
   int wpr = 1;  // the fewest warps that hold the row, at most the block's
   while (wpr < kBlockWarps && n > kHeld<W> * 32 * wpr) wpr *= 2;
   const int64_t rpb = kBlockWarps / wpr;
   const int64_t blocks = (rows + rpb - 1) / rpb;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  rmsnorm_rows<T, G, W><<<(unsigned)blocks, kThreads, 0, st>>>(
-      (const T*)x, (const G*)g, (T*)out, rows, d, wpr, eps);
+  if (blocks > 0x7fffffff || K < 1 || K > 65535)
+    return (int)cudaErrorInvalidValue;
+  rmsnorm_rows<T, G, W><<<dim3((unsigned)blocks, (unsigned)K), kThreads, 0,
+                          st>>>((const T*)x, (const G*)g, (T*)out, rows, d,
+                                wpr, eps, xs, gs);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int WV>
-int dispatch_rows(const void* x, const void* g, int g_code, void* out,
-                  int64_t rows, int d, float eps, int vec, cudaStream_t st) {
+int dispatch_rows(const void* x, const void* g, int g_code, void* out, int K,
+                  int64_t rows, int d, int64_t xs, int64_t gs, float eps,
+                  int vec, cudaStream_t st) {
   if (vec) {
+    const size_t g_size = g_code == kF32 ? 4 : 2;
     if (((uintptr_t)x | (uintptr_t)g | (uintptr_t)out) % 16 != 0 ||
-        (int64_t)d * sizeof(T) % 16 != 0)
+        (int64_t)d * sizeof(T) % 16 != 0 || xs * sizeof(T) % 16 != 0 ||
+        gs * g_size % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
     return g_code == kF32
-               ? launch_rows<T, float, WV>(x, g, out, rows, d, eps, st)
-               : launch_rows<T, __nv_bfloat16, WV>(x, g, out, rows, d, eps,
-                                                   st);
+               ? launch_rows<T, float, WV>(x, g, out, K, rows, d, xs, gs, eps,
+                                           st)
+               : launch_rows<T, __nv_bfloat16, WV>(x, g, out, K, rows, d, xs,
+                                                   gs, eps, st);
   }
   return g_code == kF32
-             ? launch_rows<T, float, 1>(x, g, out, rows, d, eps, st)
-             : launch_rows<T, __nv_bfloat16, 1>(x, g, out, rows, d, eps, st);
+             ? launch_rows<T, float, 1>(x, g, out, K, rows, d, xs, gs, eps,
+                                        st)
+             : launch_rows<T, __nv_bfloat16, 1>(x, g, out, K, rows, d, xs, gs,
+                                                eps, st);
+}
+
+int rmsnorm_clients(const void* x, int x_code, const void* g, int g_code,
+                    void* out, int K, int64_t rows, int d, int64_t xs,
+                    int64_t gs, float eps, int vec, cudaStream_t st) {
+  if (rows < 1 || d < 1 || (g_code != kF32 && g_code != kBF16))
+    return (int)cudaErrorInvalidValue;
+  if (x_code == kF32)
+    return dispatch_rows<float, 4>(x, g, g_code, out, K, rows, d, xs, gs, eps,
+                                   vec, st);
+  if (x_code == kBF16)
+    return dispatch_rows<__nv_bfloat16, 8>(x, g, g_code, out, K, rows, d, xs,
+                                           gs, eps, vec, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -268,13 +304,19 @@ using namespace repro;
 extern "C" int repro_rmsnorm(const void* x, int x_code, const void* g,
                              int g_code, void* out, int64_t rows, int d,
                              float eps, int vec, void* stream) {
-  if (rows < 1 || d < 1 || (g_code != kF32 && g_code != kBF16))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (x_code == kF32)
-    return dispatch_rows<float, 4>(x, g, g_code, out, rows, d, eps, vec, st);
-  if (x_code == kBF16)
-    return dispatch_rows<__nv_bfloat16, 8>(x, g, g_code, out, rows, d, eps,
-                                           vec, st);
-  return (int)cudaErrorInvalidValue;
+  return rmsnorm_clients(x, x_code, g, g_code, out, 1, rows, d, 0, 0, eps,
+                         vec, (cudaStream_t)stream);
+}
+
+// K clients' matrices of `rows` rows of d (client k's at x + k * x_stride
+// elements, out laid out alike) with their gains (client k's at g + k *
+// g_stride elements) in one launch, y = client; vec = 1 also needs both
+// client strides whole 16 bytes.
+extern "C" int repro_rmsnorm_clients(const void* x, int x_code, const void* g,
+                                     int g_code, void* out, int K,
+                                     int64_t rows, int d, int64_t x_stride,
+                                     int64_t g_stride, float eps, int vec,
+                                     void* stream) {
+  return rmsnorm_clients(x, x_code, g, g_code, out, K, rows, d, x_stride,
+                         g_stride, eps, vec, (cudaStream_t)stream);
 }

@@ -25,6 +25,17 @@ refuses raises. On a CPU tensor the plain version in :mod:`.ref` runs.
 :func:`launch_flash` is the launch both this and ``ops.gqa_flash_attention``
 use: the kernels read q, k, v through (batch, head, position) strides, so
 the model layout [B, S, H, D] and grouped KV heads need no copy.
+
+Both public calls go through one ``torch.library`` custom op whose
+``torch.func.vmap`` rule folds the vmapped dim into the batch dim (``[K·B,
+…]``) and launches the same kernel once, as ``jax.vmap`` adds a grid axis
+to the reference's ``pallas_call``: no (batch, head) tile reads another's,
+so each client's rows are bit-equal to a launch on that client's alone. A
+cohort vmapped by the stacked executor of ``repro_torch.core.engine`` thus
+takes one launch, counted under the route ``"clients"`` (and not under
+the kernel's route), so the routes' counts sum to ``launches``. A call
+outside every ``torch.func`` transform (serving, evaluation) runs the
+op's body directly, without the dispatcher.
 """
 from __future__ import annotations
 
@@ -33,7 +44,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ref import flash_attention_ref
+from .ref import flash_attention_ref, gqa_flash_attention_ref
 
 MAX_HEAD_DIM = 256
 # the widths each tensor-core kernel is compiled at
@@ -135,11 +146,13 @@ def check_attention(name: str, q: torch.Tensor, k: torch.Tensor,
 
 def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  head_axis: int, group: int, causal: bool,
-                 window: Optional[int], scale: float) -> torch.Tensor:
+                 window: Optional[int], scale: float,
+                 count_as: Optional[str] = None) -> torch.Tensor:
     """Launch the kernel :func:`flash_route` picks, with the loader
     :func:`flash_copy_width` picks, on contiguous CUDA q [.., Hq, .., D] and
     k, v [.., Hkv, .., D] with the heads on ``head_axis`` (1 or 2) and the
-    positions on the other; the output has q's layout."""
+    positions on the other; the output has q's layout. The launch counts
+    under its kernel's route, or under ``count_as``."""
     _build.check_cuda("flash_attention", q, k, v)
     pos_axis = 3 - head_axis
     B, H, S, D = q.shape[0], q.shape[head_axis], q.shape[pos_axis], q.shape[3]
@@ -163,8 +176,37 @@ def launch_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         route += "/narrow"
         _build.launch(ROUTE_ENTRY[route], *ptrs, *shape, width)
     flash_attention.launches += 1
-    flash_attention.route_launches[route] += 1
+    flash_attention.route_launches[count_as or route] += 1
     return out
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               head_axis: int, causal: bool, window: Optional[int],
+               scale: float, count_as: Optional[str] = None
+               ) -> torch.Tensor:
+    """The op's body: the plain version on the CPU (the [B, H, S, D] one,
+    or the model layout's with the KV heads repeated), else the kernel."""
+    if q.device.type == "cpu":
+        ref = flash_attention_ref if head_axis == 1 \
+            else gqa_flash_attention_ref
+        return ref(q, k, v, causal=causal, window=window, scale=scale)
+    return launch_flash(q, k, v, head_axis=head_axis,
+                        group=q.shape[head_axis] // k.shape[head_axis],
+                        causal=causal, window=window, scale=scale,
+                        count_as=count_as)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              head_axis: int, causal: bool, window: Optional[int],
+              scale: float) -> torch.Tensor:
+    """Attention on validated q, k, v (heads on ``head_axis``): the
+    custom op under a ``torch.func`` transform, else its body."""
+    window = None if window is None else int(window)
+    if _build.transformed():
+        return _attention_op(q, k, v, head_axis, bool(causal), window,
+                             float(scale))
+    return _attention(q, k, v, head_axis, bool(causal), window,
+                      float(scale))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -182,12 +224,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: block sizes must be >= 1")
     scale = float(scale if scale is not None else q.shape[3] ** -0.5)
     _build.refuse_grad("flash_attention", q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   scale=scale)
-    return launch_flash(q, k, v, head_axis=1, group=1, causal=causal,
-                        window=window, scale=scale)
+    return attention(q, k, v, head_axis=1, causal=causal, window=window,
+                     scale=scale)
 
 
 flash_attention.launches = 0
-flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+# the kernel routes, and "clients": the launches folded over a vmapped
+# cohort
+flash_attention.route_launches = dict.fromkeys(ROUTES + ("clients",), 0)
+
+_attention_op = torch.library.custom_op(
+    "repro_torch::flash_attention", _attention, mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, int head_axis, bool causal, "
+           "int? window, float scale) -> Tensor")
+
+
+@_attention_op.register_fake
+def _attention_fake(q, k, v, head_axis, causal, window, scale):
+    return torch.empty_like(q)
+
+
+@_attention_op.register_vmap
+def _attention_vmap(info, in_dims, q, k, v, head_axis, causal, window,
+                    scale):
+    n = info.batch_size
+    q, k, v = ((t.movedim(d, 0) if d is not None
+                else t.expand((n,) + tuple(t.shape))) for t, d in
+               zip((q, k, v), in_dims))
+    # the vmapped dim folded into the batch: one launch, each row's tiles
+    # as they were (a view where the stack is contiguous)
+    folded = [t.reshape((-1,) + tuple(t.shape[2:])).contiguous()
+              for t in (q, k, v)]
+    out = _attention(*folded, head_axis, causal, window, scale,
+                     count_as="clients")
+    return out.reshape(q.shape), 0

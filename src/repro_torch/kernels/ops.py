@@ -8,9 +8,8 @@ import torch
 from ..nn.modules import tree_flatten_vector, tree_unflatten_vector
 from . import _build
 from .dp_clip import clip_accumulate, scale_accumulate, sumsq
-from .flash_attention import check_attention, flash_attention, launch_flash
+from .flash_attention import attention, check_attention, flash_attention
 from .mamba_scan import mamba_scan
-from .ref import gqa_flash_attention_ref
 from .rmsnorm import rmsnorm
 
 
@@ -19,17 +18,15 @@ def gqa_flash_attention(q, k, v, *, causal=True, window=None, scale=None,
     """q: [B, S, Hq, D]; k/v: [B, S, Hkv, D] (model-stack layout), Hkv
     dividing Hq. On the CPU the KV heads are repeated and the [B, H, S, D]
     plain version runs; on CUDA the kernel reads KV head h // (Hq/Hkv) and
-    the model layout in place (no repeat, no transpose)."""
-    group = check_attention("gqa_flash_attention", q, k, v, head_axis=2)
+    the model layout in place (no repeat, no transpose). Under
+    ``torch.func.vmap`` the vmapped dim is folded into B: one launch."""
+    check_attention("gqa_flash_attention", q, k, v, head_axis=2)
     if block_q < 1 or block_k < 1:
         raise ValueError("gqa_flash_attention: block sizes must be >= 1")
     scale = float(scale if scale is not None else q.shape[3] ** -0.5)
     _build.refuse_grad("gqa_flash_attention", q, k, v)
-    if q.device.type == "cpu":
-        return gqa_flash_attention_ref(q, k, v, causal=causal,
-                                       window=window, scale=scale)
-    return launch_flash(q, k, v, head_axis=2, group=group, causal=causal,
-                        window=window, scale=scale)
+    return attention(q, k, v, head_axis=2, causal=causal, window=window,
+                     scale=scale)
 
 
 def tree_clip_accumulate(acc_tree, grad_tree, clip_norm: float):

@@ -132,6 +132,13 @@ def rmsnorm_ref(x, g, eps: float = 1e-6) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * g.to(torch.float32)).to(x.dtype)
 
 
+def rmsnorm_clients_ref(x, g, eps: float = 1e-6) -> torch.Tensor:
+    """K clients' :func:`rmsnorm_ref`, one client at a time: x [K, rows,
+    d], each client's gain g [K, d]."""
+    return torch.stack([rmsnorm_ref(x[k], g[k], eps)
+                        for k in range(x.shape[0])])
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None,
                         scale: Optional[float] = None) -> torch.Tensor:
@@ -184,3 +191,15 @@ def mamba_scan_ref(dt, x, B_in, C_in, A, h0=None, return_state=False):
         ys.append(torch.einsum("bds,bs->bd", h, cf[:, t]))
     y = torch.stack(ys, dim=1).to(x.dtype)
     return (y, h) if return_state else y
+
+
+def mamba_scan_clients_ref(dt, x, B_in, C_in, A, h0=None, return_state=False):
+    """K clients' :func:`mamba_scan_ref`, one client at a time: dt, x [K,
+    B, S, di], B, C [K, B, S, ds], each client's A [K, di, ds], h0 [K, B,
+    di, ds] or None."""
+    outs = [mamba_scan_ref(dt[k], x[k], B_in[k], C_in[k], A[k],
+                           None if h0 is None else h0[k], return_state)
+            for k in range(x.shape[0])]
+    if not return_state:
+        return torch.stack(outs)
+    return tuple(torch.stack(t) for t in zip(*outs))

@@ -12,13 +12,22 @@ reference's layout) and :func:`make_train_step` its local DML step,
 engine's contract: the private model takes a plain Adam step on Eq. (4),
 the proxy a DP-SGD Adam step on Eq. (5) with per-example clipping (Eq. 7,
 ``core.dp.dp_gradient_chunked``). ``noise`` is the proxy's flat N(0, 1)
-draws (absent: drawn from ``generator``).
+draws (absent: drawn from ``generator``). The step reads no tensor value
+on the host and allocates no shape from one, so the stacked executor of
+``repro_torch.core.engine`` runs it under ``torch.func.vmap`` over the
+cohort (no generator; each client's batch and noise drawn before the
+round), as the reference's engine runs it under ``jax.vmap``, and on a
+CUDA device captures the round into a CUDA graph. Adam's f32 master copy
+(``AdamState.p32``) rides in the state and the exchange leaves it
+unmixed, on both executors, as the reference's does.
 
 The peer logits take no gradient (θ₀ and φ₀ are constants of the step),
 so they are computed outside every gradient transform, under
 ``torch.no_grad()``: the proxy peer once per microbatch of the private
 loss, the private peer once per DP chunk (``prepare_chunk``). There, with
-``fl.use_pallas``, the model runs its RMSNorm, attention and scan kernels.
+``fl.use_pallas``, the model runs its RMSNorm, attention and scan kernels
+(vmapped over a cohort, their client routes: one launch a call for the
+K clients).
 The forwards a gradient passes through run the model's plain path
 (``use_pallas=False``): the kernels have no backward, and the reference
 trains through XLA's autodiff of its plain path.

@@ -7,14 +7,17 @@ language-modelling data: each round, every client's local DML steps
 lines 2–5, :func:`repro_torch.launch.steps.make_train_step`), then the
 PushSum exchange of the proxies (lines 7–11), through
 :class:`repro_torch.core.engine.FederationEngine`. ``--backend`` ``loop``
-and ``vmap`` run the synchronous exchange (the LLM client step is not
-vmapped over clients yet, so every backend runs the clients one at a
-time here: ROADMAP.md Queue 1 item 5's remainder), ``async --staleness
-T`` the stale one, and ``hier
---n-shards S [--staleness T]`` the two-level one: S shards of clients/S
-clients mixing shard-locally (one launch of the shard-grid mix kernel
-under ``--use-pallas``) plus at most one cross-shard edge per client, the
-cross-shard edges T rounds late. The default
+and ``vmap`` run the synchronous exchange, ``async --staleness T`` the
+stale one, and ``hier --n-shards S [--staleness T]`` the two-level one: S
+shards of clients/S clients mixing shard-locally (one launch of the
+shard-grid mix kernel under ``--use-pallas``) plus at most one cross-shard
+edge per client, the cross-shard edges T rounds late. ``vmap``, ``async``
+and ``hier`` run the engine's stacked executor, as the reference's round
+program does: each local step is ONE client step vmapped over the K
+clients (``torch.func.vmap``; the peers' RMSNorm, attention and scan
+kernels launch once for the cohort, on their client routes), and on a
+CUDA device each round after a shape's first is replayed from a CUDA
+graph. ``loop`` runs the clients one at a time. The default
 ``--preset 100m`` trains a ~120M-parameter private model around a 6.3M
 proxy; ``--arch NAME --smoke`` a registry architecture's reduced variant.
 
@@ -29,8 +32,8 @@ RMSNorm, attention and scan kernels in the forwards no gradient passes
 through), or on the CPU with ``--device cpu`` (the kernels' plain
 versions). ``--rounds-per-block`` cuts the rounds into blocks as the
 reference does (the host evaluates, checkpoints and prints at block
-edges); with the clients looped, the engine runs a block's rounds one by
-one. ``--checkpoint-dir D`` snapshots the
+edges; on the stacked executor a block's rounds run without the host
+reading anything in between). ``--checkpoint-dir D`` snapshots the
 federation every ``--checkpoint-every`` rounds in the reference's files
 (:mod:`repro_torch.checkpoint`), and ``--resume`` continues a killed run
 from the newest snapshot there, bit for bit:
@@ -67,7 +70,8 @@ from ..checkpoint import FederationCheckpointer, config_fingerprint
 from ..configs import get_config, list_archs, proxy_of, smoke_variant
 from ..configs.base import DPConfig, LayerSpec, ModelConfig, ProxyFLConfig
 from ..core.accountant import PrivacyAccountant
-from ..core.engine import FederationEngine, block_spans, stream_seed
+from ..core.engine import (FederationEngine, block_spans, draw_batch_idx,
+                           stream_seed)
 from ..data.synthetic import make_lm_data
 from ..nn.losses import cross_entropy
 from ..nn.model import forward
@@ -136,18 +140,23 @@ def client_data(cfg: ModelConfig, seed: int, n_seqs: int, seq: int,
 
 def lm_sampler(batch_size: int):
     """Uniform-with-replacement batch draw of sequences, cut into inputs
-    and next-token labels; ``idx`` (the replay hook's) replaces the draw."""
+    and next-token labels; ``idx`` (the replay hook's, or the stacked
+    executor's) replaces the draw. The reference's masked-sampler
+    protocol: ``n_valid`` bounds the draw on a padded corpus (default: its
+    whole leading dim), so a ``--size-skew`` cohort stacked over the
+    clients never draws padding, and the loop draws the same indices."""
 
-    def sample(data_k, generator, idx=None):
+    def sample(data_k, generator, idx=None, n_valid=None):
         toks = data_k["tokens"] if isinstance(data_k, dict) else data_k
         if idx is None:
-            idx = torch.randint(0, toks.shape[0], (batch_size,),
-                                generator=generator, device=toks.device)
+            idx = draw_batch_idx(generator, toks.shape[0] if n_valid is None
+                                 else int(n_valid), batch_size, toks.device)
         batch = {"tokens": toks[idx, :-1], "labels": toks[idx, 1:]}
         if isinstance(data_k, dict):
             batch["img"] = data_k["img"][idx]
         return batch
 
+    sample.batch_size = batch_size
     return sample
 
 
@@ -200,8 +209,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "--dropout-rate > 0")
     ap.add_argument("--rounds-per-block", type=int, default=1,
                     help="rounds between host evaluations (block edges); "
-                         "the LLM engine loops over clients and runs a "
-                         "block's rounds one by one")
+                         "the stacked backends (vmap, async, hier) run a "
+                         "block's rounds without a host read between them")
     ap.add_argument("--size-skew", type=float, default=0.0,
                     help="per-client corpus size skew in [0, 1): client k "
                          "holds ~64*(1-skew)^k sequences")
@@ -295,14 +304,18 @@ def setup(args) -> Run:
 def make_engine(cfg: ModelConfig, proxy: ModelConfig, fl: ProxyFLConfig,
                 args, n_seqs: List[int], device) -> FederationEngine:
     """The driver's engine over ``make_train_step`` (one microbatch, one DP
-    chunk of the batch), with an accountant per client under DP."""
+    chunk of the batch), with an accountant per client under DP. The step
+    vmaps over the cohort, so ``vmap``, ``async`` and ``hier`` run the
+    stacked executor, which draws each step's batch indices and, under DP,
+    the proxy's noise."""
     opts = StepOptions(accum=1, dp_chunk=args.batch)
     engine = FederationEngine(
         fl, n_clients=args.clients,
         step_fns=make_train_step(cfg, proxy, fl, opts),
         init_fns=lambda gen: init_train_state(gen, cfg, proxy, fl, opts),
         sample_fn=lm_sampler(args.batch), backend=args.backend,
-        mix="pushsum", device=device)
+        mix="pushsum", device=device, stackable=True,
+        noisy_steps=not args.no_dp)
     if not args.no_dp:
         # DP sample rate q = B / n_local from each client's own corpus
         engine.attach_accountants([

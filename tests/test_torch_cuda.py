@@ -11,9 +11,10 @@ from a state with its final state out; noise_adam_step and noise_sgd_step
 bit for bit and as one device kernel a call), the wrappers' refusals,
 small federations (ProxyFL sync, and async at staleness 2 with dropout;
 each of the six other fig. 3 methods) through the kernels against the
-plain path on the same seed, and the smoke variant of every registered
-LLM served (prefill and decode) through the kernels against the plain
-path.
+plain path on the same seed, the smoke variant of every registered LLM
+served (prefill and decode) through the kernels against the plain path,
+the client routes of rmsnorm, attention and the scan against K flat
+launches, and a captured stacked LLM block against eager.
 
 Every test here needs a CUDA device and skips without one. The file
 imports torch and ``repro_torch`` only (no jax), so on a GPU machine
@@ -874,5 +875,112 @@ def test_captured_stacked_rounds_equal_eager_ones_on_the_card(gen):
         assert counts["sumsq/rows"] == counts["scale_accumulate/clients"] \
             == counts["noise_adam_step/clients"] == 6
         assert kernels.launch_counts()["fused_pushsum_mix"] == 3
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(states[False]), tree_leaves(states[True])))
+
+
+@pytest.mark.parametrize("rows,d,dtype", [
+    (1_024, 256, torch.float32), (1_024, 768, torch.float32),
+    (64, 255, torch.float32), (64, 264, torch.bfloat16)])
+def test_rmsnorm_client_route_is_k_flat_launches_on_the_card(gen, rows, d,
+                                                             dtype):
+    """rmsnorm's client grid (each client its own gain; under vmap with
+    per-client gains, one launch) equals K flat launches bit for bit, on
+    the vector path and (d = 255) the scalar one; the plain version within
+    the kernel tolerance."""
+    from torch.func import vmap
+    K = 4
+    x = torch.randn((K, rows, d), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((K, d), generator=gen, device="cuda").to(dtype)
+    kernels.reset_launch_counts()
+    got = vmap(kernels.rmsnorm)(x, g)
+    assert kernels.route_launch_counts()["rmsnorm/clients"] == 1
+    assert kernels.launch_counts()["rmsnorm"] == 1
+    assert torch.equal(got, torch.stack([kernels.rmsnorm(x[k], g[k])
+                                         for k in range(K)]))
+    torch.testing.assert_close(got, ref.rmsnorm_clients_ref(x, g),
+                               **(F32 if dtype == torch.float32 else BF16))
+
+
+@pytest.mark.parametrize("B,S,H,D", [(8, 128, 8, 32), (8, 128, 12, 64)])
+def test_folded_attention_is_k_flat_launches_on_the_card(gen, B, S, H, D):
+    """Attention vmapped over 4 clients: one launch with the clients folded
+    into the batch, bit-equal to 4 launches, the plain version within f32
+    2e-5."""
+    from torch.func import vmap
+    K = 4
+    q, k, v = (torch.randn((K, B, S, H, D), generator=gen, device="cuda")
+               for _ in range(3))
+    kernels.reset_launch_counts()
+    got = vmap(kernels.gqa_flash_attention)(q, k, v)
+    routes = kernels.route_launch_counts()
+    # one launch, counted under the fold's route alone
+    assert routes["flash_attention/clients"] == 1 \
+        and routes["flash_attention/tf32x3"] == 0
+    assert torch.equal(got, torch.stack(
+        [kernels.gqa_flash_attention(q[i], k[i], v[i]) for i in range(K)]))
+    torch.testing.assert_close(got, ref.gqa_flash_attention_ref(
+        *(t.flatten(0, 1) for t in (q, k, v))).reshape(got.shape), **F32)
+
+
+@pytest.mark.parametrize("state", [False, True])
+def test_scan_client_route_is_k_flat_launches_on_the_card(gen, state):
+    """The scan vmapped over 4 clients, each its own A, at falcon-mamba-7b's
+    width: one launch on the client route, y (and the final state)
+    bit-equal to 4 flat launches, the plain version within 2e-4."""
+    from torch.func import vmap
+    K, B, S, di, ds = 4, 2, 40, 8_192, 16
+    dt = torch.nn.functional.softplus(torch.randn(
+        (K, B, S, di), generator=gen, device="cuda"))
+    x = torch.randn((K, B, S, di), generator=gen, device="cuda")
+    Bm, Cm = (torch.randn((K, B, S, ds), generator=gen, device="cuda")
+              for _ in range(2))
+    A = -torch.exp(torch.randn((K, di, ds), generator=gen, device="cuda"))
+    h0 = torch.randn((K, B, di, ds), generator=gen, device="cuda") \
+        if state else None
+    kernels.reset_launch_counts()
+    if state:
+        got = vmap(lambda *a: kernels.mamba_scan(
+            *a[:5], h0=a[5], return_state=True))(dt, x, Bm, Cm, A, h0)
+    else:
+        got = (vmap(kernels.mamba_scan)(dt, x, Bm, Cm, A),)
+    assert kernels.route_launch_counts()["mamba_scan/clients"] == 1 \
+        and kernels.route_launch_counts()["mamba_scan/flat"] == 0
+    flat = [kernels.mamba_scan(dt[k], x[k], Bm[k], Cm[k], A[k],
+                               h0=None if h0 is None else h0[k],
+                               return_state=state) for k in range(K)]
+    flat = [f if state else (f,) for f in flat]
+    for i, g in enumerate(got):
+        assert torch.equal(g, torch.stack([f[i] for f in flat]))
+    want = ref.mamba_scan_clients_ref(dt, x, Bm, Cm, A, h0, state)
+    for g, w in _pairs(got, want if state else (want,)):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+def test_captured_stacked_llm_rounds_equal_eager_ones_on_the_card(gen):
+    """The train driver's engine on qwen2-7b's smoke variant, 3 rounds of 2
+    steps on the card: the first eager, the second captured, the third
+    replayed, bit-equal to eager; the peers' rmsnorm and attention on
+    their client routes only."""
+    from repro_torch.launch import train
+    args = train.parse_args(["--arch", "qwen2-7b", "--smoke", "--clients",
+                             "3", "--rounds", "3", "--steps-per-round", "2",
+                             "--batch", "2", "--seq", "32",
+                             "--use-pallas"])
+    run = train.setup(args)
+    states = {}
+    for eager in (False, True):
+        eng = train.make_engine(run.cfg, run.proxy, run.fl, args,
+                                run.n_seqs, "cuda")
+        assert eng.stacked
+        eng._eager_stacked = eager
+        kernels.reset_launch_counts()
+        states[eager], _ = eng.run_rounds(run.state, run.data, 0, 3, 0)
+        torch.cuda.synchronize()
+        counts = kernels.route_launch_counts()
+        assert counts["rmsnorm/clients"] > 0 and counts["rmsnorm/vector"] \
+            == 0 and counts["flash_attention/clients"] == \
+            kernels.launch_counts()["flash_attention"] > 0
+        assert counts["rmsnorm/clients"] % (3 * 2) == 0
     assert all(torch.equal(a, b) for a, b in zip(
         tree_leaves(states[False]), tree_leaves(states[True])))

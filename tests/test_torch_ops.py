@@ -735,27 +735,39 @@ def test_cpu_calls_launch_nothing():
 
 def test_cpu_calls_count_no_route():
     """Calls on CPU tensors, on every route's dtype and head dim, leave the
-    per-route counts of attention, rmsnorm, the DP clip pair and the Adam
-    step at 0."""
+    per-route counts of attention, rmsnorm, the DP clip pair, the Adam
+    step and the scan at 0 (the client routes under ``torch.func.vmap``
+    too)."""
+    from torch.func import vmap
     kernels.reset_launch_counts()
     for dtype in (torch.float32, torch.bfloat16):
         for D in (32, 128):
             x = torch.randn(1, 2, 16, D).to(dtype)
             kernels.flash_attention(x, x, x)
+            xs = torch.stack([x, x])
+            vmap(kernels.flash_attention)(xs, xs, xs)
         kernels.rmsnorm(torch.randn(4, 33).to(dtype), torch.ones(33))
+        vmap(kernels.rmsnorm)(torch.randn(2, 4, 33).to(dtype),
+                              torch.ones(2, 33))
         g = torch.randn(3, 40).to(dtype)
         kernels.clip_accumulate_rows(g, kernels.sumsq_rows(g))
         kernels.clip_accumulate(torch.zeros(40), g[0], 1.0)
+        s = torch.rand(2, 1, 4, 3)
+        vmap(kernels.mamba_scan)(s, s.to(dtype), s[..., :2], s[..., :2],
+                                 -torch.rand(2, 3, 2))
     counts = kernels.route_launch_counts()
     assert set(counts) == {"flash_attention/wgmma",
                            "flash_attention/wgmma/narrow",
                            "flash_attention/tf32x3",
-                           "flash_attention/tf32x3/narrow", "rmsnorm/vector",
-                           "rmsnorm/scalar", "sumsq/vector", "sumsq/rows",
+                           "flash_attention/tf32x3/narrow",
+                           "flash_attention/clients", "rmsnorm/vector",
+                           "rmsnorm/scalar", "rmsnorm/clients",
+                           "sumsq/vector", "sumsq/rows",
                            "scale_accumulate/vector",
                            "scale_accumulate/rows",
                            "scale_accumulate/clients",
-                           "noise_adam_step/flat", "noise_adam_step/clients"}
+                           "noise_adam_step/flat", "noise_adam_step/clients",
+                           "mamba_scan/flat", "mamba_scan/clients"}
     assert not any(counts.values())
 
 
