@@ -312,10 +312,26 @@
    each hier run and each stacked-phase run; the shard-grid mix under its
    own key, its launches on the hier main set-up at S = 2; the client
    routes of rmsnorm and attention with their launches on the train
-   preset's stacked rounds, the scan's on the mamba smoke variants');
-   every kernel
+   preset's stacked rounds, the scan's on the mamba smoke variants'; every
+   kernel with its launches on each shard_map-phase run); every kernel
    of the line must have launched on its path, or the run fails. Last, the
    result line ``{"ok": true, "device": {...}}``.
+15. Drives the ``shard_map`` backend (the "shard_map" phase, before the
+   line of 14) on an in-process NCCL group at world size = the card count
+   (one rank: a ``FileStore`` in a temporary directory, 1-D meshes over
+   ``"clients"`` and ``"pod"``): (a) the main set-up's mlp at D = 199,210,
+   B = 250, DP on, the kernels on, one client (K = the card count), 2
+   rounds and then one block of 4 on ``shard_map`` and on vmap: every
+   leaf, w, metric and epsilon bit-equal, launches exactly 4
+   ``sumsq_rows``, 4 client-grid clip accumulates and 4 client-grid Adam
+   steps a round (K = 1: no exchange), the two snapshots byte-equal and
+   each restored by the other backend, a cohort of 2 refused (the mesh
+   holds one rank), rounds/s of both and the device busy share of a
+   captured block of 4 on ``shard_map``; (b) ``launch.steps.
+   make_hier_round_block_step`` on ``--preset 100m`` (proxy D =
+   6,293,760), 1 pod of L = 4 clients, 3 rounds, against the engine's
+   vmap rounds on the same draws: every leaf at ``close``, the peers'
+   client-route launches exact.
 
 Any failure raises and exits nonzero. The script needs a CUDA device and
 the repository's ``src/`` beside it; it never runs on the CPU.
@@ -5384,6 +5400,219 @@ def hier_path(setup, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the shard_map phase: the backend on torch.distributed, one rank a card
+
+
+SHARD_ROUNDS, SHARD_BLOCK = 2, 4     # (a): 2 rounds, then one block of 4
+SHARD_HIER_ROUNDS, SHARD_HIER_L = 3, 4   # (b): 1 pod of 4 clients
+
+
+def shard_group():
+    """An in-process NCCL group over a FileStore in a temporary directory
+    at world size = the card count, and its 1-D meshes over ``"clients"``
+    (the engine's axis) and ``"pod"`` (the round programs'). Returns
+    (clients mesh, pod mesh, the directory)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = torch.cuda.device_count()
+    assert world == 1, ("the shard_map phase runs its group in this "
+                        f"process: one rank, one card ({world} present)")
+    tmp = tempfile.mkdtemp(prefix="shard_map_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), world),
+        rank=0, world_size=world, device_id=torch.device("cuda", 0))
+    assert dist.get_backend() == "nccl"
+    return (init_device_mesh("cuda", (world,), mesh_dim_names=("clients",)),
+            init_device_mesh("cuda", (world,), mesh_dim_names=("pod",)), tmp)
+
+
+def shard_engine(spec, cfg, backend, mesh):
+    """One client of the main set-up on ``backend`` (vmap, or shard_map
+    on ``mesh``) with a DP accountant."""
+    from repro_torch.core.accountant import PrivacyAccountant
+    from repro_torch.core.engine import dml_engine
+    eng = dml_engine((spec,), spec, cfg, backend=backend, device="cuda",
+                     mesh=mesh if backend == "shard_map" else None)
+    eng.attach_accountants([PrivacyAccountant(
+        cfg.dp.noise_multiplier, cfg.batch_size / MAIN_PER_CLIENT,
+        cfg.dp.delta)])
+    return eng
+
+
+def snapshot_files_equal(a: str, b: str, rounds_done: int) -> None:
+    """Two checkpoint directories hold the same snapshot: every npz array
+    equal in dtype, shape and bytes, the manifest, the audit trail and
+    LATEST byte for byte."""
+    base = f"round_{rounds_done:06d}"
+    with np.load(os.path.join(a, base + ".npz")) as x, \
+            np.load(os.path.join(b, base + ".npz")) as y:
+        assert sorted(x.files) == sorted(y.files)
+        for k in x.files:
+            assert x[k].dtype == y[k].dtype and x[k].tobytes() == \
+                y[k].tobytes(), k
+    for name in (base + ".json", "audit.jsonl", "LATEST"):
+        with open(os.path.join(a, name), "rb") as f, \
+                open(os.path.join(b, name), "rb") as g:
+            assert f.read() == g.read(), name
+
+
+def shard_main(spec, data, cfg, mesh, tmp, card):
+    """(a) the main set-up at K = 1 on shard_map against vmap: 2 rounds and
+    a block of 4 bit-equal, DP launches exact, snapshots byte-equal and
+    restored across the backends, rounds/s and the busy share."""
+    from repro_torch.checkpoint import FederationCheckpointer
+    from repro_torch.core.engine import dml_engine
+
+    cfg1 = dataclasses.replace(cfg, n_clients=1)
+    data1 = data[:1]
+    S = MAIN_PER_CLIENT // cfg.batch_size
+    out, finals = {}, {}
+    for backend in ("shard_map", "vmap"):
+        eng = shard_engine(spec, cfg1, backend, mesh)
+        assert eng.device.type == "cuda" and not eng.mixing
+
+        def drive():
+            state, rows = eng.init_states(0), []
+            for t in range(SHARD_ROUNDS):
+                state, m = eng.run_round(state, data1, t, 0)
+                rows.append(m)
+            state, m = eng.run_rounds(state, data1, SHARD_ROUNDS,
+                                      SHARD_BLOCK, 0)
+            return state, rows + [m]
+
+        (state, rows), counts = counted(drive)
+        expect(counts, **dp_launches((SHARD_ROUNDS + SHARD_BLOCK) * S))
+        assert all(np.isfinite(v).all() for m in rows for v in m.values())
+        d = os.path.join(tmp, backend)
+        FederationCheckpointer(d).save(eng, state,
+                                       SHARD_ROUNDS + SHARD_BLOCK - 1, seed=0)
+        finals[backend] = (state, rows, [a.epsilon()
+                                         for a in eng.accountants], d)
+        out[f"{backend} {SHARD_ROUNDS}+{SHARD_BLOCK} rounds"] = counts
+        del eng
+    (s_state, s_rows, s_eps, s_dir), (v_state, v_rows, v_eps, v_dir) = (
+        finals["shard_map"], finals["vmap"])
+    assert states_equal(s_state, v_state), "shard_map differs from vmap"
+    assert s_eps == v_eps
+    for a, b in zip(s_rows, v_rows):
+        assert sorted(a) == sorted(b)
+        assert all(np.array_equal(a[k], b[k]) for k in a), (a, b)
+    rounds_done = SHARD_ROUNDS + SHARD_BLOCK
+    snapshot_files_equal(s_dir, v_dir, rounds_done)
+    for backend, src in (("shard_map", v_dir), ("vmap", s_dir)):
+        eng = shard_engine(spec, cfg1, backend, mesh)
+        state, done = FederationCheckpointer(src, verify=True).restore_latest(
+            eng, like=eng.init_states(0), seed=0)
+        assert done == rounds_done and states_equal(state, s_state)
+    # a cohort larger than the card count is refused, never run elsewhere
+    try:
+        dml_engine((spec,) * 2, spec, dataclasses.replace(cfg, n_clients=2),
+                   backend="shard_map", device="cuda", mesh=mesh)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("a shard_map engine of 2 clients on 1 card ran")
+    rates = {b: rounds_per_s(shard_engine(spec, cfg1, b, mesh), data1)
+             for b in ("shard_map", "vmap")}
+    e = shard_engine(spec, cfg1, "shard_map", mesh)
+    st, _ = e.run_rounds(e.init_states(0), data1, 0, 2, 0)
+    wall_ms, on_device = device_profile(
+        lambda: e.run_rounds(st, data1, 2, SHARD_BLOCK, 0))
+    busy_ms = sum(ev.self_device_time_total for ev in on_device) / 1e3
+    print(f"shard_map phase (a): K = 1 on an NCCL group of 1 rank, "
+          f"{SHARD_ROUNDS} rounds then a block of {SHARD_BLOCK}: every leaf, "
+          f"w, metric and epsilon ({s_eps[0]!r}) bit-equal to vmap's; "
+          f"launches {got_nonzero(out[f'shard_map {SHARD_ROUNDS}+{SHARD_BLOCK} rounds'])}; "
+          f"the snapshots byte-equal, each restored by the other backend; "
+          f"K = 2 refused: {refusal}")
+    print(f"shard_map phase (a): rounds/s (evaluation excluded, "
+          f"{STACKED_RATE_ROUNDS} rounds as one block) shard_map "
+          f"{rates['shard_map']:.4f}, vmap {rates['vmap']:.4f}; a block of "
+          f"{SHARD_BLOCK} captured rounds on shard_map wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.2f}%), "
+          f"{len(on_device)} device kernels and copies on {card}")
+    return dict(counts=out, rates=rates, busy=(busy_ms, wall_ms))
+
+
+def shard_hier_train(pods, card):
+    """(b) ``make_hier_round_block_step`` on the train preset at 1 pod of
+    L = 4 clients, 3 rounds, against the engine's vmap rounds on the same
+    draws (a batch fixed per client, as the program takes one for every
+    round; each round's noise): every leaf at ``close``, the client
+    routes' launches exact."""
+    from repro_torch.core.engine import draw_batch_idx, stack_states
+    from repro_torch.launch import steps, train
+    from repro_torch.nn.modules import tree_leaves
+
+    free_engines()
+    args = train.parse_args(TRAIN_ARGS + [
+        "--steps-per-round", "1", "--rounds", str(SHARD_HIER_ROUNDS),
+        "--clients", str(SHARD_HIER_L)])
+    run = train.setup(args)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    idx = [draw_batch_idx(gen, n, args.batch, "cuda").cpu()
+           for n in run.n_seqs]
+    cpu_gen = torch.Generator().manual_seed(8)
+    noise = torch.randn((SHARD_HIER_ROUNDS, SHARD_HIER_L, TRAIN_D),
+                        generator=cpu_gen)
+    eng = train.make_engine(run.cfg, run.proxy, run.fl, args, run.n_seqs,
+                            "cuda")
+    eng.draws = lambda k, t, s: (idx[k], noise[t, k])
+    want = eng.run_rounds(clone(run.state), run.data, 0, SHARD_HIER_ROUNDS,
+                          args.seed)[0]
+    del eng
+    free_engines()
+    block = steps.make_hier_round_block_step(
+        run.cfg, run.proxy, run.fl, pods, 1, SHARD_HIER_L,
+        steps.StepOptions(accum=1, dp_chunk=args.batch),
+        n_rounds=SHARD_HIER_ROUNDS)
+    batch = stack_states([run.engine.sample_fn(
+        d, None, i.to(tree_leaves(d)[0].device))
+        for d, i in zip(run.data, idx)])
+    (got, metrics), counts = counted(lambda: block(
+        stack_states(run.state), batch, noise.cuda()))
+    expect(counts, **add_counts((SHARD_HIER_ROUNDS, peer_launches(run.proxy)),
+                                (SHARD_HIER_ROUNDS, peer_launches(run.cfg))))
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    worst = 0.0
+    for k, w in enumerate(want):
+        for a, b in zip(tree_leaves(got), tree_leaves(w)):
+            worst = max(worst, max_err(a[k], b))
+            torch.testing.assert_close(a[k], b, **CLOSE)
+    print(f"shard_map phase (b): make_hier_round_block_step on --preset 100m, "
+          f"1 pod of {SHARD_HIER_L} clients, {SHARD_HIER_ROUNDS} rounds: every "
+          f"leaf within close of the engine's vmap rounds on the same draws "
+          f"(max abs diff {worst:.3e}); launches {got_nonzero(counts)} on "
+          f"{card}")
+    del got, want, run
+    free_engines()
+    return counts
+
+
+def shard_map_path(setup, card):
+    """The shard_map phase (module docstring, 15)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    spec, data, test, cfg = setup
+    t0 = time.perf_counter()
+    free_engines()
+    mesh, pods, tmp = shard_group()
+    try:
+        res = {"main": shard_main(spec, data, cfg, mesh, tmp, card)}
+        res["hier"] = shard_hier_train(pods, card)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"shard_map phase: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-scan", type=Path, default=None,
@@ -5445,6 +5674,7 @@ def main() -> int:
     resumed = resume_path(setup, card)
     hier = hier_path(setup, card)
     stacked = stacked_path(setup, card)
+    shard = shard_map_path(setup, card)
 
     # each kernel's launches on the path that runs it
     # the main path (stacked): sumsq_rows, the client-grid clip and Adam,
@@ -5508,6 +5738,8 @@ def main() -> int:
                       for k, v in hier["main"].items()},
                    **hier["stale"], **hier["train"]}
     # every kernel's launches on each stacked-phase run
+    shard_counts = dict(shard["main"]["counts"],
+                        **{"preset hier block 3 rounds": shard["hier"]})
     stacked_counts = {"main 2 rounds": stacked["main"]["counts"],
                       "table2 1 round": stacked["ragged"]["counts"],
                       **{f"{k} 4 rounds": v
@@ -5610,6 +5842,9 @@ def main() -> int:
         out[-1]["launches_stacked"] = {
             run: c.get(launch_key(name), 0)
             for run, c in stacked_counts.items()}
+        out[-1]["launches_shard_map"] = {
+            run: c.get(launch_key(name), 0)
+            for run, c in shard_counts.items()}
         if name == "fused_pushsum_mix_blocks":
             out[-1]["hier_rows"] = {
                 label: rows[label] for label in rows
@@ -5704,6 +5939,12 @@ def main() -> int:
           f"{rates['loop']:.4f}, eager stacked {rates['eager']:.4f}, captured "
           f"{rates['captured']:.4f}; device busy over a block of 4 captured "
           f"rounds {100 * busy[4][0] / busy[4][1]:.2f}% on {card}")
+    rates, (busy_ms, wall_ms) = (shard["main"]["rates"],
+                                 shard["main"]["busy"])
+    print(f"shard_map path main set-up K = 1 rounds/s (evaluation excluded): "
+          f"shard_map {rates['shard_map']:.4f}, vmap {rates['vmap']:.4f}; "
+          f"device busy over a block of {SHARD_BLOCK} captured rounds "
+          f"{100 * busy_ms / wall_ms:.2f}% on {card}")
     missing = [r["name"] for r in out if not r["launches"]]
     assert not missing, f"kernels launched no time on their path: {missing}"
     print(json.dumps({"kernels": out}))

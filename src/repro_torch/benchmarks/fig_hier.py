@@ -21,8 +21,13 @@ reference: the stacked backends replay their captured round on the card,
 the loop runs its clients one at a time. Each row carries the card as
 ``nvidia-smi`` names it, with its power limit.
 
-The reference's ``shard_map`` row at K = 8, one client per device of a
-mesh, waits for ROADMAP.md Queue 1 item 12.
+The reference's ``shard_map`` row (one client per device of a mesh, the
+exchange a send/recv to the round's peer) runs under the reference's
+condition, K equal to the device count: on the card K =
+``torch.cuda.device_count()`` NCCL ranks, with ``--device cpu`` K = 8 gloo
+ranks (the reference's forced host mesh); each rank a process, spawned by
+the driver, the row timed on rank 0. On one card no K matches and no row
+is printed, as the reference prints none when K is not its device count.
 
 The reference ran its rows in a subprocess with a forced 8-device host
 mesh (JAX fixes its device count at start-up); the port needs neither. On
@@ -39,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -55,6 +61,9 @@ from .common import FULL, _env_flag, spec_of, time_rounds, write_rows
 
 SHAPE, N_CLASSES, PER_CLIENT = (8, 8, 1), 4, 32
 SHARDS = 8
+CPU_RANKS = 8          # the reference's forced 8-device host mesh
+NOTE_SHARD = ("one client per rank: bounded by the device count, the flat "
+              "layout cannot reach K=64+")
 NOTE_STALE = ("one card: tau>0 overlaps no network latency; the wall-clock "
               "win needs genuine inter-node latency")
 
@@ -67,6 +76,67 @@ def cross_bytes_per_client(K: int, S: int, rounds: int, D: int) -> float:
     return float((np.asarray(scale) > 0).mean()) * 4 * D
 
 
+def cfg_of(K, n_rounds, use_pallas, n_shards=1, staleness=0):
+    return ProxyFLConfig(n_clients=K, rounds=n_rounds, local_steps=1,
+                         batch_size=8, seed=0, n_shards=n_shards,
+                         staleness=staleness, use_pallas=use_pallas,
+                         dp=DPConfig(enabled=False))
+
+
+def cohort_data(K: int, dev):
+    x, y = make_classification_data(
+        torch.Generator(device=dev).manual_seed(1), PER_CLIENT * K,
+        SHAPE, N_CLASSES, sep=2.0, task_seed=7)
+    return [(x[k * PER_CLIENT:(k + 1) * PER_CLIENT],
+             y[k * PER_CLIENT:(k + 1) * PER_CLIENT]) for k in range(K)]
+
+
+def _shard_map_rank(rank, K, store, rounds, use_pallas, device_type, out):
+    """Rank ``rank`` of the shard_map row: the group and mesh (NCCL, one
+    card a rank, or gloo), the engine, ``time_rounds``; rank 0 writes the
+    seconds a round to ``out``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if device_type == "cuda":
+        torch.cuda.set_device(rank)
+        dev = torch.device("cuda", rank)
+        dist.init_process_group("nccl", init_method="file://" + store,
+                                rank=rank, world_size=K, device_id=dev)
+    else:
+        torch.set_num_threads(1)
+        dev = torch.device("cpu")
+        dist.init_process_group("gloo", init_method="file://" + store,
+                                rank=rank, world_size=K)
+    try:
+        mesh = init_device_mesh(device_type, (K,),
+                                mesh_dim_names=("clients",))
+        spec = spec_of("mlp", SHAPE, N_CLASSES)
+        eng = dml_engine((spec,) * K, spec, cfg_of(K, rounds, use_pallas),
+                         backend="shard_map", device=dev, mesh=mesh)
+        sec = time_rounds(eng, cohort_data(K, dev), 0, rounds)
+        if rank == 0:
+            with open(out, "w") as f:
+                f.write(repr(sec))
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_map_seconds(K: int, rounds: int, use_pallas: bool,
+                      device_type: str) -> float:
+    """Seconds a round of the shard_map backend at K clients on K ranks
+    (spawned processes, a file store in a temporary directory)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "sec")
+        mp.start_processes(_shard_map_rank,
+                           args=(K, os.path.join(tmp, "store"), rounds,
+                                 use_pallas, device_type, out),
+                           nprocs=K, start_method="spawn")
+        with open(out) as f:
+            return float(f.read())
+
+
 def run(full: bool = FULL, device="cuda", *,
         clients: Optional[Sequence[int]] = None,
         rounds: Optional[int] = None) -> List[Dict]:
@@ -77,27 +147,20 @@ def run(full: bool = FULL, device="cuda", *,
     D = tree_size(spec.init(torch.Generator().manual_seed(0)))
     Ks = clients or ((8, 64, 256, 1024) if full else (8, 64, 256))
     rounds = rounds or 8
-
-    def cfg_of(K, n_rounds, n_shards=1, staleness=0):
-        return ProxyFLConfig(n_clients=K, rounds=n_rounds, local_steps=1,
-                             batch_size=8, seed=0, n_shards=n_shards,
-                             staleness=staleness, use_pallas=use_pallas,
-                             dp=DPConfig(enabled=False))
+    n_dev = (torch.cuda.device_count() if dev.type == "cuda"
+             else CPU_RANKS)
 
     rows = []
     for K in Ks:
-        x, y = make_classification_data(
-            torch.Generator(device=dev).manual_seed(1), PER_CLIENT * K,
-            SHAPE, N_CLASSES, sep=2.0, task_seed=7)
-        data = [(x[k * PER_CLIENT:(k + 1) * PER_CLIENT],
-                 y[k * PER_CLIENT:(k + 1) * PER_CLIENT]) for k in range(K)]
+        data = cohort_data(K, dev)
         big = K >= 256
         grid = [("loop", 1, 0), ("vmap", 1, 0), ("hier", min(SHARDS, K), 0),
                 ("hier", min(SHARDS, K), 2)]
         base = None
         for backend, S, tau in grid:
             n = min(rounds, 4) if backend == "loop" and big else rounds
-            eng = dml_engine((spec,) * K, spec, cfg_of(K, n, S, tau),
+            eng = dml_engine((spec,) * K, spec,
+                             cfg_of(K, n, use_pallas, S, tau),
                              backend=backend, device=dev)
             sec = time_rounds(eng, data, 0, n, trials=2 if big else 3)
             base = base or sec
@@ -111,6 +174,14 @@ def run(full: bool = FULL, device="cuda", *,
                     if backend == "hier" else None),
                 use_pallas=use_pallas, card=card,
                 note=NOTE_STALE if tau else ""))
+        if K == n_dev:
+            sec = shard_map_seconds(K, rounds, use_pallas, dev.type)
+            rows.append(dict(
+                figure="fig_hier", K=K, backend="shard_map", n_shards=K,
+                staleness=0, rounds_per_block=rounds, devices=n_dev,
+                sec_per_round=sec, rounds_per_sec=1.0 / sec,
+                speedup_vs_loop=base / sec, bytes_cross_per_client=4.0 * D,
+                use_pallas=use_pallas, card=card, note=NOTE_SHARD))
     write_rows(rows, "REPRO_BENCH_HIER_JSON", "fig_hier.json")
     return rows
 

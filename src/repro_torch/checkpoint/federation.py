@@ -250,10 +250,17 @@ class FederationCheckpointer:
         the written snapshot. Write order is load-bearing: npz +
         manifest, then the audit entry, then meta, then the LATEST pointer
         — a complete meta implies a complete audit entry, and only a
-        complete snapshot is ever published."""
+        complete snapshot is ever published. On a ``shard_map`` engine
+        every rank calls it and the engine's writer rank writes every file
+        once, the others waiting for it (``engine.run_on_writer``)."""
         rounds_done = t + 1
         base = self._base(rounds_done)
         engine.save_state(base, state, t, seed=seed)
+        engine.run_on_writer(lambda: self._publish(engine, rounds_done))
+        return base
+
+    def _publish(self, engine, rounds_done: int) -> None:
+        """The audit entry, meta and LATEST of a snapshot on disk."""
         commitment, prev = self._commit_snapshot(engine, rounds_done)
         meta = {
             "rounds_done": rounds_done,
@@ -273,7 +280,6 @@ class FederationCheckpointer:
             f.write(_TAG.format(rounds_done))
         os.replace(tmp, os.path.join(self.directory, _LATEST))
         self._rotate()
-        return base
 
     def maybe_save(self, engine, state, t: int, seed=None
                    ) -> Optional[str]:

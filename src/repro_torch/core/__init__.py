@@ -5,14 +5,15 @@
 - ``gossip``      PushSum on time-varying directed graphs (§3.4)
 - ``protocol``    Algorithm 1: DML client step + gossip round
 - ``engine``      FederationEngine: the round and round-block executor
-                  (the loop; vmap, async and hier stacked)
+                  (the loop; vmap, async and hier stacked; shard_map, one
+                  client per rank of a torch.distributed group)
 - ``commit``      hash-chained proxy commitments (verifiable federation)
 - ``baselines``   FedAvg / FML / AvgPush / CWT / Regular / Joint (§4.1)
 
-The reference's exports, but for ``pushsum_gossip_shard`` (the shard_map
-exchange, ROADMAP.md Queue 1 item 12); its jitted ``make_dml_step`` and
-``make_ce_step`` are the plain step factories ``dml_step_fn`` and
-``ce_step_fn`` here.
+The reference's exports (``pushsum_gossip_shard``, the shard_map exchange,
+runs on a ``torch.distributed`` process group here); its jitted
+``make_dml_step`` and ``make_ce_step`` are the plain step factories
+``dml_step_fn`` and ``ce_step_fn`` here.
 """
 from .accountant import PrivacyAccountant, epsilon_for, rdp_sampled_gaussian, rdp_to_eps
 from .commit import CommitmentError, chain_step, client_commitment, leaf_digest
@@ -25,6 +26,7 @@ from .gossip import (
     exponential_offsets,
     gossip_shift,
     mix_matrix,
+    pushsum_gossip_shard,
     pushsum_mix,
 )
 from .protocol import (
@@ -46,7 +48,7 @@ __all__ = [
     "CommitmentError", "chain_step", "client_commitment", "leaf_digest",
     "FederationEngine", "active_mask", "dml_engine", "single_model_engine",
     "adjacency_matrix", "comm_cost_per_round", "debias", "exponential_offsets",
-    "gossip_shift", "mix_matrix", "pushsum_mix",
+    "gossip_shift", "mix_matrix", "pushsum_gossip_shard", "pushsum_mix",
     "ClientState", "ModelSpec", "evaluate", "gossip_proxies", "init_client",
     "local_round", "ce_step_fn", "dml_step_fn", "proxyfl_round",
     "METHODS", "final_mean_acc", "run_federated",

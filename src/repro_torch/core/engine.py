@@ -79,9 +79,34 @@ Backends
   compressed exchange at S > 1. The accountants step as on vmap, so
   epsilon depends on neither τ nor S.
 
-The async and hier backends share the stacked local phase with vmap
-verbatim (only the exchange differs), so async at τ = 0 and hier at S > 1,
-τ = 0 equal vmap bit for bit.
+* ``backend="shard_map"``: one client per rank of a ``torch.distributed``
+  process group, the paper's deployment layout. ``mesh`` is a
+  ``torch.distributed.device_mesh.DeviceMesh`` whose dim ``axis`` holds
+  exactly K ranks (NCCL on the card, gloo only for ``device="cpu"``);
+  every rank builds the engine and calls each method, rank r holding
+  client r only: its state is the list ``[client r's state]``. Its local
+  phase is the stacked executor on a local cohort of one (client r's
+  draws, as the vmap backend makes them; on the card its round replays
+  from a CUDA graph), and the exchange after it, outside the graph, is
+  :func:`repro_torch.core.gossip.pushsum_gossip_shard`: (1 − sw)·(θ, w)
+  sent to the peer the round's shift ahead in the active subset, one
+  send/recv a round whatever K (sw = 0.5 for pushsum, 0 for the ring
+  mix; ``mix="mean"`` a sum over the ranks), then the de-bias. The shift
+  and the membership are fixed per round on the host; under dropout
+  :meth:`FederationEngine.run_rounds` runs round by round, and a dropped
+  rank skips its local phase. Metrics come back [K] (or [T, K]) on every
+  rank through an all-gather, each rank steps all K accountants, and
+  ``export_states``, ``stacked_params``, ``client_params`` and
+  ``save_state`` gather the K clients (collectives: every rank calls
+  them); the writer rank (rank 0) writes files, the others wait for its
+  outcome. As in the reference, it refuses a heterogeneous cohort and a
+  compressed exchange.
+
+The async, hier and shard_map backends share the stacked local phase with
+vmap verbatim (only the exchange differs), so async at τ = 0 and hier at
+S > 1, τ = 0 equal vmap bit for bit, as does shard_map on the pushsum and
+ring mixes (each mixed coordinate is two exact halvings and one rounded
+sum, in either executor).
 
 Round-blocks
 ------------
@@ -172,15 +197,18 @@ from ..optim import Adam
 from .commit import CommitmentError, client_commitment
 from .compress import COMPRESS_KEY_FOLD, compress_spec
 from .gossip import (hier_layout, hier_mix_debiased, hier_mix_split,
-                     hier_stale_mix_apply, mix_matrix, pushsum_mix_debiased,
-                     stale_mix_apply, stale_mix_split)
+                     hier_stale_mix_apply, mix_matrix, pushsum_gossip_shard,
+                     pushsum_mix_debiased, stale_mix_apply, stale_mix_split)
 
 # round t's streams are seeded from (seed, ROUND_KEY_OFFSET + t, ...), apart
 # from the per-client init streams (seed, k), as in the reference
 ROUND_KEY_OFFSET = 10_000
-BACKENDS = ("auto", "vmap", "loop", "async", "hier")
+BACKENDS = ("auto", "vmap", "loop", "async", "hier", "shard_map")
 MIXES = ("pushsum", "mean", "ring", "none")
-_UNPORTED_BACKENDS = {"shard_map": 12}
+# (topology, self weight) of each mix on the shard_map exchange, as the
+# reference's ``_mix_topology``: mean is dense averaging, CWT's ring hop
+# keeps nothing of its own
+_MIX_TOPOLOGY = {"mean": ("full", 0.5), "ring": ("ring", 0.0)}
 
 StepFn = Callable[..., Tuple[Dict, Dict]]
 InitFn = Callable[[torch.Generator], Dict]
@@ -352,6 +380,24 @@ def _rebuild(like, leaves: Sequence[torch.Tensor]):
     return tree_map(lambda _: next(it), like)
 
 
+def vmap_step(step: StepFn, stacked, batch, noise=None):
+    """``step(state, batch, None, noise)`` of every client of a stacked
+    cohort at once, under ``torch.func.vmap`` (the state's leaves
+    flattened around the vmap, since ``torch.func`` takes no None leaf):
+    ``(stacked state', stacked metrics)``. ``noise`` is [K, D] or None."""
+    leaves = tree_leaves(stacked)
+
+    def one(leaves_k, batch_k, noise_k):
+        new, m = step(_rebuild(stacked, leaves_k), batch_k, None, noise_k)
+        return tree_leaves(new), m
+
+    if noise is None:
+        new, m = vmap(lambda lv, b: one(lv, b, None))(leaves, batch)
+    else:
+        new, m = vmap(one)(leaves, batch, noise)
+    return _rebuild(stacked, new), m
+
+
 class _CapturedRound:
     """One stacked round captured into a CUDA graph on ``stream`` (the
     stream the key's first round ran on, eagerly, as the capture's
@@ -421,13 +467,27 @@ def _per_client(fns, n_clients: int) -> List:
     return list(fns)
 
 
-def _refuse_unported(backend: str) -> None:
-    if backend in _UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet (ROADMAP.md Queue 1 item "
-            f"{_UNPORTED_BACKENDS[backend]})")
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}")
+def _mesh_group(mesh, axis: str, n_clients: int, device):
+    """The process group of ``mesh``'s dim ``axis`` for a shard_map engine
+    of ``n_clients`` on ``device``, or the refusal: no mesh, a dim of
+    another size, or a mesh whose device type or communication backend is
+    not the engine's (NCCL for ``cuda``, gloo for ``cpu``)."""
+    if mesh is None:
+        raise ValueError("shard_map backend needs a mesh")
+    names = mesh.mesh_dim_names or ()
+    if axis not in names or mesh.size(names.index(axis)) != n_clients:
+        raise ValueError(
+            f"mesh axis {axis!r} must hold exactly {n_clients} devices")
+    import torch.distributed as dist
+    group = mesh.get_group(axis)
+    want = torch.device(device).type
+    comm = {"cuda": "nccl", "cpu": "gloo"}.get(want)
+    if mesh.device_type != want or dist.get_backend(group) != comm:
+        raise ValueError(
+            f"a shard_map engine on {want!r} needs a {want} mesh on {comm}; "
+            f"mesh axis {axis!r} is a {mesh.device_type} mesh on "
+            f"{dist.get_backend(group)}")
+    return group
 
 
 class FederationEngine:
@@ -454,7 +514,9 @@ class FederationEngine:
     backend's cross-shard edges (None reads ``cfg.staleness``; the
     synchronous backends ignore it); the hier shard count is
     ``cfg.n_shards``, which must divide ``n_clients``. ``draws`` and
-    ``codec_draws`` are the replay hooks (module docstring).
+    ``codec_draws`` are the replay hooks (module docstring). ``mesh`` (a
+    ``DeviceMesh``) and its dim ``axis`` place ``backend="shard_map"``'s
+    clients, one a rank (module docstring).
 
     Between calls the state is a list of per-client dicts, or the wrapper
     ``{"clients": [...], ["stale_theta": [τ, K, D], "stale_w": [τ, K],]
@@ -474,11 +536,12 @@ class FederationEngine:
                  backend: str = "auto", mix: str = "pushsum", device="cuda",
                  draws: Optional[DrawsFn] = None, staleness=None,
                  codec_draws: Optional[CodecDrawsFn] = None,
-                 stackable: bool = False, noisy_steps: bool = False):
-        _refuse_unported(backend)
+                 stackable: bool = False, noisy_steps: bool = False,
+                 mesh=None, axis: str = "clients"):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}")
         if mix not in MIXES:
             raise ValueError(f"unknown mix {mix!r}")
-        self.device = resolve_device(device)
         self.cfg = cfg
         self.K = n_clients
         self.step_fns: List[StepFn] = _per_client(step_fns, n_clients)
@@ -487,10 +550,15 @@ class FederationEngine:
         homogeneous = all(f is self.step_fns[0] for f in self.step_fns)
         if backend == "auto":
             backend = "vmap" if homogeneous else "loop"
-        if backend in ("vmap", "async", "hier") and not homogeneous:
+        if backend in ("vmap", "async", "hier", "shard_map") and \
+                not homogeneous:
             raise ValueError(
                 f"{backend} backend requires a homogeneous cohort; "
                 "heterogeneous private architectures need backend='loop'")
+        self._shard = backend == "shard_map"
+        self._group = (_mesh_group(mesh, axis, n_clients, device)
+                       if self._shard else None)
+        self.device = resolve_device(device)
         self.backend = backend
         self.mix = mix
         self.mixing = mix != "none" and n_clients > 1
@@ -528,6 +596,12 @@ class FederationEngine:
         self._hier_stale = self._hier and self.staleness > 0
         # the compressed exchange (None: the uncompressed one, unwrapped)
         self.compress = compress_spec(cfg)
+        if self.compress is not None and self._shard:
+            raise ValueError(
+                "compressed gossip (cfg.compress != 'none') is not "
+                "implemented for the shard_map ppermute exchange — the "
+                "collective ships full-precision tensors; use the loop/"
+                "vmap/async backends for compressed rounds")
         if self.compress is not None and self._hier:
             raise ValueError(
                 "compressed gossip (cfg.compress != 'none') is not "
@@ -548,7 +622,14 @@ class FederationEngine:
         self.accountants: List = [None] * n_clients
         # the stacked executor (module docstring): the homogeneous stacked
         # backends on vmappable step functions
-        self.stacked = stackable and backend in ("vmap", "async", "hier")
+        self.stacked = stackable and backend in ("vmap", "async", "hier",
+                                                 "shard_map")
+        if self._shard and not stackable:
+            raise ValueError(
+                "the shard_map backend runs the stacked executor on each "
+                "rank's client: its step functions must run under "
+                "torch.func.vmap (stackable=True, as the engine factories "
+                "set it)")
         if self.stacked and not hasattr(sample_fn, "batch_size"):
             raise ValueError("the stacked executor draws batch indices "
                              "itself: sample_fn needs a batch_size")
@@ -563,6 +644,24 @@ class FederationEngine:
         # eager round, and the round captured on it at the key's next round
         self._warm: Dict[Tuple, Any] = {}
         self._graphs: Dict[Tuple, _CapturedRound] = {}
+        # the clients this process runs: all of them, or on shard_map the
+        # rank's own; the exchange runs inside the stacked round, or on
+        # shard_map after it, across the ranks
+        self.rank = 0
+        self._local = list(range(n_clients))
+        if self._shard:
+            import torch.distributed as dist
+            self.rank = dist.get_rank(self._group)
+            self._local = [self.rank]
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+            # bring the communicator up with every rank joining: a round
+            # under dropout may start with a send/recv between two ranks
+            # only, which would hang NCCL's lazy start-up
+            dist.all_reduce(torch.zeros(1, device=self.device),
+                            group=self._group)
+        self._mix_in_round = self.mixing and not self._shard
 
     # -- state construction / access ---------------------------------------
 
@@ -575,7 +674,7 @@ class FederationEngine:
         cross-shard one (nothing arrives for τ rounds); with compression the
         public copies, warm-started at the initial proxies in f32."""
         states = []
-        for k in range(self.K):
+        for k in self._local:
             gen = torch.Generator().manual_seed(stream_seed(seed, k))
             states.append(tree_map(lambda x: x.to(self.device),
                                    self.init_fns[k](gen)))
@@ -600,17 +699,106 @@ class FederationEngine:
         return state
 
     def export_states(self, state) -> List[Dict]:
+        """The K per-client states (on shard_map gathered from the ranks:
+        a collective)."""
+        if self._shard:
+            return self._all_gather_tree(self._clients_of(state)[0])
         return list(self._clients_of(state))
 
     def stacked_params(self, state, role: str = "proxy"):
         """The cohort's ``role`` params with a leading K dim (one
-        architecture across the cohort)."""
-        trees = [s[role]["params"] for s in self._clients_of(state)]
+        architecture across the cohort; on shard_map a collective)."""
+        if self._shard:
+            trees = self._all_gather_tree(state[0][role]["params"])
+        else:
+            trees = [s[role]["params"] for s in self._clients_of(state)]
         return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
     def client_params(self, state, k: int, role: str = "proxy"):
-        """Client k's ``role`` params."""
+        """Client k's ``role`` params (on shard_map broadcast from rank k
+        to every rank: a collective)."""
+        if self._shard:
+            return self._broadcast_tree(state[0][role]["params"], k)
         return self._clients_of(state)[k][role]["params"]
+
+    # -- shard_map: collectives over the ranks -------------------------------
+
+    def _all_gather_tree(self, tree) -> List:
+        """Each rank's ``tree`` (one structure and shape on every rank),
+        as a list of K trees, rank order, on every rank."""
+        import torch.distributed as dist
+        parts = []
+        for x in tree_leaves(tree):
+            got = [torch.empty_like(x) for _ in range(self.K)]
+            dist.all_gather(got, x.contiguous(), group=self._group)
+            parts.append(got)
+        return [_rebuild(tree, [p[k] for p in parts]) for k in range(self.K)]
+
+    def _broadcast_tree(self, tree, k: int):
+        """Rank k's ``tree`` on every rank."""
+        import torch.distributed as dist
+        src = dist.get_global_rank(self._group, k)
+        out = [x.clone() if self.rank == k else torch.empty_like(x)
+               for x in tree_leaves(tree)]
+        for x in out:
+            dist.broadcast(x, src=src, group=self._group)
+        return _rebuild(tree, out)
+
+    def run_on_writer(self, fn: Callable[[], Any]) -> Any:
+        """``fn()`` on the one process that writes files (shard_map: rank
+        0; every other backend: this process), its outcome shared with
+        every rank: the others wait for it and raise when it raised.
+        Returns ``fn``'s result on the writer, None elsewhere."""
+        if not self._shard:
+            return fn()
+        import torch.distributed as dist
+        out, failure, err = None, None, [None]
+        if self.rank == 0:
+            try:
+                out = fn()
+            except Exception as e:      # shared, then raised on every rank
+                failure, err = e, [f"{type(e).__name__}: {e}"]
+        dist.broadcast_object_list(
+            err, src=dist.get_global_rank(self._group, 0), group=self._group)
+        if failure is not None:
+            raise failure
+        if err[0] is not None:
+            raise RuntimeError(f"the writer rank failed: {err[0]}")
+        return out
+
+    def _gather_metrics(self, local: Dict[str, np.ndarray], T: int
+                        ) -> Dict[str, np.ndarray]:
+        """[T, 1] metrics of each rank (none from a rank whose client sat
+        out every round) -> [T, K] on every rank, NaN where a client did
+        not step."""
+        import torch.distributed as dist
+        every: List[Dict[str, np.ndarray]] = [None] * self.K
+        dist.all_gather_object(every, local, group=self._group)
+        out = {}
+        for key in (k for m in every for k in m):
+            if key in out:
+                continue
+            like = next(m[key] for m in every if key in m)
+            out[key] = np.concatenate(
+                [m.get(key, np.full((T, 1), np.nan, like.dtype))
+                 for m in every], axis=1)
+        return out
+
+    def _exchange_shard(self, clients: Dict, t: int, act) -> None:
+        """Round t's exchange of the rank's stacked client (a cohort of
+        one), in place: :func:`pushsum_gossip_shard` of its flat proxy and
+        weight, then the de-bias, written back into ``clients``."""
+        topo, sw = _MIX_TOPOLOGY.get(self.mix, (self.cfg.topology, 0.5))
+        theta = tree_leaves(clients["proxy"]["params"])
+        flat = torch.cat([x.reshape(1, -1) for x in theta], dim=1)
+        w = clients["w"]
+        mixed, w2 = pushsum_gossip_shard(flat, w.to(flat.dtype), t,
+                                         self._group, self.K, topo, sw, act)
+        unb = mixed / w2[:, None]
+        for x, piece in zip(theta, torch.split(
+                unb, [x[0].numel() for x in theta], dim=1)):
+            x.copy_(piece.reshape(x.shape))
+        w.copy_(w2)
 
     def attach_accountants(self, accountants: Sequence) -> None:
         assert len(accountants) == self.K
@@ -618,13 +806,16 @@ class FederationEngine:
 
     # -- checkpointing -------------------------------------------------------
 
-    def _ckpt_payload(self, state, t: int, seed: Optional[int]) -> Dict:
-        """The reference's snapshot tree: per-client states, the round
-        counter, per-client accountant step counts, the base key's words
-        and whether a key was recorded. The same method produces the
-        restore template, so save and restore always agree on structure."""
-        clients = {f"c{k:04d}": s
-                   for k, s in enumerate(self.export_states(state))}
+    def _ckpt_payload(self, state, t: int, seed: Optional[int],
+                      clients: Optional[List[Dict]] = None) -> Dict:
+        """The reference's snapshot tree: per-client states (``clients``,
+        else ``export_states(state)``), the round counter, per-client
+        accountant step counts, the base key's words and whether a key was
+        recorded. The same method produces the restore template, so save
+        and restore always agree on structure."""
+        if clients is None:
+            clients = self.export_states(state)
+        clients = {f"c{k:04d}": s for k, s in enumerate(clients)}
         steps = np.asarray([a.steps if a is not None else 0
                             for a in self.accountants], np.int32)
         payload = {"clients": clients,
@@ -656,8 +847,10 @@ class FederationEngine:
                    seed: Optional[int] = None) -> str:
         """Write a complete-federation snapshot after completed round ``t``
         of a run under base ``seed`` (see
-        :mod:`repro_torch.checkpoint.federation`)."""
-        save_checkpoint(path, self._ckpt_payload(state, t, seed))
+        :mod:`repro_torch.checkpoint.federation`). On shard_map every rank
+        calls it: the clients are gathered, the writer rank writes."""
+        payload = self._ckpt_payload(state, t, seed)
+        self.run_on_writer(lambda: save_checkpoint(path, payload))
         return path
 
     def restore_state(self, path: str, like=None, seed: Optional[int] = None
@@ -667,11 +860,15 @@ class FederationEngine:
         template's dtype and on its device. ``like`` is a template state
         (default: a throwaway ``init_states(0)``; at LLM sizes pass the
         run's own). Attached accountants get their step counters back;
-        ``seed`` is checked against the recorded base key."""
+        ``seed`` is checked against the recorded base key. On shard_map
+        each rank reads the snapshot and keeps its own client."""
         if like is None:
             like = self.init_states(0)
-        loaded = load_checkpoint(path, self._ckpt_payload(like, 0, None))
-        clients = [loaded["clients"][f"c{k:04d}"] for k in range(self.K)]
+        template = self._ckpt_payload(
+            like, 0, None, clients=(self._clients_of(like) * self.K
+                                    if self._shard else None))
+        loaded = load_checkpoint(path, template)
+        clients = [loaded["clients"][f"c{k:04d}"] for k in self._local]
         state: Any = clients
         if self._wrapped:
             state = {"clients": clients}
@@ -922,7 +1119,9 @@ class FederationEngine:
         if n_rounds < 1:
             raise ValueError(f"a block has at least one round, got "
                              f"{n_rounds}")
-        if self.stacked:
+        # shard_map under dropout runs round by round, as in the reference
+        # (its per-round exchange schedules follow the membership)
+        if self.stacked and not (self._shard and self.cfg.dropout_rate):
             return self._run_stacked(
                 state, data, t0, n_rounds, seed,
                 active_schedule(t0, n_rounds, self.K, self.cfg))
@@ -941,8 +1140,10 @@ class FederationEngine:
     # -- the stacked executor -----------------------------------------------
 
     def _stack_data(self, data: Sequence):
-        """``(stacked, lengths, steps)`` of ``data``: the padded stacked
-        device copy and the clients' lengths and step counts (host), kept
+        """``(stacked, lengths, steps)`` of the clients this process runs
+        (all of ``data``, or the rank's own on shard_map, whose other
+        entries are read for their lengths only): the padded stacked
+        device copy and those clients' lengths and step counts (host), kept
         in a small LRU keyed by the data's identity, so alternating
         datasets (train and fine-tune) each keep theirs. A cohort that
         cannot be stacked, or a ragged one without a masked sampler, is
@@ -953,6 +1154,8 @@ class FederationEngine:
             self._data_cache.move_to_end(ck)
             return cached[1:]
         self._stack_misses += 1
+        held = data
+        data = [held[k] for k in self._local]
         if not pad_compatible(data):
             raise ValueError(
                 "the stacked executor (vmap, async, hier) needs per-client "
@@ -968,7 +1171,7 @@ class FederationEngine:
                 "masked sampler: sample_fn must accept (data_k, generator, "
                 "n_valid) so padding is never drawn (see "
                 "repro_torch.core.engine.classifier_sampler)")
-        entry = (data, stacked, lengths, self.client_steps(data))
+        entry = (held, stacked, lengths, self.client_steps(data))
         self._data_cache[ck] = entry
         while len(self._data_cache) > self._data_cache_max:
             self._data_cache.popitem(last=False)
@@ -976,29 +1179,17 @@ class FederationEngine:
 
     def _vstep(self, stacked, batch, noise, step=None):
         """One local step of every client at once: the client step (or
-        ``step``) vmapped over the cohort (state leaves flattened around the
-        vmap, since ``torch.func`` takes no None leaf)."""
-        step = step or self.step_fns[0]
-        leaves = tree_leaves(stacked)
-
-        def one(leaves_k, batch_k, noise_k):
-            state_k = _rebuild(stacked, leaves_k)
-            new, m = step(state_k, batch_k, None, noise_k)
-            return tree_leaves(new), m
-
-        if noise is None:
-            new, m = vmap(lambda lv, b: one(lv, b, None))(leaves, batch)
-        else:
-            new, m = vmap(one)(leaves, batch, noise)
-        return _rebuild(stacked, new), m
+        ``step``) vmapped over the cohort (:func:`vmap_step`)."""
+        return vmap_step(step or self.step_fns[0], stacked, batch, noise)
 
     def _round_fn(self, S: int, step_masked: bool):
         """The stacked round as a function of ``(carry, inputs) -> (carry',
         last)``: S vmapped local steps (a client past its step count, or
         dropped, keeps its state), the last executed step's metrics of each
         client (NaN for a dropped one) and the exchange. Reads nothing on
-        the host, so a CUDA graph can hold it."""
-        K = self.K
+        the host, so a CUDA graph can hold it. On shard_map the cohort is
+        the rank's client and the exchange runs after the round."""
+        K = len(self._local)
         sample = self.sample_fn
 
         def round_fn(carry, inp):
@@ -1020,7 +1211,7 @@ class FederationEngine:
                 float("nan")) for key in ms[0]}
             trained = _tree_where(act, st, stacked)
             out = dict(carry, clients=trained)
-            if self.mixing:
+            if self._mix_in_round:
                 theta = trained["proxy"]["params"]
                 flat = torch.cat([x.reshape(K, -1) for x in
                                   tree_leaves(theta)], dim=1)
@@ -1043,8 +1234,10 @@ class FederationEngine:
         """Round t's inputs of the stacked round: the batch indices [S, K,
         B] and DP noise [S, K, D] of every live (client, step) pair (zeros
         elsewhere, never used), drawn as the loop draws them, the active
-        mask and the exchange's inputs; into ``out`` when given."""
-        dev, K, B = self.device, self.K, self.sample_fn.batch_size
+        mask and the exchange's inputs; into ``out`` when given. ``act``
+        is bool[K], ``lengths`` and ``steps`` those of the clients this
+        process runs (K of them, or the rank's one on shard_map)."""
+        dev, K, B = self.device, len(self._local), self.sample_fn.batch_size
         fresh = out is None
         if fresh:
             out = {"idx": torch.zeros((S, K, B), dtype=torch.int64,
@@ -1055,25 +1248,25 @@ class FederationEngine:
                                            device=dev)
         idx, noise = out["idx"], out.get("noise")
         for s in range(S):
-            for k in range(K):
-                if not (act[k] and s < steps[k]):
-                    idx[s, k].zero_()
+            for j, k in enumerate(self._local):
+                if not (act[k] and s < steps[j]):
+                    idx[s, j].zero_()
                     if noise is not None:
-                        noise[s, k].zero_()
+                        noise[s, j].zero_()
                     continue
                 if self.draws is not None:
                     i, n = self.draws(k, t, s)
-                    _to_device(i, torch.int64, dev, idx[s, k])
+                    _to_device(i, torch.int64, dev, idx[s, j])
                     if noise is not None:
-                        _to_device(n, torch.float32, dev, noise[s, k])
+                        _to_device(n, torch.float32, dev, noise[s, j])
                     continue
                 gen = torch.Generator(device=dev).manual_seed(
                     stream_seed(seed, ROUND_KEY_OFFSET + t, k, s))
-                draw_batch_idx(gen, int(lengths[k]), B, dev, out=idx[s, k])
+                draw_batch_idx(gen, int(lengths[j]), B, dev, out=idx[s, j])
                 if noise is not None:
-                    torch.randn((D,), generator=gen, out=noise[s, k])
-        _to_device(act, torch.bool, dev, out["act"])
-        if self.mixing:
+                    torch.randn((D,), generator=gen, out=noise[s, j])
+        _to_device(act[self._local], torch.bool, dev, out["act"])
+        if self._mix_in_round:
             out.update(self._mix_inputs(t, act, seed, D,
                                         out=None if fresh else out))
         return out
@@ -1083,7 +1276,9 @@ class FederationEngine:
         """Rounds ``t0 .. t0+T-1`` on the stacked executor: stack at the
         block's entry, T rounds (replays of the captured round on a CUDA
         device), unstack at its exit; the [T, K] metrics come to the host
-        once, and the accountants step once."""
+        once, and the accountants step once. On shard_map each round's
+        exchange follows its local phase, which a rank whose client sat the
+        round out skips, and the metrics are gathered from the ranks."""
         data_s, lengths, steps = self._stack_data(data)
         S = int(steps.max())
         step_masked = bool((steps != steps[0]).any())
@@ -1100,48 +1295,67 @@ class FederationEngine:
                                        for x in tree_leaves(data_s))
         graph = self._graphs.get(key)
         round_fn = None if graph else self._round_fn(S, step_masked)
-        rows = []
+        rows: List[Optional[Dict]] = []
         in_graph = False     # the live carry is the graph's static one
         for i, t in enumerate(range(t0, t0 + T)):
-            if graph is not None:
+            act = act_stack[i]
+            if self._shard and not act[self._local].any():
+                rows.append(None)     # the rank's client sits the round out
+            elif graph is not None:
                 if not in_graph:
                     graph.load(carry)
                     graph.load_data(data_s, steps_dev)
                     in_graph = True
-                self._round_inputs(t, act_stack[i], lengths, steps, S, D,
-                                   seed, out=graph.inputs)
+                self._round_inputs(t, act, lengths, steps, S, D, seed,
+                                   out=graph.inputs)
                 rows.append(graph.replay())
-                continue
-            inp = dict(self._round_inputs(t, act_stack[i], lengths, steps, S,
-                                          D, seed),
-                       data=data_s, steps=steps_dev)
-            if self.device.type != "cuda" or self._eager_stacked:
-                carry, last = round_fn(carry, inp)
-            elif key not in self._warm:
-                # the key's first round runs eagerly on a side stream: the
-                # capture's warm-up (library set-up) is a real round
-                side = self._warm[key] = torch.cuda.Stream(device=self.device)
-                side.wait_stream(torch.cuda.current_stream(self.device))
-                with torch.cuda.stream(side):
-                    carry, last = round_fn(carry, inp)
-                now = torch.cuda.current_stream(self.device)
-                now.wait_stream(side)
-                for x in tree_leaves((carry, last)):
-                    x.record_stream(now)     # made on side, used on now
             else:
-                graph = self._graphs[key] = _CapturedRound(
-                    round_fn, carry, inp, self._warm[key])
-                in_graph = True
-                last = graph.replay()
-            rows.append(last)
+                inp = dict(self._round_inputs(t, act, lengths, steps, S, D,
+                                              seed),
+                           data=data_s, steps=steps_dev)
+                if self.device.type != "cuda" or self._eager_stacked:
+                    carry, last = round_fn(carry, inp)
+                elif key not in self._warm:
+                    # the key's first round runs eagerly on a side stream:
+                    # the capture's warm-up (library set-up) is a real round
+                    side = self._warm[key] = torch.cuda.Stream(
+                        device=self.device)
+                    side.wait_stream(torch.cuda.current_stream(self.device))
+                    with torch.cuda.stream(side):
+                        carry, last = round_fn(carry, inp)
+                    now = torch.cuda.current_stream(self.device)
+                    now.wait_stream(side)
+                    for x in tree_leaves((carry, last)):
+                        x.record_stream(now)     # made on side, used on now
+                else:
+                    graph = self._graphs[key] = _CapturedRound(
+                        round_fn, carry, inp, self._warm[key])
+                    in_graph = True
+                    last = graph.replay()
+                rows.append(last)
+            if self._shard and self.mixing:
+                # on the current stream, after the replay or the side
+                # stream's round, outside the graph
+                self._exchange_shard(
+                    (graph.carry if in_graph else carry)["clients"], t,
+                    None if act_sched is None else act)
         if in_graph:
             carry = tree_map(lambda x: x.clone(), graph.carry)
         clients = carry.pop("clients")
-        per_client = [unstack_state(clients, k) for k in range(self.K)]
+        per_client = [unstack_state(clients, j)
+                      for j in range(len(self._local))]
         state = dict(carry, clients=per_client) if self._wrapped \
             else per_client
-        metrics = {k: torch.stack([r[k] for r in rows]).cpu().numpy()
-                   for k in rows[0]}
+        done = [r for r in rows if r is not None]
+        metrics = {}
+        if done:
+            nan = {k: torch.full_like(v, float("nan"))
+                   for k, v in done[0].items()}
+            metrics = {k: torch.stack([(r or nan)[k] for r in rows]).cpu()
+                       .numpy() for k in done[0]}
+        if self._shard:
+            metrics = self._gather_metrics(metrics, T)
+            steps = self.client_steps(data)
         for k, acc in enumerate(self.accountants):
             if acc is not None:
                 n_active = int(act_stack[:, k].sum())
@@ -1204,14 +1418,14 @@ def _dml_state_init(private_spec, proxy_spec, cfg: ProxyFLConfig) -> InitFn:
 def dml_engine(private_specs: Tuple, proxy_spec, cfg: ProxyFLConfig,
                backend: str = "auto", mix: str = "pushsum", device="cuda",
                draws: Optional[DrawsFn] = None,
-               codec_draws: Optional[CodecDrawsFn] = None
-               ) -> FederationEngine:
+               codec_draws: Optional[CodecDrawsFn] = None,
+               mesh=None, axis: str = "clients") -> FederationEngine:
     """Engine for the two-model (private + proxy DML) family: ProxyFL
     (mix="pushsum") and FML (mix="mean"). Heterogeneous private
     architectures (``private_specs`` not all equal) give each client its
     own step and init functions, and ``backend="auto"`` then runs them on
     the loop backend; the proxy is one architecture, so the exchange is
-    the same."""
+    the same. ``mesh`` and ``axis`` are the shard_map backend's."""
     if all(s == private_specs[0] for s in private_specs):
         step_fns = _dml_state_step(private_specs[0], proxy_spec, cfg)
         init_fns = _dml_state_init(private_specs[0], proxy_spec, cfg)
@@ -1225,7 +1439,7 @@ def dml_engine(private_specs: Tuple, proxy_spec, cfg: ProxyFLConfig,
         init_fns=init_fns, sample_fn=classifier_sampler(cfg.batch_size),
         backend=backend, mix=mix, device=device, draws=draws,
         codec_draws=codec_draws, stackable=True,
-        noisy_steps=cfg.dp.enabled)
+        noisy_steps=cfg.dp.enabled, mesh=mesh, axis=axis)
 
 
 def _ce_state_step(spec, cfg: ProxyFLConfig, dp: bool) -> StepFn:
@@ -1257,17 +1471,19 @@ def single_model_engine(spec, cfg: ProxyFLConfig, dp: bool,
                         mix: str = "mean", backend: str = "auto",
                         n_clients: int = 0, device="cuda",
                         draws: Optional[DrawsFn] = None,
-                        codec_draws: Optional[CodecDrawsFn] = None
+                        codec_draws: Optional[CodecDrawsFn] = None,
+                        mesh=None, axis: str = "clients"
                         ) -> FederationEngine:
     """Engine for the single-model baselines: FedAvg (mix="mean"), AvgPush
     ("pushsum"), CWT ("ring"), Regular and Joint ("none"). The model lives
     in the exchanged ``proxy`` slot of the state ``{"proxy": {"params",
     "opt"}, "w"}``; ``dp`` runs its step under DP-SGD. ``n_clients`` (0:
-    ``cfg.n_clients``) is the cohort size."""
+    ``cfg.n_clients``) is the cohort size; ``mesh`` and ``axis`` are the
+    shard_map backend's."""
     return FederationEngine(
         cfg, n_clients=n_clients or cfg.n_clients,
         step_fns=_ce_state_step(spec, cfg, dp),
         init_fns=_ce_state_init(spec, cfg),
         sample_fn=classifier_sampler(cfg.batch_size), backend=backend,
         mix=mix, device=device, draws=draws, codec_draws=codec_draws,
-        stackable=True, noisy_steps=dp)
+        stackable=True, noisy_steps=dp, mesh=mesh, axis=axis)

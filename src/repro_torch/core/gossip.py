@@ -16,6 +16,9 @@ they are array-equal to the reference. The exchanges run on the stacked
 :func:`hier_mix_debiased` and :func:`hier_stale_mix_apply` through the
 shard-grid entry of the mix kernel), or the compressed
 exchange of :mod:`repro_torch.core.compress` (plain torch, no kernel).
+:func:`pushsum_gossip_shard` is the ``shard_map`` backend's exchange: one
+client per rank of a ``torch.distributed`` process group, the peer's
+proxy received by send/recv (NCCL on the card, gloo on the CPU).
 :func:`comm_cost_per_round` is the analytic communication model of fig. 4.
 """
 from __future__ import annotations
@@ -539,6 +542,69 @@ def hier_gossip_reference(z0, w0, Ps, n_shards: int, staleness: int = 0):
         w = wm + arrive_w
         z = (mixed + arrive_t) / w[:, None]
     return z, w, buf_t, buf_w
+
+
+# ---------------------------------------------------------------------------
+# distributed backend: one client per rank of a process group, send/recv
+
+
+def pushsum_gossip_shard(theta_local: torch.Tensor, w_local: torch.Tensor,
+                         t: int, group, n_clients: int,
+                         topology: str = "exponential",
+                         self_weight: float = 0.5, active=None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One PushSum round along the ranks of ``group`` (a
+    ``torch.distributed`` process group of ``n_clients`` ranks, rank r
+    holding client r): every rank calls it with its own ``theta_local``
+    and ``w_local`` and gets back its mixed (θ, w), NOT yet de-biased.
+
+    Sends (1 − self_weight)·(θ, w) to the peer ``shift`` ahead and keeps
+    self_weight·(θ, w): Algorithm 1 lines 7-10 with P(t) from
+    :func:`adjacency_matrix`, as one ``batch_isend_irecv`` of four
+    messages, whatever K (the O(1) communication claim). ``active``
+    (bool[K] or None, the same on every rank) is the §3.4 membership: an
+    inactive rank keeps its state and sends nothing, the shift runs over
+    the active subset, and a rank that receives nothing gets zeros. Dense
+    mixing (``topology="full"``, shift −1) is a sum over all ranks of
+    m·θ and m·w, m the rank's active flag, every rank joining, divided by
+    the active count A on the active ranks. A ≤ 1 or a zero shift moves
+    nothing. The schedule is fixed on the host, as the reference's is
+    static at trace time."""
+    import torch.distributed as dist
+
+    active_idx = (list(range(n_clients)) if active is None else
+                  [i for i in range(n_clients) if active[i]])
+    A = len(active_idx)
+    if A <= 1:
+        return theta_local, w_local
+    shift = gossip_shift(t, A, topology)
+    if shift == 0:
+        return theta_local, w_local
+    me = dist.get_rank(group)
+    live = me in active_idx
+    if shift == -1:   # dense averaging among the active ranks
+        sum_t = theta_local * float(live)
+        sum_w = w_local * float(live)
+        dist.all_reduce(sum_t, group=group)
+        dist.all_reduce(sum_w, group=group)
+        if not live:
+            return theta_local, w_local
+        return sum_t / A, sum_w / A
+    send_t = (1.0 - self_weight) * theta_local
+    send_w = (1.0 - self_weight) * w_local
+    recv_t, recv_w = torch.zeros_like(send_t), torch.zeros_like(send_w)
+    if live:
+        pos = active_idx.index(me)
+        dst = dist.get_global_rank(group, active_idx[(pos + shift) % A])
+        src = dist.get_global_rank(group, active_idx[(pos - shift) % A])
+        ops = [dist.P2POp(dist.isend, send_t, dst, group),
+               dist.P2POp(dist.isend, send_w, dst, group),
+               dist.P2POp(dist.irecv, recv_t, src, group),
+               dist.P2POp(dist.irecv, recv_w, src, group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    keep = self_weight if live else 1.0
+    return keep * theta_local + recv_t, keep * w_local + recv_w
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,25 @@ The forwards a gradient passes through run the model's plain path
 (``use_pallas=False``): the kernels have no backward, and the reference
 trains through XLA's autodiff of its plain path.
 
+Rounds on a mesh
+----------------
+The reference's multi-pod round programs, on a ``torch.distributed``
+process group: the mesh is a ``DeviceMesh`` with a ``"pod"`` dim, and
+every rank (pod) calls the program on what it holds.
+:func:`make_fl_round_step` and :func:`make_round_block_step` hold one
+client a pod: its local DML step (:func:`make_train_step`), then the
+PushSum exchange of the flat proxy with the pod the round's shift ahead
+(:func:`repro_torch.core.gossip.pushsum_gossip_shard`, one send/recv),
+then the de-bias. :func:`make_hier_round_block_step` holds L clients a
+pod, stepped at once (:func:`repro_torch.core.engine.vmap_step`, the
+kernels' client routes), and factors each round's P(t) as the hier
+backend does: an [L, L] intra-pod matmul, and the cross-pod edge as at
+most two send/recv of the [L, D] pod block. The per-round schedules are
+fixed on the host, as the reference's are static at trace time. A round
+takes each client's batch and its DP noise (absent: drawn from a
+generator, one-client programs only), so a test can replay the
+reference's draws.
+
 Serving
 -------
 A serving step takes a state ``{"params", "cache"}`` and a batch and
@@ -49,17 +68,25 @@ import torch
 
 from ..configs.base import InputShape, ModelConfig, ProxyFLConfig
 from ..core.dp import dp_gradient_chunked, non_dp_gradient
+from ..core.engine import vmap_step
+from ..core.gossip import (gossip_shift, hier_mix_schedule,
+                           pushsum_gossip_shard)
 from ..nn.losses import dml_loss
 from ..nn.model import forward, init_cache, init_model
+from ..nn.modules import (tree_flatten_vector, tree_leaves, tree_map,
+                          tree_unflatten_vector)
 from ..optim import Adam
+
+POD = "pod"
 
 
 @dataclass(frozen=True)
 class StepOptions:
     """Implementation knobs of the steps (the reference's mesh fields
-    ``shard_acts``, ``expert_parallel`` and ``serve_2d`` wait for
-    ROADMAP.md Queue 1 item 12; ``remat`` and ``logits_dtype``, which its
-    train driver pins or leaves unread, for the dryrun port, item 14)."""
+    ``shard_acts``, ``expert_parallel`` and ``serve_2d``, GSPMD placements,
+    wait for ROADMAP.md Queue 1 item 12b, their DTensor / FSDP / TP form;
+    ``remat`` and ``logits_dtype``, which its train driver pins or leaves
+    unread, for the dryrun port, item 14)."""
 
     accum: int = 8                # private-grad microbatch accumulation chunks
     dp_chunk: int = 8             # examples per DP vmap chunk
@@ -165,6 +192,167 @@ def make_train_step(cfg_priv: ModelConfig, cfg_proxy: ModelConfig,
                            "proxy_loss": m_theta["loss"]}
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# rounds on a mesh: one client (or one shard of clients) per pod
+
+
+def _from_pods_back(offsets, tensors, group, n_pods: int):
+    """For each offset, every pod's ``tensors`` delivered to the pod that
+    offset ahead: this pod gets pod (p − offset)'s. An offset ≡ 0 (mod
+    n_pods) is the pod's own, no traffic; the rest go in one
+    ``batch_isend_irecv``. Returns one list of tensors an offset."""
+    import torch.distributed as dist
+    me = dist.get_rank(group)
+    out, ops = [], []
+    for off in offsets:
+        if off % n_pods == 0:
+            out.append(list(tensors))
+            continue
+        dst = dist.get_global_rank(group, (me + off) % n_pods)
+        src = dist.get_global_rank(group, (me - off) % n_pods)
+        got = [torch.empty_like(x) for x in tensors]
+        ops += [dist.P2POp(dist.isend, x.contiguous(), dst, group)
+                for x in tensors]
+        ops += [dist.P2POp(dist.irecv, x, src, group) for x in got]
+        out.append(got)
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+def make_fl_round_step(cfg_priv: ModelConfig, cfg_proxy: ModelConfig,
+                       fl: ProxyFLConfig, mesh, n_clients: int,
+                       opts: StepOptions = StepOptions(), round_t: int = 0):
+    """A full Algorithm-1 round with one client per pod of ``mesh``'s
+    ``"pod"`` dim (``n_clients`` pods): ``round_step(state, batch,
+    noise=None, generator=None) -> (state, metrics)`` on each pod's own
+    client, its local DML step and then the PushSum exchange of its flat
+    proxy with the pod the round's shift ahead, self weight ½, de-biased
+    by ``max(w, 1e-9)``. ``round_t`` fixes the round's shift."""
+    dml = make_train_step(cfg_priv, cfg_proxy, fl, opts)
+    group = mesh.get_group(POD)
+
+    def round_step(state, batch, noise=None, generator=None):
+        new, metrics = dml(state, batch, generator, noise)
+        theta = new["proxy"]["params"]
+        flat = tree_flatten_vector(theta)[None]
+        w = new["w"].reshape(1)
+        mixed, w2 = pushsum_gossip_shard(flat, w, round_t, group, n_clients,
+                                         fl.topology, 0.5)
+        unb = mixed / torch.clamp_min(w2, 1e-9)[:, None]
+        new = dict(new, w=w2[0].to(new["w"].dtype))
+        new["proxy"] = dict(new["proxy"],
+                            params=tree_unflatten_vector(unb[0], theta))
+        return new, metrics
+
+    return round_step
+
+
+def _stack_rows(rows):
+    return {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
+
+
+def make_round_block_step(cfg_priv: ModelConfig, cfg_proxy: ModelConfig,
+                          fl: ProxyFLConfig, mesh, n_clients: int,
+                          opts: StepOptions = StepOptions(),
+                          n_rounds: int = 4, t0: int = 0):
+    """``n_rounds`` rounds of :func:`make_fl_round_step`, rounds ``t0 ..
+    t0+n_rounds-1`` with their own shifts: ``block_step(state, batch,
+    noises=None, generators=None)``, one batch for every round (as in the
+    reference), ``noises[i]`` / ``generators[i]`` round i's; the metrics
+    stacked to [n_rounds]. Equal to n_rounds separate round steps bit for
+    bit: it is them."""
+    rounds = [make_fl_round_step(cfg_priv, cfg_proxy, fl, mesh, n_clients,
+                                 opts, round_t=t0 + i)
+              for i in range(n_rounds)]
+
+    def block_step(state, batch, noises=None, generators=None):
+        rows = []
+        for i, round_step in enumerate(rounds):
+            state, m = round_step(
+                state, batch, None if noises is None else noises[i],
+                None if generators is None else generators[i])
+            rows.append(m)
+        return state, _stack_rows(rows)
+
+    return block_step
+
+
+def make_hier_round_block_step(cfg_priv: ModelConfig, cfg_proxy: ModelConfig,
+                               fl: ProxyFLConfig, mesh, n_shards: int,
+                               clients_per_shard: int,
+                               opts: StepOptions = StepOptions(),
+                               n_rounds: int = 4, t0: int = 0):
+    """The two-level round-block with one shard of L = ``clients_per_shard``
+    clients per pod (``n_shards`` pods): ``block_step(stacked_state,
+    stacked_batch, noises=None)`` on each pod's [L, ...] clients, one
+    batch for every round, ``noises`` [n_rounds, L, D] under DP. A round
+    steps the L clients at once, then factors the flat PushSum P(t)
+    (:func:`repro_torch.core.gossip.hier_mix_schedule`): the intra-pod
+    [L, L] block as a matmul, and the shift σ(t) = q·L + r as the pod
+    blocks of pods q and q + 1 back (at most two send/recv), client j's
+    cross edge reading row j − r of the first or row L − r + j of the
+    second; then the de-bias by ``max(w, 1e-9)``. Metrics [n_rounds,
+    L]."""
+    dml = make_train_step(cfg_priv, cfg_proxy, fl, opts)
+    group = mesh.get_group(POD)
+    S, L = n_shards, clients_per_shard
+    K = S * L
+
+    def make_exchange(t):
+        shift = gossip_shift(t, K, fl.topology) % K
+        if shift == 0:
+            return None
+        blocks, _, scale = hier_mix_schedule("pushsum", t, 1, K, S,
+                                             fl.topology)
+        q, r = divmod(shift, L)
+
+        def exchange(x, w):
+            import torch.distributed as dist
+            p = dist.get_rank(group)
+            # the f32 schedule promotes the products, as in the reference
+            dt = torch.promote_types(x.dtype, torch.float32)
+            x, w = x.to(dt), w.to(dt)
+            blk = torch.as_tensor(blocks[0][p], dtype=dt, device=x.device)
+            sc = torch.as_tensor(scale[0][p * L:(p + 1) * L], dtype=dt,
+                                 device=x.device)
+            intra, wm = blk @ x, blk @ w
+            got = _from_pods_back([q, q + 1] if r else [q], [x, w], group, S)
+            rx, rw = got[0]
+            if r:
+                rx = torch.cat([got[1][0][L - r:], rx[:L - r]])
+                rw = torch.cat([got[1][1][L - r:], rw[:L - r]])
+            return intra + sc[:, None] * rx, wm + sc * rw
+
+        return exchange
+
+    exchanges = [make_exchange(t0 + i) for i in range(n_rounds)]
+
+    def block_step(stacked_state, stacked_batch, noises=None):
+        rows = []
+        for i, ex in enumerate(exchanges):
+            new, m = vmap_step(dml, stacked_state, stacked_batch,
+                               None if noises is None else noises[i])
+            if ex is not None:
+                theta = new["proxy"]["params"]
+                flat = torch.cat([x.reshape(L, -1)
+                                  for x in tree_leaves(theta)], dim=1)
+                mixed, w2 = ex(flat, new["w"])
+                unb = mixed / torch.clamp_min(w2, 1e-9)[:, None]
+                pieces = iter(torch.split(
+                    unb, [x[0].numel() for x in tree_leaves(theta)], dim=1))
+                theta = tree_map(lambda x: next(pieces).reshape(
+                    x.shape).to(x.dtype), theta)
+                new = dict(new, w=w2.to(new["w"].dtype))
+                new["proxy"] = dict(new["proxy"], params=theta)
+            stacked_state = new
+            rows.append(m)
+        return stacked_state, _stack_rows(rows)
+
+    return block_step
 
 
 def init_serve_state(generator: torch.Generator, cfg: ModelConfig,

@@ -150,11 +150,14 @@ def test_fig_hier_rows(no_bench_env, tmp_path):
     no_bench_env.setenv("REPRO_BENCH_HIER_JSON", str(path))
     rows = fig_hier.run(False, "cpu", clients=(8, 16), rounds=2)
     assert json.loads(path.read_text()) == rows
+    # the reference's shard_map row where K is the device count: 8 gloo
+    # ranks on the CPU, at K = 8 only
     assert [(r["K"], r["backend"], r["n_shards"], r["staleness"])
             for r in rows] == [
         (K, b, s, t) for K in (8, 16)
         for b, s, t in (("loop", 1, 0), ("vmap", 1, 0), ("hier", 8, 0),
-                        ("hier", 8, 2))]
+                        ("hier", 8, 2)) + ((("shard_map", 8, 0),)
+                                           if K == 8 else ())]
     D = tree_size(fig_hier.spec_of("mlp", fig_hier.SHAPE,
                                    fig_hier.N_CLASSES).init(
         torch.Generator().manual_seed(0)))
@@ -169,9 +172,13 @@ def test_fig_hier_rows(no_bench_env, tmp_path):
                                                        r["K"], 8)
             assert r["bytes_cross_per_client"] == \
                 float((np.asarray(scale) > 0).mean()) * 4 * D
+        elif r["backend"] == "shard_map":
+            assert r["bytes_cross_per_client"] == 4.0 * D
+            assert r["devices"] == fig_hier.CPU_RANKS
         else:
             assert r["bytes_cross_per_client"] is None
-        assert bool(r["note"]) == bool(r["staleness"])
+        assert bool(r["note"]) == bool(r["staleness"]
+                                       or r["backend"] == "shard_map")
 
 
 def test_fig_kernels_rows(no_bench_env, tmp_path):

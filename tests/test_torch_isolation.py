@@ -73,12 +73,34 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for():
                       seeds=(0,), n_train_factor=0.01)
 
 
-@pytest.mark.parametrize("backend,item", [("shard_map", 12)])
-def test_unported_backends_name_the_roadmap_item(backend, item):
+@pytest.fixture(scope="module")
+def one_rank_mesh(tmp_path_factory):
+    """A one-rank gloo group over a file store, and its CPU device mesh."""
+    import torch.distributed as dist
+    from torch_shard_ranks import init_ranks
+    mesh = init_ranks(0, 1, str(tmp_path_factory.mktemp("gloo") / "store"))
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("case,message", [
+    ("no_mesh", "shard_map backend needs a mesh"),
+    ("wrong_size", "mesh axis 'clients' must hold exactly 2 devices"),
+    ("cuda_on_gloo", "a shard_map engine on 'cuda' needs a cuda mesh on "
+                     "nccl; mesh axis 'clients' is a cpu mesh on gloo")])
+def test_shard_map_refusals(one_rank_mesh, case, message):
+    """No mesh, a mesh of another size, and a CUDA engine on a gloo mesh
+    are refused: the backend never runs without its process group, and a
+    CUDA engine never on gloo or the CPU."""
     spec, _, cfg = _tiny()
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item}"):
-        dml_engine((spec,) * 2, spec, cfg, backend=backend, device="cpu")
+    n, mesh, device = 1, one_rank_mesh, "cuda"
+    if case == "no_mesh":
+        mesh, device = None, "cpu"
+    elif case == "wrong_size":
+        n, device = 2, "cpu"
+    with pytest.raises(ValueError, match=message):
+        dml_engine((spec,) * n, spec, dataclasses.replace(cfg, n_clients=n),
+                   backend="shard_map", device=device, mesh=mesh)
 
 
 @pytest.mark.parametrize("backend,n_shards,staleness",
@@ -92,6 +114,19 @@ def test_hier_constructs_an_engine_on_the_cpu(backend, n_shards, staleness):
     state, _ = eng.run_round(eng.init_states(0), data, 0, seed=0)
     assert len(eng.export_states(state)) == 2
     assert isinstance(state, dict) == (n_shards > 1 and staleness > 0)
+
+
+def test_shard_map_constructs_an_engine_on_the_cpu(one_rank_mesh):
+    """The backend the isolation test once refused runs a round on a
+    one-rank gloo group."""
+    spec, data, cfg = _tiny()
+    cfg = dataclasses.replace(cfg, n_clients=1)
+    eng = dml_engine((spec,), spec, cfg, backend="shard_map", device="cpu",
+                     mesh=one_rank_mesh)
+    assert eng.backend == "shard_map" and eng.stacked and not eng.mixing
+    state, m = eng.run_round(eng.init_states(0), data[:1], 0, seed=0)
+    assert len(eng.export_states(state)) == 1
+    assert m["proxy_loss"].shape == (1,)
 
 
 @pytest.mark.parametrize("knobs", [dict(compress="topk"),
