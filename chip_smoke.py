@@ -332,6 +332,25 @@
    6,293,760), 1 pod of L = 4 clients, 3 rounds, against the engine's
    vmap rounds on the same draws: every leaf at ``close``, the peers'
    client-route launches exact.
+16. Drives the dry-run (the "dryrun" phase, before the line of 14;
+   ``repro_torch.launch.dryrun``): (a) ``run_one`` on the meta device for
+   qwen2-7b × train_4k, prefill_32k and decode_32k and falcon-mamba-7b ×
+   long_500k (the reference's full shapes, nothing allocated), each
+   row's FLOPs, bytes, argument bytes, model FLOPs, useful share and the
+   roofline's three terms printed beside the card; (b) qwen2-7b's prefill
+   at B = 4 × 1,024 with the kernels (rmsnorm and bf16 attention launch)
+   counted by the cost counter on the card, held exactly to the count of
+   the same step on meta (FLOPs, matmul FLOPs, bytes). On both, each
+   kernel's op is charged its plain version's count on meta copies, so
+   what the equality holds is that the model's own ops on the card are
+   those on meta, and that each op's meta output has the layout the
+   kernel writes. Its argument bytes equal the storage bytes of the
+   state and batch built on the card, and its CUDA-event time is printed
+   beside its roofline time and their ratio (not gated);
+   its launches join the line of 14; (c) ``StepOptions.remat`` under the
+   stacked executor's CUDA graph: qwen1.5-4b's smoke variant, K = 3, with
+   and without remat, each round-key's second round captured and the
+   third replayed, the states at ``close`` (bit-equality printed).
 
 Any failure raises and exits nonzero. The script needs a CUDA device and
 the repository's ``src/`` beside it; it never runs on the CPU.
@@ -365,6 +384,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.launch.inspect import (device_profile,  # noqa: E402
+                                        kernel_key, kernel_times)
+from repro_torch.launch.mesh import H100_SXM  # noqa: E402
 
 # repro.core.accountant.epsilon_for(noise_multiplier=1.0, sample_rate=0.25,
 # steps=8, delta=1e-5) — 2 rounds x 4 steps of B = 250 on 1,000 examples —
@@ -376,11 +398,12 @@ EPSILON_2_ROUNDS = 6.528418259356986
 EPSILON_JOINT_2_ROUNDS = 2.325589769765162
 OTHER_METHODS = ("fml", "fedavg", "avgpush", "cwt", "regular", "joint")
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
-L2_BYTES = 50 * 2 ** 20     # H100 SXM L2 cache
-BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
-TF32X3_OPS_PER_S = 495e12 / 3   # f32-grade: three TF32 products at 495
+# the H100 SXM's published figures, from the package's one home for them
+HBM_BYTES_PER_S = H100_SXM["hbm_bandwidth"]       # device memory
+F32_OPS_PER_S = H100_SXM["peak_flops_f32"]        # f32 off the tensor cores
+L2_BYTES = H100_SXM["l2_bytes"]                   # L2 cache
+BF16_OPS_PER_S = H100_SXM["peak_flops_bf16"]      # dense bf16, tensor cores
+TF32X3_OPS_PER_S = H100_SXM["peak_flops_tf32x3"]  # three TF32 products
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SCAN_TOL = 2e-4             # tests/test_kernels.py's mamba scan tolerance
 MAIN_D, MAIN_K = 199_210, 8
@@ -2115,10 +2138,7 @@ def ops_api():
         kernels.gqa_flash_attention(q, k, v), kernels.rmsnorm(x, g),
         kernels.mamba_scan(*scan), kernels.noise_sgd_step(acc, noise, p, **hp),
         kernels.tree_clip_accumulate(zeros, grads, 1.0)))
-    busy = {}
-    for e in on_device:
-        key = kernel_key(e.name)
-        busy[key] = busy.get(key, 0.0) + e.self_device_time_total
+    busy = {k: us for k, (_, us) in kernel_times(on_device).items()}
     top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
     print(f"ops API profile: one call of each op: wall {wall_ms:.3f} ms, "
           f"device busy {sum(busy.values()) / 1e3:.3f} ms "
@@ -2755,112 +2775,6 @@ def timed_round(eng, state, data, t):
     finally:
         eng.step_fns = raw_steps
     return time.perf_counter() - t0, step_s
-
-
-def kernel_key(name: str) -> str:
-    """A device kernel's name without its namespaces, template arguments
-    and parameters."""
-    name = name.replace("(anonymous namespace)::", "")
-    return name.split("<")[0].split("(")[0].split("::")[-1]
-
-
-# the device kernel one launch of each counted wrapper (or route) runs,
-# besides second passes such as sumsq's sum_partials
-DEVICE_KERNELS = {
-    "flash_attention/wgmma": ("flash_fwd_sm90",),
-    "flash_attention/tf32x3": ("flash_fwd_tf32x3",),
-    "flash_attention/wgmma/narrow": ("flash_fwd_sm90_narrow",),
-    "flash_attention/tf32x3/narrow": ("flash_fwd_tf32x3_narrow",),
-    "rmsnorm": ("rmsnorm_rows",),
-    "mamba_scan": ("selective_scan",),
-    "noise_sgd_step": ("noise_sgd",),
-    "noise_adam_step": ("noise_adam",),
-    "sumsq": ("sumsq_partials",),
-    "scale_accumulate/vector": ("scale_acc",),
-    # the flat call and the client grid run one kernel
-    ("scale_accumulate/rows", "scale_accumulate/clients"): ("clip_acc_rows",),
-    "fused_pushsum_mix": ("mix_reg", "mix_stream"),
-    "fused_stale_mix": ("stale_reg", "stale_stream"),
-}
-ATTENTION_ROUTES = ("flash_attention/wgmma", "flash_attention/tf32x3",
-                    "flash_attention/wgmma/narrow",
-                    "flash_attention/tf32x3/narrow")
-
-
-def device_profile(fn, sessions: int = 3):
-    """Wall ms of one synchronised call of ``fn`` under torch.profiler,
-    and the device events (kernels and copies) it recorded. ``fn`` runs
-    twice in one profiler session: the first call is the session's
-    warm-up step, whose events are dropped (on the H100, sessions without
-    one lost up to three of their first device kernels once the main path
-    had run), the second is recorded. The recorded step must hold a
-    device kernel for every kernel launch it recorded on the host (by
-    correlation id): a session that lost any (one recorded step lost 44 of
-    265 on the H100 after its warm-up) is discarded, said so, and taken
-    again, up to ``sessions`` in all, and the run fails if none is whole.
-    A whole recording must hold as many device kernels of each counted
-    wrapper as the launch counters (reset just before the recorded call,
-    read just after) say it launched, or the run fails."""
-    from collections import Counter
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    from repro_torch import kernels
-
-    for attempt in range(1, sessions + 1):
-        recorded = {}
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: recorded.update(
-                         events=p.events())) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            prof.step()
-        counts = {**kernels.launch_counts(), **kernels.route_launch_counts()}
-        events = recorded["events"]
-        # the device events bar the step's own span (ProfilerStep#1)
-        on_device = [e for e in events if e.device_type == DeviceType.CUDA
-                     and not e.name.startswith("ProfilerStep")]
-        launched = {e.id for e in events if e.device_type == DeviceType.CPU
-                    and "LaunchKernel" in e.name}
-        lost = launched - {e.id for e in on_device}
-        if on_device and not lost:
-            break
-        print(f"profile: session {attempt} of {sessions} recorded no device "
-              f"kernel for {len(lost)} of {len(launched)} kernel launches; "
-              "discarded")
-    else:
-        raise AssertionError(f"no whole profile in {sessions} sessions")
-    seen = Counter(kernel_key(e.name) for e in on_device)
-    # attention folded over a vmapped cohort counts under its own route
-    # and runs the kernel of its dtype's: each kernel route's kernels lie
-    # between its launches and those plus the folds', and all of
-    # attention's kernels are its launches (with no fold, each route's
-    # exactly)
-    folded = counts.get("flash_attention/clients", 0)
-    for counter, names in DEVICE_KERNELS.items():
-        got = sum(seen[n] for n in names)
-        want = sum(counts.get(c, 0) for c in (
-            counter if isinstance(counter, tuple) else (counter,)))
-        slack = folded if counter in ATTENTION_ROUTES else 0
-        assert want <= got <= want + slack, (
-            f"the profile recorded {got} {'/'.join(names)} kernel(s) where "
-            f"{counter} launched {want}"
-            + (f" and the folds {folded}" if slack else ""))
-    got = sum(seen[n] for r in ATTENTION_ROUTES for n in DEVICE_KERNELS[r])
-    assert got == counts.get("flash_attention", 0), (
-        f"the profile recorded {got} attention kernel(s) where attention "
-        f"launched {counts.get('flash_attention', 0)}")
-    return wall_ms, on_device
 
 
 def async_config(cfg):
@@ -3504,10 +3418,7 @@ def step_breakdown(spec, data, test, cfg):
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.2f}%), {len(on_device)} device "
           "kernels and copies")
-    busy = {}
-    for e in on_device:
-        key = kernel_key(e.name)
-        busy[key] = busy.get(key, 0.0) + e.self_device_time_total
+    busy = {k: us for k, (_, us) in kernel_times(on_device).items()}
     print("profile: device us by kernel in the step: " + ", ".join(
         f"{n} {t:.3f}" for n, t in sorted(busy.items(),
                                           key=lambda kv: -kv[1])[:10]))
@@ -4048,10 +3959,7 @@ def train_breakdown(run, args, card):
           f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.2f}%), {len(on_device)} device "
           "kernels and copies")
-    busy = {}
-    for e in on_device:
-        key = kernel_key(e.name)
-        busy[key] = busy.get(key, 0.0) + e.self_device_time_total
+    busy = {k: us for k, (_, us) in kernel_times(on_device).items()}
     print("train profile: device us by kernel in the step: " + ", ".join(
         f"{k} {t:.3f}" for k, t in sorted(busy.items(),
                                           key=lambda kv: -kv[1])[:10]))
@@ -4106,10 +4014,7 @@ def train_profile(run, args, card):
     wall_ms, on_device = device_profile(
         lambda: eng.run_rounds(state, run.data, 2, 1, args.seed))
     busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-    busy = {}
-    for e in on_device:
-        key = kernel_key(e.name)
-        busy[key] = busy.get(key, 0.0) + e.self_device_time_total
+    busy = {k: us for k, (_, us) in kernel_times(on_device).items()}
     print(f"train phase (a): a captured round of the preset under the "
           f"profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.2f}%), {len(on_device)} device "
@@ -5263,10 +5168,8 @@ def stacked_main(spec, data, cfg, card):
         busy_ms = sum(ev.self_device_time_total for ev in on_device) / 1e3
         busy[T] = (busy_ms, wall_ms, len(on_device))
     out["busy"] = busy
-    by_kernel = {}
-    for ev in on_device:     # the block of 4
-        key = kernel_key(ev.name)
-        by_kernel[key] = by_kernel.get(key, 0.0) + ev.self_device_time_total
+    by_kernel = {k: us for k, (_, us)   # the block of 4
+                 in kernel_times(on_device).items()}
     print("stacked: device us a captured round by kernel (a block of 4 "
           "rounds / 4): " + ", ".join(
               f"{n} {t / 4:.3f}" for n, t in sorted(
@@ -5568,7 +5471,7 @@ def shard_hier_train(pods, card):
     free_engines()
     block = steps.make_hier_round_block_step(
         run.cfg, run.proxy, run.fl, pods, 1, SHARD_HIER_L,
-        steps.StepOptions(accum=1, dp_chunk=args.batch),
+        steps.StepOptions(remat=False, accum=1, dp_chunk=args.batch),
         n_rounds=SHARD_HIER_ROUNDS)
     batch = stack_states([run.engine.sample_fn(
         d, None, i.to(tree_leaves(d)[0].device))
@@ -5611,6 +5514,211 @@ def shard_map_path(setup, card):
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"shard_map phase: {time.perf_counter() - t0:.1f} s")
     return res
+
+
+# ---------------------------------------------------------------------------
+# the dryrun phase: the dry-run at the reference's shapes, and its count
+# held against a step on the card
+
+DRYRUN_COMBOS = (("qwen2-7b", "train_4k"), ("qwen2-7b", "prefill_32k"),
+                 ("qwen2-7b", "decode_32k"), ("falcon-mamba-7b", "long_500k"))
+DRYRUN_PREFILL = dict(B=4, S=1_024)   # the serve phase's qwen2-7b prefill
+
+
+def storage_bytes(tree) -> int:
+    """Bytes of the distinct storages under ``tree``'s tensors: what the
+    card holds for them."""
+    from repro_torch.nn.modules import tree_leaves
+
+    seen = {}
+    for t in tree_leaves(tree):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def dryrun_path(card):
+    t_phase = time.perf_counter()
+    # (a) the reference's full shapes on meta: host work alone, in two
+    # processes of their own (no CUDA device; the train step, the rest)
+    # while (b) and (c) run on the card
+    code = ("import json, sys, time\n"
+            "from repro_torch.launch import dryrun\n"
+            "for arch, shape in json.loads(sys.argv[1]):\n"
+            "    t0 = time.perf_counter()\n"
+            "    r = dryrun.run_one(arch, shape, verbose=False)\n"
+            "    r['seconds'] = time.perf_counter() - t0\n"
+            "    print(json.dumps(r), flush=True)\n")
+    src = str(Path(__file__).resolve().parent / "src")
+    meta_runs = [subprocess.Popen(
+        [sys.executable, "-c", code, json.dumps(combos)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=src, CUDA_VISIBLE_DEVICES=""))
+        for combos in (DRYRUN_COMBOS[:1], DRYRUN_COMBOS[1:])]
+    try:
+        t0 = time.perf_counter()
+        prefill = dryrun_prefill(card)
+        t1 = time.perf_counter()
+        remat = dryrun_remat_capture(card)
+        t2 = time.perf_counter()
+        results = [p.communicate(timeout=600) for p in meta_runs]
+    finally:
+        for p in meta_runs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (_, err) in zip(meta_runs, results):
+        assert p.returncode == 0, err[-4000:]
+    out = "".join(o for o, _ in results)
+    t3 = time.perf_counter()
+    # (b)'s time, the meta runs done: the host is the step's alone
+    b_result = dryrun_prefill_time(card, *prefill)
+    print(f"dryrun phase parts: (b) count {t1 - t0:.1f} s, (c) "
+          f"{t2 - t1:.1f} s, (a) waited for {t3 - t2:.1f} s more, (b) "
+          f"timed {time.perf_counter() - t3:.1f} s")
+    rows = {}
+    for line in out.splitlines():
+        r = json.loads(line)
+        assert r["status"] == "ok", r
+        rl = r["roofline"]
+        rows[f"{r['arch']} {r['shape']}"] = r
+        print(f"dryrun (a) {r['arch']} x {r['shape']} ({r['program']}, "
+              f"meta, {r['seconds']:.1f} s): flops "
+              f"{r['flops_global']:.6e} (matmul "
+              f"{r['matmul_flops_global']:.6e}), bytes "
+              f"{r['bytes_global']:.6e}, argument bytes "
+              f"{r['argument_bytes_per_device']}, model flops "
+              f"{r['model_flops']:.6e}, useful ratio "
+              f"{r['useful_flops_ratio']:.4f}; roofline compute "
+              f"{rl['compute_s'] * 1e3:.3f} ms, memory "
+              f"{rl['memory_s'] * 1e3:.3f} ms, collective "
+              f"{rl['collective_s'] * 1e3:.3f} ms ({rl['dominant']}-bound) "
+              f"on {card}")
+    assert len(rows) == len(DRYRUN_COMBOS), sorted(rows)
+    phase_s = time.perf_counter() - t_phase
+    print(f"dryrun phase: {phase_s:.1f} s on {card}")
+    return dict(b_result, rows=rows, seconds=phase_s, remat=remat)
+
+
+def dryrun_remat_capture(card):
+    """The dryrun phase's (c): ``StepOptions.remat`` under the stacked
+    executor's CUDA graph. Two engines over qwen1.5-4b's smoke variant (K
+    = 3, B = 2, S = 16, KV chunks of 8, the kernels on the peers), one
+    with remat and one without, 3 rounds each (the first eager, the
+    second captured, the third replayed): both capture, and their states
+    agree (at ``close``; bit-equal on the CPU, tests/test_torch_dryrun.py)."""
+    from repro_torch.core.engine import FederationEngine
+    from repro_torch.launch import steps, train
+    from repro_torch.nn.modules import tree_leaves
+
+    args = train.parse_args(["--arch", "qwen1.5-4b", "--smoke", "--clients",
+                             "3", "--rounds", "3", "--steps-per-round", "1",
+                             "--batch", "2", "--seq", "16", "--use-pallas"])
+    run = train.setup(args)
+    finals = {}
+    for remat in (False, True):
+        opts = steps.StepOptions(remat=remat, accum=1, dp_chunk=2,
+                                 kv_chunk=8)
+        eng = FederationEngine(
+            run.fl, n_clients=3,
+            step_fns=steps.make_train_step(run.cfg, run.proxy, run.fl, opts),
+            init_fns=lambda g: steps.init_train_state(
+                g, run.cfg, run.proxy, run.fl, opts),
+            sample_fn=train.lm_sampler(2), backend="vmap", mix="pushsum",
+            device="cuda", stackable=True, noisy_steps=True)
+        assert eng.stacked
+        state = clone(run.state)
+        for t in range(3):
+            state = eng.run_rounds(state, run.data, t, 1, args.seed)[0]
+        torch.cuda.synchronize()
+        assert eng._graphs, "the round was not captured"
+        finals[remat] = [x.float() for x in tree_leaves(state)]
+        del eng
+        free_engines()
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(finals[False], finals[True]))
+    same = all(torch.equal(a, b) for a, b in zip(finals[False], finals[True]))
+    for a, b in zip(finals[False], finals[True]):
+        torch.testing.assert_close(b, a, **CLOSE)
+    print(f"dryrun (c) remat under the captured stacked round (qwen1.5-4b "
+          f"smoke, K = 3, 3 rounds, the first eager, the second captured): "
+          f"both captured; remat against none: max abs diff {worst:.3e}"
+          f"{' (bit-equal)' if same else ''} on {card}")
+    return {"max_abs_diff": worst, "bit_equal": same}
+
+
+def dryrun_prefill(card):
+    """The dryrun phase's (b): qwen2-7b's prefill with the kernels, counted
+    on meta and on the card."""
+    from repro_torch import kernels
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost import CostCounter
+
+    cfg = get_config("qwen2-7b")
+    shape = InputShape("serve_prefill", DRYRUN_PREFILL["S"],
+                       DRYRUN_PREFILL["B"], "prefill")
+    meta_call, _, meta_args, mf = dryrun.step_call(cfg, shape, "prefill",
+                                                   use_pallas=True)
+    with CostCounter() as on_meta:
+        meta_call()
+    call, state, card_args, _ = dryrun.step_call(
+        cfg, shape, "prefill", use_pallas=True, device="cuda")
+    torch.cuda.synchronize()
+    built = storage_bytes(state) + DRYRUN_PREFILL["B"] * DRYRUN_PREFILL["S"] \
+        * 4   # the int32 tokens
+    assert meta_args == card_args == built, (meta_args, card_args, built)
+    call()   # the first call (a pass over the weights, nothing counted)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with CostCounter() as on_card:
+        _, logits = call()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    got = (on_card.flops, on_card.matmul_flops, on_card.bytes)
+    want = (on_meta.flops, on_meta.matmul_flops, on_meta.bytes)
+    assert got == want, f"the card's count {got} != meta's {want}"
+    assert torch.isfinite(logits.float()).all()
+    assert launches["rmsnorm"] > 0 and launches["flash_attention"] > 0, \
+        launches
+    assert not {k: v for k, v in launches.items()
+                if v and k not in ("rmsnorm", "flash_attention")}, launches
+    print(f"dryrun (b) qwen2-7b prefill B = {shape.global_batch} x "
+          f"{shape.seq_len}, the kernels on: flops {on_card.flops:.6e} "
+          f"(matmul {on_card.matmul_flops:.6e}), bytes "
+          f"{on_card.bytes:.6e}, equal on the card and on meta; argument "
+          f"bytes {card_args} (the built state and tokens); launches "
+          f"rmsnorm {launches['rmsnorm']}, flash_attention "
+          f"{launches['flash_attention']}; model flops {mf:.6e} on {card}")
+    return call, state, on_meta, launches
+
+
+def dryrun_prefill_time(card, call, state, on_meta, launches):
+    """(b)'s step timed with CUDA events beside its roofline time."""
+    from repro_torch.launch import dryrun
+
+    call()   # warm-up
+    # the step's time from CUDA events, beside its roofline
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    n = 5
+    start.record()
+    for _ in range(n):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / n
+    rl = dryrun.roofline(on_meta.flops, on_meta.bytes)
+    bound_ms = 1e3 * max(rl["compute_s"], rl["memory_s"],
+                         rl["collective_s"])
+    print(f"dryrun (b) qwen2-7b prefill B = {DRYRUN_PREFILL['B']} x "
+          f"{DRYRUN_PREFILL['S']}: measured {ms:.3f} ms a call (CUDA "
+          f"events, {n} calls), roofline {bound_ms:.3f} ms "
+          f"({rl['dominant']}-bound: compute {rl['compute_s'] * 1e3:.3f}, "
+          f"memory {rl['memory_s'] * 1e3:.3f}), measured / roofline "
+          f"{ms / bound_ms:.3f} on {card}")
+    del state, call
+    free_engines()
+    return {"launches": launches, "ms": ms, "bound_ms": bound_ms}
 
 
 def main() -> int:
@@ -5675,6 +5783,7 @@ def main() -> int:
     hier = hier_path(setup, card)
     stacked = stacked_path(setup, card)
     shard = shard_map_path(setup, card)
+    dry = dryrun_path(card)
 
     # each kernel's launches on the path that runs it
     # the main path (stacked): sumsq_rows, the client-grid clip and Adam,
@@ -5845,6 +5954,9 @@ def main() -> int:
         out[-1]["launches_shard_map"] = {
             run: c.get(launch_key(name), 0)
             for run, c in shard_counts.items()}
+        if name in ("rmsnorm", "flash_attention"):
+            # the dryrun phase's counted prefill (qwen2-7b, B = 4 x 1,024)
+            out[-1]["launches_dryrun"] = dry["launches"][name]
         if name == "fused_pushsum_mix_blocks":
             out[-1]["hier_rows"] = {
                 label: rows[label] for label in rows

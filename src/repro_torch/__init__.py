@@ -28,14 +28,16 @@ torch.backends.cudnn.deterministic = True
 torch.backends.cudnn.benchmark = False
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, *, shapes_only: bool = False) -> torch.device:
     """``device`` as a torch.device; raises when CUDA is asked for and
-    absent (the caller must pass ``device="cpu"`` to run on the CPU)."""
+    absent (the caller must pass ``device="cpu"`` to run on the CPU).
+    ``shapes_only`` (a caller that builds shapes: the dry-run) also admits
+    ``"meta"``, where nothing is allocated or computed."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available: repro_torch runs on the GPU by default; "
             "pass device='cpu' to run the plain versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu") + (("meta",) if shapes_only else ()):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -9,11 +9,12 @@ printed as CSV rows (port of ``benchmarks/run.py``).
     PYTHONPATH=src python -m repro_torch.benchmarks.run --only fig_hier --device cpu
 
 The registry lists the port's drivers only (``src/repro_torch/benchmarks``;
-every ``fig_*`` file there is registered). The reference's ``roofline``
-waits for the XLA-tooling analogues (ROADMAP.md Queue 1 item 14).
+every ``fig_*`` file there is registered), and ``roofline``, the report of
+the dry-run's JSON rows (``repro_torch.launch.dryrun``).
 ``REPRO_BENCH_FULL=1`` is ``--full``. The runner runs
 on the card (``--device cuda``, the default) and prints its name and power
-limit first.
+limit first; where no selected benchmark takes a device (``roofline``,
+``fig11_batchsize``) and the device is absent, it runs on the host.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from ..launch.serve import device_label
 from . import (fig3_accuracy, fig4_comm, fig5_ablations, fig6_kvasir,
                fig11_batchsize, fig_async, fig_blocks, fig_compress,
                fig_dropout, fig_hier, fig_kernels, fig_ragged, mia_privacy,
-               table2_histo)
+               roofline, table2_histo)
 from .common import FULL
 
 # name -> (module, paper anchor, runtime tier). ``--list`` shows each
@@ -50,6 +51,7 @@ MODULES = {
     "fig_async": (fig_async, "beyond-paper", "full"),
     "fig_dropout": (fig_dropout, "paper §3.4", "full"),
     "mia_privacy": (mia_privacy, "beyond-paper", "full"),
+    "roofline": (roofline, "§Roofline", "full"),
 }
 
 TIERS = ("fast", "full")
@@ -74,11 +76,15 @@ def list_benchmarks() -> list:
     return [_describe(name) for name in MODULES]
 
 
+def _takes_device(name: str) -> bool:
+    return "device" in inspect.signature(MODULES[name][0].run).parameters
+
+
 def run_one(name: str, full: bool, device: str):
     """Module ``name``'s rows; ``device`` goes to drivers that take one
-    (fig. 11 is accountant arithmetic)."""
+    (fig. 11 is accountant arithmetic, the roofline reads files)."""
     mod = MODULES[name][0]
-    if "device" in inspect.signature(mod.run).parameters:
+    if _takes_device(name):
         return mod.run(full, device=device)
     return mod.run(full)
 
@@ -107,8 +113,13 @@ def main(argv=None) -> int:
     if args.tier:
         allowed = set(names_for_tier(args.tier))
         names = [n for n in names if n in allowed]
-    print(f"[bench] on {device_label(resolve_device(args.device))}",
-          flush=True)
+    try:
+        where = device_label(resolve_device(args.device))
+    except RuntimeError:
+        if any(_takes_device(n) for n in names):
+            raise
+        where = "the host (no selected benchmark takes a device)"
+    print(f"[bench] on {where}", flush=True)
 
     failures = 0
     for name in names:

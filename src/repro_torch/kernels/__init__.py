@@ -6,8 +6,14 @@ Dispatch policy
 ---------------
 A wrapper launches its CUDA kernel (``csrc/*.cu``, built by ``nvcc`` for
 ``sm_90a`` at first use, see :mod:`._build`) when its tensors lie on a CUDA
-device, and runs the plain version only when they lie on the CPU. There is
-no fallback: a CUDA tensor the kernel does not take raises.
+device, and runs the plain version only when they lie on the CPU (or on
+the ``meta`` device, where the plain version computes shapes alone: the
+dry-run's cost counter, ``repro_torch.launch.cost``, counts its work).
+There is no fallback: a CUDA tensor the kernel does not take raises.
+Under that counter (a dispatch mode) a wrapper with a ``torch.library``
+op calls the op, which the counter charges its plain version's count on
+meta copies of its inputs before it runs the op uncounted, so a step
+counts the same on the card as on meta.
 :func:`default_interpret` and :func:`resolve_interpret` state that policy
 where the JAX package chose interpret mode by platform.
 

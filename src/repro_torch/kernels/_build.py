@@ -99,6 +99,10 @@ _SIGNATURES = {
 
 _lib: Optional[ctypes.CDLL] = None
 
+#: the body of each of the wrappers' ``torch.library`` custom ops, by its
+#: qualified name (what :func:`custom_op` registered)
+OP_BODIES = {}
+
 
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"),
@@ -199,14 +203,16 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} failed to launch: cudaError {err}")
 
 
-def transformed() -> bool:
-    """Whether a ``torch.func`` transform (a vmap over a cohort) is active:
-    there a call goes through the wrapper's ``torch.library`` op, whose
-    vmap rule picks the route. Outside every transform (serving,
-    evaluation) a call runs the op's body directly, without the
-    dispatcher. One query, not one a tensor: it is on every eager call's
-    path."""
-    return torch._C._functorch.maybe_current_level() is not None
+def through_op() -> bool:
+    """Whether a call goes through the wrapper's ``torch.library`` op:
+    under a ``torch.func`` transform (a vmap over a cohort), whose vmap
+    rule picks the route, or under a dispatch mode (the dry-run's cost
+    counter, ``repro_torch.launch.cost``), which sees the op as one call
+    where it cannot see a launch. Elsewhere (serving, evaluation) a call
+    runs the op's body directly, without the dispatcher. Two queries, not
+    one a tensor: this is on every eager call's path."""
+    return (torch._C._functorch.maybe_current_level() is not None
+            or torch._C._len_torch_dispatch_stack() > 0)
 
 
 def refuse_grad(name: str, *tensors) -> None:
@@ -235,3 +241,20 @@ def check_cuda(name: str, *tensors: torch.Tensor,
                              f"current CUDA device cuda:{dev}")
         if contiguous and not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def plain(t: torch.Tensor) -> bool:
+    """Whether a wrapper runs its plain version on ``t``: a CPU tensor, or
+    a ``meta`` tensor (shapes only: the dry-run's cost counter counts the
+    plain version's work there). A CUDA tensor launches the kernel."""
+    return t.device.type in ("cpu", "meta")
+
+
+def custom_op(name: str, body, schema: str):
+    """``torch.library.custom_op`` with no mutated arguments, its body kept
+    in :data:`OP_BODIES` (the cost counter charges a call of the op by
+    running the body on meta copies of its arguments: the plain
+    version)."""
+    OP_BODIES[name] = body
+    return torch.library.custom_op(name, body, mutates_args=(),
+                                   schema=schema)

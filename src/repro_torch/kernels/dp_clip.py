@@ -59,7 +59,7 @@ def sumsq(x: torch.Tensor) -> torch.Tensor:
     """Sum of squares of a 1-D f32/bf16 vector, accumulated in f32 (0-d)."""
     _check_vector("sumsq", x, "x")
     _build.refuse_grad("sumsq", x)
-    if x.device.type == "cpu":
+    if _build.plain(x):
         return sumsq_ref(x)
     _build.check_cuda("sumsq", x)
     n = x.numel()
@@ -95,7 +95,7 @@ def _scale_accumulate(acc: torch.Tensor, g: torch.Tensor,
     if scale.numel() != 1 or scale.dtype != torch.float32:
         raise TypeError("scale_accumulate: scale must be a one-element f32 "
                         "tensor")
-    if acc.device.type == "cpu":
+    if _build.plain(acc):
         return scale_accumulate_ref(acc, g, scale.reshape(()))
     _build.check_cuda("scale_accumulate", acc, g, scale)
     out = torch.empty_like(acc)
@@ -132,7 +132,7 @@ def sumsq_rows(x: torch.Tensor) -> torch.Tensor:
 
 def _sumsq_rows(x: torch.Tensor) -> torch.Tensor:
     _check_rows("sumsq_rows", x, "x")
-    if x.device.type == "cpu":
+    if _build.plain(x):
         return sumsq_rows_ref(x)
     _build.check_cuda("sumsq_rows", x, contiguous=False)
     B, n = x.shape
@@ -176,7 +176,7 @@ def _clip_accumulate_rows(g: torch.Tensor,
                           scales: torch.Tensor) -> torch.Tensor:
     _check_rows("clip_accumulate_rows", g, "g")
     _check_scales("clip_accumulate_rows", g, scales)
-    if g.device.type == "cpu":
+    if _build.plain(g):
         return clip_accumulate_rows_ref(g, scales)
     _build.check_cuda("clip_accumulate_rows", g, scales,
                       contiguous=False)
@@ -205,7 +205,7 @@ def clip_accumulate_rows_clients(g: torch.Tensor,
                          f"non-empty [K, B, D] stack, got {tuple(g.shape)}")
     _check_rows("clip_accumulate_rows_clients", g[0], "each client's g")
     _check_scales("clip_accumulate_rows_clients", g, scales)
-    if g.device.type == "cpu":
+    if _build.plain(g):
         return clip_accumulate_rows_clients_ref(g, scales)
     _build.check_cuda("clip_accumulate_rows_clients", g, scales,
                       contiguous=False)
@@ -237,14 +237,14 @@ def _batch_first(t: torch.Tensor, dim, n: int) -> torch.Tensor:
     return t.movedim(dim, 0)
 
 
-_sumsq_rows_op = torch.library.custom_op(
-    "repro_torch::sumsq_rows", _sumsq_rows, mutates_args=(),
+_sumsq_rows_op = _build.custom_op(
+    "repro_torch::sumsq_rows", _sumsq_rows,
     schema="(Tensor x) -> Tensor")
-_clip_accumulate_rows_op = torch.library.custom_op(
+_clip_accumulate_rows_op = _build.custom_op(
     "repro_torch::clip_accumulate_rows", _clip_accumulate_rows,
-    mutates_args=(), schema="(Tensor g, Tensor scales) -> Tensor")
-_scale_accumulate_op = torch.library.custom_op(
-    "repro_torch::scale_accumulate", _scale_accumulate, mutates_args=(),
+    schema="(Tensor g, Tensor scales) -> Tensor")
+_scale_accumulate_op = _build.custom_op(
+    "repro_torch::scale_accumulate", _scale_accumulate,
     schema="(Tensor acc, Tensor g, Tensor scale) -> Tensor")
 
 

@@ -50,7 +50,7 @@ def noise_sgd_step(acc: torch.Tensor, noise: torch.Tensor, p: torch.Tensor,
         raise TypeError(f"noise_sgd_step: p dtype {p.dtype} not supported "
                         "(float32 or bfloat16)")
     _build.refuse_grad("noise_sgd_step", acc, noise, p)
-    if acc.device.type == "cpu":
+    if _build.plain(acc):
         return noise_sgd_step_ref(acc, noise, p, stddev=stddev,
                                   n_units=n_units, lr=lr,
                                   weight_decay=weight_decay)
@@ -91,7 +91,7 @@ def _noise_adam_step(acc, noise, p, m, v, c1, c2, stddev, n_units, lr,
     if any(c.numel() != 1 or c.dtype != torch.float32 for c in (c1, c2)):
         raise TypeError("noise_adam_step: c1/c2 must be one-element f32 "
                         "tensors")
-    if acc.device.type == "cpu":
+    if _build.plain(acc):
         return noise_adam_step_ref(
             acc, noise, p, m, v, stddev=stddev, n_units=n_units, lr=lr,
             weight_decay=weight_decay, b1=b1, b2=b2, eps=eps,
@@ -136,7 +136,7 @@ def noise_adam_step_clients(acc: torch.Tensor, noise: torch.Tensor,
     _build.refuse_grad("noise_adam_step_clients", *vecs, c1, c2)
     hp = dict(stddev=stddev, n_units=n_units, lr=lr,
               weight_decay=weight_decay, b1=b1, b2=b2, eps=eps)
-    if acc.device.type == "cpu":
+    if _build.plain(acc):
         return noise_adam_step_clients_ref(acc, noise, p, m, v, c1=c1,
                                            c2=c2, **hp)
     vecs = tuple(x.contiguous() for x in vecs)
@@ -174,8 +174,8 @@ noise_sgd_step.launches = 0
 noise_adam_step.launches = 0
 noise_adam_step.route_launches = {"flat": 0, "clients": 0}
 
-_noise_adam_step_op = torch.library.custom_op(
-    "repro_torch::noise_adam_step", _noise_adam_step, mutates_args=(),
+_noise_adam_step_op = _build.custom_op(
+    "repro_torch::noise_adam_step", _noise_adam_step,
     schema="(Tensor acc, Tensor noise, Tensor p, Tensor m, Tensor v, "
            "Tensor c1, Tensor c2, float stddev, float n_units, float lr, "
            "float weight_decay, float b1, float b2, float eps) -> "

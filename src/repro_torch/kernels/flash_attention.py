@@ -34,8 +34,8 @@ so each client's rows are bit-equal to a launch on that client's alone. A
 cohort vmapped by the stacked executor of ``repro_torch.core.engine`` thus
 takes one launch, counted under the route ``"clients"`` (and not under
 the kernel's route), so the routes' counts sum to ``launches``. A call
-outside every ``torch.func`` transform (serving, evaluation) runs the
-op's body directly, without the dispatcher.
+outside every ``torch.func`` transform and dispatch mode (serving,
+evaluation) runs the op's body directly, without the dispatcher.
 """
 from __future__ import annotations
 
@@ -184,9 +184,10 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                head_axis: int, causal: bool, window: Optional[int],
                scale: float, count_as: Optional[str] = None
                ) -> torch.Tensor:
-    """The op's body: the plain version on the CPU (the [B, H, S, D] one,
-    or the model layout's with the KV heads repeated), else the kernel."""
-    if q.device.type == "cpu":
+    """The op's body: the plain version on the CPU or meta (the [B, H, S,
+    D] one, or the model layout's with the KV heads repeated), else the
+    kernel."""
+    if _build.plain(q):
         ref = flash_attention_ref if head_axis == 1 \
             else gqa_flash_attention_ref
         return ref(q, k, v, causal=causal, window=window, scale=scale)
@@ -200,9 +201,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               head_axis: int, causal: bool, window: Optional[int],
               scale: float) -> torch.Tensor:
     """Attention on validated q, k, v (heads on ``head_axis``): the
-    custom op under a ``torch.func`` transform, else its body."""
+    custom op under a ``torch.func`` transform or a dispatch mode, else
+    its body."""
     window = None if window is None else int(window)
-    if _build.transformed():
+    if _build.through_op():
         return _attention_op(q, k, v, head_axis, bool(causal), window,
                              float(scale))
     return _attention(q, k, v, head_axis, bool(causal), window,
@@ -233,8 +235,8 @@ flash_attention.launches = 0
 # cohort
 flash_attention.route_launches = dict.fromkeys(ROUTES + ("clients",), 0)
 
-_attention_op = torch.library.custom_op(
-    "repro_torch::flash_attention", _attention, mutates_args=(),
+_attention_op = _build.custom_op(
+    "repro_torch::flash_attention", _attention,
     schema="(Tensor q, Tensor k, Tensor v, int head_axis, bool causal, "
            "int? window, float scale) -> Tensor")
 

@@ -20,8 +20,8 @@ each client's y and final state bit-equal to a flat launch on it.
 to the reference's ``pallas_call``: one launch for a cohort vmapped by the
 stacked executor of ``repro_torch.core.engine``. ``route_launches``
 counts each launch under ``"flat"`` or ``"clients"``. A call outside
-every ``torch.func`` transform (serving, evaluation) runs the op's body
-directly, without the dispatcher.
+every ``torch.func`` transform and dispatch mode (serving, evaluation)
+runs the op's body directly, without the dispatcher.
 """
 from __future__ import annotations
 
@@ -92,7 +92,7 @@ def mamba_scan(dt: torch.Tensor, x: torch.Tensor, B_in: torch.Tensor,
                          f"min(block_d, di) == 0, got chunk {chunk}, "
                          f"block_d {block_d}, di {di}")
     _build.refuse_grad("mamba_scan", dt, x, B_in, C_in, A, h0)
-    scan = _mamba_scan_op if _build.transformed() else _mamba_scan
+    scan = _mamba_scan_op if _build.through_op() else _mamba_scan
     y, h_last = scan(dt, x, B_in, C_in, A, h0, bool(return_state))
     return (y, h_last) if return_state else y
 
@@ -123,7 +123,7 @@ def _launch(entry: str, dt, x, B_in, C_in, A, h0, return_state: bool):
 def _mamba_scan(dt, x, B_in, C_in, A, h0, return_state: bool):
     """The op's body, on inputs :func:`mamba_scan` has checked; returns
     (y, the final state or an empty tensor)."""
-    if x.device.type == "cpu":
+    if _build.plain(x):
         if return_state:
             return mamba_scan_ref(dt, x, B_in, C_in, A, h0, True)
         return (mamba_scan_ref(dt, x, B_in, C_in, A, h0),
@@ -159,7 +159,7 @@ def mamba_scan_clients(dt: torch.Tensor, x: torch.Tensor, B_in: torch.Tensor,
     _check("mamba_scan_clients", dt[0], x[0], B_in[0], C_in[0], A[0],
            None if h0 is None else h0[0])
     _build.refuse_grad("mamba_scan_clients", dt, x, B_in, C_in, A, h0)
-    if x.device.type == "cpu":
+    if _build.plain(x):
         return mamba_scan_clients_ref(dt, x, B_in, C_in, A, h0, return_state)
     _build.check_cuda("mamba_scan_clients", dt, x, B_in, C_in, A,
                       *(() if h0 is None else (h0,)))
@@ -176,8 +176,8 @@ def mamba_scan_clients(dt: torch.Tensor, x: torch.Tensor, B_in: torch.Tensor,
 mamba_scan.launches = 0
 mamba_scan.route_launches = {"flat": 0, "clients": 0}
 
-_mamba_scan_op = torch.library.custom_op(
-    "repro_torch::mamba_scan", _mamba_scan, mutates_args=(),
+_mamba_scan_op = _build.custom_op(
+    "repro_torch::mamba_scan", _mamba_scan,
     schema="(Tensor dt, Tensor x, Tensor B, Tensor C, Tensor A, Tensor? h0, "
            "bool return_state) -> (Tensor, Tensor)")
 

@@ -45,7 +45,7 @@ def fused_pushsum_mix(flat: torch.Tensor, w: torch.Tensor, P, *,
         raise ValueError(f"fused_pushsum_mix: need w [{K}] and P [{K}, {K}], "
                          f"got {tuple(w.shape)} and {tuple(P.shape)}")
     _build.refuse_grad("fused_pushsum_mix", flat, w, P)
-    if flat.device.type == "cpu":
+    if _build.plain(flat):
         return fused_pushsum_mix_ref(flat, w, P, debias=debias)
     Pf = torch.as_tensor(P, dtype=torch.float32,
                          device=flat.device).contiguous()
@@ -88,7 +88,7 @@ def fused_pushsum_mix_blocks(flat: torch.Tensor, w: torch.Tensor, blocks, *,
             f"{flat.shape[0]} rows and w [{flat.shape[0]}], got blocks "
             f"{shape} and w {tuple(w.shape)}")
     _build.refuse_grad("fused_pushsum_mix_blocks", flat, w, blocks)
-    if flat.device.type == "cpu":
+    if _build.plain(flat):
         return fused_pushsum_mix_blocks_ref(flat, w, blocks, debias=debias)
     S, L, _ = shape
     D = flat.shape[1]
@@ -135,7 +135,7 @@ def fused_stale_mix(flat: torch.Tensor, w: torch.Tensor, kept, sent,
                          f"sent [{K}, {K}], got {shapes}")
     _build.refuse_grad("fused_stale_mix", flat, w, kept, sent, buf_t0,
                        buf_w0)
-    if flat.device.type == "cpu":
+    if _build.plain(flat):
         return fused_stale_mix_ref(flat, w, kept, sent, buf_t0, buf_w0)
 
     def f32(a):

@@ -20,8 +20,8 @@ reference's ``pallas_call``: with one gain for the batch the batch dim is
 folded into the rows (one flat launch); with a gain per client (a cohort's
 own models, the stacked executor of ``repro_torch.core.engine``) it runs
 the ``"clients"`` route. A call outside every ``torch.func`` transform
-(serving, evaluation) runs the op's body directly, without the
-dispatcher.
+and dispatch mode (serving, evaluation) runs the op's body directly,
+without the dispatcher.
 """
 from __future__ import annotations
 
@@ -63,14 +63,14 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, *, eps: float = 1e-6,
     if block_rows < 1:
         raise ValueError(f"rmsnorm: block_rows must be >= 1, got {block_rows}")
     _build.refuse_grad("rmsnorm", x, g)
-    if _build.transformed():
+    if _build.through_op():
         return _rmsnorm_op(x, g, float(eps))
     return _rmsnorm(x, g, float(eps))
 
 
 def _rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
     """The op's body, on inputs :func:`rmsnorm` has checked."""
-    if x.device.type == "cpu":
+    if _build.plain(x):
         return rmsnorm_ref(x, g, eps)
     _build.check_cuda("rmsnorm", x, g)
     d = x.shape[-1]
@@ -99,7 +99,7 @@ def rmsnorm_clients(x: torch.Tensor, g: torch.Tensor, *,
         raise TypeError(f"rmsnorm_clients: dtypes {x.dtype}, {g.dtype} not "
                         "supported (float32 or bfloat16)")
     _build.refuse_grad("rmsnorm_clients", x, g)
-    if x.device.type == "cpu":
+    if _build.plain(x):
         return rmsnorm_clients_ref(x, g, eps)
     _build.check_cuda("rmsnorm_clients", x)
     _build.check_cuda("rmsnorm_clients", g, contiguous=False)
@@ -120,8 +120,8 @@ def rmsnorm_clients(x: torch.Tensor, g: torch.Tensor, *,
 rmsnorm.launches = 0
 rmsnorm.route_launches = {"vector": 0, "scalar": 0, "clients": 0}
 
-_rmsnorm_op = torch.library.custom_op(
-    "repro_torch::rmsnorm", _rmsnorm, mutates_args=(),
+_rmsnorm_op = _build.custom_op(
+    "repro_torch::rmsnorm", _rmsnorm,
     schema="(Tensor x, Tensor g, float eps) -> Tensor")
 
 

@@ -67,7 +67,7 @@ def main(argv=None) -> int:
         cfg = smoke_variant(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     n_img = cfg.n_image_tokens if cfg.modality == "vlm" else 0
-    opts = StepOptions(kv_chunk=max(64, args.prompt_len))
+    opts = StepOptions(remat=False, kv_chunk=max(64, args.prompt_len))
     state = init_serve_state(gen, cfg, InputShape(
         "serve", args.prompt_len + args.gen, args.batch, "prefill"))
 

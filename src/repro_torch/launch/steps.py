@@ -73,8 +73,8 @@ from ..core.gossip import (gossip_shift, hier_mix_schedule,
                            pushsum_gossip_shard)
 from ..nn.losses import dml_loss
 from ..nn.model import forward, init_cache, init_model
-from ..nn.modules import (tree_flatten_vector, tree_leaves, tree_map,
-                          tree_unflatten_vector)
+from ..nn.modules import (ShapeOnly, torch_dtype, tree_flatten_vector,
+                          tree_leaves, tree_map, tree_unflatten_vector)
 from ..optim import Adam
 
 POD = "pod"
@@ -82,17 +82,74 @@ POD = "pod"
 
 @dataclass(frozen=True)
 class StepOptions:
-    """Implementation knobs of the steps (the reference's mesh fields
-    ``shard_acts``, ``expert_parallel`` and ``serve_2d``, GSPMD placements,
-    wait for ROADMAP.md Queue 1 item 12b, their DTensor / FSDP / TP form;
-    ``remat`` and ``logits_dtype``, which its train driver pins or leaves
-    unread, for the dryrun port, item 14)."""
+    """Implementation knobs of the steps. ``remat`` rematerializes each
+    repeat of the layer pattern in the forwards a gradient passes through
+    (``nn.model.forward``); the train and serve drivers pin it off, as the
+    reference's do. The reference's mesh fields (``shard_acts``,
+    ``expert_parallel`` and ``serve_2d``, GSPMD placements) wait for
+    ROADMAP.md Queue 1 item 12b, their DTensor / FSDP / TP form."""
 
+    remat: bool = True            # rematerialize the layer-stack repeats
     accum: int = 8                # private-grad microbatch accumulation chunks
     dp_chunk: int = 8             # examples per DP vmap chunk
     moment_dtype: str = "float32"  # Adam m/v dtype ("bfloat16" halves them)
     kv_chunk: int = 1024          # online-softmax KV chunk length
     mamba_chunk: int = 256        # chunked-scan block length
+
+
+# ---------------------------------------------------------------------------
+# step shapes on the meta device (the reference's ShapeDtypeStruct trees)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape, *,
+                n_clients: int = 0) -> Dict[str, torch.Tensor]:
+    """A step's inputs at ``shape`` as empty ``meta`` tensors, with the
+    reference's keys, shapes and dtypes (int32 token ids; a VLM's patch
+    embeddings in the model's dtype; a decode step's ``pos`` an int32
+    scalar). With ``n_clients`` > 0 a leading client dim is added."""
+    B, S = shape.global_batch, shape.seq_len
+    lead = (n_clients,) if n_clients else ()
+
+    def tok(shape_):
+        return _meta(lead + shape_, torch.int32)
+
+    def img():
+        return _meta(lead + (B, cfg.n_image_tokens, cfg.frontend_dim),
+                     torch_dtype(cfg.dtype))
+
+    audio = cfg.modality == "audio"
+    if shape.kind == "train":
+        dims = (B, S, cfg.n_codebooks) if audio else (B, S)
+        specs = {"tokens": tok(dims), "labels": tok(dims)}
+        if cfg.modality == "vlm":
+            specs["img"] = img()
+        return specs
+    if shape.kind == "prefill":
+        specs = {"tokens": tok((B, S, cfg.n_codebooks) if audio else (B, S))}
+        if cfg.modality == "vlm":
+            specs["img"] = img()
+        return specs
+    if shape.kind == "decode":
+        return {"tokens": tok((B, 1, cfg.n_codebooks) if audio else (B, 1)),
+                "pos": _meta(lead, torch.int32)}
+    raise ValueError(shape.kind)
+
+
+def train_state_shapes(cfg_priv: ModelConfig, cfg_proxy: ModelConfig,
+                       fl: ProxyFLConfig,
+                       opts: StepOptions = StepOptions()) -> Dict:
+    """:func:`init_train_state`'s tree as empty ``meta`` tensors (built by
+    the same code, drawing nothing: ``nn.modules.ShapeOnly``)."""
+    return init_train_state(ShapeOnly(), cfg_priv, cfg_proxy, fl, opts)
+
+
+def serve_state_shapes(cfg: ModelConfig, shape: InputShape) -> Dict:
+    """:func:`init_serve_state`'s tree as empty ``meta`` tensors."""
+    return init_serve_state(ShapeOnly(), cfg, shape)
 
 
 def init_train_state(generator: torch.Generator, cfg_priv: ModelConfig,
@@ -123,7 +180,7 @@ def _text_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 def _forward_logits(params, cfg: ModelConfig, batch: Dict,
                     opts: StepOptions, *, use_pallas: bool):
     logits, _, aux = forward(params, cfg, batch["tokens"], batch.get("img"),
-                             kv_chunk=opts.kv_chunk,
+                             remat=opts.remat, kv_chunk=opts.kv_chunk,
                              mamba_chunk=opts.mamba_chunk,
                              use_pallas=use_pallas)
     return _text_logits(cfg, logits), aux

@@ -308,7 +308,7 @@ def make_engine(cfg: ModelConfig, proxy: ModelConfig, fl: ProxyFLConfig,
     vmaps over the cohort, so ``vmap``, ``async`` and ``hier`` run the
     stacked executor, which draws each step's batch indices and, under DP,
     the proxy's noise."""
-    opts = StepOptions(accum=1, dp_chunk=args.batch)
+    opts = StepOptions(remat=False, accum=1, dp_chunk=args.batch)
     engine = FederationEngine(
         fl, n_clients=args.clients,
         step_fns=make_train_step(cfg, proxy, fl, opts),

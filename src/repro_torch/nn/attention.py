@@ -25,7 +25,8 @@ import torch
 
 from ..configs.base import LayerSpec, ModelConfig
 from ..kernels.ops import gqa_flash_attention
-from .modules import Params, apply_rope, init_linear, linear
+from .modules import (Params, apply_rope, checkpoint, init_linear,
+                      lazy_einsum, linear)
 
 NEG_INF = float("-inf")
 # the position of a padded or never-written key slot: after every query
@@ -96,20 +97,33 @@ def attend(
     m = torch.full((B, Hkv, G, Sq), NEG_INF, device=q.device)
     l = torch.zeros((B, Hkv, G, Sq), device=q.device)
     acc = torch.zeros((B, Hkv, G, Sq, Dv), device=q.device)
-    for c in range(n_chunks):
-        cut = slice(c * kv_chunk, (c + 1) * kv_chunk)
+
+    def chunk(tensors, lazy):
+        m, l, acc, qf, kb, vb, qp, kp = tensors
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf,
-                         k[:, cut].to(torch.float32)) * scale
-        ok = _mask(q_pos, kv_pos[cut], window)
+                         kb.to(torch.float32)) * scale
+        ok = _mask(qp, kp, window)
         s = torch.where(ok, s, NEG_INF)
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
         p = torch.where(ok, torch.exp(s - m_safe[..., None]), 0.0)
         corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
         l = l * corr + torch.sum(p, dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhgqk,bkhd->bhgqd", p, v[:, cut].to(torch.float32))
-        m = m_new
+        pv = (lazy_einsum if lazy else torch.einsum)(
+            "bhgqk,bkhd->bhgqd", p, vb.to(torch.float32))
+        return m_new, l, acc * corr[..., None] + pv
+
+    # Under a gradient each chunk is rematerialized, as the reference's
+    # scan body is (``jax.checkpoint``): without it every chunk's
+    # probability block, the whole S×S score matrix in f32, would be kept
+    # for the backward. The recompute leaves out the p·v product, which
+    # only adds into the carry.
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    for c in range(n_chunks):
+        cut = slice(c * kv_chunk, (c + 1) * kv_chunk)
+        ins = (m, l, acc, qf, k[:, cut], v[:, cut], q_pos, kv_pos[cut])
+        m, l, acc = checkpoint(chunk, *ins) if remat else chunk(ins, False)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dv)
     return out.to(q.dtype)

@@ -83,3 +83,19 @@ def apply_layer(
             y = mlp(p["ffn"], h)
         x = x + y
     return x, new_cache, aux
+
+
+def trailing_weights(p: Params, spec: LayerSpec) -> list:
+    """The weights of the layer's last projections, whose outputs only add
+    into the residual stream: the dense FFN's ``down``, an MoE FFN's
+    shared and dense-residual ``down`` (its routed experts' outputs are
+    weighted by the gates, so a gradient reads them), or, in a layer
+    without an FFN, the mixer's output projection. A gradient reads none
+    of their outputs, so a rematerialized layer need not recompute them
+    (``nn.model``)."""
+    if "ffn" in p:
+        if spec.ffn == "dense":
+            return [p["ffn"]["down"]["w"]]
+        return [p["ffn"][k]["down"]["w"] for k in ("shared", "residual")
+                if k in p["ffn"]]
+    return [p["mixer"]["out_proj" if spec.kind == "mamba" else "wo"]["w"]]

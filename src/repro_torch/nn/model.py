@@ -19,15 +19,18 @@ path. On CPU tensors the kernel wrappers run their plain versions.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
-from .blocks import apply_layer, init_layer, init_layer_cache
-from .modules import (Params, init_linear, init_rmsnorm, linear, normal_init,
-                      rmsnorm, torch_dtype, tree_leaves, tree_map)
+from .blocks import (apply_layer, init_layer, init_layer_cache,
+                     trailing_weights)
+from .modules import (Params, checkpoint, init_linear, init_rmsnorm,
+                      lazy_linears, linear, normal_init, rmsnorm, torch_dtype,
+                      tree_leaves, tree_map)
 
 Cache = Dict[str, Any]
 
@@ -95,7 +98,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     """Zero KV/SSM caches for ``batch`` sequences of up to ``max_len``
     positions, in the model's layout (stacked [R, …] for the pattern)."""
     dtype = torch_dtype(dtype or cfg.dtype)
-    dev = resolve_device(device)
+    dev = resolve_device(device, shapes_only=True)
     P, L, R, rem = _plan(cfg)
 
     def layer(spec, lead=()):
@@ -168,14 +171,28 @@ def forward(
     kv_chunk: int = 1024,
     mamba_chunk: int = 256,
     use_pallas: bool = True,
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Returns (logits, cache, aux_loss). ``cache=None`` → pure forward;
     with a cache → prefill (S > 1) or decode (S == 1) at ``pos_offset``
-    (a Python int), the cache written in place and returned."""
+    (a Python int), the cache written in place and returned. ``remat``
+    rematerializes each repeat of the pattern in a forward that takes a
+    gradient (grad mode on, no cache): it keeps only the repeat's inputs
+    and recomputes its L layers in the backward (:func:`_remat_repeat`),
+    as the reference's ``jax.checkpoint`` of its layer-stack scan body. A
+    forward under ``torch.no_grad()`` runs as without it."""
     x = _embed_inputs(params, cfg, tokens, img)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     use_cache = cache is not None
+    rematerialize = remat and not use_cache and torch.is_grad_enabled()
+    done = set()
     for spec, group, i, r in layer_plan(cfg):
+        if rematerialize and group == "stack":
+            if r not in done:   # the repeat's L layers, rematerialized
+                done.add(r)
+                x, aux = _remat_repeat(params, cfg, r, x, aux, kv_chunk,
+                                       mamba_chunk, use_pallas)
+            continue
         x, _, a = apply_layer(
             layer_of(params, group, i, r), cfg, spec, x,
             pos_offset=pos_offset,
@@ -185,6 +202,45 @@ def forward(
         aux = aux + a
     x = rmsnorm(params["norm_f"], x, use_pallas=use_pallas)
     return _logits(params, cfg, x), cache, aux
+
+
+def _repeat_run(cfg: ModelConfig, stack, kv_chunk: int, mamba_chunk: int,
+                use_pallas: bool):
+    """``run((x, aux, *leaves), lazy)``: the L layers of one repeat of the
+    pattern on its flat leaves (the stack's per-position trees, indexed at
+    the repeat), adding each layer's aux loss as the forward does. With
+    ``lazy`` the last layer's trailing projections
+    (:func:`.blocks.trailing_weights`) compute only their backward."""
+
+    def run(tensors, lazy):
+        x, aux, *leaves = tensors
+        it = iter(leaves)
+        layers = [tree_map(lambda _: next(it), tree) for tree in stack]
+        for pos, (p, spec) in enumerate(zip(layers, cfg.pattern)):
+            trailing = lazy and pos == len(layers) - 1
+            with lazy_linears(trailing_weights(p, spec)) if trailing \
+                    else contextlib.nullcontext():
+                x, _, a = apply_layer(p, cfg, spec, x,
+                                      kv_chunk=kv_chunk,
+                                      mamba_chunk=mamba_chunk,
+                                      use_pallas=use_pallas)
+            aux = aux + a
+        return x, aux
+
+    return run
+
+
+def _remat_repeat(params, cfg: ModelConfig, r: int, x, aux, kv_chunk: int,
+                  mamba_chunk: int, use_pallas: bool):
+    """Repeat ``r`` of the pattern, rematerialized (:func:`forward`'s
+    ``remat``): only its inputs are kept, and its recompute in the
+    backward leaves out the last layer's trailing projections, whose
+    outputs no gradient reads, as the reference's recompute does."""
+    stack = [layer_of(params, "stack", pos, r)
+             for pos in range(len(cfg.pattern))]
+    run = _repeat_run(cfg, stack, kv_chunk, mamba_chunk, use_pallas)
+    return checkpoint(run, x, aux,
+                      *(t for tree in stack for t in tree_leaves(tree)))
 
 
 def decode_step(params, cfg: ModelConfig, tokens_last, cache, pos: int, *,

@@ -245,7 +245,7 @@ def test_runner_list_and_refusal(capsys):
     for l in lines:
         assert "(no docstring)" not in l
     with pytest.raises(SystemExit, match="unknown benchmarks"):
-        runner.main(["--only", "roofline", "--device", "cpu"])
+        runner.main(["--only", "no_such_benchmark", "--device", "cpu"])
 
 
 def test_runner_runs_a_driver_on_the_cpu(capsys):

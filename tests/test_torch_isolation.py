@@ -37,6 +37,9 @@ def test_import_loads_no_jax_and_no_reference_package():
         assert not bad, bad
         assert "repro_torch.benchmarks.fig3_accuracy" in names
         assert "repro_torch.checkpoint.federation" in names
+        for name in ("launch.dryrun", "launch.cost", "launch.inspect",
+                     "launch.mesh", "benchmarks.roofline"):
+            assert "repro_torch." + name in names, name
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(SRC))

@@ -220,7 +220,9 @@ def port_step(arch, dtype, state_np, batch_np, noise, routes=None):
     cfg, proxy = port_cfgs(arch, dtype)
     fl = ProxyFLConfig(dp=DPConfig(enabled=True), batch_size=B,
                        use_pallas=True)
-    step = make_train_step(cfg, proxy, fl, StepOptions(**OPTS))
+    # remat off, as the reference step it is held to: the routes replay
+    # the reference's top_k calls in order, and a recompute calls again
+    step = make_train_step(cfg, proxy, fl, StepOptions(remat=False, **OPTS))
     state, batch = state_from_numpy(state_np), port_batch(batch_np)
     if routes is None:
         return step(state, batch, noise=torch.as_tensor(noise)) + ([],)
